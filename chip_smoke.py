@@ -7,23 +7,34 @@ Run from the root of a checkout. Phases, in order; any failure raises and
 the script exits nonzero without printing a result:
 
 1. probe   — require a CUDA card; print its name and power limit.
-2. build   — compile the port's CUDA kernels (csrc/ftrl.cu, nvcc, sm_90a).
+2. build   — compile the port's CUDA kernels (csrc/*.cu: one nvcc per
+             source, all started together, linked into one library).
 3. kernels — hold each kernel against its plain PyTorch version on the card
-             (rtol 1e-5, atol 1e-6; untouched table rows bit-identical; two
-             hyperparameter sets, one with l2 > 0) and time both with CUDA
-             events beside the kernel's bound, cycling input sets that
+             (rtol 1e-5, atol 1e-6; untouched table rows bit-identical;
+             hyperparameter sets with and without l2) and time both with
+             CUDA events beside the kernel's bound, cycling input sets that
              together exceed the L2 cache so each call finds its rows cold.
+             K3 (AdaGrad push) is also timed against torch.optim.Adagrad's
+             step on a sparse gradient of the same rows, the yardstick.
 4. worker  — LinearMethod trains 12 minibatches (8192 examples, 32 nnz per
              example, 2^18 features) against a 2^24-key FTRL table; the
              first 3 steps' loss matches a CPU run of the port (rtol 1e-4).
 5. server  — a 2^27-key FTRL KVStore answers coalesced pushes from 8
              simulated workers and pulls of their keys; the pulled weights
              match a CPU plain update of the touched rows.
+6. mf      — MatrixFactorization at MovieLens-20M's shape (138,493 users,
+             26,744 items, rank 64, AdaGrad) trains two epochs over 2^20
+             synthetic ratings; epoch 2's RMSE is below epoch 1's, and the
+             first 3 steps' SSE and the w, n tables after them match a CPU
+             run of the port (rtol 1e-4).
+7. embedding server — a 2^22-key, vdim-64 AdaGrad KVStore answers
+             coalesced pushes from 8 simulated workers; a pull of the last
+             round's keys matches a CPU plain update of the touched rows.
 
-Launch counters are reset just before the worker and server phases and
-read just after: each phase must have launched its kernel. The line before
-the last is the kernels' JSON summary; the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+Launch counters are reset just before each of phases 4-7 and read just
+after: each phase must have launched its kernel. The line before the last
+is the kernels' JSON summary; the last line is {"ok": true, "device":
+{...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -41,13 +52,16 @@ import torch
 # and float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
-# flops of one FTRL element update (weight, sigma, both deltas; sqrt and
-# division counted as one operation each)
+# flops of one element update (sqrt and division counted as one operation
+# each): FTRL weight, sigma and both deltas; AdaGrad g + l2*w, g^2, n + g^2,
+# sqrt, + eps, eta*g, division, w + delta
 FTRL_FLOPS = 18
+ADAGRAD_FLOPS = 8
 RTOL, ATOL = 1e-5, 1e-6
 HYPER = {"alpha": 0.1, "beta": 1.0, "l1": 1.0, "l2": 0.0}
 # checked only: every term of the kernels' weight, l2 included
 HYPER_L2 = {"alpha": 0.3, "beta": 1.0, "l1": 0.5, "l2": 0.1}
+ADAGRAD = {"eta": 0.05, "eps": 1e-8}
 
 WORKER_KEYS = 1 << 24
 SERVER_KEYS = 1 << 27
@@ -58,6 +72,18 @@ SEED = 7
 # server table (bench.py's fused-push cell); 16 sets touch ~150 MB of
 # 32-byte sectors, three times the H100's 50 MB L2
 PUSH_SETS, PUSH_DRAWS = 16, 1 << 17
+# the embedding table: bench.py's fused_push_adagrad_v64 cell (vdim 64,
+# unique keys of 2^15 draws a push) moved from 2^20 to 2^22 rows, so w + n
+# are 2 GiB; K3 timing cycles 16 such key sets, ~25 MB of rows and
+# gradient a set and ~400 MB in all, so each call finds its rows cold
+EMB_KEYS, EMB_VDIM = 1 << 22, 64
+EMB_SETS, EMB_DRAWS = 16, 1 << 15
+EMB_WORKERS, EMB_WORKER_DRAWS, EMB_HOT, EMB_ROUNDS = 8, 1 << 12, 1024, 3
+# matrix factorization at MovieLens-20M's shape with bench.py's MF cell
+# hyperparameters; steps_per_call 4 (the cell's is 8) so one window entry
+# is the profiled 4-step window
+MF_USERS, MF_ITEMS, MF_RANK, MF_BATCH = 138_493, 26_744, 64, 8192
+MF_RATINGS, MF_ETA, MF_L2, MF_MAX_DELAY, MF_STEPS_PER_CALL = 1 << 20, 0.05, 0.01, 4, 4
 # the plain versions issue ~15 launches a call: few enough calls that all
 # of them fit the launch queue behind the spin kernel (see cuda_ms)
 PLAIN_ITERS = 40
@@ -82,7 +108,8 @@ def cuda_ms(fn, iters: int) -> tuple[float, float]:
     device idles in between and the time is the host's. Device: the same
     calls are queued behind a spinning kernel (``torch.cuda._sleep``) long
     enough to cover their issue, so they run back to back and the events
-    time the device work alone."""
+    time the device work alone (unless a call waits for the device, as a
+    host sync does: then both times are host-inclusive)."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
 
@@ -129,6 +156,12 @@ def profile(fn) -> tuple[float, float, list]:
     return wall_ms, busy_ms, [(k[:60], round(t, 4)) for k, t in rows[:8]]
 
 
+def log_profile(what: str, fn) -> None:
+    wall_ms, busy_ms, top = profile(fn)
+    log(f"{what}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle "
+        f"share {1 - busy_ms / wall_ms:.3f}); top device time: {top}")
+
+
 def check_close(name: str, got, want) -> float:
     err = (got - want).abs().max().item() if got.numel() else 0.0
     if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
@@ -157,49 +190,108 @@ def check_delta(fk, dev, gen, rows: int, vdim: int, hyper: dict = HYPER) -> floa
     return err
 
 
-def check_push(fk, dev, gen, idx_np, vdim: int, hyper: dict = HYPER) -> float:
-    """K1 vs its plain version on a SERVER_KEYS-row table with random
-    state, plus repeated pad slots; rows the push does not touch (and the
-    pad row) keep their bits."""
+def check_push(name, kernel, plain, dev, gen, idx_np, rows: int, vdim: int,
+               hyper: dict, zero_pad_row: bool = False) -> float:
+    """A fused push kernel vs its plain version on a ``rows``-row table
+    pair with random state, plus repeated pad slots; rows the push does
+    not touch (and the pad row) keep their bits. ``zero_pad_row`` zeroes
+    row 0, the invariant AdaGrad's pad slots rely on when l2 > 0."""
     pads = 37
     idx = torch.from_numpy(
         np.concatenate([idx_np, np.zeros(pads, idx_np.dtype)]).astype(np.int32)
     ).to(dev)
     g = torch.randn((idx.shape[0], vdim), generator=gen, device=dev)
     g[-pads:] = 0.0
-    z0 = torch.randn((SERVER_KEYS, vdim), generator=gen, device=dev) * 2
-    n0 = torch.rand((SERVER_KEYS, vdim), generator=gen, device=dev) * 4
-    zk, nk = z0.clone(), n0.clone()
-    fk.ftrl_push(zk, nk, idx, g, **hyper)
-    changed = bits_changed(zk, z0) | bits_changed(nk, n0)
+    a0 = torch.randn((rows, vdim), generator=gen, device=dev) * 2
+    b0 = torch.rand((rows, vdim), generator=gen, device=dev) * 4
+    if zero_pad_row:
+        a0[0] = 0.0
+        b0[0] = 0.0
+    ak_, bk = a0.clone(), b0.clone()
+    kernel(ak_, bk, idx, g, **hyper)
+    changed = bits_changed(ak_, a0) | bits_changed(bk, b0)
     touched = idx[:-pads].long()
     changed[touched] = False
     if changed.any():
         raise AssertionError(
-            f"ftrl_push vdim {vdim}: {int(changed.sum())} untouched rows changed"
+            f"{name} vdim {vdim}: {int(changed.sum())} untouched rows changed"
         )
     del changed
-    z_plain, n_plain = fk.ftrl_push_plain(z0, n0, idx, g, **hyper)  # in place
+    plain(a0, b0, idx, g, **hyper)  # in place
     torch.cuda.synchronize()
     return max(
-        check_close(f"ftrl_push z vdim {vdim}", zk[touched], z_plain[touched]),
-        check_close(f"ftrl_push n vdim {vdim}", nk[touched], n_plain[touched]),
+        check_close(f"{name} table a vdim {vdim}", ak_[touched], a0[touched]),
+        check_close(f"{name} table b vdim {vdim}", bk[touched], b0[touched]),
     )
 
 
-def server_pushes(rng):
-    """One round of pushes from SERVER_WORKERS simulated workers: each draws
-    its keys uniformly (as bench.py's fused-push cell) plus a shared hot
+def key_sets(rng, gen, dev, count: int, keys: int, draws: int, vdim: int):
+    """``count`` (idx, grad) pairs on the card, each the unique keys of
+    ``draws`` uniform draws into ``keys`` rows; and their mean size."""
+    sets = []
+    for _ in range(count):
+        keys_np = np.unique(rng.integers(1, keys, draws)).astype(np.int32)
+        sets.append((torch.from_numpy(keys_np).to(dev),
+                     torch.randn((len(keys_np), vdim), generator=gen, device=dev)))
+    return sets, sum(k.shape[0] for k, _ in sets) / count
+
+
+def simulated_pushes(rng, num_keys: int, workers: int, draws: int, hot: int,
+                     vdim: int):
+    """One round of pushes from ``workers`` simulated workers: each draws
+    its keys uniformly (as bench.py's fused-push cells) plus a shared hot
     set, so coalescing has duplicate keys to sum."""
-    hot = np.arange(1, 4097)
+    hot_keys = np.arange(1, hot + 1)
     idx_list, grad_list = [], []
-    for _ in range(SERVER_WORKERS):
+    for _ in range(workers):
         keys = np.unique(
-            np.concatenate([rng.integers(1, SERVER_KEYS, SERVER_DRAWS), hot])
+            np.concatenate([rng.integers(1, num_keys, draws), hot_keys])
         )
         idx_list.append(keys)
-        grad_list.append(rng.normal(size=(len(keys), 1)).astype(np.float32))
+        grad_list.append(rng.normal(size=(len(keys), vdim)).astype(np.float32))
     return idx_list, grad_list
+
+
+def serve_rounds(store, rounds, dev, counter: dict, kernel: str):
+    """Coalesced pushes of every round, then a pull of the last round's
+    keys. Returns (pulled, pre-push state rows of those keys, their summed
+    gradient, host seconds, launches of ``kernel``); the launch counter is
+    reset just before and read just after."""
+    from parameter_server_tpu_torch.kv.store import coalesce_pushes
+
+    torch.cuda.synchronize()
+    for k in counter:
+        counter[k] = 0
+    t0 = time.perf_counter()
+    for r, (idx_list, grad_list) in enumerate(rounds):
+        if r == len(rounds) - 1:
+            uniq, summed = coalesce_pushes(idx_list, grad_list)
+            sel = torch.from_numpy(uniq.astype(np.int64)).to(dev)
+            pre = {k: v.index_select(0, sel).cpu() for k, v in store.state.items()}
+        store.push_multi(idx_list, grad_list)
+    pulled = store.pull(uniq).cpu()
+    seconds = time.perf_counter() - t0
+    if counter[kernel] < len(rounds):
+        raise AssertionError(f"server launched {kernel} {counter[kernel]} times, "
+                             f"want {len(rounds)}")
+    if not torch.isfinite(pulled).all() or not (pulled != 0).any():
+        raise AssertionError("server: pulled weights are not finite and nonzero")
+    return pulled, pre, torch.from_numpy(summed), seconds, counter[kernel]
+
+
+def with_pad_row(rows: torch.Tensor) -> torch.Tensor:
+    return torch.cat([torch.zeros(1, rows.shape[1]), rows])
+
+
+def synthetic_ratings(rng):
+    """MF_RATINGS ratings of uniformly drawn (user, item) pairs: a rank-8
+    truth around 3.5 plus noise, clipped to MovieLens' [0.5, 5] range."""
+    ut = rng.normal(scale=0.5, size=(MF_USERS, 8)).astype(np.float32)
+    vt = rng.normal(scale=0.5, size=(MF_ITEMS, 8)).astype(np.float32)
+    users = rng.integers(0, MF_USERS, MF_RATINGS)
+    items = rng.integers(0, MF_ITEMS, MF_RATINGS)
+    r = 3.5 + np.sum(ut[users] * vt[items], axis=1) + rng.normal(scale=0.3, size=MF_RATINGS)
+    return users, items, np.clip(r, 0.5, 5.0).astype(np.float32)
 
 
 def main() -> int:
@@ -216,8 +308,11 @@ def main() -> int:
     from parameter_server_tpu_torch.data.batch import BatchBuilder
     from parameter_server_tpu_torch.data.synthetic import make_sparse_logistic
     from parameter_server_tpu_torch.kv.store import KVStore, coalesce_pushes
-    from parameter_server_tpu_torch.kv.updaters import Ftrl
+    from parameter_server_tpu_torch.kv.updaters import Adagrad, Ftrl
+    from parameter_server_tpu_torch.models import matrix_fac as mfm
     from parameter_server_tpu_torch.models.linear import LinearMethod
+    from parameter_server_tpu_torch.ops import adagrad_kernels as ak
+    from parameter_server_tpu_torch.ops import cuda_build
     from parameter_server_tpu_torch.ops import ftrl_kernels as fk
     from parameter_server_tpu_torch.utils.config import PSConfig
     from parameter_server_tpu_torch.utils.metrics import ProgressReporter
@@ -239,15 +334,16 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    lib_path = fk.build()
-    fk._load()
-    log(f"built {lib_path.name} in {time.perf_counter() - t0:.2f} s")
+    lib_path = cuda_build.build()
+    cuda_build.load()
+    log(f"built {lib_path.name} from {[s.name for s in cuda_build.sources()]} in "
+        f"{time.perf_counter() - t0:.2f} s")
     for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"ptxas: {line.strip()}")
 
-    # set-up: the worker's minibatches and the server's pushes (host data,
-    # made from the seed as bench.py's headline cell makes them)
+    # set-up: the worker's minibatches and the servers' pushes (host data,
+    # made from the seed as bench.py's cells make them)
     t0 = time.perf_counter()
     labels, keys, vals, _ = make_sparse_logistic(
         BATCH * STEPS, FEATURES, nnz_per_example=NNZ_PER, noise=0.4, seed=SEED
@@ -260,16 +356,27 @@ def main() -> int:
         for i in range(0, BATCH * STEPS, BATCH)
     ]
     rng = np.random.default_rng(SEED)
-    rounds = [server_pushes(rng) for _ in range(SERVER_ROUNDS)]
-    push_idx, _ = coalesce_pushes(*rounds[0])
+    rounds = [simulated_pushes(rng, SERVER_KEYS, SERVER_WORKERS, SERVER_DRAWS, 4096, 1)
+              for _ in range(SERVER_ROUNDS)]
+    emb_rounds = [simulated_pushes(rng, EMB_KEYS, EMB_WORKERS, EMB_WORKER_DRAWS,
+                                   EMB_HOT, EMB_VDIM) for _ in range(EMB_ROUNDS)]
+    mf_users, mf_items, mf_ratings = synthetic_ratings(np.random.default_rng(SEED + 1))
     u_worker = batches[0].unique_keys.shape[0]
     log(f"set-up data in {time.perf_counter() - t0:.2f} s: batch (B, NNZ, U) "
-        f"= {batches[0].shape}; server push of {len(push_idx)} unique rows")
+        f"= {batches[0].shape}; {MF_RATINGS} ratings, mean {mf_ratings.mean():.4f}")
+    # the servers' host-side coalescing of one round, timed alone
+    t0 = time.perf_counter()
+    push_idx, _ = coalesce_pushes(*rounds[0])
+    t1 = time.perf_counter()
+    emb_idx, _ = coalesce_pushes(*emb_rounds[0])
+    log(f"host coalesce of one round: FTRL server {len(push_idx)} unique rows x 1 "
+        f"in {t1 - t0:.4f} s; embedding server {len(emb_idx)} unique rows x "
+        f"{EMB_VDIM} in {time.perf_counter() - t1:.4f} s")
 
     # 3. kernel checks and times
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
-    kernels = []
+    kernels = {}
     err_delta = max(
         check_delta(fk, dev, gen, 1 << 20, 1),
         check_delta(fk, dev, gen, 1 << 17, 8),
@@ -285,10 +392,9 @@ def main() -> int:
         for _ in range(8)
     ]
     k_ms, k_call = cuda_ms(lambda i: fk.ftrl_delta(*sets[i % 8], **HYPER), 200)
-    p_ms, p_call = cuda_ms(lambda i: fk.ftrl_delta_plain(*sets[i % 8], **HYPER), PLAIN_ITERS
-    )
+    p_ms, p_call = cuda_ms(lambda i: fk.ftrl_delta_plain(*sets[i % 8], **HYPER), PLAIN_ITERS)
     b_ms, b_by = bound(20 * u_worker, FTRL_FLOPS * u_worker)
-    kernels.append({
+    kernels["ftrl_delta"] = {
         "name": "ftrl_delta", "route": "cuda",
         "source": "parameter_server_tpu_torch/csrc/ftrl.cu",
         "replaces": "parameter_server_tpu/ops/pallas_kernels.py:84",
@@ -296,7 +402,7 @@ def main() -> int:
         "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "call_ms": k_call, "plain_call_ms": p_call,
-    })
+    }
     del sets
     log(f"ftrl_delta ok: max abs err {err_delta:.3g}; device {k_ms:.5f} ms kernel, "
         f"{p_ms:.5f} ms plain, bound {b_ms:.5f} ms ({b_by}) at ({u_worker}, 1); "
@@ -304,18 +410,14 @@ def main() -> int:
 
     err_push = []
     for vdim, hyper in ((1, HYPER), (8, HYPER), (1, HYPER_L2)):
-        err_push.append(check_push(fk, dev, gen, push_idx, vdim, hyper))
+        err_push.append(check_push("ftrl_push", fk.ftrl_push, fk.ftrl_push_plain, dev,
+                                   gen, push_idx, SERVER_KEYS, vdim, hyper))
         torch.cuda.empty_cache()
         log(f"ftrl_push vdim {vdim} l2 {hyper['l2']} ok on {SERVER_KEYS} rows: "
             f"max abs err {err_push[-1]:.3g}; untouched rows bit-identical")
     # time at the server's shape (2^27, 1), cycling PUSH_SETS touched sets so
     # each call finds its rows cold, as a push to a large table does
-    sets = []
-    for _ in range(PUSH_SETS):
-        keys_np = np.unique(rng.integers(1, SERVER_KEYS, PUSH_DRAWS)).astype(np.int32)
-        sets.append((torch.from_numpy(keys_np).to(dev),
-                     torch.randn((len(keys_np), 1), generator=gen, device=dev)))
-    u = sum(k.shape[0] for k, _ in sets) / PUSH_SETS
+    sets, u = key_sets(rng, gen, dev, PUSH_SETS, SERVER_KEYS, PUSH_DRAWS, 1)
     z = torch.zeros((SERVER_KEYS, 1), device=dev)
     n = torch.zeros((SERVER_KEYS, 1), device=dev)
     k_ms, k_call = cuda_ms(
@@ -323,7 +425,7 @@ def main() -> int:
     p_ms, p_call = cuda_ms(
         lambda i: fk.ftrl_push_plain(z, n, *sets[i % PUSH_SETS], **HYPER), PLAIN_ITERS)
     b_ms, b_by = bound(u * (4 + 4 + 16), FTRL_FLOPS * u)
-    kernels.insert(0, {
+    kernels["ftrl_push"] = {
         "name": "ftrl_push", "route": "cuda",
         "source": "parameter_server_tpu_torch/csrc/ftrl.cu",
         "replaces": "parameter_server_tpu/ops/pallas_kernels.py:335",
@@ -331,13 +433,73 @@ def main() -> int:
         "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "call_ms": k_call, "plain_call_ms": p_call,
-    })
+    }
     log(f"ftrl_push: device {k_ms:.5f} ms kernel, {p_ms:.5f} ms plain, bound "
         f"{b_ms:.5f} ms ({b_by}; {u:.1f} rows into {SERVER_KEYS}, {PUSH_SETS} "
         f"sets cycled); sector-granular traffic bound "
         f"{u * 136 / HBM_BYTES_PER_S * 1e3:.5f} ms; host-inclusive per call "
         f"{k_call:.5f} ms kernel, {p_call:.5f} ms plain")
     del z, n, sets
+    torch.cuda.empty_cache()
+
+    err_ada = []
+    for vdim, l2 in ((16, 0.0), (16, 0.01), (EMB_VDIM, 0.0), (EMB_VDIM, 0.01)):
+        err_ada.append(check_push("adagrad_push", ak.adagrad_push, ak.adagrad_push_plain,
+                                  dev, gen, emb_idx, EMB_KEYS, vdim,
+                                  {**ADAGRAD, "l2": l2}, zero_pad_row=l2 > 0))
+        torch.cuda.empty_cache()
+        log(f"adagrad_push vdim {vdim} l2 {l2} ok on {EMB_KEYS} rows: max abs err "
+            f"{err_ada[-1]:.3g}; untouched rows bit-identical")
+    # time at the embedding server's shape (2^22, 64), cold as K1
+    sets, u = key_sets(rng, gen, dev, EMB_SETS, EMB_KEYS, EMB_DRAWS, EMB_VDIM)
+    w = torch.zeros((EMB_KEYS, EMB_VDIM), device=dev)
+    n = torch.rand((EMB_KEYS, EMB_VDIM), generator=gen, device=dev)
+    k_ms, k_call = cuda_ms(
+        lambda i: ak.adagrad_push(w, n, *sets[i % EMB_SETS], **ADAGRAD, l2=0.0), 200)
+    p_ms, p_call = cuda_ms(
+        lambda i: ak.adagrad_push_plain(w, n, *sets[i % EMB_SETS], **ADAGRAD, l2=0.0),
+        PLAIN_ITERS)
+    # the yardstick: torch.optim.Adagrad's step on a sparse COO gradient of
+    # the same rows (l2 = 0: its weight decay refuses sparse gradients),
+    # its accumulator seeded with n; first held against the plain version
+    torch.sparse.check_sparse_tensor_invariants.disable()  # keys are unique, sorted
+    grads = [torch.sparse_coo_tensor(k[None].long(), g, w.shape, is_coalesced=True)
+             for k, g in sets]
+    param = torch.nn.Parameter(w)
+    opt = torch.optim.Adagrad([param], lr=ADAGRAD["eta"], eps=ADAGRAD["eps"], foreach=False)
+    opt.state[param]["sum"].copy_(n)
+    w_plain, n_plain = w.clone(), n.clone()
+    ak.adagrad_push_plain(w_plain, n_plain, *sets[0], **ADAGRAD, l2=0.0)
+    param.grad = grads[0]
+    opt.step()
+    rows0 = sets[0][0].long()
+    err_lib = max(
+        check_close("torch.optim.Adagrad w", param.detach()[rows0], w_plain[rows0]),
+        check_close("torch.optim.Adagrad n", opt.state[param]["sum"][rows0], n_plain[rows0]),
+    )
+    del w_plain, n_plain
+
+    def lib_step(i: int) -> None:
+        param.grad = grads[i % EMB_SETS]
+        opt.step()
+
+    l_ms, l_call = cuda_ms(lib_step, PLAIN_ITERS)
+    b_ms, b_by = bound(u * (4 + 20 * EMB_VDIM), ADAGRAD_FLOPS * u * EMB_VDIM)
+    kernels["adagrad_push"] = {
+        "name": "adagrad_push", "route": "cuda",
+        "source": "parameter_server_tpu_torch/csrc/adagrad.cu",
+        "replaces": "parameter_server_tpu/ops/pallas_kernels.py:359",
+        "shape": [EMB_KEYS, EMB_VDIM, u], "max_abs_err": max(err_ada),
+        "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
+        "call_ms": k_call, "plain_call_ms": p_call, "library_call_ms": l_call,
+    }
+    log(f"adagrad_push: device {k_ms:.5f} ms kernel, {p_ms:.5f} ms plain, "
+        f"{l_ms:.5f} ms torch.optim.Adagrad sparse step (agrees with plain to "
+        f"{err_lib:.3g}), bound {b_ms:.5f} ms ({b_by}; {u:.1f} rows x {EMB_VDIM} "
+        f"into {EMB_KEYS}, {EMB_SETS} sets cycled); host-inclusive per call "
+        f"{k_call:.5f} ms kernel, {p_call:.5f} ms plain, {l_call:.5f} ms library")
+    del w, n, sets, grads, param, opt
     torch.cuda.empty_cache()
 
     # 4. worker: the linear_method trainer on the card
@@ -375,50 +537,116 @@ def main() -> int:
     log(f"worker ok: {STEPS} steps in {t_train:.3f} s; median {ex_s[len(ex_s) // 2]:.1f}"
         f" ex/s over steps 2-{STEPS}; progressive AUC {hist[-1]['auc']:.4f}; "
         f"loss_sum of steps 1-3 matches the CPU run; launches {worker_launches}")
-    wall_ms, busy_ms, top = profile(lambda: app.train(batches[:4], report_every=4))
-    log(f"worker profile, 4 steps: wall {wall_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.3f}); top device "
-        f"time: {top}")
+    log_profile("worker profile, 4 steps",
+                lambda: app.train(batches[:4], report_every=4))
     del app
     torch.cuda.empty_cache()
 
-    # 5. server: pushes from simulated workers, then pulls
+    # 5. server: FTRL pushes from simulated workers, then pulls
     store = KVStore(Ftrl(alpha=HYPER["alpha"], beta=HYPER["beta"],
                          lambda_l1=HYPER["l1"], lambda_l2=HYPER["l2"]),
                     num_keys=SERVER_KEYS, device="cuda")
-    torch.cuda.synchronize()
-    fk.reset_launches()
-    t0 = time.perf_counter()
-    for r, (idx_list, grad_list) in enumerate(rounds):
-        if r == len(rounds) - 1:
-            uniq, summed = coalesce_pushes(idx_list, grad_list)
-            sel = torch.from_numpy(uniq.astype(np.int64)).to(dev)
-            pre = {k: v.index_select(0, sel).cpu() for k, v in store.state.items()}
-        store.push_multi(idx_list, grad_list)
-    pulled = store.pull(uniq).cpu()
-    t_server = time.perf_counter() - t0
-    server_launches = dict(fk.LAUNCHES)
-    if server_launches["ftrl_push"] < SERVER_ROUNDS:
-        raise AssertionError(f"server phase launched ftrl_push "
-                             f"{server_launches['ftrl_push']} times, want {SERVER_ROUNDS}")
-    zc = torch.cat([torch.zeros(1, 1), pre["z"]])
-    nc = torch.cat([torch.zeros(1, 1), pre["n"]])
-    local = torch.arange(1, len(uniq) + 1, dtype=torch.int32)
-    fk.ftrl_push_plain(zc, nc, local, torch.from_numpy(summed), **HYPER)
+    pulled, pre, summed, t_server, server_launches = serve_rounds(
+        store, rounds, dev, fk.LAUNCHES, "ftrl_push")
+    zc, nc = with_pad_row(pre["z"]), with_pad_row(pre["n"])
+    local = torch.arange(1, len(pulled) + 1, dtype=torch.int32)
+    fk.ftrl_push_plain(zc, nc, local, summed, **HYPER)
     want = store.updater.weights({"z": zc[1:], "n": nc[1:]})
     err_pull = check_close("server pull", pulled, want)
-    if not torch.isfinite(pulled).all() or not (pulled != 0).any():
-        raise AssertionError("server: pulled weights are not finite and nonzero")
     log(f"server ok: {SERVER_ROUNDS} coalesced pushes of {SERVER_WORKERS} workers "
-        f"and a pull of {len(uniq)} keys in {t_server:.3f} s; pulled weights "
-        f"match the CPU plain update (max abs err {err_pull:.3g}); launches "
-        f"{server_launches}; nnz {store.nnz()}")
+        f"and a pull of {len(pulled)} keys in {t_server:.3f} s; pulled weights "
+        f"match the CPU plain update (max abs err {err_pull:.3g}); ftrl_push "
+        f"launches {server_launches}; nnz {store.nnz()}")
+    del store
+    torch.cuda.empty_cache()
 
-    kernels[0]["launches"] = server_launches["ftrl_push"]
-    kernels[1]["launches"] = worker_launches["ftrl_delta"]
+    # 6. mf: matrix factorization at MovieLens-20M's shape
+    def make_mf(device: str, reporter=None):
+        return mfm.MatrixFactorization(
+            MF_USERS, MF_ITEMS, rank=MF_RANK, eta=MF_ETA, l2=MF_L2, algo="adagrad",
+            seed=SEED, max_delay=MF_MAX_DELAY, steps_per_call=MF_STEPS_PER_CALL,
+            reporter=reporter or ProgressReporter(print_fn=lambda s: None),
+            device=device,
+        )
+
+    mf_rep = ProgressReporter(print_fn=lambda s: log(f"mf | {s}"))
+    mf, mf_cpu = make_mf("cuda", mf_rep), make_mf("cpu")
+    mf_builder = mfm.MFBatchBuilder(MF_BATCH)
+    for step in range(3):
+        sel = slice(step * MF_BATCH, (step + 1) * MF_BATCH)
+        b = mf_builder.build(mf_users[sel], mf_items[sel], mf_ratings[sel])
+        sse = [
+            float(mfm.mf_train_step(a.user_up, a.item_up, a.user_state, a.item_state,
+                                    mfm.batch_to_device(b, a.device), a.l2)[2])
+            for a in (mf, mf_cpu)
+        ]
+        if not np.isclose(sse[0], sse[1], rtol=1e-4, atol=0.0):
+            raise AssertionError(f"mf step {step}: SSE {sse[0]} on the card vs "
+                                 f"{sse[1]} on the CPU")
+    # K3 against the plain path at MF's own shapes: the tables after the 3
+    # steps (K3 on the card, adagrad_push_plain on the CPU)
+    err_mf_state = 0.0
+    for table in ("user_state", "item_state"):
+        for k in ("w", "n"):
+            got, want = getattr(mf, table)[k].cpu(), getattr(mf_cpu, table)[k]
+            err_mf_state = max(err_mf_state, (got - want).abs().max().item())
+            if not torch.allclose(got, want, rtol=1e-4, atol=ATOL):
+                raise AssertionError(
+                    f"mf {table}[{k!r}] after 3 steps: card vs CPU max abs err "
+                    f"{(got - want).abs().max().item()}")
+    del mf_cpu
+    torch.cuda.synchronize()
+    ak.reset_launches()
+    fk.reset_launches()
+    t0 = time.perf_counter()
+    rmse = [mf.train_epoch(mf_users, mf_items, mf_ratings, batch_size=MF_BATCH, seed=ep)
+            for ep in range(2)]
+    torch.cuda.synchronize()
+    t_mf = time.perf_counter() - t0
+    mf_launches = {**ak.LAUNCHES, **fk.LAUNCHES}
+    mf_steps = 2 * -(-MF_RATINGS // MF_BATCH)
+    if mf_launches["adagrad_push"] < 2 * mf_steps:
+        raise AssertionError(f"mf phase launched adagrad_push "
+                             f"{mf_launches['adagrad_push']} times in {mf_steps} steps, "
+                             f"want 2 a step")
+    if not np.isfinite(rmse).all() or not rmse[1] < rmse[0]:
+        raise AssertionError(f"mf: train RMSE {rmse} must be finite and fall")
+    pairs_s = [r["ex_per_sec"] for r in mf_rep.history]
+    log(f"mf ok: 2 epochs of {MF_RATINGS} ratings ({mf_steps} steps) in {t_mf:.3f} s; "
+        f"{pairs_s[0]:.1f} / {pairs_s[1]:.1f} pairs/s; train RMSE {rmse[0]:.6f} -> "
+        f"{rmse[1]:.6f}; SSE of steps 1-3 matches the CPU run, and so do the w and "
+        f"n tables after them (max abs err {err_mf_state:.3g}); launches {mf_launches}")
+    log_profile("mf profile, 4 steps (one window entry)",
+                lambda: mf.train_epoch(mf_users[:4 * MF_BATCH], mf_items[:4 * MF_BATCH],
+                                       mf_ratings[:4 * MF_BATCH], batch_size=MF_BATCH))
+    del mf
+    torch.cuda.empty_cache()
+
+    # 7. embedding server: AdaGrad pushes from simulated workers, then a pull
+    store = KVStore(Adagrad(eta=ADAGRAD["eta"], eps=ADAGRAD["eps"]), EMB_KEYS,
+                    vdim=EMB_VDIM, device="cuda")
+    pulled, pre, summed, t_emb, emb_launches = serve_rounds(
+        store, emb_rounds, dev, ak.LAUNCHES, "adagrad_push")
+    wc, nc = with_pad_row(pre["w"]), with_pad_row(pre["n"])
+    local = torch.arange(1, len(pulled) + 1, dtype=torch.int32)
+    ak.adagrad_push_plain(wc, nc, local, summed, **ADAGRAD, l2=0.0)
+    err_emb = check_close("embedding server pull", pulled, wc[1:])
+    log(f"embedding server ok: {EMB_ROUNDS} coalesced pushes of {EMB_WORKERS} "
+        f"workers and a pull of {len(pulled)} keys x {EMB_VDIM} in {t_emb:.3f} s; "
+        f"pulled rows match the CPU plain update (max abs err {err_emb:.3g}); "
+        f"adagrad_push launches {emb_launches}")
+    del store
+    torch.cuda.empty_cache()
+
+    kernels["ftrl_push"]["launches"] = server_launches
+    kernels["ftrl_delta"]["launches"] = worker_launches["ftrl_delta"]
+    kernels["adagrad_push"]["launches"] = mf_launches["adagrad_push"] + emb_launches
+    kernels["adagrad_push"]["launches_by_path"] = {
+        "mf": mf_launches["adagrad_push"], "embedding_server": emb_launches}
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": [kernels[k] for k in
+                                  ("ftrl_push", "ftrl_delta", "adagrad_push")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -13,10 +13,13 @@ Package layout (only what is ported so far):
     data/       parsers, localizer, minibatch reader, synthetic data
     kv/         the KV store: pull/push/updaters
     ops/        CSR segment sums and the hand-written CUDA kernels (csrc/)
-    models/     linear_method (sparse logistic regression, async FTRL)
+    parallel/   the SSP dispatch window
+    models/     linear_method (sparse logistic regression, async FTRL) and
+                matrix_fac (AdaGrad factor tables, single-device)
     cli.py      the ``train`` / ``evaluate`` commands
 
-Entry points (``KVStore``, ``LinearMethod``, ``cli --device``) run on
+Entry points (``KVStore``, ``LinearMethod``, ``MatrixFactorization``,
+``cli --device``) run on
 ``cuda`` unless the caller asks for ``cpu``; asking for the card where
 there is none raises.
 """

@@ -1,13 +1,13 @@
 """Command-line entry point of the port.
 
-The single-host ``linear_method`` app: a config file picks the solver, flags
-pick the run mode, ``--device`` the device (``cuda`` unless ``cpu`` is
-asked for). Config files and flags are those of the JAX package's CLI;
-every other app, mesh or multi-host option and subcommand exits with
-"not ported yet".
+The single-host ``linear_method`` and ``matrix_fac`` apps: a config file
+picks the app and its solver, flags pick the run mode, ``--device`` the
+device (``cuda`` unless ``cpu`` is asked for). Config files and flags are
+those of the JAX package's CLI; every other app, mesh or multi-host option
+and subcommand exits with "not ported yet".
 
 Usage:
-  python -m parameter_server_tpu_torch.cli train  --app_file cfg.json [--model_out m.txt] [--device cpu]
+  python -m parameter_server_tpu_torch.cli train  --app_file cfg.json [--model_out m.txt|m.npz] [--device cpu]
   python -m parameter_server_tpu_torch.cli evaluate --app_file cfg.json --model m.txt [--device cpu]
 """
 
@@ -69,12 +69,14 @@ def _check_ported(cfg: PSConfig) -> None:
     """Refuse the config settings of paths the port does not have yet."""
     if cfg.app not in _KNOWN_APPS:
         raise SystemExit(f"unknown app {cfg.app!r}; known: {sorted(_KNOWN_APPS)}")
-    if cfg.app != "linear_method":
+    if cfg.app not in ("linear_method", "matrix_fac"):
         raise _not_ported(f"app {cfg.app!r}")
-    if cfg.solver.algo == "darlin":
+    if cfg.app == "linear_method" and cfg.solver.algo == "darlin":
         raise _not_ported("the darlin batch solver")
     if cfg.parallel.data_shards * cfg.parallel.kv_shards > 1:
         raise _not_ported("the SPMD mesh path (parallel.data_shards/kv_shards)")
+    if cfg.app == "matrix_fac" and cfg.parallel.push_mode != "per_worker":
+        raise _not_ported(f"parallel.push_mode {cfg.parallel.push_mode!r}")
     if cfg.trace.trace_dir or cfg.profile.hz > 0 or cfg.timeseries.metrics_port:
         raise _not_ported("tracing, profiling and the metrics endpoint")
 
@@ -90,6 +92,8 @@ def run_train(cfg: PSConfig, args: argparse.Namespace) -> dict:
         raise _not_ported("--trace_dir")
     if not cfg.data.files:
         raise SystemExit("config data.files is empty")
+    if cfg.app == "matrix_fac":
+        return _run_train_mf(cfg, args)
 
     from parameter_server_tpu_torch.models.linear import LinearMethod
 
@@ -116,10 +120,58 @@ def run_train(cfg: PSConfig, args: argparse.Namespace) -> dict:
     return last
 
 
+def _run_train_mf(cfg: PSConfig, args: argparse.Namespace) -> dict:
+    """The matrix_fac app: train on ``user item rating`` files, report the
+    validation RMSE, dump the factors as an npz."""
+    import numpy as np
+
+    from parameter_server_tpu_torch.models.matrix_fac import (
+        MatrixFactorization,
+        iter_rating_blocks,
+    )
+
+    if args.ckpt_dir or args.resume:
+        raise SystemExit("the matrix_fac app takes no --ckpt_dir/--resume")
+    m = cfg.mf
+    app = MatrixFactorization(
+        m.num_users, m.num_items, rank=m.rank, eta=m.eta, l2=m.l2,
+        algo=m.algo, seed=cfg.seed, push_mode=cfg.parallel.push_mode,
+        max_delay=max(cfg.solver.max_delay, 0),
+        steps_per_call=cfg.solver.steps_per_call, device=args.device,
+    )
+    rmse = app.train_files(
+        cfg.data.files, batch_size=m.batch_size,
+        epochs=max(1, cfg.solver.epochs), block_lines=m.block_lines,
+        seed=cfg.seed,
+    )
+    out: dict = {"train_rmse": rmse, "rank": m.rank}
+    if cfg.data.val_files:
+        sse, n = 0.0, 0
+        for us, it, rt in iter_rating_blocks(cfg.data.val_files, m.block_lines):
+            p = app.predict(us, it)
+            sse += float(((p - rt) ** 2).sum())
+            n += len(rt)
+        if n == 0:
+            raise SystemExit(
+                f"no rating triples parsed from val_files "
+                f"{cfg.data.val_files}: expected 'user item rating' lines"
+            )
+        out["val_rmse"] = float(np.sqrt(sse / n))
+        out["val_examples"] = n
+    if args.model_out:
+        st = app.state_dict()
+        np.savez(args.model_out, user_factors=st["user"]["w"],
+                 item_factors=st["item"]["w"])
+        out["model_out"] = args.model_out
+    return out
+
+
 def run_evaluate(cfg: PSConfig, args: argparse.Namespace) -> dict:
     from parameter_server_tpu_torch.models.evaluation import evaluate_model
 
     _check_ported(cfg)
+    if cfg.app != "linear_method":
+        raise _not_ported(f"evaluate for app {cfg.app!r}")
     files = args.data if args.data else (cfg.data.val_files or cfg.data.files)
     if not files:
         raise SystemExit("no evaluation files (config val_files/files or --data)")

@@ -1,8 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels for the FTRL-proximal server update.
 //
-// Built by parameter_server_tpu_torch/ops/ftrl_kernels.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
-// into a shared library with a plain C interface, loaded with ctypes. Each
+// Built by parameter_server_tpu_torch/ops/cuda_build.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+// and linked with the other csrc/*.cu into one shared library with a plain
+// C interface, loaded with ctypes; ps_cuda_error_string below serves them
+// all. Each
 // entry point launches on the caller's stream, allocates nothing, does not
 // synchronise, and returns cudaGetLastError() so the wrapper can raise on a
 // launch the runtime refused.

@@ -3,9 +3,11 @@
 ``pull`` is a row gather and ``push`` applies the server updater to the
 touched rows only, never the whole table. Unlike the JAX package's
 functional ``push``, the port's ``push`` updates the tables IN PLACE and
-returns the same state dict: for an ``Ftrl`` updater on CUDA it launches
-the fused push kernel (``ops.ftrl_kernels.ftrl_push``); every other updater,
-and every updater on the CPU, runs gather -> ``delta`` -> ``index_add_``.
+returns the same state dict. ``Ftrl`` and ``Adagrad`` push through their
+fused push wrappers (``ops.ftrl_kernels.ftrl_push``,
+``ops.adagrad_kernels.adagrad_push``), which launch the hand-written
+kernel on CUDA and run gather -> delta -> ``index_add_`` on the CPU;
+``Sgd`` runs gather -> ``delta`` -> ``index_add_`` on both.
 
 Invariants (kept by the data layer's localizer):
   - ``idx`` passed to ``push`` contains each real key at most once; padding
@@ -13,7 +15,9 @@ Invariants (kept by the data layer's localizer):
     keys must be pre-aggregated (segment-summed) by the caller: the updater
     computes one *delta* per (key, grad) pair.
   - Row 0 is the pad row: it absorbs zero-gradient updates and is excluded
-    from dumps and nnz counts.
+    from dumps and nnz counts. With AdaGrad and ``lambda_l2 > 0`` its state
+    must stay zero, or each pad slot would move it (the fused kernel and
+    the composite would then disagree).
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import numpy as np
 import torch
 
 from parameter_server_tpu_torch.device import resolve_device
-from parameter_server_tpu_torch.kv.updaters import Ftrl, Updater
+from parameter_server_tpu_torch.kv.updaters import Adagrad, Ftrl, Updater
+from parameter_server_tpu_torch.ops.adagrad_kernels import adagrad_push
 from parameter_server_tpu_torch.ops.ftrl_kernels import ftrl_push
 
 State = dict[str, torch.Tensor]
@@ -102,6 +107,10 @@ def push(updater: Updater, state: State, idx: Any, grad: Any) -> State:
     g = _as_grad(grad, i.shape[0], table.device, table.dtype)
     if isinstance(updater, Ftrl):
         ftrl_push(state["z"], state["n"], i, g, **updater.hyper)
+        return state
+    if isinstance(updater, Adagrad):
+        adagrad_push(state["w"], state["n"], i, g, eta=updater.eta,
+                     eps=updater.eps, l2=updater.lambda_l2)
         return state
     rows = {k: v.index_select(0, i) for k, v in state.items()}
     deltas = updater.delta(rows, g)

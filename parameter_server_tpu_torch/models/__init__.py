@@ -1,1 +1,2 @@
-"""Applications. Only linear_method is ported so far."""
+"""Applications. linear_method and matrix_fac (single-device) are ported
+so far."""

@@ -1,4 +1,5 @@
-"""Device compute: CSR segment sums and the hand-written FTRL kernels."""
+"""Device compute: CSR segment sums and the hand-written CUDA kernels (FTRL
+push and delta, AdaGrad push)."""
 
 from parameter_server_tpu_torch.ops.sparse import (  # noqa: F401
     csr_grad,

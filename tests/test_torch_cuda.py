@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from parameter_server_tpu_torch.ops import adagrad_kernels as ak
 from parameter_server_tpu_torch.ops import ftrl_kernels as fk
 
 HYPER = {"alpha": 0.1, "beta": 1.0, "l1": 1.0, "l2": 0.0}
@@ -76,6 +77,34 @@ def test_push_kernel_matches_plain(dev, vdim, hyper):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("l2", [0.0, 0.01])
+@pytest.mark.parametrize("vdim", [16, 64])
+def test_adagrad_push_kernel_matches_plain(dev, vdim, l2):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    K = 1 << 16
+    w = torch.randn((K, vdim), generator=gen, device=dev)
+    n = torch.rand((K, vdim), generator=gen, device=dev) * 4
+    if l2 > 0:
+        w[0] = 0.0  # the pad-row invariant the repeated pad slots rely on
+        n[0] = 0.0
+    uniq = np.unique(np.random.default_rng(6).integers(1, K, 5000))
+    idx = torch.from_numpy(np.concatenate([uniq, [0, 0, 0]]).astype(np.int32)).to(dev)
+    g = torch.randn((idx.shape[0], vdim), generator=gen, device=dev)
+    g[-3:] = 0
+    wk, nk = w.clone(), n.clone()
+    before = ak.LAUNCHES["adagrad_push"]
+    ak.adagrad_push(wk, nk, idx, g, eta=0.05, eps=1e-8, l2=l2)
+    assert ak.LAUNCHES["adagrad_push"] == before + 1
+    untouched = torch.ones(K, dtype=torch.bool, device=dev)
+    untouched[idx[:-3].long()] = False  # row 0 (the pad row) stays in
+    assert torch.equal(wk[untouched].view(torch.int32), w[untouched].view(torch.int32))
+    assert torch.equal(nk[untouched].view(torch.int32), n[untouched].view(torch.int32))
+    ak.adagrad_push_plain(w, n, idx, g, eta=0.05, eps=1e-8, l2=l2)
+    torch.testing.assert_close(wk, w, **TOL)
+    torch.testing.assert_close(nk, n, **TOL)
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_cuda(dev):
     z = torch.zeros(8, 1, device=dev)
     with pytest.raises(TypeError, match="int32"):
@@ -83,6 +112,9 @@ def test_wrappers_raise_on_cuda(dev):
                      **HYPER)
     with pytest.raises(ValueError, match="different devices"):
         fk.ftrl_delta(z, z, torch.zeros(8, 1), **HYPER)
+    with pytest.raises(ValueError, match="different devices"):
+        ak.adagrad_push(z, z.clone(), torch.tensor([1], dtype=torch.int32),
+                        torch.ones(1, 1, device=dev), eta=0.1, eps=1e-8, l2=0.0)
 
 
 @pytest.mark.cuda
@@ -108,3 +140,23 @@ def test_linear_method_on_card_matches_cpu(dev):
         assert fk.LAUNCHES["ftrl_delta"] == (4 if device == "cuda" else 0)
     for a, b in zip(hist["cuda"], hist["cpu"]):
         np.testing.assert_allclose(a["objv"], b["objv"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_matrix_fac_on_card_matches_cpu(dev):
+    from parameter_server_tpu_torch.models.matrix_fac import MatrixFactorization
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    rng = np.random.default_rng(7)
+    users, items = rng.integers(0, 500, 4096), rng.integers(0, 300, 4096)
+    ratings = rng.uniform(0.5, 5.0, 4096).astype(np.float32)
+    rmse = {}
+    for device in ("cuda", "cpu"):
+        ak.reset_launches()
+        mf = MatrixFactorization(500, 300, rank=32, seed=1, device=device,
+                                 reporter=ProgressReporter(print_fn=lambda s: None))
+        rmse[device] = [mf.train_epoch(users, items, ratings, batch_size=512, seed=e)
+                        for e in range(2)]
+        # 8 steps an epoch, each pushing both tables
+        assert ak.LAUNCHES["adagrad_push"] == (32 if device == "cuda" else 0)
+    np.testing.assert_allclose(rmse["cuda"], rmse["cpu"], rtol=1e-4)

@@ -64,6 +64,7 @@ def test_entry_points_default_to_cuda():
     from parameter_server_tpu_torch.kv.store import KVStore
     from parameter_server_tpu_torch.kv.updaters import Ftrl
     from parameter_server_tpu_torch.models.linear import LinearMethod
+    from parameter_server_tpu_torch.models.matrix_fac import MatrixFactorization
     from parameter_server_tpu_torch.utils.config import PSConfig
 
     if torch.cuda.is_available():
@@ -74,4 +75,7 @@ def test_entry_points_default_to_cuda():
         LinearMethod(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         KVStore(Ftrl(), 64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        MatrixFactorization(8, 8, rank=4)
     assert LinearMethod(cfg, device="cpu").device == torch.device("cpu")
+    assert MatrixFactorization(8, 8, rank=4, device="cpu").device == torch.device("cpu")

@@ -6,6 +6,8 @@ tests/test_pallas.py runs them). The CUDA kernels themselves run only on
 the card: tests/test_torch_cuda.py and ``chip_smoke.py`` compare them with
 their plain versions there."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -123,3 +125,30 @@ def test_wrappers_raise_on_bad_input():
     with pytest.raises(ValueError, match="device"):
         fk.ftrl_delta(meta, meta, meta, **h)
 
+
+
+def test_library_key_covers_every_source_and_flag(tmp_path, monkeypatch):
+    """One library holds every csrc/*.cu: an edit to any of them, or to the
+    flags, must name a new library, never reload a stale one."""
+    from parameter_server_tpu_torch.ops import cuda_build
+
+    assert {s.name for s in cuda_build.sources()} >= {"ftrl.cu", "adagrad.cu"}
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "_build")
+    (tmp_path / "a.cu").write_text("// a\n")
+    (tmp_path / "b.cu").write_text("// b\n")
+    seen = {cuda_build.library_path()}
+    (tmp_path / "b.cu").write_text("// b, edited\n")
+    seen.add(cuda_build.library_path())
+    (tmp_path / "c.cu").write_text("")
+    seen.add(cuda_build.library_path())
+    monkeypatch.setattr(cuda_build, "NVCC_FLAGS", (*cuda_build.NVCC_FLAGS, "-lineinfo"))
+    seen.add(cuda_build.library_path())
+    assert len(seen) == 4
+    assert all(p.parent == tmp_path / "_build" for p in seen)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    if not os.path.exists("/usr/local/cuda/bin/nvcc"):
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            cuda_build.build()
