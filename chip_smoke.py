@@ -30,11 +30,23 @@ the script exits nonzero without printing a result:
 7. embedding server — a 2^22-key, vdim-64 AdaGrad KVStore answers
              coalesced pushes from 8 simulated workers; a pull of the last
              round's keys matches a CPU plain update of the touched rows.
+8. codec   — the stochastic quantizer (K4) against its plain version on
+             the card, bit for bit (q, lo, scale; 3, 2^20 + 7 and 2^24
+             elements, int8 and int16, several seeds), every decode within
+             one step of its input, the maximum saturated (never wrapped);
+             its statistics (unbiased mean, round-up rate, independent
+             streams for seeds s and s + 1); its times at 2^24 float32 and
+             at one embedding-server push. Then the fixed-point filter's
+             round trip: phase 7's 3 rounds x 8 workers, each gradient
+             encoded on the card (K4), decoded as the server decodes it,
+             coalesced and pushed (K3) into a 2^22 x 64 AdaGrad KVStore;
+             every payload and the pull of every touched key match the same
+             sequence on the CPU (plain K4 with the same seeds).
 
-Launch counters are reset just before each of phases 4-7 and read just
-after: each phase must have launched its kernel. The line before the last
-is the kernels' JSON summary; the last line is {"ok": true, "device":
-{...}}. Imports nothing of JAX.
+Launch counters are reset just before each of phases 4-7 and the round
+trip of phase 8, and read just after: each must have launched its
+kernels. The line before the last is the kernels' JSON summary; the last
+line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -49,14 +61,23 @@ import numpy as np
 import torch
 
 # published peaks of one H100 SXM (NVIDIA data sheet): device-memory rate
-# and float32 rate outside the tensor cores
+# and float32 rate outside the tensor cores; INT32 has 64 lanes an SM, half
+# the FP32 lanes, and the float32 rate counts a multiply-add as two
+# operations, so integer operations run at a quarter of that figure
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+INT32_OPS_PER_S = F32_FLOPS_PER_S / 4
 # flops of one element update (sqrt and division counted as one operation
 # each): FTRL weight, sigma and both deltas; AdaGrad g + l2*w, g^2, n + g^2,
 # sqrt, + eps, eta*g, division, w + delta
 FTRL_FLOPS = 18
 ADAGRAD_FLOPS = 8
+# K4 per element: Philox4x32-10 is 10 rounds of two 32x32->64 multiplies
+# and four xors plus 9 two-word key bumps for 4 elements, and the shift of
+# the word to 24 bits; float: x - lo, division, floor, frac, the word to
+# float and its scaling, compare, add, - levels/2, two clamps
+QUANT_INT_OPS = (10 * 6 + 9 * 2) / 4 + 1
+QUANT_FLOPS = 11
 RTOL, ATOL = 1e-5, 1e-6
 HYPER = {"alpha": 0.1, "beta": 1.0, "l1": 1.0, "l2": 0.0}
 # checked only: every term of the kernels' weight, l2 included
@@ -87,15 +108,28 @@ MF_RATINGS, MF_ETA, MF_L2, MF_MAX_DELAY, MF_STEPS_PER_CALL = 1 << 20, 0.05, 0.01
 # the plain versions issue ~15 launches a call: few enough calls that all
 # of them fit the launch queue behind the spin kernel (see cuda_ms)
 PLAIN_ITERS = 40
+# the codec: 2^24 float32 (64 MiB) is the payload encode_fast's docstring
+# names; K4's plain version issues ~140 launches a call (its Philox in
+# int64 tensors), the encode wrapper ~7 (aminmax, scale, the kernel)
+CODEC_SIZES, CODEC_SEEDS = (3, (1 << 20) + 7, 1 << 24), (0, 1, (1 << 40) + 3)
+CODEC_BIG, CODEC_MEAN_SEEDS, CODEC_FIRST_SEED = 1 << 24, 64, 1000
+PLAIN_QUANT_ITERS, ENCODE_ITERS = 4, 100
+# the decode error bound: one step, plus the float32 roundings of t and of
+# the decode, a few units of 2^-24 of the array's magnitude (the decode's
+# product alone rounds by up to 2^-24 of the span, 0.4% of an int16 step)
+ROUNDING_ULPS = 8
 
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, int_ops: float = 0.0) -> tuple[float, str]:
+    """The least time of the work in ms, and what sets it: bytes at the
+    memory rate, or operations at their type's rate (the INT32 and FP32
+    lanes are separate units, so the slower of the two)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = max(flops / F32_FLOPS_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -279,6 +313,109 @@ def serve_rounds(store, rounds, dev, counter: dict, kernel: str):
     return pulled, pre, torch.from_numpy(summed), seconds, counter[kernel]
 
 
+def decode_bound(scale, x) -> torch.Tensor:
+    """|decode - x| may reach one step plus float32 roundings (ROUNDING_ULPS)."""
+    lo, hi = torch.aminmax(x)
+    return scale + ROUNDING_ULPS * 2.0**-24 * (lo.abs() + hi.abs())
+
+
+def check_quantize(qk, codec, dev, gen, n: int, num_bytes: int) -> int:
+    """K4 against its plain version on ``n`` elements, for each of
+    CODEC_SEEDS: q, lo and scale equal bit for bit; every decode within
+    ``decode_bound`` of its input; the maximum saturates to the integer
+    type's top and decodes near hi (a wrapped cast would give lo - scale).
+    Returns the largest |q - plain q| (0 when it passes)."""
+    x = torch.randn(n, generator=gen, device=dev) * 3 + 1
+    top = x.argmax()
+    err = 0
+    for seed in CODEC_SEEDS:
+        e = codec.encode(seed, x)
+        pq, plo, pscale = qk.quantize_stochastic_plain(seed, x, num_bytes)
+        err = max(err, (e.q.int() - pq.int()).abs().max().item())
+        what = f"quantize_stochastic n {n} int{8 * num_bytes} seed {seed}"
+        if not (torch.equal(e.q, pq) and torch.equal(e.lo, plo) and torch.equal(e.scale, pscale)):
+            raise AssertionError(f"{what}: {int((e.q != pq).sum())} of {n} q differ from the "
+                                 f"plain version; lo {e.lo.item()} vs {plo.item()}, scale "
+                                 f"{e.scale.item()} vs {pscale.item()}")
+        dec = codec.decode(e)
+        tol = decode_bound(e.scale, x)
+        if not (dec - x).abs().max() <= tol:
+            raise AssertionError(f"{what}: |decode - x| {(dec - x).abs().max().item()} > {tol.item()}")
+        if e.q[top] != torch.iinfo(e.q.dtype).max or not (dec[top] - x[top]).abs() <= tol:
+            raise AssertionError(f"{what}: the maximum encodes to {e.q[top].item()} and "
+                                 f"decodes to {dec[top].item()}, hi is {x[top].item()}")
+    return err
+
+
+def round_ups(q, x, lo, scale, num_bytes: int):
+    """(up, frac) of the elements no clamp touches: up = 1 where an element
+    was rounded up, frac = t - floor t, the probability that it is."""
+    half = ((1 << (8 * num_bytes)) - 1) // 2
+    t = (x - lo) / scale
+    floor = torch.floor(t)
+    keep = t < 2 * half - 1
+    up = (q.to(torch.float32) + half - floor)[keep].double()
+    if not ((up == 0) | (up == 1)).all():
+        raise AssertionError("an element rounded to neither floor t nor floor t + 1")
+    return up, (t - floor)[keep].double()
+
+
+def time_quantize(qk, dev, gen, shape, num_bytes: int, sets: int) -> dict:
+    """Device times (cuda_ms) of K4's rounding pass, the encode wrapper
+    (aminmax + scale + kernel), the aminmax alone and the plain versions,
+    cycling ``sets`` inputs, beside the bounds."""
+    xs = [torch.randn(shape, generator=gen, device=dev) for _ in range(sets)]
+    ps = [qk.quantize_params(x, num_bytes) for x in xs]
+    n = xs[0].numel()
+    k_ms, k_call = cuda_ms(
+        lambda i: qk.stochastic_round(i, xs[i % sets], ps[i % sets], num_bytes), 200)
+    e_ms, e_call = cuda_ms(lambda i: qk.quantize_stochastic(i, xs[i % sets], num_bytes),
+                           ENCODE_ITERS)
+    a_ms, _ = cuda_ms(lambda i: torch.aminmax(xs[i % sets]), 200)
+    p_ms, _ = cuda_ms(
+        lambda i: qk.stochastic_round_plain(i, xs[i % sets], ps[i % sets], num_bytes),
+        PLAIN_QUANT_ITERS)
+    pe_ms, _ = cuda_ms(lambda i: qk.quantize_stochastic_plain(i, xs[i % sets], num_bytes),
+                       PLAIN_QUANT_ITERS)
+    b_ms, b_by = bound(n * (4 + num_bytes), QUANT_FLOPS * n, QUANT_INT_OPS * n)
+    return {
+        "shape": list(shape), "num_bytes": num_bytes, "sets": sets,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "encode_ms": e_ms, "plain_encode_ms": pe_ms, "aminmax_ms": a_ms,
+        "aminmax_bound_ms": bound(4 * n, n)[0], "call_ms": k_call, "encode_call_ms": e_call,
+    }
+
+
+def codec_round_trip(store, rounds, device, remap=None):
+    """The fixed-point filter's sequence on ``rounds`` of simulated pushes:
+    each worker encodes its gradient on ``device`` (seeds CODEC_FIRST_SEED,
+    +1, ...); the payload crosses to the server as host arrays; the server
+    decodes it on its own device and brings it to the host, as the wire
+    tier's ``_decode_grad`` does; each round is one coalesced push.
+    ``remap`` maps keys into a compact table. Returns (payload bytes on
+    the wire, the largest |decode - g| over its bound, the payloads q)."""
+    from parameter_server_tpu_torch.filters.fixed_point import Encoded, FixedPointCodec
+
+    codec = FixedPointCodec(1)
+    seed, wire, worst, payloads = CODEC_FIRST_SEED, 0, 0.0, []
+    for idx_list, grad_list in rounds:
+        decoded = []
+        for g in grad_list:
+            g_dev = torch.from_numpy(g).to(device)
+            e = codec.encode(seed, g_dev)
+            seed += 1
+            q, lo, scale = e.q.cpu(), e.lo.cpu(), e.scale.cpu()
+            wire += q.numel() * q.element_size() + 8
+            payloads.append(q)
+            dec = codec.decode(Encoded(*(t.to(store.device) for t in (q, lo, scale))))
+            worst = max(worst, ((dec.to(device) - g_dev).abs().max()
+                                / decode_bound(e.scale, g_dev)).item())
+            decoded.append(dec.cpu().numpy())
+        keys = idx_list if remap is None else [remap(k) for k in idx_list]
+        store.push_multi(keys, decoded)
+    return wire, worst, payloads
+
+
 def with_pad_row(rows: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros(1, rows.shape[1]), rows])
 
@@ -307,6 +444,7 @@ def main() -> int:
     sys.path.insert(0, str(root))
     from parameter_server_tpu_torch.data.batch import BatchBuilder
     from parameter_server_tpu_torch.data.synthetic import make_sparse_logistic
+    from parameter_server_tpu_torch.filters.fixed_point import FixedPointCodec
     from parameter_server_tpu_torch.kv.store import KVStore, coalesce_pushes
     from parameter_server_tpu_torch.kv.updaters import Adagrad, Ftrl
     from parameter_server_tpu_torch.models import matrix_fac as mfm
@@ -314,6 +452,7 @@ def main() -> int:
     from parameter_server_tpu_torch.ops import adagrad_kernels as ak
     from parameter_server_tpu_torch.ops import cuda_build
     from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.ops import quantize_kernels as qk
     from parameter_server_tpu_torch.utils.config import PSConfig
     from parameter_server_tpu_torch.utils.metrics import ProgressReporter
 
@@ -638,15 +777,105 @@ def main() -> int:
     del store
     torch.cuda.empty_cache()
 
+    # 8. codec: K4 checks, statistics and times, then the filter round trip
+    t0 = time.perf_counter()
+    err_quant = max(check_quantize(qk, FixedPointCodec(num_bytes), dev, gen, n, num_bytes)
+                    for num_bytes in (1, 2) for n in CODEC_SIZES)
+    log(f"quantize_stochastic ok: q, lo, scale equal to the plain version's bit for "
+        f"bit at {CODEC_SIZES} elements, int8 and int16, seeds {CODEC_SEEDS}; every "
+        f"decode within one step + {ROUNDING_ULPS} ulps; maxima saturated "
+        f"({time.perf_counter() - t0:.2f} s)")
+    codec8 = FixedPointCodec(1)
+    xc = torch.full(((1 << 20) + 2,), 0.3, device=dev)  # between two levels of [0, 1]
+    xc[-2:] = torch.tensor([0.0, 1.0])
+    mean = torch.stack([codec8.decode(codec8.encode(s, xc))[:-2].mean()
+                        for s in range(CODEC_MEAN_SEEDS)]).mean().item()
+    if not abs(mean - 0.3) < 2e-3:
+        raise AssertionError(f"codec: mean decode of 0.3 over {CODEC_MEAN_SEEDS} seeds is {mean}")
+    x = torch.randn(CODEC_BIG, generator=gen, device=dev)
+    res, rates = [], []
+    for s in (CODEC_FIRST_SEED, CODEC_FIRST_SEED + 1):
+        e = codec8.encode(s, x)
+        up, frac = round_ups(e.q, x, e.lo, e.scale, 1)
+        sigma = (frac * (1 - frac)).sum().sqrt().item() / len(frac)
+        rates.append((up.mean().item(), frac.mean().item(), sigma))
+        if not abs(rates[-1][0] - rates[-1][1]) < 4 * sigma:
+            raise AssertionError(f"codec seed {s}: round-up rate {rates[-1][0]} vs mean frac "
+                                 f"{rates[-1][1]} (sigma {sigma})")
+        res.append((up - frac).float())
+    rho = torch.corrcoef(torch.stack(res))[0, 1].item()
+    if not abs(rho) < 0.01:
+        raise AssertionError(f"codec: seeds s and s+1 round with correlation {rho}")
+    del xc, x, res, up, frac, e
+    log(f"codec statistics ok: mean decode of 0.3 over {CODEC_MEAN_SEEDS} seeds "
+        f"{mean:.9f} (|err| {abs(mean - 0.3):.3g}); at {CODEC_BIG} elements round-up "
+        f"rate vs mean frac {rates[0][0]:.6f} / {rates[0][1]:.6f} (sigma {rates[0][2]:.3g}); "
+        f"residual correlation of seeds s, s+1 {rho:.3g}")
+    q_times = [time_quantize(qk, dev, gen, (CODEC_BIG,), 1, 2),
+               time_quantize(qk, dev, gen, (CODEC_BIG,), 2, 2),
+               time_quantize(qk, dev, gen, emb_rounds[0][1][0].shape, 1, 8)]
+    for t in q_times:
+        log(f"quantize_stochastic int{8 * t['num_bytes']} at {t['shape']} ({t['sets']} sets "
+            f"cycled): device {t['ms']:.5f} ms kernel pass (bound {t['bound_ms']:.5f} ms, "
+            f"{t['bound_by']}), {t['plain_ms']:.5f} ms plain pass; aminmax {t['aminmax_ms']:.5f}"
+            f" ms (bound {t['aminmax_bound_ms']:.5f}); whole encode {t['encode_ms']:.5f} ms, "
+            f"plain {t['plain_encode_ms']:.5f} ms; host-inclusive per call "
+            f"{t['call_ms']:.5f} ms kernel, {t['encode_call_ms']:.5f} ms encode")
+    torch.cuda.empty_cache()
+    # the filter round trip: K4 on the card, K3 into the embedding table
+    store = KVStore(Adagrad(eta=ADAGRAD["eta"], eps=ADAGRAD["eps"]), EMB_KEYS,
+                    vdim=EMB_VDIM, device="cuda")
+    torch.cuda.synchronize()
+    qk.reset_launches()
+    ak.reset_launches()
+    t0 = time.perf_counter()
+    wire, worst, q_card = codec_round_trip(store, emb_rounds, dev)
+    union = np.unique(np.concatenate([k for idx_list, _ in emb_rounds for k in idx_list]))
+    pulled = store.pull(union).cpu()
+    t_codec = time.perf_counter() - t0
+    codec_launches = {**qk.LAUNCHES, **ak.LAUNCHES}
+    pushes = sum(len(g) for _, g in emb_rounds)
+    if codec_launches != {"quantize_stochastic": pushes, "adagrad_push": EMB_ROUNDS}:
+        raise AssertionError(f"codec round trip launched {codec_launches}, want "
+                             f"{pushes} quantize_stochastic and {EMB_ROUNDS} adagrad_push")
+    if not worst <= 1.0:
+        raise AssertionError(f"codec round trip: a decode is {worst} times its bound off")
+    cpu_store = KVStore(Adagrad(eta=ADAGRAD["eta"], eps=ADAGRAD["eps"]), len(union) + 1,
+                        vdim=EMB_VDIM, device="cpu")
+    _, _, q_cpu = codec_round_trip(cpu_store, emb_rounds, torch.device("cpu"),
+                                   remap=lambda k: np.searchsorted(union, k) + 1)
+    if not all(torch.equal(a, b) for a, b in zip(q_card, q_cpu)):
+        raise AssertionError("codec round trip: K4 on the card and its plain version on "
+                             "the CPU encode a gradient differently with the same seed")
+    err_codec = check_close("codec round trip pull", pulled,
+                            cpu_store.pull(np.arange(1, len(union) + 1)))
+    raw = sum(g.nbytes for _, grads in emb_rounds for g in grads)
+    log(f"codec round trip ok: {EMB_ROUNDS} rounds x {EMB_WORKERS} workers encoded on the "
+        f"card, decoded, coalesced and pushed, and a pull of {len(union)} keys x {EMB_VDIM} in "
+        f"{t_codec:.3f} s; {wire} payload bytes for {raw} float32 bytes; worst decode "
+        f"{worst:.4f} of its bound; pull matches the CPU run (plain K4, same seeds; max "
+        f"abs err {err_codec:.3g}), every payload equal to the CPU's; launches {codec_launches}")
+    del store, cpu_store
+    torch.cuda.empty_cache()
+    kernels["quantize_stochastic"] = {
+        "name": "quantize_stochastic", "route": "cuda",
+        "source": "parameter_server_tpu_torch/csrc/quantize.cu",
+        "replaces": "parameter_server_tpu/ops/pallas_kernels.py:143",
+        **q_times[0], "max_abs_err": err_quant, "library_ms": None,
+        "launches": codec_launches["quantize_stochastic"], "times": q_times[1:],
+    }
+
     kernels["ftrl_push"]["launches"] = server_launches
     kernels["ftrl_delta"]["launches"] = worker_launches["ftrl_delta"]
-    kernels["adagrad_push"]["launches"] = mf_launches["adagrad_push"] + emb_launches
     kernels["adagrad_push"]["launches_by_path"] = {
-        "mf": mf_launches["adagrad_push"], "embedding_server": emb_launches}
+        "mf": mf_launches["adagrad_push"], "embedding_server": emb_launches,
+        "codec_round_trip": codec_launches["adagrad_push"]}
+    kernels["adagrad_push"]["launches"] = sum(kernels["adagrad_push"]["launches_by_path"].values())
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernels[k] for k in
-                                  ("ftrl_push", "ftrl_delta", "adagrad_push")]}))
+                                  ("ftrl_push", "ftrl_delta", "adagrad_push",
+                                   "quantize_stochastic")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

@@ -9,7 +9,8 @@ it against.
 
 Package layout (only what is ported so far):
     utils/      config, hashing, checkpoints, progress table
-    filters/    the count-min frequency filter of the training ingest
+    filters/    the count-min frequency filter of the training ingest, and
+                the gradient codecs (fixed-point, per-segment)
     data/       parsers, localizer, minibatch reader, synthetic data
     kv/         the KV store: pull/push/updaters
     ops/        CSR segment sums and the hand-written CUDA kernels (csrc/)

@@ -12,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from parameter_server_tpu_torch.filters.fixed_point import FixedPointCodec
 from parameter_server_tpu_torch.ops import adagrad_kernels as ak
 from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+from parameter_server_tpu_torch.ops import quantize_kernels as qk
 
 HYPER = {"alpha": 0.1, "beta": 1.0, "l1": 1.0, "l2": 0.0}
 # a second set with l2 > 0 and other alpha, l1, so every term of the kernels'
@@ -105,6 +107,44 @@ def test_adagrad_push_kernel_matches_plain(dev, vdim, l2):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("num_bytes", [1, 2])
+@pytest.mark.parametrize("n", [1, 3, 4097, (1 << 20) + 7])
+def test_quantize_kernel_matches_plain(dev, n, num_bytes):
+    """Exactly: the kernel and the plain version draw the same Philox
+    stream and do the same IEEE arithmetic. The offset view starts 4 bytes
+    past an aligned address, so it takes the kernel's scalar path."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    base = torch.randn(n + 1, generator=gen, device=dev) * 3 + 1
+    for x in (base[:n], base[1:]):
+        for seed in (0, 1, (1 << 40) + 3):
+            before = qk.LAUNCHES["quantize_stochastic"]
+            q, lo, scale = qk.quantize_stochastic(seed, x, num_bytes)
+            assert qk.LAUNCHES["quantize_stochastic"] == before + 1
+            pq, plo, pscale = qk.quantize_stochastic_plain(seed, x, num_bytes)
+            assert q.dtype == (torch.int8 if num_bytes == 1 else torch.int16)
+            assert q.shape == x.shape
+            assert torch.equal(q, pq) and torch.equal(lo, plo) and torch.equal(scale, pscale)
+    if n > 1:  # one element is a constant array: it encodes to the bottom
+        info = torch.iinfo(q.dtype)
+        assert q[x.argmax()] == info.max  # F1: the maximum saturates, never wraps
+
+
+@pytest.mark.cuda
+def test_quantize_keeps_lo_and_scale_on_the_card(dev):
+    codec = FixedPointCodec(1)
+    x = torch.randn(1 << 16, device=dev)
+    codec.decode(codec.encode(0, x))  # load the library first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")  # a host sync now raises
+    try:
+        e = codec.encode(1, x)
+        dec = codec.decode(e)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert e.lo.device == e.scale.device == e.q.device == dec.device == x.device
+
+
+@pytest.mark.cuda
 def test_wrappers_raise_on_cuda(dev):
     z = torch.zeros(8, 1, device=dev)
     with pytest.raises(TypeError, match="int32"):
@@ -115,6 +155,12 @@ def test_wrappers_raise_on_cuda(dev):
     with pytest.raises(ValueError, match="different devices"):
         ak.adagrad_push(z, z.clone(), torch.tensor([1], dtype=torch.int32),
                         torch.ones(1, 1, device=dev), eta=0.1, eps=1e-8, l2=0.0)
+    with pytest.raises(TypeError, match="float32"):
+        qk.quantize_stochastic(0, torch.ones(8, dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        qk.quantize_stochastic(0, torch.ones(4, 6, device=dev).t())
+    with pytest.raises(ValueError, match="different devices"):
+        qk.stochastic_round(0, torch.ones(8, device=dev), torch.tensor([0.0, 1.0]))
 
 
 @pytest.mark.cuda

@@ -1,6 +1,6 @@
 """The port stands alone: it imports with JAX absent, loads no module of the
 JAX package, and its entry points run on the card by default (and raise
-where there is none)."""
+where there is none). ``chip_smoke.py`` is held to the same rule."""
 
 import json
 import os
@@ -50,8 +50,52 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert res["jax"] == []
 
 
+_SMOKE_PROBE = r"""
+import ast, importlib, json, sys
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.path.insert(0, ".")
+imported = ["chip_smoke"]
+importlib.import_module("chip_smoke")
+tree = ast.parse(open("chip_smoke.py").read())
+for node in ast.walk(tree):  # every import, those inside functions too
+    if isinstance(node, ast.Import):
+        for a in node.names:
+            importlib.import_module(a.name)
+            imported.append(a.name)
+    elif isinstance(node, ast.ImportFrom):
+        mod = importlib.import_module(node.module)
+        imported.append(node.module)
+        for a in node.names:
+            if not hasattr(mod, a.name):  # a submodule, not a name in mod
+                importlib.import_module(f"{node.module}.{a.name}")
+            imported.append(f"{node.module}.{a.name}")
+leaked = sorted(
+    m for m in sys.modules
+    if m == "parameter_server_tpu" or m.startswith("parameter_server_tpu.")
+)
+jax_loaded = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+                    if sys.modules[m] is not None)
+print(json.dumps({"imported": imported, "leaked": leaked, "jax": jax_loaded}))
+"""
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """Every module ``chip_smoke.py`` imports, at the top and inside its
+    functions, loads with JAX absent and loads no JAX-package module."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    out = subprocess.run(
+        [sys.executable, "-c", _SMOKE_PROBE], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=120, check=True,
+    )
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "chip_smoke" in res["imported"]
+    assert f"{PKG}.filters.fixed_point" in res["imported"]
+    assert res["leaked"] == []
+    assert res["jax"] == []
+
+
 def test_port_sources_never_import_the_jax_package():
-    for path in (ROOT / PKG).rglob("*.py"):
+    for path in [*(ROOT / PKG).rglob("*.py"), ROOT / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:
