@@ -11,11 +11,18 @@ the script exits nonzero without printing a result:
              source, all started together, linked into one library).
 3. kernels — hold each kernel against its plain PyTorch version on the card
              (rtol 1e-5, atol 1e-6; untouched table rows bit-identical;
-             hyperparameter sets with and without l2) and time both with
-             CUDA events beside the kernel's bound, cycling input sets that
+             hyperparameter sets with and without l2; K2 also on inputs
+             that start past a 16-byte boundary) and time both with CUDA
+             events beside the kernel's bound, cycling input sets that
              together exceed the L2 cache so each call finds its rows cold.
-             K3 (AdaGrad push) is also timed against torch.optim.Adagrad's
-             step on a sparse gradient of the same rows, the yardstick.
+             K2 (FTRL delta) is also timed warm, one input set repeated as
+             the worker step finds its rows in L2. K1 (FTRL push) is timed
+             at the server's push (~131k rows) and at 4x it (~523k rows),
+             each beside its access pattern's floor: PyTorch's gather of z
+             and n at the same keys (index_select), which moves the read
+             half of K1's sectors with none of its arithmetic. K3 (AdaGrad
+             push) is also timed against torch.optim.Adagrad's step on a
+             sparse gradient of the same rows, the yardstick.
 4. worker  — LinearMethod trains 12 minibatches (8192 examples, 32 nnz per
              example, 2^18 features) against a 2^24-key FTRL table; the
              first 3 steps' loss matches a CPU run of the port (rtol 1e-4).
@@ -91,8 +98,13 @@ SERVER_WORKERS, SERVER_DRAWS, SERVER_ROUNDS = 8, 1 << 14, 3
 SEED = 7
 # K1 timing: each set is the unique keys of 2^17 uniform draws into the
 # server table (bench.py's fused-push cell); 16 sets touch ~150 MB of
-# 32-byte sectors, three times the H100's 50 MB L2
-PUSH_SETS, PUSH_DRAWS = 16, 1 << 17
+# 32-byte sectors, three times the H100's 50 MB L2. The large push is 4x
+# that (2^19 draws, ~523k rows), more slots than the ~270k threads an
+# H100 holds resident at once
+PUSH_SETS, PUSH_DRAWS, LARGE_PUSH_DRAWS = 16, 1 << 17, 1 << 19
+# K2 timing: cold cycles this many input sets (~160 MB at the worker's
+# shape); warm repeats one set, ~20 MB that stay in L2 as in the step
+DELTA_SETS = 8
 # the embedding table: bench.py's fused_push_adagrad_v64 cell (vdim 64,
 # unique keys of 2^15 draws a push) moved from 2^20 to 2^22 rows, so w + n
 # are 2 GiB; K3 timing cycles 16 such key sets, ~25 MB of rows and
@@ -208,16 +220,21 @@ def bits_changed(a, b):
     return (a.view(torch.int32) != b.view(torch.int32)).reshape(a.shape[0], -1).any(1)
 
 
-def check_delta(fk, dev, gen, rows: int, vdim: int, hyper: dict = HYPER) -> float:
-    """K2 vs its plain version; w == 0 exactly (dz == g) where |z| <= l1."""
-    z = torch.randn((rows, vdim), generator=gen, device=dev) * 2
-    n = torch.rand((rows, vdim), generator=gen, device=dev) * 4
-    g = torch.randn((rows, vdim), generator=gen, device=dev)
+def check_delta(fk, dev, gen, rows: int, vdim: int, hyper: dict = HYPER,
+                offset: bool = False) -> float:
+    """K2 vs its plain version; w == 0 exactly (dz == g) where |z| <= l1.
+    ``offset``: z, n, g are contiguous views one element into their
+    storage, so no base address is 16-byte aligned."""
+    def make(scale, draw):
+        t = draw((rows * vdim + offset,), generator=gen, device=dev) * scale
+        return t[int(offset):].view(rows, vdim)
+
+    z, n, g = make(2, torch.randn), make(4, torch.rand), make(1, torch.randn)
     dz, dn = fk.ftrl_delta(z, n, g, **hyper)
     pz, pn = fk.ftrl_delta_plain(z, n, g, **hyper)
     torch.cuda.synchronize()
-    err = max(check_close(f"ftrl_delta dz {rows}x{vdim}", dz, pz),
-              check_close(f"ftrl_delta dn {rows}x{vdim}", dn, pn))
+    what = f"ftrl_delta {rows}x{vdim}{' offset' if offset else ''}"
+    err = max(check_close(f"{what} dz", dz, pz), check_close(f"{what} dn", dn, pn))
     inside = z.abs() <= hyper["l1"]
     if not inside.any() or not torch.equal(dz[inside], g[inside]):
         raise AssertionError("ftrl_delta: w must be exactly 0 where |z| <= l1")
@@ -268,6 +285,24 @@ def key_sets(rng, gen, dev, count: int, keys: int, draws: int, vdim: int):
         sets.append((torch.from_numpy(keys_np).to(dev),
                      torch.randn((len(keys_np), vdim), generator=gen, device=dev)))
     return sets, sum(k.shape[0] for k, _ in sets) / count
+
+
+def time_ftrl_push(fk, z, n, sets, u: float) -> dict:
+    """Device times (cuda_ms) of K1 and its plain version on the (K, 1)
+    tables ``z``, ``n``, cycling the touched sets so each call finds its
+    rows cold, beside the bound and the access pattern's floor: PyTorch's
+    gather of z and n at the same keys (``index_select``), which moves the
+    read half of K1's sectors with none of its arithmetic. The port never
+    calls it."""
+    count = len(sets)
+    k_ms, k_call = cuda_ms(lambda i: fk.ftrl_push(z, n, *sets[i % count], **HYPER), 200)
+    p_ms, p_call = cuda_ms(
+        lambda i: fk.ftrl_push_plain(z, n, *sets[i % count], **HYPER), PLAIN_ITERS)
+    g_ms, _ = cuda_ms(lambda i: (z.index_select(0, sets[i % count][0]),
+                                 n.index_select(0, sets[i % count][0])), 200)
+    b_ms, b_by = bound(u * (4 + 4 + 16), FTRL_FLOPS * u)
+    return {"rows": u, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "gather_floor_ms": g_ms, "call_ms": k_call, "plain_call_ms": p_call}
 
 
 def simulated_pushes(rng, num_keys: int, workers: int, draws: int, hot: int,
@@ -521,30 +556,36 @@ def main() -> int:
         check_delta(fk, dev, gen, 1 << 17, 8),
         check_delta(fk, dev, gen, u_worker, 1),
         check_delta(fk, dev, gen, 1 << 17, 8, HYPER_L2),
+        check_delta(fk, dev, gen, u_worker, 1, offset=True),
+        check_delta(fk, dev, gen, 4097, 1, HYPER_L2, offset=True),
     )
-    # time at the worker step's shape (U, 1), cycling input sets so the
-    # 50 MB L2 cache cannot hold them between calls
+    # time at the worker step's shape (U, 1): cold, cycling input sets so
+    # the 50 MB L2 cache cannot hold them between calls; warm, repeating
+    # one set, as the step finds the rows index_select has just gathered
     sets = [
         (torch.randn((u_worker, 1), generator=gen, device=dev),
          torch.rand((u_worker, 1), generator=gen, device=dev),
          torch.randn((u_worker, 1), generator=gen, device=dev))
-        for _ in range(8)
+        for _ in range(DELTA_SETS)
     ]
-    k_ms, k_call = cuda_ms(lambda i: fk.ftrl_delta(*sets[i % 8], **HYPER), 200)
-    p_ms, p_call = cuda_ms(lambda i: fk.ftrl_delta_plain(*sets[i % 8], **HYPER), PLAIN_ITERS)
+    k_ms, k_call = cuda_ms(lambda i: fk.ftrl_delta(*sets[i % DELTA_SETS], **HYPER), 200)
+    w_ms, _ = cuda_ms(lambda i: fk.ftrl_delta(*sets[0], **HYPER), 200)
+    p_ms, p_call = cuda_ms(
+        lambda i: fk.ftrl_delta_plain(*sets[i % DELTA_SETS], **HYPER), PLAIN_ITERS)
     b_ms, b_by = bound(20 * u_worker, FTRL_FLOPS * u_worker)
     kernels["ftrl_delta"] = {
         "name": "ftrl_delta", "route": "cuda",
         "source": "parameter_server_tpu_torch/csrc/ftrl.cu",
         "replaces": "parameter_server_tpu/ops/pallas_kernels.py:84",
         "shape": [u_worker, 1], "max_abs_err": err_delta,
-        "ms": k_ms, "plain_ms": p_ms,
+        "ms": k_ms, "warm_ms": w_ms, "plain_ms": p_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "call_ms": k_call, "plain_call_ms": p_call,
     }
     del sets
-    log(f"ftrl_delta ok: max abs err {err_delta:.3g}; device {k_ms:.5f} ms kernel, "
-        f"{p_ms:.5f} ms plain, bound {b_ms:.5f} ms ({b_by}) at ({u_worker}, 1); "
+    log(f"ftrl_delta ok: max abs err {err_delta:.3g} (offset views included); device "
+        f"{k_ms:.5f} ms kernel cold ({DELTA_SETS} sets cycled), {w_ms:.5f} ms warm (one "
+        f"set), {p_ms:.5f} ms plain, bound {b_ms:.5f} ms ({b_by}) at ({u_worker}, 1); "
         f"host-inclusive per call {k_call:.5f} ms kernel, {p_call:.5f} ms plain")
 
     err_push = []
@@ -555,30 +596,33 @@ def main() -> int:
         log(f"ftrl_push vdim {vdim} l2 {hyper['l2']} ok on {SERVER_KEYS} rows: "
             f"max abs err {err_push[-1]:.3g}; untouched rows bit-identical")
     # time at the server's shape (2^27, 1), cycling PUSH_SETS touched sets so
-    # each call finds its rows cold, as a push to a large table does
-    sets, u = key_sets(rng, gen, dev, PUSH_SETS, SERVER_KEYS, PUSH_DRAWS, 1)
+    # each call finds its rows cold, as a push to a large table does; at the
+    # table's push and at 4x it
     z = torch.zeros((SERVER_KEYS, 1), device=dev)
     n = torch.zeros((SERVER_KEYS, 1), device=dev)
-    k_ms, k_call = cuda_ms(
-        lambda i: fk.ftrl_push(z, n, *sets[i % PUSH_SETS], **HYPER), 200)
-    p_ms, p_call = cuda_ms(
-        lambda i: fk.ftrl_push_plain(z, n, *sets[i % PUSH_SETS], **HYPER), PLAIN_ITERS)
-    b_ms, b_by = bound(u * (4 + 4 + 16), FTRL_FLOPS * u)
+    push_times = [time_ftrl_push(fk, z, n, *key_sets(rng, gen, dev, PUSH_SETS, SERVER_KEYS,
+                                                    draws, 1))
+                  for draws in (PUSH_DRAWS, LARGE_PUSH_DRAWS)]
+    t, large = push_times
     kernels["ftrl_push"] = {
         "name": "ftrl_push", "route": "cuda",
         "source": "parameter_server_tpu_torch/csrc/ftrl.cu",
         "replaces": "parameter_server_tpu/ops/pallas_kernels.py:335",
-        "shape": [SERVER_KEYS, 1, u], "max_abs_err": max(err_push),
-        "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "call_ms": k_call, "plain_call_ms": p_call,
+        "shape": [SERVER_KEYS, 1, t["rows"]], "max_abs_err": max(err_push),
+        "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+        "call_ms": t["call_ms"], "plain_call_ms": t["plain_call_ms"],
+        "gather_floor_ms": t["gather_floor_ms"], "large_push_ms": large["ms"], "large_push": large,
     }
-    log(f"ftrl_push: device {k_ms:.5f} ms kernel, {p_ms:.5f} ms plain, bound "
-        f"{b_ms:.5f} ms ({b_by}; {u:.1f} rows into {SERVER_KEYS}, {PUSH_SETS} "
-        f"sets cycled); sector-granular traffic bound "
-        f"{u * 136 / HBM_BYTES_PER_S * 1e3:.5f} ms; host-inclusive per call "
-        f"{k_call:.5f} ms kernel, {p_call:.5f} ms plain")
-    del z, n, sets
+    for t in push_times:
+        log(f"ftrl_push: device {t['ms']:.5f} ms kernel, {t['plain_ms']:.5f} ms plain, "
+            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}; {t['rows']:.1f} rows into "
+            f"{SERVER_KEYS}, {PUSH_SETS} sets cycled); sector-granular traffic bound "
+            f"{t['rows'] * 136 / HBM_BYTES_PER_S * 1e3:.5f} ms; access-pattern floor "
+            f"(gather of z, n) {t['gather_floor_ms']:.5f} ms; host-inclusive per call "
+            f"{t['call_ms']:.5f} ms kernel, "
+            f"{t['plain_call_ms']:.5f} ms plain")
+    del z, n, push_times, t, large
     torch.cuda.empty_cache()
 
     err_ada = []

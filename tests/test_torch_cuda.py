@@ -38,12 +38,30 @@ def _rand(gen, shape, dev):
     return z, n, g
 
 
+def _offset_rand(gen, shape, dev, offset):
+    """``_rand``'s arrays as views ``offset`` elements into their storage."""
+    numel = int(np.prod(shape))
+    z, n, g = _rand(gen, (numel + offset,), dev)
+    return (t[offset:].view(shape) for t in (z, n, g))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hyper", HYPERS)
-@pytest.mark.parametrize("shape", [(4097, 1), (1000, 8), (3,)])
-def test_delta_kernel_matches_plain(dev, shape, hyper):
+@pytest.mark.parametrize("offset", ["none", "all", "z"])
+@pytest.mark.parametrize(
+    "shape", [(1,), (3,), (5,), (4097, 1), (1000, 8), ((1 << 20) + 1, 1)])
+def test_delta_kernel_matches_plain(dev, shape, offset, hyper):
+    """Every count % 4, more than one resident wave, and inputs that start
+    past a 16-byte boundary (all three, or z alone), which take the scalar
+    code for every element."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    z, n, g = _rand(gen, shape, dev)
+    if offset == "none":
+        z, n, g = _rand(gen, shape, dev)
+    else:
+        z, n, g = _offset_rand(gen, shape, dev, 1)
+        if offset == "z":
+            n, g = n.clone(), g.clone()
+        assert z.data_ptr() % 16 != 0
     before = fk.LAUNCHES["ftrl_delta"]
     dz, dn = fk.ftrl_delta(z, n, g, **hyper)
     assert fk.LAUNCHES["ftrl_delta"] == before + 1
@@ -54,28 +72,44 @@ def test_delta_kernel_matches_plain(dev, shape, hyper):
     assert torch.equal(dz[inside], g[inside])  # w exactly 0 inside l1
 
 
+# (vdim, K, real keys): U = keys + 3 pad slots + 2 slots out of range
+PUSH_CASES = [
+    (1, 1 << 16, 5000),
+    (1, 1 << 10, 20),  # U below one warp
+    (1, 1 << 16, 4094),  # U = 4099, not a multiple of a block's 256 slots
+    (1, 1 << 20, 300_000),  # U above the threads the card holds at once
+    (8, 1 << 16, 5000),
+    (16, 1 << 16, 5000),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hyper", HYPERS)
-@pytest.mark.parametrize("vdim", [1, 8, 16])
-def test_push_kernel_matches_plain(dev, vdim, hyper):
+@pytest.mark.parametrize("vdim,K,keys", PUSH_CASES)
+def test_push_kernel_matches_plain(dev, vdim, K, keys, hyper):
+    """Against the plain version on the touched rows; repeated pad slots
+    (idx 0, grad 0) keep row 0's bits; slots with idx -1 and K are skipped:
+    the guard rows just outside the (K, vdim) view keep their bits, and so
+    does every untouched row."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    K = 1 << 16
-    z, n, _ = _rand(gen, (K, vdim), dev)
-    uniq = np.unique(np.random.default_rng(3).integers(1, K, 5000))
-    idx = torch.from_numpy(np.concatenate([uniq, [0, 0, 0]]).astype(np.int32)).to(dev)
+    zg, ng, _ = _rand(gen, (K + 2, vdim), dev)
+    z, n = zg[1:-1], ng[1:-1]  # guard rows before and after the table
+    uniq = np.sort(np.random.default_rng(3).choice(np.arange(1, K), keys, replace=False))
+    idx_np = np.concatenate([uniq, [0, 0, 0], [-1, K]]).astype(np.int32)
+    idx = torch.from_numpy(idx_np).to(dev)
     g = torch.randn((idx.shape[0], vdim), generator=gen, device=dev)
-    g[-3:] = 0
-    zk, nk = z.clone(), n.clone()
+    g[-5:-2] = 0
+    zk, nk = zg.clone(), ng.clone()
     before = fk.LAUNCHES["ftrl_push"]
-    fk.ftrl_push(zk, nk, idx, g, **hyper)
+    fk.ftrl_push(zk[1:-1], nk[1:-1], idx, g, **hyper)
     assert fk.LAUNCHES["ftrl_push"] == before + 1
-    untouched = torch.ones(K, dtype=torch.bool, device=dev)
-    untouched[idx[:-3].long()] = False  # row 0 (the pad row) stays in
-    assert torch.equal(zk[untouched].view(torch.int32), z[untouched].view(torch.int32))
-    assert torch.equal(nk[untouched].view(torch.int32), n[untouched].view(torch.int32))
-    fk.ftrl_push_plain(z, n, idx, g, **hyper)
-    torch.testing.assert_close(zk, z, **TOL)
-    torch.testing.assert_close(nk, n, **TOL)
+    untouched = torch.ones(K + 2, dtype=torch.bool, device=dev)
+    untouched[torch.from_numpy(uniq + 1).to(dev)] = False  # pad row 0 and guards stay in
+    assert torch.equal(zk[untouched].view(torch.int32), zg[untouched].view(torch.int32))
+    assert torch.equal(nk[untouched].view(torch.int32), ng[untouched].view(torch.int32))
+    fk.ftrl_push_plain(z, n, idx[:-2], g[:-2], **hyper)  # in range only
+    torch.testing.assert_close(zk, zg, **TOL)
+    torch.testing.assert_close(nk, ng, **TOL)
 
 
 @pytest.mark.cuda

@@ -44,8 +44,11 @@ def _znG(seed, shape):
 
 
 @pytest.mark.parametrize("hyper", HYPERS)
-@pytest.mark.parametrize("shape", [(300, 2), (1000, 1), (64, 8)])
+@pytest.mark.parametrize(
+    "shape", [(300, 2), (1000, 1), (64, 8), (9, 1), (6, 3), (4099, 1)])
 def test_delta_plain_matches_pallas(interpret_mode, hyper, shape):
+    """Also at counts whose last 1, 2 or 3 elements the CUDA kernel takes
+    in scalar code after its float4 body."""
     z, n, g = _znG(3, shape)
     jdz, jdn = ftrl_delta_pallas(jnp.asarray(z), jnp.asarray(n), jnp.asarray(g), **hyper)
     args = [torch.from_numpy(a) for a in (z, n, g)]
