@@ -50,17 +50,43 @@ the script exits nonzero without printing a result:
              every payload and the pull of every touched key match the same
              sequence on the CPU (plain K4 with the same seeds).
 
-Launch counters are reset just before each of phases 4-7 and the round
-trip of phase 8, and read just after: each must have launched its
-kernels. The line before the last is the kernels' JSON summary; the last
-line is {"ok": true, "device": {...}}. Imports nothing of JAX.
+9. wide_deep — K1 and K3 against their plain versions at the W&D push's
+             shapes (10^8-row tables, vdim 1 and 16); then WideDeep at
+             BASELINE's 100M-row embedding table (emb_dim 16, MLP [32, 16],
+             AdaGrad eta 0.05, Adam 1e-3, FTRL alpha 0.1, beta 1, l1 0.5)
+             on 32 synthetic CTR minibatches of 8192 rows with Criteo's 39
+             fields (Zipf keys over 2^24 features, hashed), 4 steps a
+             window entry, max_delay 4: one ftrl_push and one adagrad_push
+             a step; progressive AUC > 0.5; the first 3 steps' loss, the
+             touched rows of the four tables and the MLP match a CPU run
+             that holds only those rows (E2E_RTOL); the host's init time of
+             the 10^8 x 16 draw; a profile of one window entry with K1's and
+             K3's device times at this shape.
+10. word2vec — SGNS at a 2^20-word vocabulary (dim 64, window 2, 5
+             negatives, AdaGrad eta 0.3, batch 8192, 8 steps a window entry,
+             max_delay 8) on 2^20 Zipf-distributed tokens: the first 2
+             steps' losses and the touched rows after step 1 match a CPU
+             run (E2E_RTOL; W2V_E2E_STEPS says why not 3), and the drift
+             after 3 steps is logged beside a reordered CPU run's; two
+             epochs (epoch 2's mean loss below epoch 1's) and train_files
+             on the same corpus as a .npy (pipeline_depth 2) counting every
+             pair, with no kernel launched; a profile of one window entry.
+
+Launch counters are reset just before each of phases 4-7, the round trip
+of phase 8 and the training runs of phases 9 and 10, and read just after:
+each must have launched its kernels (phase 10: none). The line before the
+last is the kernels' JSON summary; the last line is {"ok": true,
+"device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -130,6 +156,38 @@ PLAIN_QUANT_ITERS, ENCODE_ITERS = 4, 100
 # the decode, a few units of 2^-24 of the array's magnitude (the decode's
 # product alone rounds by up to 2^-24 of the span, 0.4% of an int16 step)
 ROUNDING_ULPS = 8
+# Wide&Deep at BASELINE's "100M-row embedding table" with the [wd] defaults
+# and WideDeep's FTRL wide half; synthetic CTR rows of Criteo's 39 fields
+# (13 integer + 26 categorical) drawn from make_sparse_logistic's Zipf keys
+# over 2^24 features and hashed into the table; the CLI's batch builder
+# (training_builder: power-of-two entry buckets)
+WD_KEYS, WD_EMB_DIM, WD_HIDDEN, WD_EMB_ETA, WD_MLP_LR = 10**8, 16, [32, 16], 0.05, 1e-3
+WD_FTRL = {"alpha": 0.1, "beta": 1.0, "lambda_l1": 0.5, "lambda_l2": 0.0}
+WD_BATCH, WD_FIELDS, WD_FEATURES, WD_STEPS = 8192, 39, 1 << 24, 32
+WD_STEPS_PER_CALL, WD_MAX_DELAY, WD_REPORT_EVERY = 4, 4, 2
+# word2vec at the [w2v] defaults, a vocabulary near the One Billion Word
+# benchmark's ~793k words, bench.py's 2^20-token corpus and dispatch shape;
+# ids Zipf-distributed (word frequencies follow Zipf) over the vocabulary:
+# truncated to it, since clipping numpy's zipf draws would pile the tail's
+# ~24% of the mass onto the last id
+W2V_VOCAB, W2V_DIM, W2V_WINDOW, W2V_NEG, W2V_ETA = 1 << 20, 64, 2, 5, 0.3
+W2V_BATCH, W2V_STEPS_PER_CALL, W2V_MAX_DELAY = 8192, 8, 8
+W2V_TOKENS, W2V_ZIPF = 1 << 20, 1.1
+# the apps' first steps on the card against the CPU: losses within
+# E2E_RTOL; state, each element within E2E_RTOL of itself plus E2E_RTOL of
+# its table's (word2vec: its row's) largest element. The card sums the
+# duplicate contributions of a segment sum (a hot key's gradient, a hot
+# word's deltas) in another order, and a sum that nearly cancels keeps the
+# absolute rounding error of its largest terms.
+E2E_STEPS, E2E_RTOL = 3, 1e-4
+# word2vec is held to its first step's state and first 2 steps' losses:
+# from its second step on, AdaGrad's first touch of an input row
+# (n = 0: a step of eta * sign(g), whatever |g|) turns the rounding noise
+# of a near-zero gradient into a +-eta step, and by the third step the
+# hot words' summed deltas diverge. A CPU run that sums the same deltas in
+# another order (each batch's pairs permuted) shows how far: its drift
+# after E2E_STEPS steps is logged beside the card's
+W2V_E2E_STEPS = 2
 
 
 def log(msg: str) -> None:
@@ -178,9 +236,9 @@ def cuda_ms(fn, iters: int) -> tuple[float, float]:
 
 
 def profile(fn) -> tuple[float, float, list]:
-    """(wall ms, device-busy ms, top device-time entries) of ``fn`` under
-    torch.profiler (CUPTI): the device's busy time is the sum of the
-    self device times of everything it ran."""
+    """(wall ms, device-busy ms, device rows) of ``fn`` under torch.profiler
+    (CUPTI): the device's busy time is the sum of the self device times of
+    everything it ran. Rows are (name, device ms, count), longest first."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as prof_ctx
 
@@ -191,21 +249,33 @@ def profile(fn) -> tuple[float, float, list]:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side rows only (kernels, copies, fills): CPU-op rows repeat
-    # the time of the kernels they launched
+    # the time of the kernels they launched, and so do the device ranges of
+    # user annotations (Optimizer.step#Adam.step)
     rows = [
-        (e.key, e.self_device_time_total / 1e3)
+        (e.key, e.self_device_time_total / 1e3, e.count)
         for e in prof.key_averages()
         if str(e.device_type).endswith(("CUDA", "PrivateUse1"))
+        and not getattr(e, "is_user_annotation", False)
     ]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-    busy_ms = sum(t for _, t in rows)
-    return wall_ms, busy_ms, [(k[:60], round(t, 4)) for k, t in rows[:8]]
+    return wall_ms, sum(t for _, t, _ in rows), rows
 
 
-def log_profile(what: str, fn) -> None:
-    wall_ms, busy_ms, top = profile(fn)
+def log_profile(what: str, fn) -> list:
+    wall_ms, busy_ms, rows = profile(fn)
+    top = [(k[:60], round(t, 4)) for k, t, _ in rows[:8]]
     log(f"{what}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle "
         f"share {1 - busy_ms / wall_ms:.3f}); top device time: {top}")
+    return rows
+
+
+def kernel_row(rows: list, kernel: str) -> tuple[float, int]:
+    """(device ms per launch, launches) of ``kernel`` in a profile's rows."""
+    hits = [(t, c) for k, t, c in rows if kernel in k]
+    if not hits:
+        raise AssertionError(f"the profile shows no {kernel} on the device")
+    ms, count = sum(t for t, _ in hits), sum(c for _, c in hits)
+    return ms / count, count
 
 
 def check_close(name: str, got, want) -> float:
@@ -244,7 +314,8 @@ def check_delta(fk, dev, gen, rows: int, vdim: int, hyper: dict = HYPER,
 def check_push(name, kernel, plain, dev, gen, idx_np, rows: int, vdim: int,
                hyper: dict, zero_pad_row: bool = False) -> float:
     """A fused push kernel vs its plain version on a ``rows``-row table
-    pair with random state, plus repeated pad slots; rows the push does
+    pair with random state, plus repeated pad slots (idx 0, zero
+    gradient, as the key set's own pad slots are made); rows the push does
     not touch (and the pad row) keep their bits. ``zero_pad_row`` zeroes
     row 0, the invariant AdaGrad's pad slots rely on when l2 > 0."""
     pads = 37
@@ -252,7 +323,7 @@ def check_push(name, kernel, plain, dev, gen, idx_np, rows: int, vdim: int,
         np.concatenate([idx_np, np.zeros(pads, idx_np.dtype)]).astype(np.int32)
     ).to(dev)
     g = torch.randn((idx.shape[0], vdim), generator=gen, device=dev)
-    g[-pads:] = 0.0
+    g[idx == 0] = 0.0  # every pad slot: these and any the key set carries
     a0 = torch.randn((rows, vdim), generator=gen, device=dev) * 2
     b0 = torch.rand((rows, vdim), generator=gen, device=dev) * 4
     if zero_pad_row:
@@ -451,6 +522,43 @@ def codec_round_trip(store, rounds, device, remap=None):
     return wire, worst, payloads
 
 
+def check_e2e(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """The card's state against the CPU run's (see E2E_RTOL); returns the
+    largest |got - want| over the table's largest |want|."""
+    got, want = got.double(), want.double()
+    scale = want.abs().max().item() if want.numel() else 0.0
+    err = (got - want).abs()
+    if not bool((err <= E2E_RTOL * (want.abs() + scale)).all()):
+        raise AssertionError(f"{name}: card vs CPU max abs err {err.max().item()} "
+                             f"(table scale {scale})")
+    return err.max().item() / scale if scale else 0.0
+
+
+def check_rows(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Row by row: the largest |got - want| of a row within E2E_RTOL of the
+    row's largest |want|. Returns the worst row's error over that scale."""
+    err, scale = row_drift(got, want)
+    bad = err > E2E_RTOL * scale
+    if bool(bad.any()):
+        r = int(bad.nonzero()[0, 0])
+        raise AssertionError(f"{name}: {int(bad.sum())} rows off; row {r}: card vs CPU "
+                             f"{err[r].item()} (row scale {scale[r].item()})")
+    return (err / scale.clamp(min=1e-30)).max().item() if err.numel() else 0.0
+
+
+def row_drift(got: torch.Tensor, want: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(largest |got - want| of each row, largest |want| of each row)."""
+    got, want = got.double(), want.double()
+    return (got - want).abs().amax(1), want.abs().amax(1)
+
+
+def zipf_ids(rng, a: float, vocab: int, n: int) -> np.ndarray:
+    """``n`` ids with P(id = k) proportional to (k + 1)^-a, k < vocab."""
+    cdf = np.cumsum(np.arange(1, vocab + 1, dtype=np.float64) ** -a)
+    return np.minimum(np.searchsorted(cdf, rng.random(n) * cdf[-1], side="right"),
+                      vocab - 1)
+
+
 def with_pad_row(rows: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.zeros(1, rows.shape[1]), rows])
 
@@ -464,6 +572,274 @@ def synthetic_ratings(rng):
     items = rng.integers(0, MF_ITEMS, MF_RATINGS)
     r = 3.5 + np.sum(ut[users] * vt[items], axis=1) + rng.normal(scale=0.3, size=MF_RATINGS)
     return users, items, np.clip(r, 0.5, 5.0).astype(np.float32)
+
+
+def phase_wide_deep(dev, gen) -> tuple[dict, dict, float, float]:
+    """Phase 9: K1 and K3 against their plain versions at the W&D push's
+    shapes; the first steps against a CPU run; then the main path,
+    ``WideDeep.train`` over WD_STEPS batches, with its launch counts, and a
+    profile of one window entry. Returns (launches, the kernels' times at
+    this shape, K1's and K3's max abs errors)."""
+    from parameter_server_tpu_torch.data.batch import training_builder
+    from parameter_server_tpu_torch.data.synthetic import make_sparse_logistic
+    from parameter_server_tpu_torch.models import wide_deep as wdm
+    from parameter_server_tpu_torch.models.linear import batch_to_device
+    from parameter_server_tpu_torch.ops import adagrad_kernels as ak
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.utils.config import PSConfig
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    t0 = time.perf_counter()
+    wd_cfg = PSConfig()
+    wd_cfg.data.num_keys = WD_KEYS
+    wd_cfg.solver.minibatch = WD_BATCH
+    wd_cfg.data.max_nnz_per_example = 4 * WD_FIELDS
+    wd_builder = training_builder(wd_cfg)
+    wd_labels, wd_keys, wd_vals, _ = make_sparse_logistic(
+        WD_BATCH * WD_STEPS, WD_FEATURES, nnz_per_example=WD_FIELDS, noise=0.4, seed=SEED + 2)
+    wd_batches = [
+        wd_builder.build(wd_labels[i:i + WD_BATCH], wd_keys[i:i + WD_BATCH],
+                         wd_vals[i:i + WD_BATCH])
+        for i in range(0, WD_BATCH * WD_STEPS, WD_BATCH)
+    ]
+    del wd_labels, wd_keys, wd_vals
+    slots = [b.unique_keys.shape[0] for b in wd_batches]
+    uniq = [b.num_unique for b in wd_batches]
+    log(f"wide_deep set-up data in {time.perf_counter() - t0:.2f} s: {WD_STEPS} batches "
+        f"(B, NNZ, U) from {wd_batches[0].shape} to {wd_batches[-1].shape}; "
+        f"{np.mean([b.num_entries for b in wd_batches]):.1f} entries and "
+        f"{np.mean(uniq):.1f} distinct rows (pad row included) a batch in "
+        f"{np.mean(slots):.1f} push slots; CTR {np.mean([b.labels.mean() for b in wd_batches]):.4f}")
+    # K1 and K3 against their plain versions at this path's shapes: the
+    # first step's push (its keys and pad slots) into 10^8-row tables
+    wd_hyper = {"alpha": WD_FTRL["alpha"], "beta": WD_FTRL["beta"],
+                "l1": WD_FTRL["lambda_l1"], "l2": WD_FTRL["lambda_l2"]}
+    wd_ada = {"eta": WD_EMB_ETA, "eps": ADAGRAD["eps"], "l2": 0.0}
+    idx0 = wd_batches[0].unique_keys
+    err_wd_k1 = check_push("ftrl_push", fk.ftrl_push, fk.ftrl_push_plain, dev, gen, idx0,
+                           WD_KEYS, 1, wd_hyper)
+    torch.cuda.empty_cache()
+    err_wd_k3 = check_push("adagrad_push", ak.adagrad_push, ak.adagrad_push_plain, dev, gen,
+                           idx0, WD_KEYS, WD_EMB_DIM, wd_ada)
+    torch.cuda.empty_cache()
+    log(f"wide_deep pushes ok against the plain versions on {WD_KEYS} rows at "
+        f"{len(idx0)} slots: ftrl_push (vdim 1) max abs err {err_wd_k1:.3g}, adagrad_push "
+        f"(vdim {WD_EMB_DIM}) {err_wd_k3:.3g}")
+
+    def make_wd(num_keys: int, device, reporter=None):
+        return wdm.WideDeep(
+            num_keys, emb_dim=WD_EMB_DIM, hidden=WD_HIDDEN, ftrl_kw=WD_FTRL,
+            emb_eta=WD_EMB_ETA, mlp_lr=WD_MLP_LR, seed=SEED,
+            reporter=reporter or ProgressReporter(print_fn=lambda s: None),
+            steps_per_call=WD_STEPS_PER_CALL, max_delay=WD_MAX_DELAY, device=device,
+        )
+
+    wd_rep = ProgressReporter(print_fn=lambda s: log(f"wide_deep | {s}"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wd = make_wd(WD_KEYS, dev, wd_rep)
+    torch.cuda.synchronize()
+    t_wd_init = time.perf_counter() - t0
+    log(f"wide_deep init: the {WD_KEYS} x {WD_EMB_DIM} embedding draw (host float64 in "
+        f"chunks of {wdm.INIT_CHUNK_ROWS} rows, cast, copied) and the tables in "
+        f"{t_wd_init:.2f} s; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    # the first steps on the card against a CPU run that holds only the
+    # rows those batches touch (a 10^8-row table on the host is 12.8 GB),
+    # remapped into a compact table, from the card's initial rows
+    first = wd_batches[:E2E_STEPS]
+    union = np.unique(np.concatenate([b.unique_keys[1:b.num_unique] for b in first]))
+    sel = torch.from_numpy(union.astype(np.int64)).to(dev)
+
+    def rows_at(state):
+        return {k: with_pad_row(v.index_select(0, sel).cpu()).numpy() for k, v in state.items()}
+
+    wd_cpu = make_wd(len(union) + 1, "cpu")
+    wd_cpu.load_state(rows_at(wd.wide_state), rows_at(wd.emb_state), wd.mlp.layers())
+
+    def remap(b):
+        uk = b.unique_keys.astype(np.int64)
+        return dataclasses.replace(
+            b, unique_keys=np.where(uk == 0, 0, np.searchsorted(union, uk) + 1).astype(np.int32))
+
+    for step, b in enumerate(first):
+        losses = [
+            float(wdm.wd_train_step(a.wide_up, a.emb_up, a.wide_state, a.emb_state, a.mlp,
+                                    a.opt, batch_to_device(ab, a.device), ab.num_examples)[0])
+            for a, ab in ((wd, b), (wd_cpu, remap(b)))
+        ]
+        if not np.isclose(losses[0], losses[1], rtol=E2E_RTOL, atol=0.0):
+            raise AssertionError(f"wide_deep step {step}: loss {losses[0]} on the card vs "
+                                 f"{losses[1]} on the CPU")
+    err_wd_state = 0.0
+    for table in ("wide_state", "emb_state"):
+        for k, v in getattr(wd, table).items():
+            err_wd_state = max(err_wd_state, check_e2e(
+                f"wide_deep {table}[{k!r}]", v.index_select(0, sel).cpu(),
+                getattr(wd_cpu, table)[k][1:]))
+    for i, (x, y) in enumerate(zip(wd.mlp.layers(), wd_cpu.mlp.layers())):
+        for k in ("W", "b"):
+            err_wd_state = max(err_wd_state, check_e2e(
+                f"wide_deep mlp {k}{i}", torch.from_numpy(x[k]), torch.from_numpy(y[k])))
+    del wd_cpu
+    torch.cuda.synchronize()
+    fk.reset_launches()
+    ak.reset_launches()
+    t0 = time.perf_counter()
+    wd.train(wd_batches, report_every=WD_REPORT_EVERY)
+    torch.cuda.synchronize()
+    t_wd = time.perf_counter() - t0
+    wd_launches = {**fk.LAUNCHES, **ak.LAUNCHES}
+    if (wd_launches["ftrl_push"], wd_launches["adagrad_push"], wd_launches["ftrl_delta"]) != (
+            WD_STEPS, WD_STEPS, 0):
+        raise AssertionError(f"wide_deep phase launched {wd_launches} in {WD_STEPS} steps, "
+                             "want one ftrl_push and one adagrad_push a step")
+    hist = list(wd_rep.history)
+    if not all(np.isfinite(r["objv"]) for r in hist) or not hist[-1]["auc"] > 0.5:
+        raise AssertionError(f"wide_deep: bad progress {hist[-1]}")
+    wd_ex_s = sorted(r["ex_per_sec"] for r in hist)
+    log(f"wide_deep ok: {WD_STEPS} steps ({WD_STEPS_PER_CALL} a window entry, max_delay "
+        f"{WD_MAX_DELAY}) in {t_wd:.3f} s; median {wd_ex_s[len(wd_ex_s) // 2]:.1f} ex/s over "
+        f"{len(hist)} windows of {WD_REPORT_EVERY * WD_STEPS_PER_CALL} steps {wd_ex_s}; "
+        f"progressive AUC {hist[-1]['auc']:.4f}; loss of steps 1-{E2E_STEPS}, the touched "
+        f"rows of z, n, w, n and the MLP match the CPU run (largest error "
+        f"{err_wd_state:.3g} of its table's scale); launches {wd_launches}")
+    rows = log_profile(f"wide_deep profile, {WD_STEPS_PER_CALL} steps (one window entry)",
+                       lambda: wd.train(wd_batches[:WD_STEPS_PER_CALL], report_every=1))
+    u_prof = float(np.mean(slots[:WD_STEPS_PER_CALL]))
+    r_prof = float(np.mean(uniq[:WD_STEPS_PER_CALL]))
+    # bounds at this shape: each slot's index and gradient read once, each
+    # distinct row's two tables read and written once (pads all land on row 0)
+    wd_kernels = {}
+    for name, kernel, vdim, flops in (("ftrl_push", "ftrl_push_kernel", 1, FTRL_FLOPS),
+                                      ("adagrad_push", "adagrad_push_kernel", WD_EMB_DIM,
+                                       ADAGRAD_FLOPS)):
+        ms, count = kernel_row(rows, kernel)
+        b_ms, b_by = bound(u_prof * (4 + 4 * vdim) + r_prof * 16 * vdim, flops * r_prof * vdim)
+        wd_kernels[name] = {"ms": ms, "profiled_launches": count, "bound_ms": b_ms,
+                            "bound_by": b_by, "slots": u_prof, "rows": r_prof, "vdim": vdim}
+        log(f"wide_deep {name}: {ms:.5f} ms a launch on the device ({count} in the "
+            f"profile), bound {b_ms:.5f} ms ({b_by}) at {u_prof:.1f} slots, {r_prof:.1f} "
+            f"distinct rows x {vdim} of {WD_KEYS}")
+    return wd_launches, wd_kernels, err_wd_k1, err_wd_k3
+
+
+def phase_word2vec(dev) -> None:
+    """Phase 10: SGNS at a 2^20-word vocabulary, plain PyTorch (duplicate
+    ids push one delta each, which K3's one-key-a-slot contract excludes):
+    the first steps against a CPU run, two epochs and a streaming epoch
+    from a .npy corpus with no kernel launched, and a profile of one
+    window entry."""
+    from parameter_server_tpu_torch.models import word2vec as w2vm
+    from parameter_server_tpu_torch.ops import adagrad_kernels as ak
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.ops import quantize_kernels as qk
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    t0 = time.perf_counter()
+    corpus = zipf_ids(np.random.default_rng(SEED + 3), W2V_ZIPF, W2V_VOCAB, W2V_TOKENS)
+
+    def make_w2v(device, reporter=None):
+        return w2vm.Word2Vec(
+            W2V_VOCAB, dim=W2V_DIM, eta=W2V_ETA, num_negatives=W2V_NEG, window=W2V_WINDOW,
+            seed=SEED, reporter=reporter or ProgressReporter(print_fn=lambda s: None),
+            max_delay=W2V_MAX_DELAY, steps_per_call=W2V_STEPS_PER_CALL, device=device,
+        )
+
+    w2v_rep = ProgressReporter(print_fn=lambda s: log(f"word2vec | {s}"))
+    w2v, w2v_cpu, w2v_reordered = make_w2v(dev, w2v_rep), make_w2v("cpu"), make_w2v("cpu")
+    # the first batches as train_epoch(seed=0) draws them
+    sampler = w2vm.NegativeSampler(np.bincount(corpus, minlength=W2V_VOCAB), seed=0)
+    centers, contexts = w2v.make_pairs(corpus)
+    order = np.random.default_rng(0).permutation(len(centers))
+    first = [w2v._make_batch(centers, contexts, sampler,
+                             order[s * W2V_BATCH:(s + 1) * W2V_BATCH]) for s in range(E2E_STEPS)]
+    log(f"word2vec set-up in {time.perf_counter() - t0:.2f} s: {W2V_TOKENS} tokens, "
+        f"{len(np.unique(corpus))} distinct of {W2V_VOCAB}, the hottest "
+        f"{np.bincount(corpus).max() / W2V_TOKENS:.4f} of the corpus; {len(centers)} pairs; "
+        f"first batch: {len(np.unique(first[0]['center']))} distinct of {W2V_BATCH} centers")
+    perm = np.random.default_rng(SEED).permutation(W2V_BATCH)
+    runs = ((w2v, slice(None)), (w2v_cpu, slice(None)), (w2v_reordered, perm))
+
+    def touched(batches):
+        return (np.unique(np.concatenate([b["center"] for b in batches])),
+                np.unique(np.concatenate([np.concatenate([b["context"][:, None], b["negatives"]],
+                                                         1).ravel() for b in batches])))
+
+    def rows(app, table, k, ids):
+        return getattr(app, table)[k].index_select(0, torch.from_numpy(ids.astype(np.int64))
+                                                   .to(getattr(app, table)[k].device)).cpu()
+
+    step_losses, err_w2v_state = [], 0.0
+    for step, b in enumerate(first):
+        step_losses.append([
+            float(w2vm.sgns_train_step(a.in_up, a.out_up, a.in_state, a.out_state,
+                                       {k: torch.from_numpy(v[order]).to(a.device)
+                                        for k, v in b.items()}))
+            for a, order in runs
+        ])
+        if step == 0:
+            for table, ids in zip(("in_state", "out_state"), touched(first[:1])):
+                for k in ("w", "n"):
+                    err_w2v_state = max(err_w2v_state, check_rows(
+                        f"word2vec {table}[{k!r}] after step 1", rows(w2v, table, k, ids),
+                        rows(w2v_cpu, table, k, ids)))
+    for step, (card, cpu, _) in enumerate(step_losses[:W2V_E2E_STEPS]):
+        if not np.isclose(card, cpu, rtol=E2E_RTOL, atol=0.0):
+            raise AssertionError(f"word2vec step {step}: loss {card} on the card vs {cpu} "
+                                 "on the CPU")
+    drift = {}
+    for table, ids in zip(("in_state", "out_state"), touched(first)):
+        for k in ("w", "n"):
+            want = rows(w2v_cpu, table, k, ids)
+            drift[f"{table}[{k}]"] = [
+                round((err / scale.clamp(min=1e-30)).max().item(), 6)
+                for err, scale in (row_drift(rows(a, table, k, ids), want)
+                                   for a in (w2v, w2v_reordered))]
+    log(f"word2vec first steps: losses (card, CPU, CPU reordered) {step_losses}; after "
+        f"step {E2E_STEPS}, the largest row drift from the CPU run over the row's scale "
+        f"(card, CPU reordered): {drift}")
+    del w2v_cpu, w2v_reordered
+    torch.cuda.synchronize()
+    fk.reset_launches()
+    ak.reset_launches()
+    qk.reset_launches()
+    t0 = time.perf_counter()
+    epoch_loss = [w2v.train_epoch(corpus, batch_size=W2V_BATCH, seed=ep) for ep in range(2)]
+    torch.cuda.synchronize()
+    t_w2v = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "corpus.npy")
+        np.save(path, corpus)
+        t0 = time.perf_counter()
+        files_loss = w2v.train_files([path], batch_size=W2V_BATCH, epochs=1, seed=0,
+                                     pipeline_depth=2)
+        torch.cuda.synchronize()
+        t_files = time.perf_counter() - t0
+    w2v_launches = {**fk.LAUNCHES, **ak.LAUNCHES, **qk.LAUNCHES}
+    if any(w2v_launches.values()):
+        raise AssertionError(f"word2vec phase launched {w2v_launches}, want no kernel")
+    if not np.isfinite(epoch_loss).all() or not epoch_loss[1] < epoch_loss[0]:
+        raise AssertionError(f"word2vec: epoch mean loss {epoch_loss} must be finite and fall")
+    files_rec = w2v_rep.history[-1]
+    all_pairs = 2 * (2 * W2V_TOKENS - 3)  # window 2: every pair of the corpus once
+    if files_rec["examples"] != all_pairs or not np.isfinite(files_loss):
+        raise AssertionError(f"word2vec train_files: {files_rec['examples']} pairs (want "
+                             f"{all_pairs}), mean loss {files_loss}")
+    pairs_s = [r["ex_per_sec"] for r in w2v_rep.history]
+    log(f"word2vec ok: 2 epochs of {len(centers) // W2V_BATCH} steps ({W2V_STEPS_PER_CALL} a "
+        f"window entry, max_delay {W2V_MAX_DELAY}) in {t_w2v:.3f} s, {pairs_s[0]:.1f} / "
+        f"{pairs_s[1]:.1f} pairs/s, mean loss {epoch_loss[0]:.6f} -> {epoch_loss[1]:.6f}; "
+        f"train_files (.npy, pipeline_depth 2) {files_rec['examples']} pairs in "
+        f"{t_files:.3f} s (vocabulary count included), {pairs_s[2]:.1f} pairs/s, mean loss "
+        f"{files_loss:.6f}; loss of steps 1-{W2V_E2E_STEPS} and the touched rows after step 1 "
+        f"match the CPU run (largest row error {err_w2v_state:.3g} of the row's scale); "
+        f"launches "
+        f"{w2v_launches}")
+    micro = [w2v._make_batch(centers, contexts, sampler,
+                             order[s * W2V_BATCH:(s + 1) * W2V_BATCH])
+             for s in range(W2V_STEPS_PER_CALL)]
+    log_profile(f"word2vec profile, {W2V_STEPS_PER_CALL} steps (one window entry)",
+                lambda: float(w2v._dispatch(micro, W2V_STEPS_PER_CALL)))
 
 
 def main() -> int:
@@ -909,11 +1285,26 @@ def main() -> int:
         "launches": codec_launches["quantize_stochastic"], "times": q_times[1:],
     }
 
-    kernels["ftrl_push"]["launches"] = server_launches
+    # 9. wide_deep: K1 pushes the wide table, K3 the embedding table
+    wd_launches, wd_kernels, err_wd_k1, err_wd_k3 = phase_wide_deep(dev, gen)
+    torch.cuda.empty_cache()
+    # 10. word2vec: plain PyTorch, no kernel
+    phase_word2vec(dev)
+    torch.cuda.empty_cache()
+
+    kernels["ftrl_push"]["max_abs_err"] = max(kernels["ftrl_push"]["max_abs_err"], err_wd_k1)
+    kernels["adagrad_push"]["max_abs_err"] = max(kernels["adagrad_push"]["max_abs_err"],
+                                                 err_wd_k3)
+    kernels["ftrl_push"]["launches_by_path"] = {
+        "server": server_launches, "wide_deep": wd_launches["ftrl_push"]}
+    kernels["ftrl_push"]["launches"] = sum(kernels["ftrl_push"]["launches_by_path"].values())
+    kernels["ftrl_push"]["wide_deep"] = wd_kernels["ftrl_push"]
+    kernels["adagrad_push"]["wide_deep"] = wd_kernels["adagrad_push"]
     kernels["ftrl_delta"]["launches"] = worker_launches["ftrl_delta"]
     kernels["adagrad_push"]["launches_by_path"] = {
         "mf": mf_launches["adagrad_push"], "embedding_server": emb_launches,
-        "codec_round_trip": codec_launches["adagrad_push"]}
+        "codec_round_trip": codec_launches["adagrad_push"],
+        "wide_deep": wd_launches["adagrad_push"]}
     kernels["adagrad_push"]["launches"] = sum(kernels["adagrad_push"]["launches_by_path"].values())
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")

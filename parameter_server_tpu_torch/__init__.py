@@ -11,18 +11,19 @@ Package layout (only what is ported so far):
     utils/      config, hashing, checkpoints, progress table
     filters/    the count-min frequency filter of the training ingest, and
                 the gradient codecs (fixed-point, per-segment)
-    data/       parsers, localizer, minibatch reader, synthetic data
+    data/       parsers, localizer, minibatch reader, prefetch pipeline,
+                synthetic data
     kv/         the KV store: pull/push/updaters
     ops/        CSR segment sums and the hand-written CUDA kernels (csrc/)
-    parallel/   the SSP dispatch window
-    models/     linear_method (sparse logistic regression, async FTRL) and
-                matrix_fac (AdaGrad factor tables, single-device)
+    parallel/   the SSP dispatch window, the workload (file shard) pool
+    models/     linear_method (sparse logistic regression, async FTRL),
+                matrix_fac (AdaGrad factor tables), wide_deep (FTRL wide +
+                AdaGrad embeddings + MLP) and word2vec (SGNS), single-device
     cli.py      the ``train`` / ``evaluate`` commands
 
 Entry points (``KVStore``, ``LinearMethod``, ``MatrixFactorization``,
-``cli --device``) run on
-``cuda`` unless the caller asks for ``cpu``; asking for the card where
-there is none raises.
+``WideDeep``, ``Word2Vec``, ``cli --device``) run on ``cuda`` unless the
+caller asks for ``cpu``; asking for the card where there is none raises.
 """
 
 __version__ = "0.1.0"

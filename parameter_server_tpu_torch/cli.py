@@ -1,14 +1,15 @@
 """Command-line entry point of the port.
 
-The single-host ``linear_method`` and ``matrix_fac`` apps: a config file
-picks the app and its solver, flags pick the run mode, ``--device`` the
-device (``cuda`` unless ``cpu`` is asked for). Config files and flags are
-those of the JAX package's CLI; every other app, mesh or multi-host option
-and subcommand exits with "not ported yet".
+The single-host ``linear_method``, ``matrix_fac``, ``wide_deep`` and
+``word2vec`` apps: a config file picks the app and its solver, flags pick
+the run mode, ``--device`` the device (``cuda`` unless ``cpu`` is asked
+for). Config files and flags are those of the JAX package's CLI; every
+other app, mesh or multi-host option and subcommand exits with "not ported
+yet".
 
 Usage:
-  python -m parameter_server_tpu_torch.cli train  --app_file cfg.json [--model_out m.txt|m.npz] [--device cpu]
-  python -m parameter_server_tpu_torch.cli evaluate --app_file cfg.json --model m.txt [--device cpu]
+  python -m parameter_server_tpu_torch.cli train  --app_file cfg.json [--model_out m.txt|m.npz|m.npy] [--device cpu]
+  python -m parameter_server_tpu_torch.cli evaluate --app_file cfg.json --model m.txt|m.npz [--device cpu]
 """
 
 from __future__ import annotations
@@ -59,7 +60,7 @@ def _build_parser() -> argparse.ArgumentParser:
 
     ev = sub.add_parser("evaluate", help="evaluate a dumped model")
     ev.add_argument("--app_file", required=True)
-    ev.add_argument("--model", required=True, help="text model dump")
+    ev.add_argument("--model", required=True, help="model dump (text; npz for wide_deep)")
     ev.add_argument("--data", nargs="*", default=None, help="override val files")
     ev.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
@@ -69,7 +70,7 @@ def _check_ported(cfg: PSConfig) -> None:
     """Refuse the config settings of paths the port does not have yet."""
     if cfg.app not in _KNOWN_APPS:
         raise SystemExit(f"unknown app {cfg.app!r}; known: {sorted(_KNOWN_APPS)}")
-    if cfg.app not in ("linear_method", "matrix_fac"):
+    if cfg.app not in ("linear_method", "matrix_fac", "wide_deep", "word2vec"):
         raise _not_ported(f"app {cfg.app!r}")
     if cfg.app == "linear_method" and cfg.solver.algo == "darlin":
         raise _not_ported("the darlin batch solver")
@@ -92,8 +93,10 @@ def run_train(cfg: PSConfig, args: argparse.Namespace) -> dict:
         raise _not_ported("--trace_dir")
     if not cfg.data.files:
         raise SystemExit("config data.files is empty")
-    if cfg.app == "matrix_fac":
-        return _run_train_mf(cfg, args)
+    if cfg.app in _APP_RUNNERS:
+        if args.ckpt_dir or args.resume:
+            raise SystemExit(f"the {cfg.app} app takes no --ckpt_dir/--resume")
+        return _APP_RUNNERS[cfg.app](cfg, args)
 
     from parameter_server_tpu_torch.models.linear import LinearMethod
 
@@ -130,8 +133,6 @@ def _run_train_mf(cfg: PSConfig, args: argparse.Namespace) -> dict:
         iter_rating_blocks,
     )
 
-    if args.ckpt_dir or args.resume:
-        raise SystemExit("the matrix_fac app takes no --ckpt_dir/--resume")
     m = cfg.mf
     app = MatrixFactorization(
         m.num_users, m.num_items, rank=m.rank, eta=m.eta, l2=m.l2,
@@ -166,15 +167,74 @@ def _run_train_mf(cfg: PSConfig, args: argparse.Namespace) -> dict:
     return out
 
 
+def _run_train_w2v(cfg: PSConfig, args: argparse.Namespace) -> dict:
+    """The word2vec app: stream the token files (``.npy`` or whitespace-
+    separated ids), report the mean loss, save the input embeddings as a
+    ``.npy``."""
+    import numpy as np
+
+    from parameter_server_tpu_torch.models.word2vec import Word2Vec
+
+    w = cfg.w2v
+    app = Word2Vec(
+        vocab_size=w.vocab_size, dim=w.dim, eta=w.eta,
+        num_negatives=w.negatives, window=w.window, seed=cfg.seed,
+        max_delay=max(cfg.solver.max_delay, 0), push_mode=cfg.parallel.push_mode,
+        steps_per_call=cfg.solver.steps_per_call, device=args.device,
+    )
+    # one call: train_files runs its epoch loop and counts the vocabulary once
+    mean = app.train_files(
+        cfg.data.files, batch_size=w.batch_size, epochs=max(1, cfg.solver.epochs),
+        block_tokens=w.block_tokens, seed=cfg.seed,
+    )
+    out: dict = {"mean_loss": mean, "vocab_size": w.vocab_size, "dim": w.dim}
+    if args.model_out:
+        np.save(args.model_out, app.embeddings())
+        out["model_out"] = args.model_out
+    return out
+
+
+def _run_train_wd(cfg: PSConfig, args: argparse.Namespace) -> dict:
+    """The wide_deep app: streaming file-driven training over the
+    linear_method text formats, validation AUC, an npz dump."""
+    from parameter_server_tpu_torch.data.batch import eval_builder, training_builder
+    from parameter_server_tpu_torch.models.wide_deep import WideDeep
+
+    app = WideDeep.from_config(cfg, device=args.device)
+    out = dict(app.train_files(
+        cfg.data.files, cfg.data.format, training_builder(cfg),
+        epochs=max(1, cfg.solver.epochs), report_every=args.report_interval,
+    ) or {})
+    out.update({"emb_dim": cfg.wd.emb_dim, "hidden": list(cfg.wd.hidden)})
+    if cfg.data.val_files:
+        ev = app.evaluate_files(cfg.data.val_files, cfg.data.format, eval_builder(cfg))
+        out.update({f"val_{k}": v for k, v in ev.items()})
+    if args.model_out:
+        out["model_out"] = app.dump_model(args.model_out)
+    return out
+
+
+_APP_RUNNERS = {
+    "matrix_fac": _run_train_mf, "word2vec": _run_train_w2v, "wide_deep": _run_train_wd,
+}
+
+
 def run_evaluate(cfg: PSConfig, args: argparse.Namespace) -> dict:
     from parameter_server_tpu_torch.models.evaluation import evaluate_model
 
     _check_ported(cfg)
-    if cfg.app != "linear_method":
+    if cfg.app not in ("linear_method", "wide_deep"):
         raise _not_ported(f"evaluate for app {cfg.app!r}")
     files = args.data if args.data else (cfg.data.val_files or cfg.data.files)
     if not files:
         raise SystemExit("no evaluation files (config val_files/files or --data)")
+    if cfg.app == "wide_deep":
+        # the W&D dump is an npz (wide + embedding + MLP), not a text vector
+        from parameter_server_tpu_torch.data.batch import eval_builder
+        from parameter_server_tpu_torch.models.wide_deep import evaluate_dump
+
+        return evaluate_dump(args.model, files, cfg.data.format, eval_builder(cfg),
+                             device=args.device)
     return evaluate_model(
         args.model,
         files,

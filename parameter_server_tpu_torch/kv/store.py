@@ -50,6 +50,18 @@ def state_to_numpy(state: State) -> dict[str, np.ndarray]:
     return {k: v.detach().to("cpu", copy=True).numpy() for k, v in state.items()}
 
 
+def check_state_like(name: str, have: State, new: dict[str, np.ndarray]) -> None:
+    """Refuse a host state dict whose tables or shapes differ from
+    ``have``'s (an app's ``load_state``)."""
+    if set(new) != set(have) or any(
+        tuple(np.shape(new[k])) != tuple(have[k].shape) for k in have
+    ):
+        raise ValueError(
+            f"{name} state {({k: np.shape(v) for k, v in new.items()})} "
+            f"does not match {({k: tuple(v.shape) for k, v in have.items()})}"
+        )
+
+
 def pad_state_rows(state: State, num_rows: int) -> State:
     """Zero-extend every table of ``state`` on axis 0 up to ``num_rows``
     (identity when already there). Pad rows stay exactly zero and are

@@ -27,6 +27,7 @@ import torch
 from parameter_server_tpu_torch.device import resolve_device
 from parameter_server_tpu_torch.kv.store import (
     State,
+    check_state_like,
     push,
     state_from_numpy,
     state_to_numpy,
@@ -249,15 +250,8 @@ class MatrixFactorization:
     def load_state(self, user: dict[str, np.ndarray], item: dict[str, np.ndarray]) -> None:
         """Replace both tables' state with numpy dicts of the same layout
         (e.g. the JAX app's ``user_state``/``item_state`` via ``np.asarray``)."""
-        for name, have, new in (("user", self.user_state, user),
-                                ("item", self.item_state, item)):
-            if set(new) != set(have) or any(
-                tuple(np.shape(new[k])) != tuple(have[k].shape) for k in have
-            ):
-                raise ValueError(
-                    f"{name} state {({k: np.shape(v) for k, v in new.items()})} "
-                    f"does not match {({k: tuple(v.shape) for k, v in have.items()})}"
-                )
+        check_state_like("user", self.user_state, user)
+        check_state_like("item", self.item_state, item)
         self.user_state = state_from_numpy(user, self.device)
         self.item_state = state_from_numpy(item, self.device)
 

@@ -240,3 +240,61 @@ def test_matrix_fac_on_card_matches_cpu(dev):
         # 8 steps an epoch, each pushing both tables
         assert ak.LAUNCHES["adagrad_push"] == (32 if device == "cuda" else 0)
     np.testing.assert_allclose(rmse["cuda"], rmse["cpu"], rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_wide_deep_on_card_matches_cpu(dev):
+    """4 W&D steps on the card (K1 for the wide push, K3 for the embedding
+    push, one launch each a step) against the same steps on the CPU."""
+    from parameter_server_tpu_torch.data.batch import BatchBuilder
+    from parameter_server_tpu_torch.data.synthetic import make_sparse_logistic
+    from parameter_server_tpu_torch.models.wide_deep import WideDeep
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    labels, keys, vals, _ = make_sparse_logistic(1024, 3000, nnz_per_example=10, seed=3)
+    builder = BatchBuilder(num_keys=4096, batch_size=256, max_nnz_per_example=40)
+    batches = [builder.build(labels[i:i + 256], keys[i:i + 256], vals[i:i + 256])
+               for i in range(0, 1024, 256)]
+    apps = {}
+    for device in ("cuda", "cpu"):
+        fk.reset_launches()
+        ak.reset_launches()
+        apps[device] = WideDeep(4096, emb_dim=8, hidden=[16, 8], seed=1, steps_per_call=2,
+                                max_delay=1, device=device,
+                                reporter=ProgressReporter(print_fn=lambda s: None))
+        apps[device].train(batches, report_every=1)
+        want = 4 if device == "cuda" else 0
+        assert fk.LAUNCHES["ftrl_push"] == ak.LAUNCHES["adagrad_push"] == want
+        assert fk.LAUNCHES["ftrl_delta"] == 0
+    for a, b in zip(apps["cuda"].reporter.history, apps["cpu"].reporter.history):
+        np.testing.assert_allclose(a["objv"], b["objv"], rtol=1e-4)
+    got, want = apps["cuda"].state_dict(), apps["cpu"].state_dict()
+    for name in ("wide", "emb"):
+        for k in want[name]:
+            np.testing.assert_allclose(got[name][k], want[name][k], rtol=1e-4, atol=1e-5)
+    for x, y in zip(got["mlp"], want["mlp"]):
+        for k in ("W", "b"):
+            np.testing.assert_allclose(x[k], y[k], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_word2vec_on_card_matches_cpu(dev):
+    """SGNS epochs on the card (plain PyTorch: duplicate ids scatter-add one
+    delta per occurrence, no kernel launches) against the CPU."""
+    from parameter_server_tpu_torch.models.word2vec import Word2Vec
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    corpus = np.minimum(np.random.default_rng(1).zipf(1.3, 6000) - 1, 199)
+    losses, emb = {}, {}
+    for device in ("cuda", "cpu"):
+        fk.reset_launches()
+        ak.reset_launches()
+        w2v = Word2Vec(200, dim=16, eta=0.05, num_negatives=4, steps_per_call=3, max_delay=2,
+                       device=device, reporter=ProgressReporter(print_fn=lambda s: None))
+        losses[device] = [w2v.train_epoch(corpus, batch_size=256, seed=ep) for ep in range(2)]
+        emb[device] = w2v.embeddings()
+        assert sum(fk.LAUNCHES.values()) + sum(ak.LAUNCHES.values()) == 0
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    np.testing.assert_allclose(emb["cuda"], emb["cpu"], rtol=1e-4, atol=1e-5)

@@ -1,6 +1,7 @@
 """Port parity for the copied jax-free modules: config, hashing, batches,
-parsers, reader, frequency filter, metrics, checkpoints. These are copies,
-so the port must give exactly the JAX package's results."""
+parsers, reader, frequency filter, metrics, checkpoints, the workload pool
+and the prefetch pipeline. These are copies, so the port must give exactly
+the JAX package's results."""
 
 import dataclasses
 import json
@@ -10,18 +11,22 @@ import numpy as np
 import pytest
 
 from parameter_server_tpu.data import batch as JB
+from parameter_server_tpu.data import pipeline as JP
 from parameter_server_tpu.data import reader as JR
 from parameter_server_tpu.data import synthetic as JS
 from parameter_server_tpu.filters.frequency import CountMinSketch as JCMS
 from parameter_server_tpu.models import metrics as JM
+from parameter_server_tpu.parallel import workload as JW
 from parameter_server_tpu.utils import checkpoint as JCK
 from parameter_server_tpu.utils import config as JCFG
 from parameter_server_tpu.utils import hashing as JH
 from parameter_server_tpu_torch.data import batch as TB
+from parameter_server_tpu_torch.data import pipeline as TP
 from parameter_server_tpu_torch.data import reader as TR
 from parameter_server_tpu_torch.data import synthetic as TS
 from parameter_server_tpu_torch.filters.frequency import CountMinSketch as TCMS
 from parameter_server_tpu_torch.models import metrics as TM
+from parameter_server_tpu_torch.parallel import workload as TW
 from parameter_server_tpu_torch.utils import checkpoint as TCK
 from parameter_server_tpu_torch.utils import config as TCFG
 from parameter_server_tpu_torch.utils import hashing as TH
@@ -158,3 +163,83 @@ def test_checkpoint_files_interchange(tmp_path):
     np.testing.assert_array_equal(TCK.load_weights_text(tmp_path / "w.txt", 4), w)
     with pytest.raises(ValueError, match="outside"):
         TCK.load_weights_text(tmp_path / "w.txt", 2)
+
+
+def test_workload_pool_matches_jax():
+    """The trimmed WorkloadPool copy against the original on one sequence
+    of fetches and finishes (a pending workload finished early, a finish
+    repeated, an unknown one refused)."""
+    names = [f"shard-{i}" for i in range(5)]
+    pools = {"torch": TW.WorkloadPool(names), "jax": JW.WorkloadPool(names)}
+    seen = {}
+    for name, pool in pools.items():
+        log = [pool.fetch(0), pool.fetch(1), pool.all_done]
+        pool.finish("shard-0")
+        pool.finish("shard-4")  # still pending: dropped from the queue
+        pool.finish("shard-0")  # already done: a no-op
+        log += [pool.fetch(2), pool.fetch(0), pool.fetch(1), pool.all_done]
+        for w in ("shard-1", "shard-2", "shard-3"):
+            pool.finish(w)
+        with pytest.raises(KeyError, match="unknown workload"):
+            pool.finish("shard-9")
+        stats = pool.stats()
+        log += [pool.all_done, {k: stats[k] for k in ("pending", "active", "done", "attempts")}]
+        seen[name] = log
+    assert seen["torch"] == seen["jax"]
+    assert seen["torch"][-1] == {"pending": 0, "active": 0, "done": 5, "attempts": 4}
+
+
+class _Counter:
+    """A stream of numbered batches; optionally fails at batch ``fail_at``."""
+
+    def __init__(self, start: int, n: int, fail_at: int = -1):
+        self.next_i, self.end, self.fail_at = start, start + n, fail_at
+
+    def next_batch(self):
+        if self.next_i == self.fail_at:
+            raise RuntimeError(f"builder failed at {self.fail_at}")
+        if self.next_i >= self.end:
+            return None
+        self.next_i += 1
+        return self.next_i - 1
+
+    def _empty(self):
+        return -1
+
+
+def _drain(mod, streams, group_size):
+    pipe = mod.PrefetchPipeline(streams, lambda bs: tuple(bs), depth=2,
+                                group_size=group_size,
+                                assemble=(lambda items: list(items)) if group_size > 1 else None)
+    with pipe:
+        items = []
+        while (it := pipe.get()) is not None:
+            items.append(it)
+        assert pipe.get() is None  # and forever after
+    return items
+
+
+@pytest.mark.parametrize("group_size", [1, 3])
+def test_prefetch_pipeline_matches_jax(group_size):
+    """Streams of unequal length: the shorter one is padded with its empty
+    batch, a partial final group with prepared empties; the same items as
+    the original, and every thread joined."""
+    before = threading.active_count()
+    got = _drain(TP, [_Counter(0, 7), _Counter(100, 4)], group_size)
+    want = _drain(JP, [_Counter(0, 7), _Counter(100, 4)], group_size)
+    assert got == want
+    assert len(got) == (7 if group_size == 1 else 3)
+    assert threading.active_count() == before
+    with pytest.raises(ValueError, match="depth"):
+        TP.PrefetchPipeline([], lambda bs: bs, depth=0)
+    with pytest.raises(ValueError, match="assemble"):
+        TP.PrefetchPipeline([], lambda bs: bs, group_size=2)
+
+
+def test_prefetch_pipeline_raises_a_builder_error():
+    before = threading.active_count()
+    with TP.PrefetchPipeline([_Counter(0, 9, fail_at=3)], lambda bs: bs[0]) as pipe:
+        with pytest.raises(RuntimeError, match="failed at 3"):
+            while pipe.get() is not None:
+                pass
+    assert threading.active_count() == before

@@ -109,6 +109,8 @@ def test_entry_points_default_to_cuda():
     from parameter_server_tpu_torch.kv.updaters import Ftrl
     from parameter_server_tpu_torch.models.linear import LinearMethod
     from parameter_server_tpu_torch.models.matrix_fac import MatrixFactorization
+    from parameter_server_tpu_torch.models.wide_deep import WideDeep
+    from parameter_server_tpu_torch.models.word2vec import Word2Vec
     from parameter_server_tpu_torch.utils.config import PSConfig
 
     if torch.cuda.is_available():
@@ -121,5 +123,13 @@ def test_entry_points_default_to_cuda():
         KVStore(Ftrl(), 64)
     with pytest.raises(RuntimeError, match="cuda"):
         MatrixFactorization(8, 8, rank=4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        WideDeep(64, emb_dim=4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        WideDeep.from_config(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Word2Vec(64, dim=4)
     assert LinearMethod(cfg, device="cpu").device == torch.device("cpu")
     assert MatrixFactorization(8, 8, rank=4, device="cpu").device == torch.device("cpu")
+    assert WideDeep(64, emb_dim=4, device="cpu").device == torch.device("cpu")
+    assert Word2Vec(64, dim=4, device="cpu").device == torch.device("cpu")

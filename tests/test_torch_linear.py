@@ -182,7 +182,7 @@ def test_cli_refuses_unported_paths(tmp_path, argv, match):
 
 
 @pytest.mark.parametrize("section", [
-    {"app": "word2vec"}, {"solver": {"algo": "darlin"}},
+    {"app": "graph_partition"}, {"solver": {"algo": "darlin"}},
     {"parallel": {"data_shards": 2}}, {"trace": {"trace_dir": "t"}},
 ])
 def test_cli_refuses_unported_config(tmp_path, section):
