@@ -33,7 +33,8 @@ the script exits nonzero without printing a result:
              26,744 items, rank 64, AdaGrad) trains two epochs over 2^20
              synthetic ratings; epoch 2's RMSE is below epoch 1's, and the
              first 3 steps' SSE and the w, n tables after them match a CPU
-             run of the port (rtol 1e-4).
+             run of the port (rtol 1e-4); K3's device time a launch in a
+             profile of one window entry, beside its bound.
 7. embedding server — a 2^22-key, vdim-64 AdaGrad KVStore answers
              coalesced pushes from 8 simulated workers; a pull of the last
              round's keys matches a CPU plain update of the touched rows.
@@ -51,9 +52,13 @@ the script exits nonzero without printing a result:
              sequence on the CPU (plain K4 with the same seeds).
 
 9. wide_deep — K1 and K3 against their plain versions at the W&D push's
-             shapes (10^8-row tables, vdim 1 and 16); then WideDeep at
-             BASELINE's 100M-row embedding table (emb_dim 16, MLP [32, 16],
-             AdaGrad eta 0.05, Adam 1e-3, FTRL alpha 0.1, beta 1, l1 0.5)
+             shapes (10^8-row tables, vdim 1 and 16); K3 timed at the
+             step's push (each batch's real prefix of unique keys) and at
+             the whole unique-key array (~240k pad slots on row 0), and at
+             the prefix beside its plain version and torch.optim.Adagrad;
+             then WideDeep at BASELINE's 100M-row embedding table (emb_dim
+             16, MLP [32, 16], AdaGrad eta 0.05, Adam 1e-3, FTRL alpha 0.1,
+             beta 1, l1 0.5)
              on 32 synthetic CTR minibatches of 8192 rows with Criteo's 39
              fields (Zipf keys over 2^24 features, hashed), 4 steps a
              window entry, max_delay 4: one ftrl_push and one adagrad_push
@@ -376,6 +381,57 @@ def time_ftrl_push(fk, z, n, sets, u: float) -> dict:
             "gather_floor_ms": g_ms, "call_ms": k_call, "plain_call_ms": p_call}
 
 
+def adagrad_bound(slots: float, rows: float, vdim: int) -> tuple[float, str]:
+    """K3's bound for a push of ``slots`` slots over ``rows`` distinct rows:
+    each slot's index and gradient read once, each distinct row's w and n
+    read and written once (repeated pad slots all land on row 0)."""
+    return bound(slots * (4 + 4 * vdim) + rows * 16 * vdim, ADAGRAD_FLOPS * rows * vdim)
+
+
+def time_adagrad_push(ak, w, n, sets) -> dict:
+    """Device and host-inclusive times (cuda_ms) of K3 on the tables ``w``,
+    ``n`` (l2 = 0), cycling the (idx, grad) ``sets``."""
+    count = len(sets)
+    k_ms, k_call = cuda_ms(
+        lambda i: ak.adagrad_push(w, n, *sets[i % count], **ADAGRAD, l2=0.0), 200)
+    return {"ms": k_ms, "call_ms": k_call}
+
+
+def time_adagrad_yardsticks(ak, w, n, sets) -> dict:
+    """Device times (cuda_ms) of K3's plain version and of torch.optim.
+    Adagrad's step on a sparse COO gradient of the same rows (l2 = 0: its
+    weight decay refuses sparse gradients; the port never calls it), its
+    accumulator seeded with ``n``, cycling ``sets`` of sorted unique keys;
+    the library step is first held against the plain version on the first
+    set's rows."""
+    count = len(sets)
+    p_ms, p_call = cuda_ms(
+        lambda i: ak.adagrad_push_plain(w, n, *sets[i % count], **ADAGRAD, l2=0.0), PLAIN_ITERS)
+    torch.sparse.check_sparse_tensor_invariants.disable()  # keys are unique, sorted
+    grads = [torch.sparse_coo_tensor(k[None].long(), g, w.shape, is_coalesced=True)
+             for k, g in sets]
+    param = torch.nn.Parameter(w)
+    opt = torch.optim.Adagrad([param], lr=ADAGRAD["eta"], eps=ADAGRAD["eps"], foreach=False)
+    opt.state[param]["sum"].copy_(n)
+    idx0, g0 = sets[0]
+    rows0 = idx0.long()
+    w_plain, n_plain = w[rows0], n[rows0]
+    local = torch.arange(len(rows0), dtype=torch.int32, device=w.device)
+    ak.adagrad_push_plain(w_plain, n_plain, local, g0, **ADAGRAD, l2=0.0)
+    param.grad = grads[0]
+    opt.step()
+    err = max(check_close("torch.optim.Adagrad w", param.detach()[rows0], w_plain),
+              check_close("torch.optim.Adagrad n", opt.state[param]["sum"][rows0], n_plain))
+
+    def lib_step(i: int) -> None:
+        param.grad = grads[i % count]
+        opt.step()
+
+    l_ms, l_call = cuda_ms(lib_step, PLAIN_ITERS)
+    return {"plain_ms": p_ms, "library_ms": l_ms, "library_err": err,
+            "plain_call_ms": p_call, "library_call_ms": l_call}
+
+
 def simulated_pushes(rng, num_keys: int, workers: int, draws: int, hot: int,
                      vdim: int):
     """One round of pushes from ``workers`` simulated workers: each draws
@@ -574,57 +630,108 @@ def synthetic_ratings(rng):
     return users, items, np.clip(r, 0.5, 5.0).astype(np.float32)
 
 
-def phase_wide_deep(dev, gen) -> tuple[dict, dict, float, float]:
-    """Phase 9: K1 and K3 against their plain versions at the W&D push's
-    shapes; the first steps against a CPU run; then the main path,
-    ``WideDeep.train`` over WD_STEPS batches, with its launch counts, and a
-    profile of one window entry. Returns (launches, the kernels' times at
-    this shape, K1's and K3's max abs errors)."""
+def make_wd_batches() -> list:
+    """WD_STEPS synthetic CTR minibatches of WD_BATCH rows with Criteo's
+    WD_FIELDS fields (Zipf keys over WD_FEATURES features, hashed into
+    WD_KEYS), built by the CLI's builder (``training_builder``)."""
     from parameter_server_tpu_torch.data.batch import training_builder
     from parameter_server_tpu_torch.data.synthetic import make_sparse_logistic
-    from parameter_server_tpu_torch.models import wide_deep as wdm
-    from parameter_server_tpu_torch.models.linear import batch_to_device
-    from parameter_server_tpu_torch.ops import adagrad_kernels as ak
-    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
     from parameter_server_tpu_torch.utils.config import PSConfig
-    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
 
-    t0 = time.perf_counter()
     wd_cfg = PSConfig()
     wd_cfg.data.num_keys = WD_KEYS
     wd_cfg.solver.minibatch = WD_BATCH
     wd_cfg.data.max_nnz_per_example = 4 * WD_FIELDS
     wd_builder = training_builder(wd_cfg)
-    wd_labels, wd_keys, wd_vals, _ = make_sparse_logistic(
+    labels, keys, vals, _ = make_sparse_logistic(
         WD_BATCH * WD_STEPS, WD_FEATURES, nnz_per_example=WD_FIELDS, noise=0.4, seed=SEED + 2)
-    wd_batches = [
-        wd_builder.build(wd_labels[i:i + WD_BATCH], wd_keys[i:i + WD_BATCH],
-                         wd_vals[i:i + WD_BATCH])
-        for i in range(0, WD_BATCH * WD_STEPS, WD_BATCH)
-    ]
-    del wd_labels, wd_keys, wd_vals
+    return [wd_builder.build(labels[i:i + WD_BATCH], keys[i:i + WD_BATCH], vals[i:i + WD_BATCH])
+            for i in range(0, WD_BATCH * WD_STEPS, WD_BATCH)]
+
+
+def wd_push_sets(batches, dev, gen) -> tuple[list, list]:
+    """Each batch's embedding push on the card, (idx, grad) at vdim
+    WD_EMB_DIM: its whole unique-key array (every pad slot, zero gradient)
+    and its real prefix ``unique_keys[:num_unique]``, which the step
+    pushes (the prefix's gradient is a view of the whole one's)."""
+    full, prefix = [], []
+    for b in batches:
+        idx = torch.from_numpy(b.unique_keys.astype(np.int32)).to(dev)
+        g = torch.randn((idx.shape[0], WD_EMB_DIM), generator=gen, device=dev)
+        g[idx == 0] = 0.0
+        full.append((idx, g))
+        prefix.append((idx[:b.num_unique], g[:b.num_unique]))
+    return full, prefix
+
+
+def phase_wide_deep(dev, gen) -> tuple[dict, dict, float, float]:
+    """Phase 9: K1 and K3 against their plain versions at the W&D push's
+    shapes; K3 timed at the step's push (the real prefix of each batch's
+    unique keys) and at the whole unique-key array, and at the prefix
+    beside its plain version and torch.optim.Adagrad;
+    the first steps against a CPU run; then the main path,
+    ``WideDeep.train`` over WD_STEPS batches, with its launch counts, and a
+    profile of one window entry. Returns (launches, the kernels' times at
+    this shape, K1's and K3's max abs errors)."""
+    from parameter_server_tpu_torch.models import wide_deep as wdm
+    from parameter_server_tpu_torch.models.linear import batch_to_device
+    from parameter_server_tpu_torch.ops import adagrad_kernels as ak
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    t0 = time.perf_counter()
+    wd_batches = make_wd_batches()
     slots = [b.unique_keys.shape[0] for b in wd_batches]
     uniq = [b.num_unique for b in wd_batches]
     log(f"wide_deep set-up data in {time.perf_counter() - t0:.2f} s: {WD_STEPS} batches "
         f"(B, NNZ, U) from {wd_batches[0].shape} to {wd_batches[-1].shape}; "
         f"{np.mean([b.num_entries for b in wd_batches]):.1f} entries and "
-        f"{np.mean(uniq):.1f} distinct rows (pad row included) a batch in "
-        f"{np.mean(slots):.1f} push slots; CTR {np.mean([b.labels.mean() for b in wd_batches]):.4f}")
+        f"{np.mean(uniq):.1f} distinct rows (pad row included; the slots a step pushes) a "
+        f"batch of {np.mean(slots):.1f} unique-key slots; "
+        f"CTR {np.mean([b.labels.mean() for b in wd_batches]):.4f}")
     # K1 and K3 against their plain versions at this path's shapes: the
-    # first step's push (its keys and pad slots) into 10^8-row tables
+    # first step's push (its real prefix) into 10^8-row tables; K3 also at
+    # the whole unique-key array, ~240k pad slots on row 0
     wd_hyper = {"alpha": WD_FTRL["alpha"], "beta": WD_FTRL["beta"],
                 "l1": WD_FTRL["lambda_l1"], "l2": WD_FTRL["lambda_l2"]}
     wd_ada = {"eta": WD_EMB_ETA, "eps": ADAGRAD["eps"], "l2": 0.0}
     idx0 = wd_batches[0].unique_keys
-    err_wd_k1 = check_push("ftrl_push", fk.ftrl_push, fk.ftrl_push_plain, dev, gen, idx0,
+    prefix0 = idx0[:wd_batches[0].num_unique]
+    err_wd_k1 = check_push("ftrl_push", fk.ftrl_push, fk.ftrl_push_plain, dev, gen, prefix0,
                            WD_KEYS, 1, wd_hyper)
     torch.cuda.empty_cache()
-    err_wd_k3 = check_push("adagrad_push", ak.adagrad_push, ak.adagrad_push_plain, dev, gen,
-                           idx0, WD_KEYS, WD_EMB_DIM, wd_ada)
-    torch.cuda.empty_cache()
+    err_wd_k3 = 0.0
+    for keys in (prefix0, idx0):
+        err_wd_k3 = max(err_wd_k3, check_push("adagrad_push", ak.adagrad_push,
+                                              ak.adagrad_push_plain, dev, gen, keys, WD_KEYS,
+                                              WD_EMB_DIM, wd_ada))
+        torch.cuda.empty_cache()
     log(f"wide_deep pushes ok against the plain versions on {WD_KEYS} rows at "
-        f"{len(idx0)} slots: ftrl_push (vdim 1) max abs err {err_wd_k1:.3g}, adagrad_push "
-        f"(vdim {WD_EMB_DIM}) {err_wd_k3:.3g}")
+        f"{len(prefix0)} slots: ftrl_push (vdim 1) max abs err {err_wd_k1:.3g}, adagrad_push "
+        f"(vdim {WD_EMB_DIM}) {err_wd_k3:.3g}, also at all {len(idx0)} slots")
+    # K3's times at this shape, cycling the WD_STEPS batches' pushes (~89 MB
+    # of rows in all, so each call finds its rows cold)
+    w = torch.zeros((WD_KEYS, WD_EMB_DIM), device=dev)
+    n = torch.rand((WD_KEYS, WD_EMB_DIM), generator=gen, device=dev)
+    full_sets, prefix_sets = wd_push_sets(wd_batches, dev, gen)
+    k3_times = {}
+    for what, sets, u in (("full", full_sets, float(np.mean(slots))),
+                          ("prefix", prefix_sets, float(np.mean(uniq)))):
+        t = time_adagrad_push(ak, w, n, sets)
+        t["bound_ms"], t["bound_by"] = adagrad_bound(u, float(np.mean(uniq)), WD_EMB_DIM)
+        t["slots"] = u
+        k3_times[what] = t
+    k3_times["prefix"].update(time_adagrad_yardsticks(ak, w, n, prefix_sets))
+    del w, n, full_sets, prefix_sets
+    torch.cuda.empty_cache()
+    for what, t in k3_times.items():
+        log(f"wide_deep adagrad_push at the {what} push ({t['slots']:.1f} slots, "
+            f"{np.mean(uniq):.1f} distinct rows x {WD_EMB_DIM} of {WD_KEYS}, {WD_STEPS} sets "
+            f"cycled): device {t['ms']:.5f} ms kernel, bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']})"
+            + (f"; {t['plain_ms']:.5f} ms plain, {t['library_ms']:.5f} ms torch.optim.Adagrad "
+               f"sparse step (agrees with plain to {t['library_err']:.3g})"
+               if "library_ms" in t else ""))
 
     def make_wd(num_keys: int, device, reporter=None):
         return wdm.WideDeep(
@@ -664,7 +771,8 @@ def phase_wide_deep(dev, gen) -> tuple[dict, dict, float, float]:
     for step, b in enumerate(first):
         losses = [
             float(wdm.wd_train_step(a.wide_up, a.emb_up, a.wide_state, a.emb_state, a.mlp,
-                                    a.opt, batch_to_device(ab, a.device), ab.num_examples)[0])
+                                    a.opt, batch_to_device(ab, a.device), ab.num_examples,
+                                    ab.num_unique)[0])
             for a, ab in ((wd, b), (wd_cpu, remap(b)))
         ]
         if not np.isclose(losses[0], losses[1], rtol=E2E_RTOL, atol=0.0):
@@ -705,21 +813,21 @@ def phase_wide_deep(dev, gen) -> tuple[dict, dict, float, float]:
         f"{err_wd_state:.3g} of its table's scale); launches {wd_launches}")
     rows = log_profile(f"wide_deep profile, {WD_STEPS_PER_CALL} steps (one window entry)",
                        lambda: wd.train(wd_batches[:WD_STEPS_PER_CALL], report_every=1))
-    u_prof = float(np.mean(slots[:WD_STEPS_PER_CALL]))
-    r_prof = float(np.mean(uniq[:WD_STEPS_PER_CALL]))
-    # bounds at this shape: each slot's index and gradient read once, each
-    # distinct row's two tables read and written once (pads all land on row 0)
+    # bounds at the pushes the profiled steps made: their real prefixes,
+    # each slot a distinct row (K3's bound at vdim 1 is K1's in bytes)
+    u_prof = float(np.mean(uniq[:WD_STEPS_PER_CALL]))
     wd_kernels = {}
     for name, kernel, vdim, flops in (("ftrl_push", "ftrl_push_kernel", 1, FTRL_FLOPS),
                                       ("adagrad_push", "adagrad_push_kernel", WD_EMB_DIM,
                                        ADAGRAD_FLOPS)):
         ms, count = kernel_row(rows, kernel)
-        b_ms, b_by = bound(u_prof * (4 + 4 * vdim) + r_prof * 16 * vdim, flops * r_prof * vdim)
+        b_ms, b_by = bound(u_prof * (4 + 20 * vdim), flops * u_prof * vdim)
         wd_kernels[name] = {"ms": ms, "profiled_launches": count, "bound_ms": b_ms,
-                            "bound_by": b_by, "slots": u_prof, "rows": r_prof, "vdim": vdim}
+                            "bound_by": b_by, "slots": u_prof, "rows": u_prof, "vdim": vdim}
         log(f"wide_deep {name}: {ms:.5f} ms a launch on the device ({count} in the "
-            f"profile), bound {b_ms:.5f} ms ({b_by}) at {u_prof:.1f} slots, {r_prof:.1f} "
-            f"distinct rows x {vdim} of {WD_KEYS}")
+            f"profile), bound {b_ms:.5f} ms ({b_by}) at {u_prof:.1f} slots, each a distinct "
+            f"row x {vdim} of {WD_KEYS}")
+    wd_kernels["adagrad_push"]["timed"] = k3_times
     return wd_launches, wd_kernels, err_wd_k1, err_wd_k3
 
 
@@ -1013,52 +1121,23 @@ def main() -> int:
     sets, u = key_sets(rng, gen, dev, EMB_SETS, EMB_KEYS, EMB_DRAWS, EMB_VDIM)
     w = torch.zeros((EMB_KEYS, EMB_VDIM), device=dev)
     n = torch.rand((EMB_KEYS, EMB_VDIM), generator=gen, device=dev)
-    k_ms, k_call = cuda_ms(
-        lambda i: ak.adagrad_push(w, n, *sets[i % EMB_SETS], **ADAGRAD, l2=0.0), 200)
-    p_ms, p_call = cuda_ms(
-        lambda i: ak.adagrad_push_plain(w, n, *sets[i % EMB_SETS], **ADAGRAD, l2=0.0),
-        PLAIN_ITERS)
-    # the yardstick: torch.optim.Adagrad's step on a sparse COO gradient of
-    # the same rows (l2 = 0: its weight decay refuses sparse gradients),
-    # its accumulator seeded with n; first held against the plain version
-    torch.sparse.check_sparse_tensor_invariants.disable()  # keys are unique, sorted
-    grads = [torch.sparse_coo_tensor(k[None].long(), g, w.shape, is_coalesced=True)
-             for k, g in sets]
-    param = torch.nn.Parameter(w)
-    opt = torch.optim.Adagrad([param], lr=ADAGRAD["eta"], eps=ADAGRAD["eps"], foreach=False)
-    opt.state[param]["sum"].copy_(n)
-    w_plain, n_plain = w.clone(), n.clone()
-    ak.adagrad_push_plain(w_plain, n_plain, *sets[0], **ADAGRAD, l2=0.0)
-    param.grad = grads[0]
-    opt.step()
-    rows0 = sets[0][0].long()
-    err_lib = max(
-        check_close("torch.optim.Adagrad w", param.detach()[rows0], w_plain[rows0]),
-        check_close("torch.optim.Adagrad n", opt.state[param]["sum"][rows0], n_plain[rows0]),
-    )
-    del w_plain, n_plain
-
-    def lib_step(i: int) -> None:
-        param.grad = grads[i % EMB_SETS]
-        opt.step()
-
-    l_ms, l_call = cuda_ms(lib_step, PLAIN_ITERS)
-    b_ms, b_by = bound(u * (4 + 20 * EMB_VDIM), ADAGRAD_FLOPS * u * EMB_VDIM)
+    t = {**time_adagrad_push(ak, w, n, sets),
+         **time_adagrad_yardsticks(ak, w, n, sets)}
+    b_ms, b_by = adagrad_bound(u, u, EMB_VDIM)
     kernels["adagrad_push"] = {
         "name": "adagrad_push", "route": "cuda",
         "source": "parameter_server_tpu_torch/csrc/adagrad.cu",
         "replaces": "parameter_server_tpu/ops/pallas_kernels.py:359",
         "shape": [EMB_KEYS, EMB_VDIM, u], "max_abs_err": max(err_ada),
-        "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": l_ms,
-        "call_ms": k_call, "plain_call_ms": p_call, "library_call_ms": l_call,
+        "bound_ms": b_ms, "bound_by": b_by, **t,
     }
-    log(f"adagrad_push: device {k_ms:.5f} ms kernel, {p_ms:.5f} ms plain, "
-        f"{l_ms:.5f} ms torch.optim.Adagrad sparse step (agrees with plain to "
-        f"{err_lib:.3g}), bound {b_ms:.5f} ms ({b_by}; {u:.1f} rows x {EMB_VDIM} "
-        f"into {EMB_KEYS}, {EMB_SETS} sets cycled); host-inclusive per call "
-        f"{k_call:.5f} ms kernel, {p_call:.5f} ms plain, {l_call:.5f} ms library")
-    del w, n, sets, grads, param, opt
+    log(f"adagrad_push: device {t['ms']:.5f} ms kernel, {t['plain_ms']:.5f} ms plain, "
+        f"{t['library_ms']:.5f} ms torch.optim.Adagrad sparse step (agrees with plain to "
+        f"{t['library_err']:.3g}), "
+        f"bound {b_ms:.5f} ms ({b_by}; {u:.1f} rows x {EMB_VDIM} into {EMB_KEYS}, {EMB_SETS} "
+        f"sets cycled); host-inclusive per call {t['call_ms']:.5f} ms kernel, "
+        f"{t['plain_call_ms']:.5f} ms plain, {t['library_call_ms']:.5f} ms library")
+    del w, n, sets, t
     torch.cuda.empty_cache()
 
     # 4. worker: the linear_method trainer on the card
@@ -1175,11 +1254,28 @@ def main() -> int:
         f"{pairs_s[0]:.1f} / {pairs_s[1]:.1f} pairs/s; train RMSE {rmse[0]:.6f} -> "
         f"{rmse[1]:.6f}; SSE of steps 1-3 matches the CPU run, and so do the w and "
         f"n tables after them (max abs err {err_mf_state:.3g}); launches {mf_launches}")
-    log_profile("mf profile, 4 steps (one window entry)",
-                lambda: mf.train_epoch(mf_users[:4 * MF_BATCH], mf_items[:4 * MF_BATCH],
-                                       mf_ratings[:4 * MF_BATCH], batch_size=MF_BATCH))
+    rows = log_profile("mf profile, 4 steps (one window entry)",
+                       lambda: mf.train_epoch(mf_users[:4 * MF_BATCH], mf_items[:4 * MF_BATCH],
+                                              mf_ratings[:4 * MF_BATCH], batch_size=MF_BATCH))
     del mf
     torch.cuda.empty_cache()
+    # K3 at MF's pushes: each profiled step pushes both tables, MF_BATCH + 1
+    # slots each over the batch's distinct users (items) and the pad row,
+    # the batches as train_epoch(seed=0) draws them. Each step gathers
+    # those rows just before its push, and the item tables (~6.8 MB each)
+    # fit in L2, so the kernel may beat this device-memory bound
+    k3_mf_ms, k3_mf_count = kernel_row(rows, "adagrad_push_kernel")
+    order = np.random.default_rng(0).permutation(4 * MF_BATCH)
+    mf_rows = [len(np.unique(ids[order[s:s + MF_BATCH]])) + 1
+               for s in range(0, 4 * MF_BATCH, MF_BATCH) for ids in (mf_users, mf_items)]
+    k3_mf = {"ms": k3_mf_ms, "profiled_launches": k3_mf_count, "slots": MF_BATCH + 1,
+             "rows": mf_rows, "vdim": MF_RANK,
+             "bound_ms": float(np.mean([adagrad_bound(MF_BATCH + 1, r, MF_RANK)[0]
+                                        for r in mf_rows])),
+             "bound_by": adagrad_bound(MF_BATCH + 1, mf_rows[0], MF_RANK)[1]}
+    log(f"mf adagrad_push: {k3_mf_ms:.5f} ms a launch on the device ({k3_mf_count} in the "
+        f"profile), bound {k3_mf['bound_ms']:.5f} ms ({k3_mf['bound_by']}) at "
+        f"{MF_BATCH + 1} slots over {mf_rows} distinct rows (users, items a step) x {MF_RANK}")
 
     # 7. embedding server: AdaGrad pushes from simulated workers, then a pull
     store = KVStore(Adagrad(eta=ADAGRAD["eta"], eps=ADAGRAD["eps"]), EMB_KEYS,
@@ -1300,6 +1396,7 @@ def main() -> int:
     kernels["ftrl_push"]["launches"] = sum(kernels["ftrl_push"]["launches_by_path"].values())
     kernels["ftrl_push"]["wide_deep"] = wd_kernels["ftrl_push"]
     kernels["adagrad_push"]["wide_deep"] = wd_kernels["adagrad_push"]
+    kernels["adagrad_push"]["mf"] = k3_mf
     kernels["ftrl_delta"]["launches"] = worker_launches["ftrl_delta"]
     kernels["adagrad_push"]["launches_by_path"] = {
         "mf": mf_launches["adagrad_push"], "embedding_server": emb_launches,

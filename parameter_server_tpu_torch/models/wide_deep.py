@@ -10,8 +10,9 @@ are then pushed through ``kv.store.push`` and the MLP steps with Adam.
 Pull and push stay the only interface to model state. On CUDA the wide
 push is the hand-written fused FTRL kernel (``ops.ftrl_kernels.ftrl_push``)
 and the embedding push the fused AdaGrad kernel
-(``ops.adagrad_kernels.adagrad_push``): a batch's unique keys, with
-zero-gradient pad slots on key 0, are exactly their contract.
+(``ops.adagrad_kernels.adagrad_push``): a batch's unique keys, with a
+zero-gradient pad slot on key 0, are exactly their contract. The step
+pushes only the batch's real prefix of unique keys, not its pad slots.
 
 Unlike the JAX step, which donates the tables and returns new ones, the
 port updates them IN PLACE. The SPMD mesh path is not ported yet.
@@ -140,16 +141,24 @@ def wd_train_step(
     opt: torch.optim.Optimizer,
     batch: dict[str, torch.Tensor],
     num_examples: int,
+    num_unique: int,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One Wide&Deep step, IN PLACE: pull the touched rows of both tables,
     take the gradients by autograd, push both tables, step Adam. Returns
     the step's summed loss and its probabilities, on the device.
 
+    Only the batch's first ``num_unique`` slots (``CSRBatch.num_unique``,
+    pad slot 0 included) are pulled and pushed. Every entry's local id is
+    below that count and pad entries point at slot 0, so the slots after
+    it get an autograd gradient of exactly 0 on row 0: pushing them would
+    be a no-op, and the JAX step, which pushes all of them, computes the
+    same function.
+
     A batch with no examples (``num_examples == 0``) moves neither the MLP
     nor Adam's state: Adam would still advance its moment decay on a zero
     gradient, so the update is gated on activity as in the JAX step. The
-    host knows the count, so the gate costs no device sync."""
-    idx = batch["unique_keys"]
+    host knows both counts, so neither costs a device sync."""
+    idx = batch["unique_keys"][:num_unique]
     w_u = _pull_rows(wide_up, wide_state, idx)
     e_w = _pull_rows(emb_up, emb_state, idx)
     params = list(mlp.parameters())
@@ -279,6 +288,7 @@ class WideDeep:
             step_loss, p = wd_train_step(
                 self.wide_up, self.emb_up, self.wide_state, self.emb_state,
                 self.mlp, self.opt, batch_to_device(b, self.device), b.num_examples,
+                b.num_unique,
             )
             loss = step_loss if loss is None else loss + step_loss
             probs.append(p)

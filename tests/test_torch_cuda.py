@@ -112,32 +112,55 @@ def test_push_kernel_matches_plain(dev, vdim, K, keys, hyper):
     torch.testing.assert_close(nk, ng, **TOL)
 
 
+def _offset_copy(t, offset):
+    """A copy of ``t`` that starts ``offset`` elements into its storage."""
+    return torch.empty(t.numel() + offset, device=t.device)[offset:].view_as(t).copy_(t)
+
+
+# (vdim, offset): vdim % 4 == 0 takes the float4 body; vdim 7, or tables
+# one element into their storage (no 16-byte-aligned base), the scalar body.
+# A row wider than 32 lanes makes a lane loop over columns: (64, 1), 64
+# floats, and (160, 0), 40 float4s
+ADAGRAD_CASES = [(4, 0), (16, 0), (32, 0), (64, 0), (7, 0), (16, 1), (64, 1), (160, 0)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("pads", [3, "wd"])
 @pytest.mark.parametrize("l2", [0.0, 0.01])
-@pytest.mark.parametrize("vdim", [16, 64])
-def test_adagrad_push_kernel_matches_plain(dev, vdim, l2):
+@pytest.mark.parametrize("vdim,offset", ADAGRAD_CASES)
+def test_adagrad_push_kernel_matches_plain(dev, vdim, offset, l2, pads):
+    """Against the plain version; the table is the rows w[1:-1] of a (K + 2,
+    vdim) array, so slots with idx -1 and K would land on the guard rows,
+    which keep their bits as every untouched row does. ``pads`` "wd" is
+    the Wide&Deep batch's ratio: 90% of the slots are pads (idx 0, zero
+    gradient) on a zero row 0."""
     gen = torch.Generator(device=dev).manual_seed(5)
     K = 1 << 16
-    w = torch.randn((K, vdim), generator=gen, device=dev)
-    n = torch.rand((K, vdim), generator=gen, device=dev) * 4
-    if l2 > 0:
+    wg = _offset_copy(torch.randn((K + 2, vdim), generator=gen, device=dev), offset)
+    ng = _offset_copy(torch.rand((K + 2, vdim), generator=gen, device=dev) * 4, offset)
+    w, n = wg[1:-1], ng[1:-1]
+    if vdim % 4 == 0:
+        assert (w.data_ptr() % 16 == 0) == (offset == 0)
+    if l2 > 0 or pads == "wd":
         w[0] = 0.0  # the pad-row invariant the repeated pad slots rely on
         n[0] = 0.0
     uniq = np.unique(np.random.default_rng(6).integers(1, K, 5000))
-    idx = torch.from_numpy(np.concatenate([uniq, [0, 0, 0]]).astype(np.int32)).to(dev)
+    n_pads = 9 * len(uniq) if pads == "wd" else pads
+    idx_np = np.concatenate([[0], uniq, np.zeros(n_pads - 1), [-1, K]]).astype(np.int32)
+    idx = torch.from_numpy(idx_np).to(dev)
     g = torch.randn((idx.shape[0], vdim), generator=gen, device=dev)
-    g[-3:] = 0
-    wk, nk = w.clone(), n.clone()
+    g[idx == 0] = 0
+    wk, nk = _offset_copy(wg, offset), _offset_copy(ng, offset)
     before = ak.LAUNCHES["adagrad_push"]
-    ak.adagrad_push(wk, nk, idx, g, eta=0.05, eps=1e-8, l2=l2)
+    ak.adagrad_push(wk[1:-1], nk[1:-1], idx, g, eta=0.05, eps=1e-8, l2=l2)
     assert ak.LAUNCHES["adagrad_push"] == before + 1
-    untouched = torch.ones(K, dtype=torch.bool, device=dev)
-    untouched[idx[:-3].long()] = False  # row 0 (the pad row) stays in
-    assert torch.equal(wk[untouched].view(torch.int32), w[untouched].view(torch.int32))
-    assert torch.equal(nk[untouched].view(torch.int32), n[untouched].view(torch.int32))
-    ak.adagrad_push_plain(w, n, idx, g, eta=0.05, eps=1e-8, l2=l2)
-    torch.testing.assert_close(wk, w, **TOL)
-    torch.testing.assert_close(nk, n, **TOL)
+    untouched = torch.ones(K + 2, dtype=torch.bool, device=dev)
+    untouched[torch.from_numpy(uniq + 1).to(dev)] = False  # pad row 0 and guards stay in
+    assert torch.equal(wk[untouched].view(torch.int32), wg[untouched].view(torch.int32))
+    assert torch.equal(nk[untouched].view(torch.int32), ng[untouched].view(torch.int32))
+    ak.adagrad_push_plain(w, n, idx[:-2], g[:-2], eta=0.05, eps=1e-8, l2=l2)  # in range only
+    torch.testing.assert_close(wk, wg, **TOL)
+    torch.testing.assert_close(nk, ng, **TOL)
 
 
 @pytest.mark.cuda

@@ -110,12 +110,58 @@ def test_steps_match_jax_from_shared_tables():
                                     j.mlp_params, j.opt_state, jax_batch(b))
         tloss, tprobs = TW.wd_train_step(t.wide_up, t.emb_up, t.wide_state, t.emb_state,
                                          t.mlp, t.opt, batch_to_device(b, "cpu"),
-                                         b.num_examples)
+                                         b.num_examples, b.num_unique)
         np.testing.assert_allclose(float(tloss), float(jloss), **STEP_TOL)
         np.testing.assert_allclose(tprobs.numpy(), np.asarray(jprobs), **STEP_TOL)
         _assert_state(t, j, STEP_TOL)
         assert not t.wide_state["z"][0].any() and not t.emb_state["w"][0].any()
     assert fk.LAUNCHES["ftrl_push"] == ak.LAUNCHES["adagrad_push"] == 0  # CPU: plain
+
+
+@pytest.mark.parametrize("bs,nnz,capacity", [(40, 6, 1025), (128, 8, 4097)])
+def test_step_pushes_only_the_real_prefix(monkeypatch, bs, nnz, capacity):
+    """A batch whose unique capacity is far above its real count (over 90%
+    pad slots): the step matches the JAX step, which pushes every slot, at
+    STEP_TOL from shared tables; both pushes carry exactly ``num_unique``
+    slots; row 0 and every untouched row keep their bits."""
+    import parameter_server_tpu_torch.kv.store as store
+
+    labels, keys, vals, _ = make_sparse_logistic(bs, 3000, nnz_per_example=nnz, seed=12)
+    b = JBB(num_keys=4096, batch_size=bs, max_nnz_per_example=4 * nnz,
+            unique_capacity=capacity).build(labels, keys, vals)
+    assert b.unique_keys.shape == (capacity,) and b.num_unique < capacity // 10
+    slots = []
+
+    def counting(kernel):
+        def run(a, b_, idx, g, **kw):
+            slots.append(idx.shape[0])
+            return kernel(a, b_, idx, g, **kw)
+        return run
+
+    for name in ("ftrl_push", "adagrad_push"):
+        monkeypatch.setattr(store, name, counting(getattr(store, name)))
+    j, t = _apps()
+    t.wide_state = state_from_numpy({k: np.asarray(v) for k, v in j.wide_state.items()}, "cpu")
+    t.emb_state = state_from_numpy({k: np.asarray(v) for k, v in j.emb_state.items()}, "cpu")
+    before = t.state_dict()
+    (j.wide_state, j.emb_state, j.mlp_params, j.opt_state, jloss,
+     jprobs) = JW.wd_train_step(j.wide_up, j.emb_up, j.opt, j.wide_state, j.emb_state,
+                                j.mlp_params, j.opt_state, jax_batch(b))
+    tloss, tprobs = TW.wd_train_step(t.wide_up, t.emb_up, t.wide_state, t.emb_state, t.mlp,
+                                     t.opt, batch_to_device(b, "cpu"), b.num_examples,
+                                     b.num_unique)
+    assert slots == [b.num_unique, b.num_unique]
+    np.testing.assert_allclose(float(tloss), float(jloss), **STEP_TOL)
+    np.testing.assert_allclose(tprobs.numpy(), np.asarray(jprobs), **STEP_TOL)
+    _assert_state(t, j, STEP_TOL)
+    untouched = np.ones(4096, dtype=bool)
+    untouched[b.unique_keys[1:b.num_unique]] = False
+    assert untouched[0] and untouched.sum() == 4096 - (b.num_unique - 1)
+    after = t.state_dict()
+    for name in ("wide", "emb"):
+        for k in before[name]:
+            np.testing.assert_array_equal(after[name][k][untouched].view(np.int32),
+                                          before[name][k][untouched].view(np.int32))
 
 
 @pytest.mark.parametrize("steps_per_call,max_delay", [(3, 1), (1, 0)])
@@ -156,12 +202,13 @@ def test_inert_batch_is_a_no_op():
     b = _batches(n_batches=1)[0]
     j, t = _apps()
     TW.wd_train_step(t.wide_up, t.emb_up, t.wide_state, t.emb_state, t.mlp, t.opt,
-                     batch_to_device(b, "cpu"), b.num_examples)
+                     batch_to_device(b, "cpu"), b.num_examples, b.num_unique)
     before = copy.deepcopy(t.state_dict())
     opt_before = copy.deepcopy(t.opt.state_dict())
     inert = _inert(b)
     loss, _ = TW.wd_train_step(t.wide_up, t.emb_up, t.wide_state, t.emb_state, t.mlp, t.opt,
-                               batch_to_device(inert, "cpu"), inert.num_examples)
+                               batch_to_device(inert, "cpu"), inert.num_examples,
+                               inert.num_unique)
     assert float(loss) == 0.0
     after = t.state_dict()
     for name in ("wide", "emb"):
