@@ -34,7 +34,8 @@ the script exits nonzero without printing a result:
              synthetic ratings; epoch 2's RMSE is below epoch 1's, and the
              first 3 steps' SSE and the w, n tables after them match a CPU
              run of the port (rtol 1e-4); K3's device time a launch in a
-             profile of one window entry, beside its bound.
+             profile of one window entry, beside its bound; K3, its plain
+             version and torch.optim.Adagrad at a step's users, by events.
 7. embedding server — a 2^22-key, vdim-64 AdaGrad KVStore answers
              coalesced pushes from 8 simulated workers; a pull of the last
              round's keys matches a CPU plain update of the touched rows.
@@ -77,11 +78,51 @@ the script exits nonzero without printing a result:
              on the same corpus as a .npy (pipeline_depth 2) counting every
              pair, with no kernel launched; a profile of one window entry.
 
+11. pod — the SPMD tier (parallel/). K1 and K3 against their plain
+             versions on kv-shard views given keys - begin, the keys of
+             other shards on both sides (K1: a 2^24-row table in 4 shards
+             at a worker batch's keys; K3: MF's user table in 4 shards at a
+             batch's users), the rows they skip bit-identical; the quantized
+             push's int8 rounding at the worker step's gradient (the JAX
+             push's scale, floor(t) or floor(t) + 1, unbiased over 64
+             seeds, independent neighbouring seeds).
+             (a) A world of one on NCCL in this process, the worker's full
+             width (phase 4's table and batches): PodTrainer's step on the
+             1x1 mesh in per_worker mode (K1 a step) and in aggregate mode
+             (K2 over the whole 2^24-row shard a step); the first 3 steps'
+             loss and the touched rows match the single-device LinearMethod
+             on the card (E2E_RTOL); 4 steps timed and 4 profiled (idle
+             share, the collectives' device time, K1's or K2's time a
+             launch, the payload handed to the collectives a step), and
+             the single-device worker's steps fed, timed and profiled the
+             same way over the same batches beside them.
+             (b) 2x2 meshes of 4 gloo ranks sharing the card, each a
+             `python -m parameter_server_tpu_torch.cli train --device cuda
+             --dist_backend gloo --coordinator ...` process, each world
+             beside the same 2x2 world on the CPU, all 9 worlds at once
+             (36 processes; every rank 0 first, the other ranks once every
+             store listens): linear_method on the
+             2^24-key table from 6 libsvm files of 8192 phase-4 rows (3 a
+             data shard: cut to 3 steps), per_worker, aggregate and
+             quantized; MF at MovieLens-20M's shape from 16,384 synthetic
+             ratings (one global step an epoch, 3 epochs: cut to 3 steps;
+             the item table's 26,745 rows are padded to 26,746 for 2 kv
+             shards), per_worker and aggregate. The first 3 steps' progress
+             rows and the final state (z, n on the touched rows; MF's
+             factors) match the CPU world's (E2E_RTOL; the rows' 5 printed
+             digits add PRINT_RTOL); the quantized run's loss falls, and
+             its ranks (--audit_quantized) held every push's gathered
+             gradient to the rounding bounds above; every card rank
+             launched K1 (per_worker, quantized), K2 (aggregate) or K3 (MF
+             per_worker). Any rank's nonzero exit, or a world outlasting
+             POD_TIMEOUT_S, kills every rank of every world and fails.
+
 Launch counters are reset just before each of phases 4-7, the round trip
-of phase 8 and the training runs of phases 9 and 10, and read just after:
-each must have launched its kernels (phase 10: none). The line before the
-last is the kernels' JSON summary; the last line is {"ok": true,
-"device": {...}}. Imports nothing of JAX.
+of phase 8, the training runs of phases 9 and 10 and each mode of phase
+11 (a), and read just after; phase 11 (b)'s ranks start from 0 in their
+own processes and print their counts: each must have launched its kernels
+(phase 10: none). The line before the last is the kernels' JSON summary;
+the last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -193,6 +234,26 @@ E2E_STEPS, E2E_RTOL = 3, 1e-4
 # another order (each batch's pairs permuted) shows how far: its drift
 # after E2E_STEPS steps is logged beside the card's
 W2V_E2E_STEPS = 2
+# phase 11, the SPMD tier: (a) the worker's config on a 1x1 mesh, a world
+# of one on NCCL: POD_E2E_STEPS steps held to the single-device worker,
+# POD_TIMED_STEPS timed, POD_PROFILE_STEPS profiled, each mode on fresh
+# tables (phase 4's 12 batches cover the 3 + 4 + 4 + ... steps cycled);
+# (b) 2x2 meshes of POD_RANKS `cli train` ranks, cut to POD_E2E_STEPS steps:
+# linear_method from POD_FILES_PER_SHARD libsvm files of one batch each a
+# data shard, MF from 2 x MF_BATCH ratings, one global step an epoch
+POD_E2E_STEPS, POD_TIMED_STEPS, POD_PROFILE_STEPS = 3, 4, 4
+POD_RANKS, POD_FILES_PER_SHARD, POD_TIMEOUT_S, POD_QUANT_SEEDS = 4, 3, 300, 64
+POD_RUNS = [("linear_method", "per_worker"), ("linear_method", "aggregate"),
+            ("linear_method", "quantized"), ("matrix_fac", "per_worker"),
+            ("matrix_fac", "aggregate")]
+# the kernel each run must launch on every rank (MF's aggregate push is one
+# plain AdaGrad step over the shard: no kernel)
+POD_KERNELS = {("linear_method", "per_worker"): "ftrl_push",
+               ("linear_method", "aggregate"): "ftrl_delta",
+               ("linear_method", "quantized"): "ftrl_push",
+               ("matrix_fac", "per_worker"): "adagrad_push", ("matrix_fac", "aggregate"): None}
+# the progress table prints 5 significant digits
+PRINT_RTOL = 1e-4
 
 
 def log(msg: str) -> None:
@@ -950,6 +1011,501 @@ def phase_word2vec(dev) -> None:
                 lambda: float(w2v._dispatch(micro, W2V_STEPS_PER_CALL)))
 
 
+def worker_cfg():
+    """The linear worker's config: phase 4's table, batch and FTRL."""
+    from parameter_server_tpu_torch.utils.config import PSConfig
+
+    cfg = PSConfig()
+    cfg.data.num_keys = WORKER_KEYS
+    cfg.solver.minibatch = BATCH
+    cfg.data.max_nnz_per_example = 4 * NNZ_PER
+    cfg.lr.alpha, cfg.lr.beta = HYPER["alpha"], HYPER["beta"]
+    cfg.penalty.lambda_l1, cfg.penalty.lambda_l2 = HYPER["l1"], HYPER["l2"]
+    return cfg
+
+
+def check_shard_push(name, kernel, plain, dev, gen, keys, rows: int, kv: int, vdim: int,
+                     hyper: dict) -> float:
+    """A fused push on kv shard 1 of ``kv`` (>= 3): the (S, vdim) rows
+    [S, 2S) of a table pair of ``rows`` rows padded to the kv multiple,
+    given ``keys - S`` as the SPMD push gives it, so the keys of shard 0
+    fall below 0 and those of shards 2.. at or above S. The pad slots
+    (global key 0) fall on -S. Kernel vs the plain version given the whole
+    index; every row of the whole table the push does not touch keeps its
+    bits."""
+    s = -(-rows // kv)
+    rows = s * kv
+    idx = torch.from_numpy(np.concatenate([keys, np.zeros(37, keys.dtype)]).astype(np.int64)
+                           - s).to(dev).to(torch.int32)
+    g = torch.randn((idx.shape[0], vdim), generator=gen, device=dev)
+    g[idx == -s] = 0.0
+    a0 = torch.randn((rows, vdim), generator=gen, device=dev) * 2
+    b0 = torch.rand((rows, vdim), generator=gen, device=dev) * 4
+    ak_, bk = a0.clone(), b0.clone()
+    kernel(ak_[s:2 * s], bk[s:2 * s], idx, g, **hyper)
+    changed = bits_changed(ak_, a0) | bits_changed(bk, b0)
+    inside = idx[(idx >= 0) & (idx < s)].long() + s
+    changed[inside] = False
+    if changed.any():
+        raise AssertionError(f"{name} on a shard view: {int(changed.sum())} untouched rows "
+                             "changed")
+    if not ((idx < 0).any() and (idx >= s).any()):
+        raise AssertionError(f"{name} on a shard view: no slot of another shard")
+    plain(a0[s:2 * s], b0[s:2 * s], idx, g, **hyper)
+    torch.cuda.synchronize()
+    return max(check_close(f"{name} shard view table a", ak_[inside], a0[inside]),
+               check_close(f"{name} shard view table b", bk[inside], b0[inside]))
+
+
+def free_ports(count: int) -> list[int]:
+    """``count`` distinct free ports (all bound at once while chosen)."""
+    import contextlib
+    import socket
+
+    with contextlib.ExitStack() as stack:
+        socks = [stack.enter_context(socket.socket()) for _ in range(count)]
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return [sock.getsockname()[1] for sock in socks]
+
+
+def start_rank(root: Path, logs: Path, tag: str, app_file: Path, device: str,
+               extra: list[str], port: int, r: int) -> tuple:
+    """Rank ``r`` of a 2x2 world of POD_RANKS ``cli train`` processes, rank
+    0's store on ``port``; on the card the ranks share it over gloo. Returns
+    (process, stdout path, stderr path)."""
+    env = {**os.environ, "PYTHONPATH": str(root), "OMP_NUM_THREADS": "1"}
+    out, err = logs / f"{tag}.{r}.out", logs / f"{tag}.{r}.err"
+    argv = [sys.executable, "-m", "parameter_server_tpu_torch.cli", "train",
+            "--app_file", str(app_file), "--device", device,
+            "--coordinator", f"127.0.0.1:{port}", "--num_processes", str(POD_RANKS),
+            "--process_id", str(r), "--report_interval", "1", *extra]
+    if device == "cuda":
+        argv += ["--dist_backend", "gloo"]
+    with open(out, "w") as fo, open(err, "w") as fe:
+        return subprocess.Popen(argv, cwd=root, env=env, stdout=fo, stderr=fe), out, err
+
+
+def listens(pid: int, port: int) -> bool:
+    """Whether process ``pid`` listens on ``port``: the listening sockets of
+    /proc/net/tcp and tcp6 matched against its file descriptors, so no
+    connection is made."""
+    inodes = set()
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        with open(table) as f:
+            for line in f.readlines()[1:]:
+                cells = line.split()
+                if cells[3] == "0A" and int(cells[1].rsplit(":", 1)[1], 16) == port:
+                    inodes.add(f"socket:[{cells[9]}]")
+    fds = Path(f"/proc/{pid}/fd")
+    for fd in os.listdir(fds) if inodes else ():
+        try:
+            if os.readlink(fds / fd) in inodes:
+                return True
+        except OSError:  # closed meanwhile
+            pass
+    return False
+
+
+def start_worlds(root: Path, logs: Path, specs: dict, timeout: float) -> dict:
+    """Start the worlds of ``specs`` (tag -> (app_file, device, extra)) at
+    once: every world's rank 0 first, each on a port free when chosen, and
+    the other ranks once every rank 0 listens. Until then no rank holds a
+    connection, so no ephemeral port of one world can take another's store
+    port, except rank 0's own connection to its store; a rank 0 that finds
+    its port taken starts again on another (at most 3 times). Returns tag ->
+    [(process, stdout path, stderr path)] a rank."""
+    def first(tag: str, port: int) -> tuple:
+        return port, start_rank(root, logs, tag, *specs[tag], port, 0)
+
+    zeros = {tag: first(tag, port) for tag, port in zip(specs, free_ports(len(specs)))}
+    t0, retries = time.perf_counter(), 0
+    try:
+        while True:
+            waiting = False
+            for tag, (port, (p, _, err)) in list(zeros.items()):
+                if p.poll() is not None:
+                    if "address already in use" not in err.read_text().lower() or retries == 3:
+                        raise AssertionError(f"pod {tag} rank 0 exited {p.returncode} before "
+                                             f"its world started: {err.read_text()[-1500:]}")
+                    retries += 1
+                    zeros[tag] = first(tag, free_ports(1)[0])
+                    waiting = True
+                elif not listens(p.pid, port):
+                    waiting = True
+            if not waiting:
+                break
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"pod: the worlds' stores did not listen within {timeout} s")
+            time.sleep(0.05)
+    except BaseException:
+        for _, (p, _, _) in zeros.values():
+            p.kill()
+            p.wait()
+        raise
+    return {tag: [rank0] + [start_rank(root, logs, tag, *specs[tag], port, r)
+                            for r in range(1, POD_RANKS)]
+            for tag, (port, rank0) in zeros.items()}
+
+
+def wait_worlds(worlds: dict, timeout: float) -> dict:
+    """Wait for every world; any rank's nonzero exit, or the time limit, kills
+    every rank of every world and fails. Returns each world's (rank 0's
+    progress rows, every rank's result JSON, seconds until its last rank
+    exited)."""
+    t0 = time.perf_counter()
+    failed = None
+    done: dict = {}
+    try:
+        while failed is None:
+            for tag, ranks in worlds.items():
+                codes = [p.poll() for p, _, _ in ranks]
+                if any(c not in (None, 0) for c in codes):
+                    failed = "a rank exited nonzero"
+                elif tag not in done and all(c == 0 for c in codes):
+                    done[tag] = time.perf_counter() - t0
+            if failed is None and len(done) == len(worlds):
+                break
+            if failed is None and time.perf_counter() - t0 > timeout:
+                failed = f"the worlds outlasted {timeout} s"
+            time.sleep(0.1)
+    finally:
+        for ranks in worlds.values():
+            for p, _, _ in ranks:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+    if failed:
+        tails = [f"{tag} rank {r} (exit {p.returncode}): {err.read_text()[-1500:]}"
+                 for tag, ranks in worlds.items() for r, (p, _, err) in enumerate(ranks)
+                 if p.returncode]
+        raise AssertionError(f"pod worlds: {failed}\n" + "\n".join(tails))
+    res = {}
+    for tag, ranks in worlds.items():
+        outs = [out.read_text().rstrip().splitlines() for _, out, _ in ranks]
+        res[tag] = {"rows": progress_rows(outs[0][:-1]),
+                    "results": [json.loads(o[-1]) for o in outs], "seconds": done[tag]}
+    return res
+
+
+def progress_rows(lines: list[str]) -> list[dict]:
+    """The rows of a printed progress table (ProgressReporter: cells 12
+    wide, 2 apart) as {column: float}, empty cells left out."""
+    cols, rows = None, []
+    for line in lines:
+        cells = [line[i:i + 12].strip() for i in range(0, len(line), 14)]
+        if cells and cells[0] == "sec":
+            cols = cells
+        elif cols is not None and cells:
+            rows.append({c: float(v) for c, v in zip(cols, cells) if v})
+    return rows
+
+
+def phase_pod(dev, gen, batches, raw, ratings) -> dict:
+    """Phase 11: the SPMD tier. (a) a world of one on NCCL in this process
+    at the worker's full width; (b) 2x2 meshes of 4 gloo ranks sharing the
+    card, each run beside the same 2x2 run on the CPU. Returns the launches
+    a kernel made on each path, the shard checks' errors and times."""
+    from parameter_server_tpu_torch.data.synthetic import write_libsvm
+    from parameter_server_tpu_torch.models import matrix_fac as mfm
+    from parameter_server_tpu_torch.models.linear import LinearMethod, batch_to_device, train_step
+    from parameter_server_tpu_torch.ops import adagrad_kernels as ak
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.ops.sparse import csr_grad, logistic_loss
+    from parameter_server_tpu_torch.parallel import runtime
+    from parameter_server_tpu_torch.parallel.spmd import push_generator, quantize_int8
+    from parameter_server_tpu_torch.parallel.trainer import PodTrainer
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    res = {"launches": {}, "err": {}, "times": {}}
+    quiet = ProgressReporter(print_fn=lambda s: None)
+    cfg = worker_cfg()
+    t0 = time.perf_counter()
+    rt = runtime.init(None, cfg=cfg, device="cuda")  # NCCL, a world of one
+    log(f"pod: NCCL world of one up in {time.perf_counter() - t0:.2f} s on {rt.mesh.device}")
+    try:
+        # K1 and K3 on kv-shard views, given keys - begin (slots of other shards
+        # on both sides): K1 at the worker's table and a batch's keys, K3 at
+        # MF's user table and a batch's users, each in 4 shards
+        b0 = batches[0]
+        res["err"]["ftrl_push"] = max(
+            check_shard_push("ftrl_push", fk.ftrl_push, fk.ftrl_push_plain, dev, gen,
+                             b0.unique_keys[1:b0.num_unique], WORKER_KEYS, 4, 1, hyper)
+            for hyper in (HYPER, HYPER_L2))
+        mf_keys = np.unique(ratings[0][:MF_BATCH]) + 1
+        mf_rows = MF_USERS + 1
+        res["err"]["adagrad_push"] = max(
+            check_shard_push("adagrad_push", ak.adagrad_push, ak.adagrad_push_plain, dev, gen,
+                             mf_keys, mf_rows, 4, MF_RANK, {**ADAGRAD, "l2": l2})
+            for l2 in (0.0, 0.01))
+        torch.cuda.empty_cache()
+        log(f"pod: K1 (a {WORKER_KEYS}-row table in 4 shards) and K3 ({mf_rows} x {MF_RANK} "
+            f"in 4) on shard views given keys - begin match their plain versions (max abs "
+            f"err {res['err']['ftrl_push']:.3g}, {res['err']['adagrad_push']:.3g}); the rows "
+            "they skip keep their bits")
+
+        # the quantized push's rounding at the worker step's gradient (batch
+        # 0 at zero weights): the JAX scale, floor(t) or floor(t) + 1, an
+        # unbiased mean over seeds, independent neighbouring seeds
+        d0 = batch_to_device(b0, dev)
+        _, err0 = logistic_loss(torch.zeros(BATCH, device=dev), d0["labels"],
+                                d0["example_mask"])
+        g = csr_grad(err0, d0["values"], d0["local_ids"], d0["row_ids"],
+                     num_unique=b0.unique_keys.shape[0])
+        want_scale = g.cpu().abs().max() / 127.0 + 1e-30
+        total = torch.zeros_like(g)
+        resid = []
+        for seed in range(POD_QUANT_SEEDS):
+            q, scale = quantize_int8(g, push_generator(seed, 0, 0, dev))
+            t = g / scale
+            fl = torch.floor(t)
+            if scale.cpu() != want_scale or not bool(((q == fl) | (q == fl + 1)).all()):
+                raise AssertionError(f"pod quantized push, seed {seed}: scale {scale.item()} "
+                                     f"vs {want_scale.item()}, or q outside floor(t) + {{0, 1}}")
+            total += q.float() * scale
+            if seed < 2:
+                resid.append((q.float() - t).ravel())
+        frac = (t - fl).ravel()
+        live = frac > 0
+        bias = (total / POD_QUANT_SEEDS - g).abs().max().item()
+        rho = torch.corrcoef(torch.stack([r[live] for r in resid]))[0, 1].item()
+        if not bias < 0.5 * want_scale.item() or not abs(rho) < 4 / np.sqrt(int(live.sum())):
+            raise AssertionError(f"pod quantized push: mean decode off by {bias} "
+                                 f"(scale {want_scale.item()}), seeds s, s+1 correlate {rho}")
+        log(f"pod quantized push ok at ({b0.unique_keys.shape[0]}, 1): scale equals the JAX "
+            f"push's, every q floor(t) or floor(t) + 1, mean of {POD_QUANT_SEEDS} seeds' "
+            f"decodes within {bias:.3g} of g ({bias / want_scale.item():.3f} steps), seeds "
+            f"0, 1 correlate {rho:.3g} over {int(live.sum())} rounded slots")
+        del d0, err0, g, total, resid, q, t, fl, frac
+
+        # (a) PodTrainer's step on the 1x1 mesh vs the single-device worker
+        touched = torch.from_numpy(np.unique(np.concatenate(
+            [b.unique_keys[:b.num_unique] for b in batches[:POD_E2E_STEPS]]))).to(dev).long()
+        for mode, kernel in (("per_worker", "ftrl_push"), ("aggregate", "ftrl_delta")):
+            cfg.parallel.push_mode = mode
+            trainer = PodTrainer(cfg, runtime=rt, reporter=quiet)
+            # the host stacks the trainer's pipeline prepares; each step
+            # copies its batch to the card, as the trainer's dispatch does
+            feed = [trainer._prepare(b)[0] for b in batches]
+
+            def steps(lo: int, hi: int) -> list:
+                outs = []
+                for i in range(lo, hi):
+                    trainer.state, o = trainer.step_fn(
+                        trainer.state, rt.globalize_batch(feed[i]), i)
+                    outs.append(o["loss_sum"])
+                return outs
+
+            torch.cuda.synchronize()
+            fk.reset_launches()
+            ak.reset_launches()
+            losses = [float(x) for x in steps(0, POD_E2E_STEPS)]
+            torch.cuda.synchronize()
+            launches = {**fk.LAUNCHES, **ak.LAUNCHES}
+            if launches[kernel] < POD_E2E_STEPS:
+                raise AssertionError(f"pod 1x1 {mode}: {kernel} launched {launches[kernel]} "
+                                     f"times in {POD_E2E_STEPS} steps")
+            res["launches"][f"pod_1x1_{mode}"] = launches
+            ref = LinearMethod(cfg, reporter=quiet, device="cuda")
+            for i in range(POD_E2E_STEPS):
+                _, r = train_step(ref.updater, ref.store.state, batch_to_device(batches[i], dev))
+                if not np.isclose(losses[i], float(r["loss_sum"]), rtol=E2E_RTOL, atol=0.0):
+                    raise AssertionError(f"pod 1x1 {mode} step {i}: loss_sum {losses[i]} vs "
+                                         f"the single-device worker's {float(r['loss_sum'])}")
+            err = max(check_e2e(f"pod 1x1 {mode} {k}", trainer.state[k][touched],
+                                ref.store.state[k][touched]) for k in ("z", "n"))
+
+            def ref_steps(lo: int, hi: int) -> None:
+                """The single-device worker's steps, fed and timed as ``steps``."""
+                for i in range(lo, hi):
+                    train_step(ref.updater, ref.store.state, batch_to_device(batches[i], dev))
+
+            def timed(fn) -> float:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(POD_E2E_STEPS, POD_E2E_STEPS + POD_TIMED_STEPS)
+                torch.cuda.synchronize()
+                return POD_TIMED_STEPS * BATCH / (time.perf_counter() - t0)
+
+            ex_s, ref_ex_s = timed(steps), timed(ref_steps)
+            lo = POD_E2E_STEPS + POD_TIMED_STEPS
+            before = dict(rt.mesh.payload_bytes)
+            wall_ms, busy_ms, rows = profile(lambda: steps(lo, lo + POD_PROFILE_STEPS))
+            ref_wall, ref_busy, ref_rows = profile(lambda: ref_steps(lo, lo + POD_PROFILE_STEPS))
+            del ref
+            payload = {k: (v - before[k]) / POD_PROFILE_STEPS
+                       for k, v in rt.mesh.payload_bytes.items()}
+            coll_ms = sum(t for k, t, _ in rows if "nccl" in k.lower())
+            # NCCL on a world of one copies instead of launching kernels
+            dtod_ms = sum(t for k, t, _ in rows if "DtoD" in k)
+            k_ms, k_count = kernel_row(rows, f"{kernel}_kernel")
+            res["times"][f"pod_1x1_{mode}"] = {
+                "ex_per_s": ex_s, "wall_ms": wall_ms, "busy_ms": busy_ms,
+                "idle_share": 1 - busy_ms / wall_ms, "collectives_ms": coll_ms,
+                "dtod_copies_ms": dtod_ms,
+                "kernel": kernel, "kernel_ms": k_ms, "kernel_launches": k_count,
+                "payload_bytes_a_step": payload,
+                "worker_ex_per_s": ref_ex_s, "worker_wall_ms": ref_wall,
+                "worker_busy_ms": ref_busy}
+            top = [(k[:50], round(t, 4)) for k, t, _ in rows[:6]]
+            ref_top = [(k[:50], round(t, 4)) for k, t, _ in ref_rows[:4]]
+            log(f"pod 1x1 {mode} ok: losses of steps 1-{POD_E2E_STEPS} and the touched rows "
+                f"match the single-device worker (worst {err:.3g} of scale); {ex_s:.1f} ex/s "
+                f"over {POD_TIMED_STEPS} steps; profile of {POD_PROFILE_STEPS} steps: wall "
+                f"{wall_ms:.3f} ms, busy {busy_ms:.3f} ms (idle share "
+                f"{1 - busy_ms / wall_ms:.3f}), NCCL kernels {coll_ms:.4f} ms, device-to-device"
+                f" copies {dtod_ms:.4f} ms, payload handed "
+                f"to them a step {payload} (traffic.py's wire estimate on a 1x1 mesh: "
+                f"{trainer.est_step_traffic.total_bytes}), {kernel} "
+                f"{k_ms:.5f} ms a launch ({k_count}); top {top}; launches {launches}")
+            log(f"pod 1x1 {mode}: the single-device worker fed, timed and profiled the "
+                f"same way over the same steps: {ref_ex_s:.1f} ex/s (pod {ex_s:.1f}); "
+                f"profile wall {ref_wall:.3f} ms, busy {ref_busy:.3f} ms (idle share "
+                f"{1 - ref_busy / ref_wall:.3f}); top {ref_top}")
+            del trainer, feed
+            torch.cuda.empty_cache()
+        k2_bound = bound(20 * WORKER_KEYS, FTRL_FLOPS * WORKER_KEYS)
+        res["times"]["k2_shard"] = {"ms": res["times"]["pod_1x1_aggregate"]["kernel_ms"],
+                                    "rows": WORKER_KEYS, "bound_ms": k2_bound[0],
+                                    "bound_by": k2_bound[1]}
+        log(f"pod: K2 over the whole {WORKER_KEYS}-row shard {res['times']['k2_shard']['ms']:.5f}"
+            f" ms a launch, bound {k2_bound[0]:.5f} ms ({k2_bound[1]})")
+    finally:
+        rt.shutdown()
+
+    # (b) 2x2 worlds of `cli train` ranks: on the card (gloo, sharing it) and
+    # on the CPU, side by side
+    root = Path(__file__).resolve().parent
+    labels, keys, vals = raw
+    with tempfile.TemporaryDirectory() as tmp_s:
+        tmp = Path(tmp_s)
+        t0 = time.perf_counter()
+        files = []
+        for i in range(2 * POD_FILES_PER_SHARD):  # files[d::2] feed data row d
+            files.append(tmp / f"part-{i}.svm")
+            sel = slice(i * BATCH, (i + 1) * BATCH)
+            write_libsvm(files[-1], labels[sel], keys[sel], vals[sel])
+        users, items, stars = (a[:2 * MF_BATCH] for a in ratings)
+        (tmp / "ratings.txt").write_text("".join(
+            f"{u} {v} {r:.6g}\n" for u, v, r in zip(users, items, stars)))
+        log(f"pod: wrote {len(files)} libsvm files of {BATCH} rows and {2 * MF_BATCH} ratings "
+            f"in {time.perf_counter() - t0:.2f} s")
+        # every run's worlds at once: most of a world's time is its ranks'
+        # start-up, which overlaps
+        runs = [(app, mode, ("cuda",) if mode == "quantized" else ("cuda", "cpu"))
+                for app, mode in POD_RUNS]
+        specs = {}
+        for app, mode, devices in runs:
+            app_file = tmp / f"{app}-{mode}.json"
+            app_file.write_text(json.dumps(pod_conf(app, mode, files, tmp)))
+            for device in devices:
+                out = tmp / f"{app}-{mode}-{device}"
+                extra = (["--model_out", str(out) + ".npz"] if app == "matrix_fac"
+                         else ["--ckpt_dir", str(out)] if mode != "quantized"
+                         else ["--audit_quantized"])
+                specs[out.name] = (app_file, device, extra)
+        t0 = time.perf_counter()
+        worlds = start_worlds(root, tmp, specs, POD_TIMEOUT_S)
+        t_up = time.perf_counter() - t0
+        got = wait_worlds(worlds, POD_TIMEOUT_S)
+        log(f"pod: {len(worlds)} worlds of {POD_RANKS} ranks, run at once, took "
+            f"{time.perf_counter() - t0:.1f} s ({t_up:.1f} s until every rank 0 listened; "
+            f"each world's last rank exited after "
+            f"{ {tag: round(g['seconds'], 1) for tag, g in got.items()} } s more)")
+        for app, mode, devices in runs:
+            check_pod_run(f"{app}-{mode}", app, mode,
+                          {device: got[f"{app}-{mode}-{device}"] for device in devices},
+                          tmp, res)
+    return res
+
+
+def pod_conf(app: str, mode: str, files: list, tmp: Path) -> dict:
+    """Phase 11 (b)'s config of one 2x2 run."""
+    if app == "linear_method":
+        conf = {"data": {"files": [str(f) for f in files], "num_keys": WORKER_KEYS,
+                         "max_nnz_per_example": 4 * NNZ_PER},
+                "solver": {"minibatch": BATCH},
+                "lr": {"alpha": HYPER["alpha"], "beta": HYPER["beta"]},
+                "penalty": {"lambda_l1": HYPER["l1"], "lambda_l2": HYPER["l2"]}}
+    else:
+        conf = {"app": "matrix_fac", "seed": SEED,
+                "data": {"files": [str(tmp / "ratings.txt")]},
+                "solver": {"epochs": POD_E2E_STEPS},
+                "mf": {"num_users": MF_USERS, "num_items": MF_ITEMS, "rank": MF_RANK,
+                       "eta": MF_ETA, "l2": MF_L2, "batch_size": MF_BATCH}}
+    conf["parallel"] = {"data_shards": 2, "kv_shards": 2, "push_mode": mode}
+    return conf
+
+
+def check_pod_run(tag: str, app: str, mode: str, got: dict, tmp: Path, res: dict) -> None:
+    """Phase 11 (b)'s checks of one 2x2 run (its card world and, but for the
+    quantized run, its CPU world); adds its launches and times to ``res``."""
+    card = got["cuda"]
+    want = POD_KERNELS[(app, mode)]
+    counts = [r["launches"] for r in card["results"]]
+    if want is not None and not all(c[want] > 0 for c in counts):
+        raise AssertionError(f"pod 2x2 {tag} on the card: {want} launches by rank "
+                             f"{[c[want] for c in counts]}")
+    res["launches"][f"pod_2x2_{tag}"] = {
+        k: sum(c[k] for c in counts) for k in counts[0]}
+    objv = [r["objv"] for r in card["rows"]]
+    if len(objv) < POD_E2E_STEPS:
+        raise AssertionError(f"pod 2x2 {tag}: {len(objv)} progress rows")
+    msg = ""
+    if mode == "quantized":
+        if not objv[POD_E2E_STEPS - 1] < objv[0]:
+            raise AssertionError(f"pod 2x2 {tag}: the loss did not fall: {objv}")
+        # each rank held every push's gathered gradient to the rounding
+        # bounds (cli train --audit_quantized)
+        audits = [r["quant_audit"] for r in card["results"]]
+        if not all(a["pushes"] >= POD_E2E_STEPS and a["off_grid"] == 0
+                   and a["scale_mismatch"] == 0 for a in audits):
+            raise AssertionError(f"pod 2x2 {tag}: rounding audits by rank {audits}")
+        msg = (f"; the loss fell ({objv[0]} -> {objv[POD_E2E_STEPS - 1]}); every rank's "
+               f"pushes kept the JAX scale and floor(t) + {{0, 1}} ({audits[0]['pushes']} "
+               "pushes a rank)")
+    else:
+        cpu = [r["objv"] for r in got["cpu"]["rows"]]
+        # the table prints 5 significant digits: a unit of the last
+        # digit on top of the tolerance
+        if not np.allclose(objv[:POD_E2E_STEPS], cpu[:POD_E2E_STEPS],
+                           rtol=E2E_RTOL + PRINT_RTOL, atol=0.0):
+            raise AssertionError(f"pod 2x2 {tag}: card objv {objv} vs CPU {cpu}")
+        msg = f"; first {POD_E2E_STEPS} steps' objv {objv[:POD_E2E_STEPS]} match the CPU's"
+        if app == "matrix_fac":
+            a = np.load(tmp / f"{tag}-cuda.npz")
+            c = np.load(tmp / f"{tag}-cpu.npz")
+            worst = 0.0
+            for k in ("user_factors", "item_factors"):
+                err = np.abs(a[k] - c[k]).max()
+                if not np.allclose(a[k], c[k], rtol=E2E_RTOL, atol=ATOL):
+                    raise AssertionError(f"pod 2x2 {tag} {k}: card vs CPU {err}")
+                worst = max(worst, float(err))
+            msg += f", and so do the final factors (max abs err {worst:.3g})"
+        else:
+            from parameter_server_tpu_torch.utils.checkpoint import load_checkpoint
+
+            a, _ = load_checkpoint(tmp / f"{tag}-cuda")
+            c, _ = load_checkpoint(tmp / f"{tag}-cpu")
+            rows_t = np.nonzero((a["z"] != 0) | (a["n"] != 0) | (c["z"] != 0)
+                                | (c["n"] != 0))[0]
+            worst = max(check_e2e(f"pod 2x2 {tag} {k}", torch.from_numpy(a[k][rows_t]),
+                                  torch.from_numpy(c[k][rows_t])) for k in ("z", "n"))
+            msg += (f", and so do the final z, n on the {len(rows_t)} touched rows "
+                    f"(worst {worst:.3g} of scale)")
+    rate = [r.get("ex_per_sec") for r in card["rows"][:POD_E2E_STEPS]]
+    payload = card["results"][0]["payload_bytes"]
+    est = card["results"][0].get("est_collective_bytes")  # the last (one-step) row
+    res["times"][f"pod_2x2_{tag}"] = {"seconds": card["seconds"], "ex_per_sec": rate,
+                                      "rank0_payload_bytes": payload,
+                                      "est_collective_bytes_a_step": est}
+    worlds = "4 gloo ranks on the card" + ("" if mode == "quantized" else ", 4 on the CPU")
+    log(f"pod 2x2 {tag} ok: its worlds ({worlds}){msg}; card "
+        f"ex/s by step {rate}; rank 0 handed its "
+        f"collectives {payload} bytes in the run (traffic.py's estimate {est} a step); "
+        f"launches by rank {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -972,7 +1528,6 @@ def main() -> int:
     from parameter_server_tpu_torch.ops import cuda_build
     from parameter_server_tpu_torch.ops import ftrl_kernels as fk
     from parameter_server_tpu_torch.ops import quantize_kernels as qk
-    from parameter_server_tpu_torch.utils.config import PSConfig
     from parameter_server_tpu_torch.utils.metrics import ProgressReporter
 
     t_start = time.perf_counter()
@@ -1141,12 +1696,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 4. worker: the linear_method trainer on the card
-    cfg = PSConfig()
-    cfg.data.num_keys = WORKER_KEYS
-    cfg.solver.minibatch = BATCH
-    cfg.data.max_nnz_per_example = 4 * NNZ_PER
-    cfg.lr.alpha, cfg.lr.beta = HYPER["alpha"], HYPER["beta"]
-    cfg.penalty.lambda_l1, cfg.penalty.lambda_l2 = HYPER["l1"], HYPER["l2"]
+    cfg = worker_cfg()
     rep = ProgressReporter(print_fn=lambda s: log(f"train | {s}"))
     app = LinearMethod(cfg, reporter=rep, device="cuda")
     torch.cuda.synchronize()
@@ -1276,6 +1826,27 @@ def main() -> int:
     log(f"mf adagrad_push: {k3_mf_ms:.5f} ms a launch on the device ({k3_mf_count} in the "
         f"profile), bound {k3_mf['bound_ms']:.5f} ms ({k3_mf['bound_by']}) at "
         f"{MF_BATCH + 1} slots over {mf_rows} distinct rows (users, items a step) x {MF_RANK}")
+    # K3, its plain version and torch.optim.Adagrad's sparse step at MF's user
+    # push: each set one profiled step's distinct users (sorted, without the
+    # pad slots: the library's step needs coalesced keys), cycled over a
+    # (users + 1) x rank table that L2 holds, as the step finds it
+    mf_sets = []
+    for s in range(0, 4 * MF_BATCH, MF_BATCH):
+        keys_np = np.unique(mf_users[order[s:s + MF_BATCH]]).astype(np.int32) + 1
+        mf_sets.append((torch.from_numpy(keys_np).to(dev),
+                        torch.randn((len(keys_np), MF_RANK), generator=gen, device=dev)))
+    w = torch.randn((MF_USERS + 1, MF_RANK), generator=gen, device=dev) * 0.1
+    n = torch.rand((MF_USERS + 1, MF_RANK), generator=gen, device=dev)
+    t = {**time_adagrad_push(ak, w, n, mf_sets), **time_adagrad_yardsticks(ak, w, n, mf_sets)}
+    u_mf = sum(k.shape[0] for k, _ in mf_sets) / len(mf_sets)
+    k3_mf.update({"users_ms": t["ms"], "users_plain_ms": t["plain_ms"],
+                  "users_library_ms": t["library_ms"], "users_rows": u_mf,
+                  "users_bound_ms": adagrad_bound(u_mf, u_mf, MF_RANK)[0]})
+    log(f"mf adagrad_push at a step's {u_mf:.1f} distinct users x {MF_RANK} (no pad slots): "
+        f"device {t['ms']:.5f} ms kernel, {t['plain_ms']:.5f} ms plain, {t['library_ms']:.5f}"
+        f" ms torch.optim.Adagrad sparse step (agrees with plain to {t['library_err']:.3g}), "
+        f"bound {k3_mf['users_bound_ms']:.5f} ms")
+    del w, n, mf_sets, t
 
     # 7. embedding server: AdaGrad pushes from simulated workers, then a pull
     store = KVStore(Adagrad(eta=ADAGRAD["eta"], eps=ADAGRAD["eps"]), EMB_KEYS,
@@ -1387,21 +1958,37 @@ def main() -> int:
     # 10. word2vec: plain PyTorch, no kernel
     phase_word2vec(dev)
     torch.cuda.empty_cache()
+    # 11. pod: the SPMD tier, K1, K2 and K3 on every kv shard
+    pod = phase_pod(dev, gen, batches, (labels, keys, vals),
+                    (mf_users, mf_items, mf_ratings))
+    torch.cuda.empty_cache()
+    pl = pod["launches"]
 
-    kernels["ftrl_push"]["max_abs_err"] = max(kernels["ftrl_push"]["max_abs_err"], err_wd_k1)
+    kernels["ftrl_push"]["max_abs_err"] = max(kernels["ftrl_push"]["max_abs_err"], err_wd_k1,
+                                              pod["err"]["ftrl_push"])
     kernels["adagrad_push"]["max_abs_err"] = max(kernels["adagrad_push"]["max_abs_err"],
-                                                 err_wd_k3)
+                                                 err_wd_k3, pod["err"]["adagrad_push"])
     kernels["ftrl_push"]["launches_by_path"] = {
-        "server": server_launches, "wide_deep": wd_launches["ftrl_push"]}
+        "server": server_launches, "wide_deep": wd_launches["ftrl_push"],
+        "pod_1x1_per_worker": pl["pod_1x1_per_worker"]["ftrl_push"],
+        "pod_2x2_per_worker": pl["pod_2x2_linear_method-per_worker"]["ftrl_push"],
+        "pod_2x2_quantized": pl["pod_2x2_linear_method-quantized"]["ftrl_push"]}
+    kernels["ftrl_push"]["pod_1x1"] = pod["times"]["pod_1x1_per_worker"]
     kernels["ftrl_push"]["launches"] = sum(kernels["ftrl_push"]["launches_by_path"].values())
     kernels["ftrl_push"]["wide_deep"] = wd_kernels["ftrl_push"]
     kernels["adagrad_push"]["wide_deep"] = wd_kernels["adagrad_push"]
     kernels["adagrad_push"]["mf"] = k3_mf
-    kernels["ftrl_delta"]["launches"] = worker_launches["ftrl_delta"]
+    kernels["ftrl_delta"]["launches_by_path"] = {
+        "worker": worker_launches["ftrl_delta"],
+        "pod_1x1_aggregate": pl["pod_1x1_aggregate"]["ftrl_delta"],
+        "pod_2x2_aggregate": pl["pod_2x2_linear_method-aggregate"]["ftrl_delta"]}
+    kernels["ftrl_delta"]["launches"] = sum(kernels["ftrl_delta"]["launches_by_path"].values())
+    kernels["ftrl_delta"]["shard"] = pod["times"]["k2_shard"]
     kernels["adagrad_push"]["launches_by_path"] = {
         "mf": mf_launches["adagrad_push"], "embedding_server": emb_launches,
         "codec_round_trip": codec_launches["adagrad_push"],
-        "wide_deep": wd_launches["adagrad_push"]}
+        "wide_deep": wd_launches["adagrad_push"],
+        "pod_2x2_mf_per_worker": pl["pod_2x2_matrix_fac-per_worker"]["adagrad_push"]}
     kernels["adagrad_push"]["launches"] = sum(kernels["adagrad_push"]["launches_by_path"].values())
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,14 +1,22 @@
 """Command-line entry point of the port.
 
-The single-host ``linear_method``, ``matrix_fac``, ``wide_deep`` and
-``word2vec`` apps: a config file picks the app and its solver, flags pick
-the run mode, ``--device`` the device (``cuda`` unless ``cpu`` is asked
-for). Config files and flags are those of the JAX package's CLI; every
-other app, mesh or multi-host option and subcommand exits with "not ported
-yet".
+The ``linear_method``, ``matrix_fac``, ``wide_deep`` and ``word2vec``
+apps: a config file picks the app and its solver, flags pick the run mode,
+``--device`` the device (``cuda`` unless ``cpu`` is asked for). Config files
+and flags are those of the JAX package's CLI; every other app, option and
+subcommand exits with "not ported yet".
+
+A mesh larger than 1x1 (``parallel.data_shards`` x ``parallel.kv_shards``)
+runs ``linear_method`` through ``PodTrainer`` and ``matrix_fac`` through its
+mesh path, one process per mesh cell: start D x KV processes with the same
+``--coordinator host:port``, ``--num_processes`` D x KV and each its own
+``--process_id``. ``--dist_backend`` picks the collectives (``nccl`` on the
+card, ``gloo`` on the CPU by default; ranks that share one card need
+``gloo``). The wide_deep and word2vec mesh paths are not ported yet.
 
 Usage:
   python -m parameter_server_tpu_torch.cli train  --app_file cfg.json [--model_out m.txt|m.npz|m.npy] [--device cpu]
+      [--coordinator 127.0.0.1:29500 --num_processes 4 --process_id 0 [--dist_backend gloo]]
   python -m parameter_server_tpu_torch.cli evaluate --app_file cfg.json --model m.txt|m.npz [--device cpu]
 """
 
@@ -49,11 +57,20 @@ def _build_parser() -> argparse.ArgumentParser:
         "--report_interval", type=int, default=50, help="steps between reports"
     )
     tr.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    # options of the JAX CLI's multi-host, pool and tracing paths: accepted
-    # so command lines stay interchangeable, refused when set
-    tr.add_argument("--coordinator", default="")
-    tr.add_argument("--num_processes", type=int, default=1)
-    tr.add_argument("--process_id", type=int, default=0)
+    # a sharded run: one process per mesh cell
+    tr.add_argument("--coordinator", default="", help="host:port of rank 0's store")
+    tr.add_argument("--num_processes", type=int, default=1, help="D x KV")
+    tr.add_argument("--process_id", type=int, default=0, help="this rank")
+    tr.add_argument(
+        "--dist_backend", default="", choices=("", "nccl", "gloo"),
+        help="collectives: nccl on cuda, gloo on cpu by default",
+    )
+    tr.add_argument(
+        "--audit_quantized", action="store_true",
+        help="hold every quantized push to its rounding bounds; counts in the result",
+    )
+    # options of the JAX CLI's pool and tracing paths: accepted so command
+    # lines stay interchangeable, refused when set
     tr.add_argument("--pool_coordinator", default="")
     tr.add_argument("--pool_serve", action="store_true")
     tr.add_argument("--trace_dir", default="")
@@ -74,29 +91,38 @@ def _check_ported(cfg: PSConfig) -> None:
         raise _not_ported(f"app {cfg.app!r}")
     if cfg.app == "linear_method" and cfg.solver.algo == "darlin":
         raise _not_ported("the darlin batch solver")
-    if cfg.parallel.data_shards * cfg.parallel.kv_shards > 1:
-        raise _not_ported("the SPMD mesh path (parallel.data_shards/kv_shards)")
-    if cfg.app == "matrix_fac" and cfg.parallel.push_mode != "per_worker":
-        raise _not_ported(f"parallel.push_mode {cfg.parallel.push_mode!r}")
+    mesh = cfg.parallel.data_shards * cfg.parallel.kv_shards > 1
+    if mesh and cfg.app in ("wide_deep", "word2vec"):
+        raise _not_ported(f"the {cfg.app} mesh path (parallel.data_shards/kv_shards)")
+    if cfg.app == "matrix_fac" and not mesh and cfg.parallel.push_mode != "per_worker":
+        raise _not_ported(f"parallel.push_mode {cfg.parallel.push_mode!r} on one device")
     if cfg.trace.trace_dir or cfg.profile.hz > 0 or cfg.timeseries.metrics_port:
         raise _not_ported("tracing, profiling and the metrics endpoint")
 
 
 def run_train(cfg: PSConfig, args: argparse.Namespace) -> dict:
     _check_ported(cfg)
-    if (
-        args.coordinator or args.num_processes != 1 or args.process_id
-        or args.pool_coordinator or args.pool_serve
-    ):
-        raise _not_ported("multi-host training (--coordinator/--pool_*)")
+    if args.pool_coordinator or args.pool_serve:
+        raise _not_ported("the dynamic workload pool (--pool_*)")
     if args.trace_dir:
         raise _not_ported("--trace_dir")
     if not cfg.data.files:
         raise SystemExit("config data.files is empty")
+    sharded = bool(args.coordinator) or cfg.parallel.data_shards * cfg.parallel.kv_shards > 1
+    if sharded and cfg.app not in ("linear_method", "matrix_fac"):
+        raise _not_ported(f"the {cfg.app} mesh path (--coordinator)")
+    if not sharded and (args.num_processes != 1 or args.process_id or args.dist_backend
+                        or args.audit_quantized):
+        raise SystemExit("--num_processes/--process_id/--dist_backend/--audit_quantized "
+                         "need a mesh (parallel.data_shards x kv_shards > 1) or --coordinator")
     if cfg.app in _APP_RUNNERS:
         if args.ckpt_dir or args.resume:
             raise SystemExit(f"the {cfg.app} app takes no --ckpt_dir/--resume")
+        if sharded:
+            return _run_sharded(cfg, args, _run_train_mf)
         return _APP_RUNNERS[cfg.app](cfg, args)
+    if sharded:
+        return _run_sharded(cfg, args, _run_train_pod)
 
     from parameter_server_tpu_torch.models.linear import LinearMethod
 
@@ -123,9 +149,63 @@ def run_train(cfg: PSConfig, args: argparse.Namespace) -> dict:
     return last
 
 
-def _run_train_mf(cfg: PSConfig, args: argparse.Namespace) -> dict:
+def _run_sharded(cfg: PSConfig, args: argparse.Namespace, run) -> dict:
+    """Join the world (``parallel.runtime.init``), run ``run(cfg, args, rt)``
+    on this rank's mesh cell, and tear the world down, on errors too, so a
+    failed rank exits instead of leaving its peers in a collective."""
+    from parameter_server_tpu_torch.ops import adagrad_kernels, ftrl_kernels
+    from parameter_server_tpu_torch.parallel import runtime as runtime_mod
+
+    rt = runtime_mod.init(
+        args.coordinator or None, args.num_processes, args.process_id, cfg=cfg,
+        device=args.device, backend=args.dist_backend or None,
+    )
+    if args.audit_quantized:
+        rt.mesh.quant_audit = {}
+    try:
+        out = dict(run(cfg, args, rt))
+        out["process_index"] = rt.process_index
+        out["mesh"] = {"data": rt.data_shards, "kv": rt.kv_shards}
+        # this rank's kernel launches (the counts start at 0 in the process)
+        # and the bytes it handed to collectives
+        out["launches"] = {**ftrl_kernels.LAUNCHES, **adagrad_kernels.LAUNCHES}
+        out["payload_bytes"] = dict(rt.mesh.payload_bytes)
+        if args.audit_quantized:
+            # the quantized pushes and their rounding faults (spmd.audit_rounding)
+            out["quant_audit"] = {k: int(v) for k, v in rt.mesh.quant_audit.items()}
+        return out
+    finally:
+        rt.shutdown()
+
+
+def _run_train_pod(cfg: PSConfig, args: argparse.Namespace, rt) -> dict:
+    """linear_method on a mesh: PodTrainer over this rank's cell. Every rank
+    gathers the weights for ``--model_out``; rank 0 writes them."""
+    from parameter_server_tpu_torch.parallel.trainer import PodTrainer
+    from parameter_server_tpu_torch.utils.checkpoint import dump_weights_text
+
+    trainer = PodTrainer(cfg, runtime=rt)
+    if args.resume:
+        if not args.ckpt_dir:
+            raise SystemExit("--resume requires --ckpt_dir")
+        trainer.load(args.ckpt_dir)
+    out = dict(trainer.train_files(cfg.data.files, report_every=args.report_interval) or {})
+    if args.ckpt_dir:
+        trainer.save(args.ckpt_dir)
+    if args.model_out:
+        w = trainer.full_weights()
+        if rt.process_index == 0:
+            dump_weights_text(w.ravel(), args.model_out)
+    if cfg.data.val_files:
+        ev = trainer.evaluate_files(cfg.data.val_files)
+        out.update({f"val_{k}": v for k, v in ev.items()})
+    return out
+
+
+def _run_train_mf(cfg: PSConfig, args: argparse.Namespace, runtime=None) -> dict:
     """The matrix_fac app: train on ``user item rating`` files, report the
-    validation RMSE, dump the factors as an npz."""
+    validation RMSE, dump the factors as an npz (on a mesh: ``runtime``'s,
+    and rank 0 writes the dump)."""
     import numpy as np
 
     from parameter_server_tpu_torch.models.matrix_fac import (
@@ -139,6 +219,7 @@ def _run_train_mf(cfg: PSConfig, args: argparse.Namespace) -> dict:
         algo=m.algo, seed=cfg.seed, push_mode=cfg.parallel.push_mode,
         max_delay=max(cfg.solver.max_delay, 0),
         steps_per_call=cfg.solver.steps_per_call, device=args.device,
+        mesh=runtime.mesh if runtime is not None else None,
     )
     rmse = app.train_files(
         cfg.data.files, batch_size=m.batch_size,
@@ -161,8 +242,9 @@ def _run_train_mf(cfg: PSConfig, args: argparse.Namespace) -> dict:
         out["val_examples"] = n
     if args.model_out:
         st = app.state_dict()
-        np.savez(args.model_out, user_factors=st["user"]["w"],
-                 item_factors=st["item"]["w"])
+        if runtime is None or runtime.process_index == 0:
+            np.savez(args.model_out, user_factors=st["user"]["w"],
+                     item_factors=st["item"]["w"])
         out["model_out"] = args.model_out
     return out
 

@@ -12,7 +12,15 @@ zero-gradient pad slots on key 0 are exactly its contract.
 Unlike the JAX step, which donates the tables and returns new ones, the
 port updates them IN PLACE. The forward pass gathers copies of the touched
 rows (``index_select``), so the deltas come from the pre-step rows as in
-the JAX step. The SPMD mesh path is not ported yet.
+the JAX step.
+
+On a mesh (``parallel/mesh.py``) each rank holds its kv slice of both
+tables and feeds its data shard's slice of every global step; the pushes
+are the SPMD tier's (``parallel/spmd.py``): ``per_worker`` runs K3 once a
+data shard a table on every kv shard, ``aggregate`` one AdaGrad step over
+the whole shard. Unlike the JAX app, which refuses a kv count that does
+not divide num_users + 1 and num_items + 1, the port zero-pads the tables
+to the next kv multiple, as the linear tier does; no key reaches a pad row.
 """
 
 from __future__ import annotations
@@ -147,6 +155,73 @@ def mf_train_step(
     return user_state, item_state, loss
 
 
+def _make_mf_spmd(
+    user_up: Updater, item_up: Updater, mesh, num_user_rows: int,
+    num_item_rows: int, l2: float, push_mode: str, multistep: bool,
+):
+    """The MF step on this rank's mesh cell, one microstep or K stacked
+    (K, ...) ones: step(user_state, item_state, batch) -> (user_state,
+    item_state, the data group's SSE), the tables updated in place."""
+    from parameter_server_tpu_torch.parallel.spmd import (
+        _local_pull,
+        _local_push,
+        _local_push_aggregate,
+        _shard_size,
+    )
+
+    if push_mode not in ("per_worker", "aggregate"):
+        raise ValueError(f"unknown push_mode {push_mode!r}")
+    u_shard = _shard_size(num_user_rows, mesh.kv)
+    i_shard = _shard_size(num_item_rows, mesh.kv)
+
+    def micro(user_l: State, item_l: State, b: dict) -> torch.Tensor:
+        uk, ik = b["user_keys"], b["item_keys"]
+        U = mesh.psum_(_local_pull(user_up, user_l, uk, u_shard, mesh.k * u_shard), "kv")
+        V = mesh.psum_(_local_pull(item_up, item_l, ik, i_shard, mesh.k * i_shard), "kv")
+        loss, g_u, g_v = _mf_loss_and_grads(U, V, b, l2)
+        if push_mode == "aggregate":
+            _local_push_aggregate(user_up, user_l, uk, g_u, u_shard, mesh)
+            _local_push_aggregate(item_up, item_l, ik, g_v, i_shard, mesh)
+        else:
+            _local_push(user_up, user_l, mesh.all_gather(uk, "data"),
+                        mesh.all_gather(g_u, "data"), mesh.k * u_shard, u_shard)
+            _local_push(item_up, item_l, mesh.all_gather(ik, "data"),
+                        mesh.all_gather(g_v, "data"), mesh.k * i_shard, i_shard)
+        return loss
+
+    def step(user_state: State, item_state: State, batch: dict):
+        if multistep:
+            loss = sum(micro(user_state, item_state, {k: v[i] for k, v in batch.items()})
+                       for i in range(batch["mask"].shape[0]))
+        else:
+            loss = micro(user_state, item_state, batch)
+        return user_state, item_state, mesh.psum_(loss.reshape(1), "data")[0]
+
+    return step
+
+
+def make_mf_spmd_train_step(
+    user_up: Updater, item_up: Updater, mesh, num_user_rows: int,
+    num_item_rows: int, l2: float, push_mode: str = "per_worker",
+):
+    """Multi-rank MF step: both factor tables range-sharded over the kv
+    ranks, rating batches over the data ranks. ``aggregate`` pre-sums the
+    factor gradients over the data group and applies ONE updater step
+    (exactly ``per_worker`` for plain SGD)."""
+    return _make_mf_spmd(user_up, item_up, mesh, num_user_rows, num_item_rows,
+                         l2, push_mode, multistep=False)
+
+
+def make_mf_spmd_train_multistep(
+    user_up: Updater, item_up: Updater, mesh, num_user_rows: int,
+    num_item_rows: int, l2: float, push_mode: str = "per_worker",
+):
+    """K sequential MF steps a call: batch fields stacked (K, ...); returns
+    the summed SSE."""
+    return _make_mf_spmd(user_up, item_up, mesh, num_user_rows, num_item_rows,
+                         l2, push_mode, multistep=True)
+
+
 def iter_rating_blocks(
     files: list[str], block_lines: int = 1 << 20
 ):
@@ -190,7 +265,11 @@ def _not_ported(what: str) -> NotImplementedError:
 
 class MatrixFactorization:
     """The MF app. num_users/num_items rows + 1 pad row each, on one
-    device (``cuda`` unless the caller passes ``device="cpu"``)."""
+    device (``cuda`` unless the caller passes ``device="cpu"``), or, with
+    ``mesh``, range-sharded over its kv ranks on the mesh's device, rating
+    batches over its data ranks (then every rank of the world runs the
+    same calls: training, ``state_dict`` and ``predict`` are collective).
+    """
 
     def __init__(
         self,
@@ -209,10 +288,10 @@ class MatrixFactorization:
         steps_per_call: int = 1,
         device: Any = "cuda",
     ):
-        if mesh is not None:
-            raise _not_ported("the MF mesh path (mesh=...)")
-        if push_mode != "per_worker":
-            raise _not_ported(f"push_mode {push_mode!r}")
+        if mesh is None and push_mode != "per_worker":
+            raise _not_ported(f"push_mode {push_mode!r} on one device")
+        if mesh is not None and push_mode not in ("per_worker", "aggregate"):
+            raise ValueError(f"unknown push_mode {push_mode!r}")
         self.rank = rank
         self.l2 = l2
         # K sequential MF steps per window entry (the solver.steps_per_call
@@ -221,13 +300,17 @@ class MatrixFactorization:
         if steps_per_call < 1:
             raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
         self.steps_per_call = steps_per_call
-        self.reporter = reporter or ProgressReporter()
+        # on a mesh the table prints on rank 0; every rank keeps its history
+        self.reporter = reporter or ProgressReporter(
+            print_fn=print if mesh is None or mesh.rank == 0 else (lambda *_: None))
         make = {"adagrad": lambda: Adagrad(eta=eta), "sgd": lambda: Sgd(eta=eta)}
         if algo not in make:
             raise ValueError(f"mf algo must be one of {sorted(make)}")
         self.user_up = make[algo]()
         self.item_up = make[algo]()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.num_user_rows, self.num_item_rows = num_users + 1, num_items + 1
         self.max_delay = max_delay  # SSP dispatch bound (ref: wait_time)
         # factors start small-random (a zero product has zero gradient);
         # pad row 0 stays zero. The draws are the JAX package's (float64,
@@ -237,19 +320,52 @@ class MatrixFactorization:
         i0 = rng.normal(scale=init_scale, size=(num_items + 1, rank))
         u0[0] = 0.0
         i0[0] = 0.0
-        self.user_state = self.user_up.init(num_users + 1, rank, device=self.device)
-        self.item_state = self.item_up.init(num_items + 1, rank, device=self.device)
-        self.user_state["w"] = torch.from_numpy(u0.astype(np.float32)).to(self.device)
-        self.item_state["w"] = torch.from_numpy(i0.astype(np.float32)).to(self.device)
+        if mesh is None:
+            self.user_state = self.user_up.init(num_users + 1, rank, device=self.device)
+            self.item_state = self.item_up.init(num_items + 1, rank, device=self.device)
+            self.user_state["w"] = torch.from_numpy(u0.astype(np.float32)).to(self.device)
+            self.item_state["w"] = torch.from_numpy(i0.astype(np.float32)).to(self.device)
+            return
+        from parameter_server_tpu_torch.parallel.spmd import shard_state
+
+        maker = make_mf_spmd_train_multistep if steps_per_call > 1 else make_mf_spmd_train_step
+        self._spmd_step = maker(self.user_up, self.item_up, mesh, num_users + 1,
+                                num_items + 1, l2=l2, push_mode=push_mode)
+        names = list(self.user_up.init(1, 1, device="cpu"))  # "w" (and "n")
+
+        def full(w0: np.ndarray) -> dict[str, np.ndarray]:
+            return {k: w0.astype(np.float32) if k == "w" else np.zeros(w0.shape, np.float32)
+                    for k in names}
+
+        self.user_state = shard_state(full(u0), mesh)
+        self.item_state = shard_state(full(i0), mesh)
 
     def state_dict(self) -> dict[str, dict[str, np.ndarray]]:
-        """Host copies of both tables' state, in the JAX package's layout."""
+        """Host copies of both tables' state, in the JAX package's layout
+        (on a mesh: the full tables, gathered; collective)."""
+        if self.mesh is not None:
+            from parameter_server_tpu_torch.parallel.spmd import unshard_state
+
+            return {"user": unshard_state(self.user_state, self.mesh, self.num_user_rows),
+                    "item": unshard_state(self.item_state, self.mesh, self.num_item_rows)}
         return {"user": state_to_numpy(self.user_state),
                 "item": state_to_numpy(self.item_state)}
 
     def load_state(self, user: dict[str, np.ndarray], item: dict[str, np.ndarray]) -> None:
         """Replace both tables' state with numpy dicts of the same layout
-        (e.g. the JAX app's ``user_state``/``item_state`` via ``np.asarray``)."""
+        (e.g. the JAX app's ``user_state``/``item_state`` via ``np.asarray``;
+        on a mesh, the full tables: each rank keeps its slice)."""
+        if self.mesh is not None:
+            from parameter_server_tpu_torch.parallel.spmd import shard_state
+
+            # the full tables' shapes (this rank holds a padded slice)
+            for name, have, rows, new in (("user", self.user_state, self.num_user_rows, user),
+                                          ("item", self.item_state, self.num_item_rows, item)):
+                check_state_like(name, {k: v.new_empty((rows, *v.shape[1:]), device="meta")
+                                        for k, v in have.items()}, new)
+            self.user_state = shard_state(user, self.mesh)
+            self.item_state = shard_state(item, self.mesh)
+            return
         check_state_like("user", self.user_state, user)
         check_state_like("item", self.item_state, item)
         self.user_state = state_from_numpy(user, self.device)
@@ -258,8 +374,8 @@ class MatrixFactorization:
     def _check_ids(self, users: np.ndarray, items: np.ndarray) -> None:
         """Raw ids must address a table row (row = id + 1); checked on the
         host, since an out-of-range row on the card is a device fault."""
-        for what, ids, rows in (("user", users, self.user_state["w"].shape[0]),
-                                ("item", items, self.item_state["w"].shape[0])):
+        for what, ids, rows in (("user", users, self.num_user_rows),
+                                ("item", items, self.num_item_rows)):
             if len(ids) and (int(ids.min()) < 0 or int(ids.max()) + 1 >= rows):
                 raise IndexError(
                     f"{what} id outside [0, {rows - 1}): min {int(ids.min())}, "
@@ -282,6 +398,9 @@ class MatrixFactorization:
 
         gate = DispatchWindow(self.max_delay, _retire)
         K = self.steps_per_call
+        if self.mesh is not None:
+            n = self._run_pairs_mesh(users, items, ratings, batch_size, builder, gate)
+            return sse, n  # the gate's retirements summed the SSE
         starts = range(0, len(ratings), batch_size)
         for call_i, c in enumerate(range(0, len(starts), K)):
             gate.gate(call_i)
@@ -298,6 +417,39 @@ class MatrixFactorization:
             gate.add(call_i, loss)
         gate.drain()
         return sse, n
+
+    def _run_pairs_mesh(self, users, items, ratings, batch_size: int,
+                        builder: MFBatchBuilder, gate: DispatchWindow) -> int:
+        """The mesh branch of ``_run_pairs``: a global step takes
+        ``batch_size`` pairs for each of the D data shards, and this rank
+        builds only its own shard's slice of it (an inert batch where the
+        slice is empty), so every rank runs the same collectives. Returns
+        the pod's pairs; the SSE accumulates through ``gate``."""
+        D, d, K = self.mesh.data, self.mesh.d, self.steps_per_call
+        global_bs = batch_size * D
+        empty = None
+        n = 0
+        starts = range(0, len(ratings), global_bs)
+        for call_i, c in enumerate(range(0, len(starts), K)):
+            gate.gate(call_i)
+            micro = []
+            for s in starts[c : c + K]:
+                sel = slice(s + d * batch_size, s + (d + 1) * batch_size)
+                if len(ratings[sel]):
+                    b = builder.build(users[sel], items[sel], ratings[sel])
+                else:
+                    if empty is None:
+                        empty = builder.build(np.zeros(0, np.int64), np.zeros(0, np.int64),
+                                              np.zeros(0, np.float32))
+                    b = empty
+                micro.append(batch_to_device(b, self.device))
+                n += min(len(ratings), s + global_bs) - s
+            batch = (micro[0] if K == 1
+                     else {k: torch.stack([m[k] for m in micro]) for k in micro[0]})
+            loss = self._spmd_step(self.user_state, self.item_state, batch)[2]
+            gate.add(call_i, loss)
+        gate.drain()
+        return n
 
     def train_epoch(
         self, users, items, ratings, batch_size: int = 4096, seed: int = 0
@@ -357,11 +509,18 @@ class MatrixFactorization:
         return rmse
 
     def predict(self, users, items) -> np.ndarray:
+        """Predicted ratings (on a mesh: from the gathered tables;
+        collective)."""
         users, items = np.asarray(users), np.asarray(items)
         self._check_ids(users, items)
+        if self.mesh is None:
+            tables = (self.user_state["w"], self.item_state["w"])
+        else:
+            st = self.state_dict()
+            tables = (torch.from_numpy(st["user"]["w"]), torch.from_numpy(st["item"]["w"]))
         rows = [
-            st["w"].index_select(0, torch.from_numpy(ids.astype(np.int64) + 1).to(self.device))
-            for st, ids in ((self.user_state, users), (self.item_state, items))
+            w.index_select(0, torch.from_numpy(ids.astype(np.int64) + 1).to(w.device))
+            for w, ids in zip(tables, (users, items))
         ]
         return torch.sum(rows[0] * rows[1], dim=1).cpu().numpy()
 

@@ -43,7 +43,10 @@ def adagrad_push_plain(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """gather -> ``Adagrad.delta`` -> ``index_add_``, in place on ``w`` and
     ``n``, in the JAX package's op order: g' = g + l2*w, dn = g'^2,
-    dw = -eta*g'/(sqrt(n + dn) + eps)."""
+    dw = -eta*g'/(sqrt(n + dn) + eps). Slots whose row lies outside [0, K)
+    are skipped, as the kernel skips them."""
+    keep = (idx >= 0) & (idx < w.shape[0])
+    idx, grad = idx[keep], grad[keep]
     w_rows = w.index_select(0, idx)
     g = grad + l2 * w_rows
     dn = g * g
@@ -60,7 +63,8 @@ def adagrad_push(
     """In-place fused AdaGrad push over the touched rows: ``w``, ``n`` are
     (K, vdim) tables, updated in place and returned; ``idx`` (U,) int32 row
     indices, each real key at most once, pad slots idx 0 with zero
-    ``grad`` (and, when ``l2 > 0``, a zero row 0); ``grad`` (U, vdim)."""
+    ``grad`` (and, when ``l2 > 0``, a zero row 0), slots outside [0, K)
+    skipped; ``grad`` (U, vdim)."""
     dev = cuda_build.check_push(w=w, n=n, idx=idx, grad=grad)
     if dev.type == "cpu":
         return adagrad_push_plain(w, n, idx, grad, eta=eta, eps=eps, l2=l2)

@@ -74,7 +74,11 @@ def ftrl_push_plain(
     z: torch.Tensor, n: torch.Tensor, idx: torch.Tensor, grad: torch.Tensor,
     *, alpha: float, beta: float, l1: float, l2: float,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """gather -> delta -> ``index_add_``, in place on ``z`` and ``n``."""
+    """gather -> delta -> ``index_add_``, in place on ``z`` and ``n``. Slots
+    whose row lies outside [0, K) are skipped, as the kernel skips them (a
+    kv shard's push hands it the keys of other shards that way)."""
+    keep = (idx >= 0) & (idx < z.shape[0])
+    idx, grad = idx[keep], grad[keep]
     dz, dn = ftrl_delta_plain(
         z.index_select(0, idx), n.index_select(0, idx), grad,
         alpha=alpha, beta=beta, l1=l1, l2=l2,
@@ -124,7 +128,7 @@ def ftrl_push(
     """In-place fused FTRL push over the touched rows: ``z``, ``n`` are
     (K, vdim) tables, updated in place and returned; ``idx`` (U,) int32 row
     indices, each real key at most once, pad slots idx 0 with zero
-    ``grad``; ``grad`` (U, vdim)."""
+    ``grad``, slots outside [0, K) skipped; ``grad`` (U, vdim)."""
     dev = cuda_build.check_push(z=z, n=n, idx=idx, grad=grad)
     if dev.type == "cpu":
         return ftrl_push_plain(

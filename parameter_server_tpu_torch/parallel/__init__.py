@@ -1,2 +1,47 @@
-"""Host-side execution control. Only the SSP dispatch window is ported so
-far; the SPMD tier, the backends and the wire tier are not."""
+"""Pod runtime: the (data, kv) mesh over torch.distributed, SPMD pull/push,
+the SSP dispatch window and clock, the workload pool.
+
+The design mapping from the JAX package (``parameter_server_tpu/parallel``):
+
+- **One process per mesh cell.** JAX runs a D x KV device mesh inside one
+  program, and across hosts with kv within each process and data across
+  processes. The port runs a ``torch.distributed`` world of exactly
+  D x KV ranks: rank r sits at ``(d, k) = divmod(r, KV)``. The kv group of
+  data row d (its KV ranks) carries JAX's ``psum(..., "kv")`` as an
+  ``all_reduce``; the data group of kv column k (its D ranks) carries
+  ``psum(..., "data")`` and ``all_gather(..., "data")``. Each rank holds
+  its own kv slice of every table, rows ``[k*S, (k+1)*S)`` with
+  ``S = padded_num_keys(K, KV) // KV``, and feeds its own data shard's
+  batch; the KV ranks of one data row build the same batch. This is JAX's
+  multi-host contract with one data row per process, so
+  ``Runtime.shard_files`` is ``files[d::D]``. Every rank creates every
+  group, in the same order, even the groups it is not in.
+- **Backends.** ``gloo`` on the CPU; ``nccl`` on the card, one rank a
+  GPU, world size 1 included. Ranks that share one card run ``gloo`` on
+  CUDA tensors and must ask for it (``cli train --dist_backend gloo``).
+  Nothing switches backend or device on its own. A second gloo group over
+  the world carries the host-side control plane (bucket agreement,
+  barriers, the progress AUC).
+- **The order of operations is kept.** Per-worker pushes land on each kv
+  shard one after another in data-index order (the JAX ``lax.scan``), K
+  microsteps run one after another per call, and every rank runs the same
+  collectives step for step until a retired step counts 0 pod-wide
+  examples (the drained contract).
+
+Not ported yet: the backends (``backend.py``, ``meshbackend.py``), the wire
+tier (``multislice.py``, ``control.py``, ``chaos.py``) and the push window.
+"""
+
+from parameter_server_tpu_torch.parallel import runtime  # noqa: F401
+from parameter_server_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: F401
+from parameter_server_tpu_torch.parallel.runtime import Runtime  # noqa: F401
+from parameter_server_tpu_torch.parallel.spmd import (  # noqa: F401
+    batch_arrays,
+    make_spmd_predict_step,
+    make_spmd_train_multistep,
+    make_spmd_train_step,
+    shard_state,
+    stack_step_groups,
+)
+from parameter_server_tpu_torch.parallel.ssp import DispatchWindow, SSPClock  # noqa: F401
+from parameter_server_tpu_torch.parallel.workload import WorkloadPool  # noqa: F401

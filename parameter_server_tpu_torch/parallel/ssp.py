@@ -1,15 +1,18 @@
 """Bounded-staleness (SSP) dispatch: the host-side window of in-flight
-steps.
+steps, and the SSP clock.
 
-A copy of the JAX package's ``DispatchWindow`` (``parallel/ssp.py``);
-the rest of that module (the SSP clock, the push window) is not ported
-yet. PyTorch queues CUDA work
+Copies of the JAX package's ``DispatchWindow`` and ``SSPClock``
+(``parallel/ssp.py``), the clock without its flight-recorder and
+wire-counter hooks; the push window comes with the wire tier. PyTorch
+queues CUDA work
 asynchronously as JAX dispatches jitted steps, so the same window bounds
 how far the host runs ahead of the device: an entry (a step's device loss)
 is read back only when it retires."""
 
 from __future__ import annotations
 
+import threading
+import time
 from collections import deque
 from collections.abc import Callable
 from typing import Any
@@ -47,3 +50,94 @@ class DispatchWindow:
 
     def __len__(self) -> int:
         return len(self._q)
+
+
+class SSPClock:
+    """Host-side bounded-delay clock over ``num_workers`` logical workers.
+
+    Protocol per worker w at step t:
+        clock.wait(w, t)    # blocks until min_finished >= t - max_delay
+        ... run step t ...
+        clock.finish(w, t)  # marks w's step t complete
+
+    max_delay < 0 means fully asynchronous (never block).
+    """
+
+    RETIRED = 1 << 60
+
+    def __init__(self, num_workers: int, max_delay: int):
+        if num_workers < 1:
+            raise ValueError("num_workers must be >= 1")
+        self.num_workers = num_workers
+        self.max_delay = max_delay
+        self._finished = [-1] * num_workers  # highest finished step per worker
+        # per-worker time parked on the gate, and the number of waits
+        self._blocked_s = [0.0] * num_workers
+        self._blocked_n = [0] * num_workers
+        self._cv = threading.Condition()
+
+    def _min_finished(self) -> int:
+        return min(self._finished)
+
+    def ready(self, worker: int, step: int) -> bool:
+        """Non-blocking: may ``worker`` start ``step`` now?"""
+        if self.max_delay < 0:
+            return True
+        with self._cv:
+            return self._min_finished() >= step - self.max_delay - 1
+
+    def wait(self, worker: int, step: int, timeout: float | None = None) -> bool:
+        """Block until ``worker`` may start ``step``: every worker has
+        finished step ``step - max_delay - 1``. Returns False on timeout."""
+        if self.max_delay < 0:
+            return True
+        target = step - self.max_delay - 1
+        with self._cv:
+            if self._min_finished() >= target:
+                return True
+            t0 = time.perf_counter()
+            ok = self._cv.wait_for(
+                lambda: self._min_finished() >= target, timeout=timeout
+            )
+            self._blocked_s[worker] += time.perf_counter() - t0
+            self._blocked_n[worker] += 1
+        return ok
+
+    def finish(self, worker: int, step: int) -> None:
+        with self._cv:
+            if step > self._finished[worker]:
+                self._finished[worker] = step
+                self._cv.notify_all()
+
+    def retire(self, worker: int) -> None:
+        """Mark ``worker`` done forever: it no longer gates the others.
+        Idempotent; a later ``finish`` is absorbed by the monotonic max."""
+        self.finish(worker, self.RETIRED)
+
+    def is_retired(self, worker: int) -> bool:
+        with self._cv:
+            return self._finished[worker] >= self.RETIRED
+
+    def progress(self) -> dict[str, Any]:
+        with self._cv:
+            return {
+                "min_finished": self._min_finished(),
+                "max_finished": max(self._finished),
+                "retired": [
+                    w for w, f in enumerate(self._finished) if f >= self.RETIRED
+                ],
+                "blocked_s": [round(s, 6) for s in self._blocked_s],
+                "blocked_n": list(self._blocked_n),
+            }
+
+    def state_dict(self) -> dict:
+        with self._cv:
+            return {"finished": list(self._finished), "max_delay": self.max_delay}
+
+    def load_state_dict(self, d: dict) -> None:
+        with self._cv:
+            self._finished = list(d["finished"])
+            self.max_delay = d["max_delay"]
+            self._blocked_s = [0.0] * len(self._finished)
+            self._blocked_n = [0] * len(self._finished)
+            self._cv.notify_all()

@@ -72,9 +72,13 @@ def test_delta_kernel_matches_plain(dev, shape, offset, hyper):
     assert torch.equal(dz[inside], g[inside])  # w exactly 0 inside l1
 
 
-# (vdim, K, real keys): U = keys + 3 pad slots + 2 slots out of range
+# (vdim, K, real keys): U = keys + 3 pad slots + 2 slots out of range; a
+# negative K is a kv shard's view: the |K| rows from |K| on of a 3|K|-row
+# table, given idx - |K|, so the keys of the shards before and after it
+# fall below 0 and at or above |K|
 PUSH_CASES = [
     (1, 1 << 16, 5000),
+    (1, -(1 << 16), 5000),
     (1, 1 << 10, 20),  # U below one warp
     (1, 1 << 16, 4094),  # U = 4099, not a multiple of a block's 256 slots
     (1, 1 << 20, 300_000),  # U above the threads the card holds at once
@@ -92,22 +96,33 @@ def test_push_kernel_matches_plain(dev, vdim, K, keys, hyper):
     the guard rows just outside the (K, vdim) view keep their bits, and so
     does every untouched row."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    zg, ng, _ = _rand(gen, (K + 2, vdim), dev)
-    z, n = zg[1:-1], ng[1:-1]  # guard rows before and after the table
-    uniq = np.sort(np.random.default_rng(3).choice(np.arange(1, K), keys, replace=False))
+    shard = K < 0
+    K = abs(K)
+    # the table is rows [lo, lo + K) of the array: one guard row before and
+    # after it, or, for a shard, the shards before and after it
+    lo, rows = (K, 3 * K) if shard else (1, K + 2)
+    zg, ng, _ = _rand(gen, (rows, vdim), dev)
+    z, n = zg[lo:lo + K], ng[lo:lo + K]
+    rng = np.random.default_rng(3)
+    if shard:  # keys of all three shards; pads on the table's own row 0, no key
+        uniq = np.sort(rng.choice(np.setdiff1d(np.arange(1, rows), [lo]), keys,
+                                  replace=False)) - lo
+    else:
+        uniq = np.sort(rng.choice(np.arange(1, K), keys, replace=False))
     idx_np = np.concatenate([uniq, [0, 0, 0], [-1, K]]).astype(np.int32)
     idx = torch.from_numpy(idx_np).to(dev)
     g = torch.randn((idx.shape[0], vdim), generator=gen, device=dev)
     g[-5:-2] = 0
     zk, nk = zg.clone(), ng.clone()
     before = fk.LAUNCHES["ftrl_push"]
-    fk.ftrl_push(zk[1:-1], nk[1:-1], idx, g, **hyper)
+    fk.ftrl_push(zk[lo:lo + K], nk[lo:lo + K], idx, g, **hyper)
     assert fk.LAUNCHES["ftrl_push"] == before + 1
-    untouched = torch.ones(K + 2, dtype=torch.bool, device=dev)
-    untouched[torch.from_numpy(uniq + 1).to(dev)] = False  # pad row 0 and guards stay in
+    inside = uniq[(uniq >= 0) & (uniq < K)]
+    untouched = torch.ones(rows, dtype=torch.bool, device=dev)
+    untouched[torch.from_numpy(inside + lo).to(dev)] = False  # pad row 0, guards stay in
     assert torch.equal(zk[untouched].view(torch.int32), zg[untouched].view(torch.int32))
     assert torch.equal(nk[untouched].view(torch.int32), ng[untouched].view(torch.int32))
-    fk.ftrl_push_plain(z, n, idx[:-2], g[:-2], **hyper)  # in range only
+    fk.ftrl_push_plain(z, n, idx, g, **hyper)  # the whole idx: it skips what the kernel skips
     torch.testing.assert_close(zk, zg, **TOL)
     torch.testing.assert_close(nk, ng, **TOL)
 
@@ -121,7 +136,11 @@ def _offset_copy(t, offset):
 # one element into their storage (no 16-byte-aligned base), the scalar body.
 # A row wider than 32 lanes makes a lane loop over columns: (64, 1), 64
 # floats, and (160, 0), 40 float4s
-ADAGRAD_CASES = [(4, 0), (16, 0), (32, 0), (64, 0), (7, 0), (16, 1), (64, 1), (160, 0)]
+# "shard" is a kv shard's view: the K rows from K on of a 3K-row table,
+# given idx - K, so the keys of the shards before and after it fall below 0
+# and at or above K
+ADAGRAD_CASES = [(4, 0), (16, 0), (32, 0), (64, 0), (7, 0), (16, 1), (64, 1), (160, 0),
+                 (64, "shard")]
 
 
 @pytest.mark.cuda
@@ -136,15 +155,19 @@ def test_adagrad_push_kernel_matches_plain(dev, vdim, offset, l2, pads):
     gradient) on a zero row 0."""
     gen = torch.Generator(device=dev).manual_seed(5)
     K = 1 << 16
-    wg = _offset_copy(torch.randn((K + 2, vdim), generator=gen, device=dev), offset)
-    ng = _offset_copy(torch.rand((K + 2, vdim), generator=gen, device=dev) * 4, offset)
-    w, n = wg[1:-1], ng[1:-1]
+    shard = offset == "shard"
+    offset = 0 if shard else offset
+    lo, rows = (K, 3 * K) if shard else (1, K + 2)
+    wg = _offset_copy(torch.randn((rows, vdim), generator=gen, device=dev), offset)
+    ng = _offset_copy(torch.rand((rows, vdim), generator=gen, device=dev) * 4, offset)
+    w, n = wg[lo:lo + K], ng[lo:lo + K]
     if vdim % 4 == 0:
         assert (w.data_ptr() % 16 == 0) == (offset == 0)
     if l2 > 0 or pads == "wd":
         w[0] = 0.0  # the pad-row invariant the repeated pad slots rely on
         n[0] = 0.0
-    uniq = np.unique(np.random.default_rng(6).integers(1, K, 5000))
+    draws = np.random.default_rng(6).integers(1, rows if shard else K, 5000)
+    uniq = np.setdiff1d(draws, [lo] if shard else []) - (lo if shard else 0)  # row 0: pads
     n_pads = 9 * len(uniq) if pads == "wd" else pads
     idx_np = np.concatenate([[0], uniq, np.zeros(n_pads - 1), [-1, K]]).astype(np.int32)
     idx = torch.from_numpy(idx_np).to(dev)
@@ -152,13 +175,15 @@ def test_adagrad_push_kernel_matches_plain(dev, vdim, offset, l2, pads):
     g[idx == 0] = 0
     wk, nk = _offset_copy(wg, offset), _offset_copy(ng, offset)
     before = ak.LAUNCHES["adagrad_push"]
-    ak.adagrad_push(wk[1:-1], nk[1:-1], idx, g, eta=0.05, eps=1e-8, l2=l2)
+    ak.adagrad_push(wk[lo:lo + K], nk[lo:lo + K], idx, g, eta=0.05, eps=1e-8, l2=l2)
     assert ak.LAUNCHES["adagrad_push"] == before + 1
-    untouched = torch.ones(K + 2, dtype=torch.bool, device=dev)
-    untouched[torch.from_numpy(uniq + 1).to(dev)] = False  # pad row 0 and guards stay in
+    inside = uniq[(uniq >= 0) & (uniq < K)]
+    untouched = torch.ones(rows, dtype=torch.bool, device=dev)
+    untouched[torch.from_numpy(inside + lo).to(dev)] = False  # pad row 0, guards stay in
     assert torch.equal(wk[untouched].view(torch.int32), wg[untouched].view(torch.int32))
     assert torch.equal(nk[untouched].view(torch.int32), ng[untouched].view(torch.int32))
-    ak.adagrad_push_plain(w, n, idx[:-2], g[:-2], eta=0.05, eps=1e-8, l2=l2)  # in range only
+    # the whole idx: the plain version skips what the kernel skips
+    ak.adagrad_push_plain(w, n, idx, g, eta=0.05, eps=1e-8, l2=l2)
     torch.testing.assert_close(wk, wg, **TOL)
     torch.testing.assert_close(nk, ng, **TOL)
 

@@ -46,6 +46,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     }
     expected = {e.removesuffix(".__init__") for e in expected}
     assert expected <= set(res["imported"]) | {PKG}
+    # the SPMD tier, named so that losing a module from the walk shows here
+    assert {f"{PKG}.parallel.{m}" for m in (
+        "mesh", "runtime", "traffic", "spmd", "trainer", "ssp")} <= set(res["imported"])
     assert res["leaked"] == []
     assert res["jax"] == []
 
@@ -92,6 +95,15 @@ def test_chip_smoke_imports_nothing_of_jax():
     assert f"{PKG}.filters.fixed_point" in res["imported"]
     assert res["leaked"] == []
     assert res["jax"] == []
+
+
+def test_spmd_tier_has_the_ssp_clock_without_jax():
+    """``SSPClock`` sits in the port's ``parallel/ssp.py`` beside the
+    dispatch window, a copy with no hook into the JAX package."""
+    import parameter_server_tpu_torch.parallel.ssp as ssp
+
+    src = Path(ssp.__file__).read_text()
+    assert "class SSPClock" in src and "flightrec" not in src and "wire_counters" not in src
 
 
 def test_port_sources_never_import_the_jax_package():

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from parameter_server_tpu.ops.pallas_kernels import ftrl_delta_pallas, ftrl_push_pallas
+from parameter_server_tpu_torch.ops import adagrad_kernels as ak
 from parameter_server_tpu_torch.ops import ftrl_kernels as fk
 
 torch.set_num_threads(1)
@@ -86,6 +87,43 @@ def test_push_plain_matches_pallas(interpret_mode, vdim, u):
         untouched = np.setdiff1d(np.arange(K), uniq)  # row 0 included
         np.testing.assert_array_equal(tz.numpy()[untouched], z[untouched])
         np.testing.assert_array_equal(tn.numpy()[untouched], n[untouched])
+
+
+_PLAIN_PUSHES = {
+    "ftrl": (fk.ftrl_push_plain, HYPERS[0]),
+    "adagrad": (ak.adagrad_push_plain, {"eta": 0.05, "eps": 1e-8, "l2": 0.01}),
+}
+
+
+@pytest.mark.parametrize("begin", [0, 64])
+@pytest.mark.parametrize("which", sorted(_PLAIN_PUSHES))
+def test_plain_push_skips_rows_outside_the_table(which, begin):
+    """As the kernels do: slots -1 and K (and, on a shard view given
+    ``idx - begin``, every key of another shard) are skipped, not an
+    IndexError, and their rows keep their bits."""
+    plain, hyper = _PLAIN_PUSHES[which]
+    rng = np.random.default_rng(11)
+    K, vdim = 64, 4
+    full_a = rng.normal(size=(3 * K, vdim)).astype(np.float32)
+    full_b = np.abs(rng.normal(size=(3 * K, vdim))).astype(np.float32)
+    full_a[begin] = full_b[begin] = 0.0  # the pad row the l2 pad slots rely on
+    keys = rng.choice(np.arange(1, 3 * K), 40, replace=False)
+    idx = np.concatenate([keys - begin, [0, 0], [-1, K]]).astype(np.int32)
+    g = rng.normal(size=(len(idx), vdim)).astype(np.float32)
+    g[-4:-2] = 0.0
+    a, b = torch.from_numpy(full_a.copy()), torch.from_numpy(full_b.copy())
+    plain(a[begin:begin + K], b[begin:begin + K], torch.from_numpy(idx),
+          torch.from_numpy(g), **hyper)
+    inside = (idx >= 0) & (idx < K)
+    ea, eb = torch.from_numpy(full_a.copy()), torch.from_numpy(full_b.copy())
+    plain(ea[begin:begin + K], eb[begin:begin + K], torch.from_numpy(idx[inside]),
+          torch.from_numpy(g[inside]), **hyper)
+    assert torch.equal(a, ea) and torch.equal(b, eb)
+    touched = np.unique(idx[inside]) + begin
+    outside = np.setdiff1d(np.arange(3 * K), touched)
+    np.testing.assert_array_equal(a.numpy()[outside], full_a[outside])
+    np.testing.assert_array_equal(b.numpy()[outside], full_b[outside])
+    assert (~inside).sum() >= 2
 
 
 def test_wrappers_take_plain_path_on_cpu():

@@ -170,7 +170,7 @@ def test_cli_train_and_evaluate_match_jax(tmp_path, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["node", "--role", "server"], "not ported yet"),
     (["lint"], "not ported yet"),
-    (["train", "--app_file", "CFG", "--coordinator", "h:1", "--device", "cpu"],
+    (["train", "--app_file", "CFG", "--pool_coordinator", "h:1", "--device", "cpu"],
      "not ported yet"),
 ])
 def test_cli_refuses_unported_paths(tmp_path, argv, match):
@@ -183,7 +183,7 @@ def test_cli_refuses_unported_paths(tmp_path, argv, match):
 
 @pytest.mark.parametrize("section", [
     {"app": "graph_partition"}, {"solver": {"algo": "darlin"}},
-    {"parallel": {"data_shards": 2}}, {"trace": {"trace_dir": "t"}},
+    {"app": "wide_deep", "parallel": {"data_shards": 2}}, {"trace": {"trace_dir": "t"}},
 ])
 def test_cli_refuses_unported_config(tmp_path, section):
     app_file = tmp_path / "cfg.json"

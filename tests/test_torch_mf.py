@@ -118,7 +118,7 @@ def test_state_dict_round_trip_and_checks():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh": object()}, "not ported yet"),
+    ({"mesh": object(), "push_mode": "quantized"}, "push_mode"),
     ({"push_mode": "aggregate"}, "not ported yet"),
     ({"steps_per_call": 0}, "steps_per_call"),
 ])
@@ -279,7 +279,7 @@ def test_cli_train_matrix_fac_matches_jax(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,section", [
     (["train", "--ckpt_dir", "ck"], {}),
-    (["train"], {"parallel": {"data_shards": 2, "kv_shards": 4}}),
+    (["train", "--ckpt_dir", "ck"], {"parallel": {"data_shards": 2, "kv_shards": 4}}),
     (["evaluate", "--model", "m.npz"], {}),
     (["train"], {"parallel": {"push_mode": "aggregate"}}),
 ])
