@@ -95,27 +95,52 @@ the script exits nonzero without printing a result:
              share, the collectives' device time, K1's or K2's time a
              launch, the payload handed to the collectives a step), and
              the single-device worker's steps fed, timed and profiled the
-             same way over the same batches beside them.
+             same way over the same batches beside them. Then Wide&Deep at
+             phase 9's width (10^8 keys, from phase 9's initial tables)
+             and word2vec at phase 10's (a 2^20-word vocabulary, dim 64),
+             WideDeep(mesh=...) and Word2Vec(mesh=...) on the 1x1 mesh,
+             per_worker and aggregate, one step a window entry: the first
+             3 steps' losses, the touched rows and W&D's MLP match the
+             single-device app on the card (E2E_RTOL; word2vec over
+             W2V_E2E_STEPS, its rows after step 1; word2vec aggregate,
+             whose one step over summed repeated ids is another function,
+             step 1's loss and its rows against a CPU aggregate step); W&D
+             launches K1 and K3 a step (per_worker) or K2 over the whole
+             10^8-row shard (aggregate), word2vec no kernel (its ids
+             repeat: the push's repeated-ids route, never K3); 4 steps
+             timed and 4 profiled beside the single-device app's (W&D
+             aggregate alone, with its peak device memory: its dense shard
+             buffers and AdaGrad temporaries leave no room for a second
+             app).
              (b) 2x2 meshes of 4 gloo ranks sharing the card, each a
              `python -m parameter_server_tpu_torch.cli train --device cuda
              --dist_backend gloo --coordinator ...` process, each world
-             beside the same 2x2 world on the CPU, all 9 worlds at once
-             (36 processes; every rank 0 first, the other ranks once every
-             store listens): linear_method on the
+             beside the same 2x2 world on the CPU, in two waves of 9
+             worlds, each wave's at once (36 processes; every rank 0
+             first, the other ranks once every store listens):
+             linear_method on the
              2^24-key table from 6 libsvm files of 8192 phase-4 rows (3 a
              data shard: cut to 3 steps), per_worker, aggregate and
              quantized; MF at MovieLens-20M's shape from 16,384 synthetic
              ratings (one global step an epoch, 3 epochs: cut to 3 steps;
              the item table's 26,745 rows are padded to 26,746 for 2 kv
-             shards), per_worker and aggregate. The first 3 steps' progress
-             rows and the final state (z, n on the touched rows; MF's
-             factors) match the CPU world's (E2E_RTOL; the rows' 5 printed
-             digits add PRINT_RTOL); the quantized run's loss falls, and
-             its ranks (--audit_quantized) held every push's gathered
-             gradient to the rounding bounds above; every card rank
-             launched K1 (per_worker, quantized), K2 (aggregate) or K3 (MF
-             per_worker). Any rank's nonzero exit, or a world outlasting
-             POD_TIMEOUT_S, kills every rank of every world and fails.
+             shards), per_worker and aggregate; Wide&Deep at 2^20 keys
+             (POD_WD_KEYS) from 6 libsvm files of 8192 phase-9 rows (3
+             steps), per_worker, aggregate and quantized; word2vec from 2
+             corpus files of POD_W2V_TOKENS Zipf ids (3 steps a data shard)
+             at eta POD_W2V_ETA, per_worker and aggregate. The first 3
+             steps' progress rows and the final state (z, n on the touched
+             rows; MF's factors; W&D's dump; word2vec's mean loss and
+             embeddings) match the CPU world's (E2E_RTOL; the rows' 5
+             printed digits add PRINT_RTOL); the linear quantized run's
+             loss falls, W&D's tracks its per_worker run (POD_QUANT_RTOL),
+             and their ranks (--audit_quantized) held every push's
+             gathered gradient to the rounding bounds above; every card
+             rank launched K1 (per_worker, quantized), K2 (aggregate) or
+             K3 (MF per_worker; W&D per_worker and quantized beside K1),
+             and word2vec's ranks none. Any rank's nonzero exit, or a
+             world outlasting POD_TIMEOUT_S, kills every rank of every
+             world and fails.
 
 Launch counters are reset just before each of phases 4-7, the round trip
 of phase 8, the training runs of phases 9 and 10 and each mode of phase
@@ -127,6 +152,7 @@ the last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -245,13 +271,48 @@ POD_E2E_STEPS, POD_TIMED_STEPS, POD_PROFILE_STEPS = 3, 4, 4
 POD_RANKS, POD_FILES_PER_SHARD, POD_TIMEOUT_S, POD_QUANT_SEEDS = 4, 3, 300, 64
 POD_RUNS = [("linear_method", "per_worker"), ("linear_method", "aggregate"),
             ("linear_method", "quantized"), ("matrix_fac", "per_worker"),
-            ("matrix_fac", "aggregate")]
-# the kernel each run must launch on every rank (MF's aggregate push is one
-# plain AdaGrad step over the shard: no kernel)
-POD_KERNELS = {("linear_method", "per_worker"): "ftrl_push",
-               ("linear_method", "aggregate"): "ftrl_delta",
-               ("linear_method", "quantized"): "ftrl_push",
-               ("matrix_fac", "per_worker"): "adagrad_push", ("matrix_fac", "aggregate"): None}
+            ("matrix_fac", "aggregate"), ("wide_deep", "per_worker"),
+            ("wide_deep", "aggregate"), ("wide_deep", "quantized"),
+            ("word2vec", "per_worker"), ("word2vec", "aggregate")]
+# the runs' worlds start in two waves, each wave's worlds at once: all 18
+# at once put 72 processes on the machine's 8 cores and took as long as the
+# two waves one after another (PERF.md §5), with twice the processes alive
+POD_WAVES = (("linear_method", "matrix_fac"), ("wide_deep", "word2vec"))
+# the kernels each run must launch on every rank (an aggregate AdaGrad push
+# is one plain step over the shard: no kernel); word2vec's ranks must
+# launch none (its ids repeat: never K1 or K3)
+POD_KERNELS = {("linear_method", "per_worker"): ("ftrl_push",),
+               ("linear_method", "aggregate"): ("ftrl_delta",),
+               ("linear_method", "quantized"): ("ftrl_push",),
+               ("matrix_fac", "per_worker"): ("adagrad_push",), ("matrix_fac", "aggregate"): (),
+               ("wide_deep", "per_worker"): ("ftrl_push", "adagrad_push"),
+               ("wide_deep", "aggregate"): ("ftrl_delta",),
+               ("wide_deep", "quantized"): ("ftrl_push", "adagrad_push"),
+               ("word2vec", "per_worker"): (), ("word2vec", "aggregate"): ()}
+# phase 11 (b)'s cuts of Wide&Deep and word2vec: W&D at 2^20 keys (4 ranks x
+# 2 worlds at 10^8 would hold ~27 GB on the card and as much on the host),
+# from 2 x POD_E2E_STEPS libsvm files of WD_BATCH rows; word2vec from one
+# corpus file a data shard, each POD_W2V_TOKENS tokens (POD_E2E_STEPS
+# batches of pairs), at the CPU tests' eta (at W2V_ETA runs that sum the
+# same deltas in another order part in their first steps)
+POD_WD_KEYS, POD_W2V_TOKENS, POD_W2V_ETA = 1 << 20, 6100, 0.05
+# word2vec's vocabulary there: 2^18, not phase 10's 2^20 (every rank of a
+# word2vec world draws the whole input table on the host, and an aggregate
+# rank sums two dense shard buffers over gloo every step)
+POD_W2V_VOCAB = 1 << 18
+# the AdaGrad tables of the W&D and word2vec dumps, card vs CPU: AdaGrad's
+# first step on an element moves it by eta * g / (|g| + eps), less than eta
+# either way, so a gradient that is a sum which nearly cancels (aggregate
+# pushes sum every occurrence of an id) turns its rounding, summed in
+# another order on the card, into a move that differs by up to 2 eta. Such
+# elements are few (on an H100, word2vec aggregate: 159 of 251,968 moved;
+# W&D: at most 6 of 1.27 M; PERF.md section 6): at most this share of the
+# moved elements may miss E2E_RTOL, each within 2 eta; a fault moves many
+POD_MOVED_OFF_SHARE = 1e-2
+# W&D quantized tracks per_worker's progress rows: its first row equal (the
+# first push comes after the first loss), the next within this of them (the
+# int8 push's rounding moved the second row by 2.4% on an H100)
+POD_QUANT_RTOL = 0.1
 # the progress table prints 5 significant digits
 PRINT_RTOL = 1e-4
 
@@ -651,6 +712,26 @@ def check_e2e(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err.max().item() / scale if scale else 0.0
 
 
+def check_moved(name: str, got: torch.Tensor, want: torch.Tensor, init: torch.Tensor,
+                eta: float) -> str:
+    """Phase 11 (b)'s AdaGrad tables (W&D's embeddings, word2vec's input
+    table), card vs CPU, ``init`` the table before training: every element
+    within E2E_RTOL (``check_e2e``) but at most POD_MOVED_OFF_SHARE of the
+    elements training moved, each of those within 2 ``eta``. Returns what
+    it found."""
+    got, want = got.double(), want.double()
+    scale = want.abs().max().item()
+    err = (got - want).abs()
+    off = int((err > E2E_RTOL * (want.abs() + scale)).sum())
+    moved = int((want != init.double()).sum())
+    worst = err.max().item()
+    if off > POD_MOVED_OFF_SHARE * moved or worst > 2 * eta:
+        raise AssertionError(f"{name}: card vs CPU, {off} of {moved} moved elements off by "
+                             f"more than E2E_RTOL, max abs err {worst} (table scale {scale})")
+    return (f"{off} of {moved} moved elements past E2E_RTOL, max abs err {worst:.3g} "
+            f"({worst / scale:.3g} of scale)")
+
+
 def check_rows(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """Row by row: the largest |got - want| of a row within E2E_RTOL of the
     row's largest |want|. Returns the worst row's error over that scale."""
@@ -725,7 +806,7 @@ def wd_push_sets(batches, dev, gen) -> tuple[list, list]:
     return full, prefix
 
 
-def phase_wide_deep(dev, gen) -> tuple[dict, dict, float, float]:
+def phase_wide_deep(dev, gen) -> tuple[dict, dict, float, float, list, torch.Tensor]:
     """Phase 9: K1 and K3 against their plain versions at the W&D push's
     shapes; K3 timed at the step's push (the real prefix of each batch's
     unique keys) and at the whole unique-key array, and at the prefix
@@ -733,7 +814,8 @@ def phase_wide_deep(dev, gen) -> tuple[dict, dict, float, float]:
     the first steps against a CPU run; then the main path,
     ``WideDeep.train`` over WD_STEPS batches, with its launch counts, and a
     profile of one window entry. Returns (launches, the kernels' times at
-    this shape, K1's and K3's max abs errors)."""
+    this shape, K1's and K3's max abs errors, the batches, and a copy of
+    the initial embedding table on the card for phase 11)."""
     from parameter_server_tpu_torch.models import wide_deep as wdm
     from parameter_server_tpu_torch.models.linear import batch_to_device
     from parameter_server_tpu_torch.ops import adagrad_kernels as ak
@@ -808,6 +890,9 @@ def phase_wide_deep(dev, gen) -> tuple[dict, dict, float, float]:
     wd = make_wd(WD_KEYS, dev, wd_rep)
     torch.cuda.synchronize()
     t_wd_init = time.perf_counter() - t0
+    # phase 11's apps start from this draw (the host takes tens of seconds
+    # to make it again)
+    init_w = wd.emb_state["w"].clone()
     log(f"wide_deep init: the {WD_KEYS} x {WD_EMB_DIM} embedding draw (host float64 in "
         f"chunks of {wdm.INIT_CHUNK_ROWS} rows, cast, copied) and the tables in "
         f"{t_wd_init:.2f} s; device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -889,7 +974,7 @@ def phase_wide_deep(dev, gen) -> tuple[dict, dict, float, float]:
             f"profile), bound {b_ms:.5f} ms ({b_by}) at {u_prof:.1f} slots, each a distinct "
             f"row x {vdim} of {WD_KEYS}")
     wd_kernels["adagrad_push"]["timed"] = k3_times
-    return wd_launches, wd_kernels, err_wd_k1, err_wd_k3
+    return wd_launches, wd_kernels, err_wd_k1, err_wd_k3, wd_batches, init_w
 
 
 def phase_word2vec(dev) -> None:
@@ -1201,12 +1286,287 @@ def progress_rows(lines: list[str]) -> list[dict]:
     return rows
 
 
-def phase_pod(dev, gen, batches, raw, ratings) -> dict:
+def pod_timings(rt, steps, ref_steps, per_step: int, kernels: tuple) -> dict:
+    """Phase 11 (a)'s times of one mode: POD_TIMED_STEPS steps of ``steps``
+    (the mesh app) and of ``ref_steps`` (the single-device app, fed the
+    same way; None: not timed here) timed back to back after the first
+    POD_E2E_STEPS, then POD_PROFILE_STEPS of each profiled: idle share, the
+    NCCL kernels' and device-to-device copies' time, each of ``kernels``'
+    device time a launch, the payload handed to the collectives a step.
+    ``steps(lo, hi)`` issues steps lo..hi-1; ``per_step`` examples a step."""
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(POD_E2E_STEPS, POD_E2E_STEPS + POD_TIMED_STEPS)
+        torch.cuda.synchronize()
+        return POD_TIMED_STEPS * per_step / (time.perf_counter() - t0)
+
+    lo, hi = POD_E2E_STEPS + POD_TIMED_STEPS, POD_E2E_STEPS + POD_TIMED_STEPS + POD_PROFILE_STEPS
+    out = {"ex_per_s": timed(steps)}
+    before = dict(rt.mesh.payload_bytes)
+    wall_ms, busy_ms, rows = profile(lambda: steps(lo, hi))
+    out.update(
+        wall_ms=wall_ms, busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+        collectives_ms=sum(t for k, t, _ in rows if "nccl" in k.lower()),
+        # NCCL on a world of one copies instead of launching kernels
+        dtod_copies_ms=sum(t for k, t, _ in rows if "DtoD" in k),
+        payload_bytes_a_step={k: (v - before[k]) / POD_PROFILE_STEPS
+                              for k, v in rt.mesh.payload_bytes.items()},
+        top=[(k[:50], round(t, 4)) for k, t, _ in rows[:6]])
+    for kernel in kernels:
+        out[f"{kernel}_ms"], out[f"{kernel}_launches"] = kernel_row(rows, f"{kernel}_kernel")
+    if ref_steps is not None:
+        out["worker_ex_per_s"] = timed(ref_steps)
+        ref_wall, ref_busy, ref_rows = profile(lambda: ref_steps(lo, hi))
+        out.update(worker_wall_ms=ref_wall, worker_busy_ms=ref_busy,
+                   worker_idle_share=1 - ref_busy / ref_wall,
+                   worker_top=[(k[:50], round(t, 4)) for k, t, _ in ref_rows[:4]])
+    return out
+
+
+def pod_timings_text(t: dict) -> str:
+    kernels = {k[:-3]: (round(v, 5), t[k[:-3] + "_launches"]) for k, v in t.items()
+               if k.endswith("_ms") and k[:-3] + "_launches" in t}
+    text = (f"{t['ex_per_s']:.1f} ex/s over {POD_TIMED_STEPS} steps; profile of "
+            f"{POD_PROFILE_STEPS} steps: wall {t['wall_ms']:.3f} ms, busy {t['busy_ms']:.3f} ms "
+            f"(idle share {t['idle_share']:.3f}), NCCL kernels {t['collectives_ms']:.4f} ms, "
+            f"device-to-device copies {t['dtod_copies_ms']:.4f} ms, payload handed to them a "
+            f"step {t['payload_bytes_a_step']}, kernels (ms a launch, launches) {kernels}; "
+            f"top {t['top']}")
+    if "worker_ex_per_s" in t:
+        text += (f"; the single-device app fed, timed and profiled the same way over the "
+                 f"same steps: {t['worker_ex_per_s']:.1f} ex/s, wall {t['worker_wall_ms']:.3f} "
+                 f"ms, busy {t['worker_busy_ms']:.3f} ms (idle share "
+                 f"{t['worker_idle_share']:.3f}), top {t['worker_top']}")
+    return text
+
+
+@contextlib.contextmanager
+def drawn_once(wdm, w: torch.Tensor):
+    """``WideDeep``'s embedding draw replaced by ``w``, phase 9's initial
+    table (the same seed's draw, which takes the host tens of seconds)."""
+    draw = wdm.normal_table
+    wdm.normal_table = lambda *args, **kw: w
+    try:
+        yield
+    finally:
+        wdm.normal_table = draw
+
+
+def pod_wide_deep(rt, dev, wd_batches: list, init_w: torch.Tensor) -> dict:
+    """Phase 11 (a) for Wide&Deep at phase 9's width: the single-device app
+    and ``WideDeep(mesh=...)`` on the world of one, per_worker then
+    aggregate, each from phase 9's initial tables, one step a window entry.
+    The first POD_E2E_STEPS steps' losses, the touched rows of the four
+    tables and the MLP match the single-device app's, which are kept on
+    the host (the aggregate run's dense shard buffers and temporaries need
+    the card's memory); K1 and K3 launch once a step in per_worker, K2 once
+    a step in aggregate; the aggregate run's peak memory."""
+    from parameter_server_tpu_torch.models import wide_deep as wdm
+    from parameter_server_tpu_torch.ops import adagrad_kernels as ak
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    res = {"launches": {}, "times": {}}
+    quiet = ProgressReporter(print_fn=lambda s: None)
+    first = wd_batches[:POD_E2E_STEPS]
+    union = np.unique(np.concatenate([b.unique_keys[1:b.num_unique] for b in first]))
+    sel = torch.from_numpy(union.astype(np.int64)).to(dev)
+
+    def make(mesh, mode: str, w: torch.Tensor):
+        with drawn_once(wdm, w):
+            return wdm.WideDeep(
+                WD_KEYS, emb_dim=WD_EMB_DIM, hidden=WD_HIDDEN, ftrl_kw=WD_FTRL,
+                emb_eta=WD_EMB_ETA, mlp_lr=WD_MLP_LR, seed=SEED, reporter=quiet, mesh=mesh,
+                push_mode=mode, device=dev)
+
+    def step_runner(app):
+        def steps(lo: int, hi: int) -> list:
+            return [app._dispatch([b])[0] for b in wd_batches[lo:hi]]
+        return steps
+
+    def touched(app) -> dict:
+        rows = {f"{t}[{k!r}]": v.index_select(0, sel).cpu()
+                for t in ("wide_state", "emb_state") for k, v in getattr(app, t).items()}
+        for i, layer in enumerate(app.mlp.layers()):
+            rows.update({f"mlp {k}{i}": torch.from_numpy(v) for k, v in layer.items()})
+        return rows
+
+    ref = make(None, "per_worker", init_w.clone())
+    ref_steps = step_runner(ref)
+    want_losses = [float(x) for x in ref_steps(0, POD_E2E_STEPS)]
+    want = touched(ref)
+    for mode, kernels in (("per_worker", ("ftrl_push", "adagrad_push")),
+                          ("aggregate", ("ftrl_delta",))):
+        if mode == "aggregate":
+            # the dense shard buffers need the card: no single-device app beside
+            del ref
+            ref_steps = None
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        app = make(rt.mesh, mode, init_w.clone() if mode == "per_worker" else init_w)
+        steps = step_runner(app)
+        torch.cuda.synchronize()
+        fk.reset_launches()
+        ak.reset_launches()
+        losses = [float(x) for x in steps(0, POD_E2E_STEPS)]
+        torch.cuda.synchronize()
+        launches = {**fk.LAUNCHES, **ak.LAUNCHES}
+        need = {k: POD_E2E_STEPS if k in kernels else 0
+                for k in ("ftrl_push", "adagrad_push", "ftrl_delta")}
+        if any(launches[k] != v for k, v in need.items()):
+            raise AssertionError(f"pod 1x1 wide_deep {mode}: launches {launches} in "
+                                 f"{POD_E2E_STEPS} steps, want {need}")
+        res["launches"][f"pod_1x1_wd_{mode}"] = launches
+        if not np.allclose(losses, want_losses, rtol=E2E_RTOL, atol=0.0):
+            raise AssertionError(f"pod 1x1 wide_deep {mode}: losses {losses} vs the "
+                                 f"single-device app's {want_losses}")
+        got = touched(app)
+        err = max(check_e2e(f"pod 1x1 wide_deep {mode} {k}", got[k], v) for k, v in want.items())
+        t = pod_timings(rt, steps, ref_steps, WD_BATCH, kernels)
+        if mode == "aggregate":
+            t["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            t["ftrl_delta_bound_ms"], t["ftrl_delta_bound_by"] = bound(
+                20 * WD_KEYS, FTRL_FLOPS * WD_KEYS)
+        res["times"][f"pod_1x1_wd_{mode}"] = t
+        log(f"pod 1x1 wide_deep {mode} ok at {WD_KEYS} keys: losses of steps "
+            f"1-{POD_E2E_STEPS}, the touched rows of z, n, w, n and the MLP match the "
+            f"single-device app (worst {err:.3g} of scale); {pod_timings_text(t)}; launches "
+            f"{launches}"
+            + (f"; peak device memory {t['peak_memory_gib']:.2f} GiB; K2 over the whole "
+               f"{WD_KEYS}-row shard {t['ftrl_delta_ms']:.5f} ms a launch, bound "
+               f"{t['ftrl_delta_bound_ms']:.5f} ms ({t['ftrl_delta_bound_by']})"
+               if mode == "aggregate" else ""))
+        del app, steps
+        torch.cuda.empty_cache()
+    return res
+
+
+def w2v_aggregate_step(app, b: dict) -> None:
+    """One aggregate SGNS step of a single-device CPU app, IN PLACE: each
+    table's gradients summed over the occurrences of an id, then one
+    AdaGrad step on the rows the batch touched (the aggregate push on one
+    data shard)."""
+    from parameter_server_tpu_torch.models.word2vec import _sgns_weights_math
+
+    center = torch.from_numpy(b["center"]).long()
+    neg = torch.from_numpy(b["negatives"]).long()
+    out_ids = torch.cat([torch.from_numpy(b["context"]).long()[:, None], neg], 1).reshape(-1)
+    _, g_u, g_v = _sgns_weights_math(app.in_state["w"][center], app.out_state["w"][out_ids],
+                                     *neg.shape)
+    for up, st, ids, g in ((app.in_up, app.in_state, center, g_u),
+                           (app.out_up, app.out_state, out_ids, g_v)):
+        total = torch.zeros_like(st["w"]).index_add_(0, ids, g)
+        hit = torch.unique(ids)
+        d = up.delta({k: v[hit] for k, v in st.items()}, total[hit])
+        for k, v in st.items():
+            v[hit] += d[k]
+
+
+def pod_word2vec(rt, dev) -> dict:
+    """Phase 11 (a) for word2vec at phase 10's width: ``Word2Vec(mesh=...)``
+    on the world of one beside the single-device app, per_worker then
+    aggregate, each from fresh tables, one step a window entry, over the
+    batches train_epoch(seed=0) draws. per_worker (ids repeat: the push's
+    route for repeated ids, never K3) matches the single-device app: the
+    first W2V_E2E_STEPS steps' losses and the touched rows after step 1.
+    aggregate: step 1's loss, and its touched rows after step 1 match a
+    CPU aggregate step (``w2v_aggregate_step``). No kernel launches."""
+    from parameter_server_tpu_torch.models import word2vec as w2vm
+    from parameter_server_tpu_torch.ops import adagrad_kernels as ak
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.ops import quantize_kernels as qk
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    res = {"launches": {}, "times": {}}
+    quiet = ProgressReporter(print_fn=lambda s: None)
+    corpus = zipf_ids(np.random.default_rng(SEED + 3), W2V_ZIPF, W2V_VOCAB, W2V_TOKENS)
+
+    def make(mesh, mode: str, device):
+        return w2vm.Word2Vec(W2V_VOCAB, dim=W2V_DIM, eta=W2V_ETA, num_negatives=W2V_NEG,
+                             window=W2V_WINDOW, seed=SEED, reporter=quiet, mesh=mesh,
+                             push_mode=mode, device=device)
+
+    sampler = w2vm.NegativeSampler(np.bincount(corpus, minlength=W2V_VOCAB), seed=0)
+    centers, contexts = w2vm._window_pairs(corpus, W2V_WINDOW)  # make_pairs' order
+    order = np.random.default_rng(0).permutation(len(centers))
+    n = POD_E2E_STEPS + POD_TIMED_STEPS + POD_PROFILE_STEPS
+    # train_epoch's batches; on one data shard the mesh app's draw is the same
+    feed = []
+    for s in range(n):
+        sel = order[s * W2V_BATCH:(s + 1) * W2V_BATCH]
+        feed.append({"center": centers[sel].astype(np.int32),
+                     "context": contexts[sel].astype(np.int32),
+                     "negatives": sampler.sample((W2V_BATCH, W2V_NEG)).astype(np.int32)})
+    ids = (np.unique(feed[0]["center"]),
+           np.unique(np.concatenate([feed[0]["context"][:, None], feed[0]["negatives"]], 1)))
+
+    def step_runner(app):
+        def steps(lo: int, hi: int) -> list:
+            out = [app._dispatch_prepared(b, 1) for b in feed[lo:hi]]
+            return [x if x.dim() == 0 else x[0] for x in out]  # a mesh step's (loss, pairs)
+        return steps
+
+    def rows(app, table: str, k: str, which) -> torch.Tensor:
+        t = getattr(app, table)[k]
+        return t.index_select(0, torch.from_numpy(which.astype(np.int64)).to(t.device)).cpu()
+
+    ref_losses = None  # the single-device app's, from the per_worker pass
+    for mode in ("per_worker", "aggregate"):
+        # the single-device app runs beside per_worker only: aggregate's
+        # step 1 is held to a CPU aggregate step, its loss to the app's
+        # (the pull and the loss come before the push)
+        app = make(rt.mesh, mode, dev)
+        ref = make(None, "per_worker", dev) if mode == "per_worker" else None
+        steps, ref_steps = step_runner(app), (step_runner(ref) if ref is not None else None)
+        torch.cuda.synchronize()
+        fk.reset_launches()
+        ak.reset_launches()
+        qk.reset_launches()
+        got = [float(x) for x in steps(0, 1)]
+        if ref is not None:
+            ref_losses = [float(x) for x in ref_steps(0, 1)]
+            want = ref
+        else:
+            want = make(None, "per_worker", "cpu")
+            w2v_aggregate_step(want, feed[0])
+        err = max(check_rows(f"pod 1x1 word2vec {mode} {table}[{k!r}] after step 1",
+                             rows(app, table, k, which), rows(want, table, k, which))
+                  for table, which in zip(("in_state", "out_state"), ids) for k in ("w", "n"))
+        del want
+        got += [float(x) for x in steps(1, POD_E2E_STEPS)]
+        if ref is not None:
+            ref_losses += [float(x) for x in ref_steps(1, POD_E2E_STEPS)]
+        torch.cuda.synchronize()
+        launches = {**fk.LAUNCHES, **ak.LAUNCHES, **qk.LAUNCHES}
+        if any(launches.values()):
+            raise AssertionError(f"pod 1x1 word2vec {mode} launched {launches}, want none "
+                                 "(repeated ids take no fused push)")
+        res["launches"][f"pod_1x1_w2v_{mode}"] = launches
+        held = W2V_E2E_STEPS if mode == "per_worker" else 1
+        if not np.allclose(got[:held], ref_losses[:held], rtol=E2E_RTOL, atol=0.0):
+            raise AssertionError(f"pod 1x1 word2vec {mode}: losses {got} vs the "
+                                 f"single-device app's {ref_losses}")
+        t = pod_timings(rt, steps, ref_steps, W2V_BATCH, ())
+        res["times"][f"pod_1x1_w2v_{mode}"] = t
+        log(f"pod 1x1 word2vec {mode} ok at a {W2V_VOCAB}-word vocabulary: loss of steps "
+            f"1-{held} (of {got} vs the single-device app's {ref_losses}) and the touched rows "
+            f"after step 1 match "
+            + ("the single-device app" if mode == "per_worker" else "a CPU aggregate step")
+            + f" (worst row {err:.3g} of its scale); {pod_timings_text(t)}; launches "
+            f"{launches}")
+        del ref, app, steps, ref_steps
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_pod(dev, gen, batches, raw, ratings, wd_batches, wd_init) -> dict:
     """Phase 11: the SPMD tier. (a) a world of one on NCCL in this process
-    at the worker's full width; (b) 2x2 meshes of 4 gloo ranks sharing the
-    card, each run beside the same 2x2 run on the CPU. Returns the launches
-    a kernel made on each path, the shard checks' errors and times."""
-    from parameter_server_tpu_torch.data.synthetic import write_libsvm
+    at the worker's, W&D's and word2vec's full width (``pod_wide_deep``,
+    ``pod_word2vec``); (b) 2x2 meshes of 4 gloo ranks sharing the card,
+    each run beside the same 2x2 run on the CPU (``pod_worlds``). Returns
+    the launches a kernel made on each path, the shard checks' errors and
+    times."""
     from parameter_server_tpu_torch.models import matrix_fac as mfm
     from parameter_server_tpu_torch.models.linear import LinearMethod, batch_to_device, train_step
     from parameter_server_tpu_torch.ops import adagrad_kernels as ak
@@ -1320,61 +1680,51 @@ def phase_pod(dev, gen, batches, raw, ratings) -> dict:
                 for i in range(lo, hi):
                     train_step(ref.updater, ref.store.state, batch_to_device(batches[i], dev))
 
-            def timed(fn) -> float:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn(POD_E2E_STEPS, POD_E2E_STEPS + POD_TIMED_STEPS)
-                torch.cuda.synchronize()
-                return POD_TIMED_STEPS * BATCH / (time.perf_counter() - t0)
-
-            ex_s, ref_ex_s = timed(steps), timed(ref_steps)
-            lo = POD_E2E_STEPS + POD_TIMED_STEPS
-            before = dict(rt.mesh.payload_bytes)
-            wall_ms, busy_ms, rows = profile(lambda: steps(lo, lo + POD_PROFILE_STEPS))
-            ref_wall, ref_busy, ref_rows = profile(lambda: ref_steps(lo, lo + POD_PROFILE_STEPS))
+            t = pod_timings(rt, steps, ref_steps, BATCH, (kernel,))
             del ref
-            payload = {k: (v - before[k]) / POD_PROFILE_STEPS
-                       for k, v in rt.mesh.payload_bytes.items()}
-            coll_ms = sum(t for k, t, _ in rows if "nccl" in k.lower())
-            # NCCL on a world of one copies instead of launching kernels
-            dtod_ms = sum(t for k, t, _ in rows if "DtoD" in k)
-            k_ms, k_count = kernel_row(rows, f"{kernel}_kernel")
-            res["times"][f"pod_1x1_{mode}"] = {
-                "ex_per_s": ex_s, "wall_ms": wall_ms, "busy_ms": busy_ms,
-                "idle_share": 1 - busy_ms / wall_ms, "collectives_ms": coll_ms,
-                "dtod_copies_ms": dtod_ms,
-                "kernel": kernel, "kernel_ms": k_ms, "kernel_launches": k_count,
-                "payload_bytes_a_step": payload,
-                "worker_ex_per_s": ref_ex_s, "worker_wall_ms": ref_wall,
-                "worker_busy_ms": ref_busy}
-            top = [(k[:50], round(t, 4)) for k, t, _ in rows[:6]]
-            ref_top = [(k[:50], round(t, 4)) for k, t, _ in ref_rows[:4]]
+            if mode == "per_worker":
+                # K1's bound at the step's push: every slot's index and
+                # gradient read once, each distinct row's z, n read and
+                # written once (~1 M pad slots share row 0)
+                lo = POD_E2E_STEPS + POD_TIMED_STEPS
+                prof = batches[lo:lo + POD_PROFILE_STEPS]
+                slots = float(np.mean([b.unique_keys.shape[0] for b in prof]))
+                distinct = float(np.mean([b.num_unique for b in prof]))
+                t["k1_slots"], t["k1_rows"] = slots, distinct
+                t["k1_bound_ms"], t["k1_bound_by"] = bound(8 * slots + 16 * distinct,
+                                                           FTRL_FLOPS * slots)
+            res["times"][f"pod_1x1_{mode}"] = t
             log(f"pod 1x1 {mode} ok: losses of steps 1-{POD_E2E_STEPS} and the touched rows "
-                f"match the single-device worker (worst {err:.3g} of scale); {ex_s:.1f} ex/s "
-                f"over {POD_TIMED_STEPS} steps; profile of {POD_PROFILE_STEPS} steps: wall "
-                f"{wall_ms:.3f} ms, busy {busy_ms:.3f} ms (idle share "
-                f"{1 - busy_ms / wall_ms:.3f}), NCCL kernels {coll_ms:.4f} ms, device-to-device"
-                f" copies {dtod_ms:.4f} ms, payload handed "
-                f"to them a step {payload} (traffic.py's wire estimate on a 1x1 mesh: "
-                f"{trainer.est_step_traffic.total_bytes}), {kernel} "
-                f"{k_ms:.5f} ms a launch ({k_count}); top {top}; launches {launches}")
-            log(f"pod 1x1 {mode}: the single-device worker fed, timed and profiled the "
-                f"same way over the same steps: {ref_ex_s:.1f} ex/s (pod {ex_s:.1f}); "
-                f"profile wall {ref_wall:.3f} ms, busy {ref_busy:.3f} ms (idle share "
-                f"{1 - ref_busy / ref_wall:.3f}); top {ref_top}")
+                f"match the single-device worker (worst {err:.3g} of scale); "
+                f"{pod_timings_text(t)} (traffic.py's wire estimate on a 1x1 mesh: "
+                f"{trainer.est_step_traffic.total_bytes}); launches {launches}"
+                + (f"; K1's bound at {t['k1_slots']:.0f} slots on {t['k1_rows']:.1f} rows "
+                   f"{t['k1_bound_ms']:.5f} ms ({t['k1_bound_by']})"
+                   if mode == "per_worker" else ""))
             del trainer, feed
             torch.cuda.empty_cache()
         k2_bound = bound(20 * WORKER_KEYS, FTRL_FLOPS * WORKER_KEYS)
-        res["times"]["k2_shard"] = {"ms": res["times"]["pod_1x1_aggregate"]["kernel_ms"],
+        res["times"]["k2_shard"] = {"ms": res["times"]["pod_1x1_aggregate"]["ftrl_delta_ms"],
                                     "rows": WORKER_KEYS, "bound_ms": k2_bound[0],
                                     "bound_by": k2_bound[1]}
         log(f"pod: K2 over the whole {WORKER_KEYS}-row shard {res['times']['k2_shard']['ms']:.5f}"
             f" ms a launch, bound {k2_bound[0]:.5f} ms ({k2_bound[1]})")
+        for part in (pod_wide_deep(rt, dev, wd_batches, wd_init), pod_word2vec(rt, dev)):
+            for k in ("launches", "times"):
+                res[k].update(part[k])
     finally:
         rt.shutdown()
 
-    # (b) 2x2 worlds of `cli train` ranks: on the card (gloo, sharing it) and
-    # on the CPU, side by side
+    pod_worlds(raw, ratings, res)
+    return res
+
+
+def pod_worlds(raw, ratings, res: dict) -> None:
+    """Phase 11 (b): 2x2 worlds of `cli train` ranks, on the card (gloo,
+    sharing it) and on the CPU, side by side; adds each run's launches and
+    times to ``res``."""
+    from parameter_server_tpu_torch.data.synthetic import make_sparse_logistic, write_libsvm
+
     root = Path(__file__).resolve().parent
     labels, keys, vals = raw
     with tempfile.TemporaryDirectory() as tmp_s:
@@ -1388,9 +1738,21 @@ def phase_pod(dev, gen, batches, raw, ratings) -> dict:
         users, items, stars = (a[:2 * MF_BATCH] for a in ratings)
         (tmp / "ratings.txt").write_text("".join(
             f"{u} {v} {r:.6g}\n" for u, v, r in zip(users, items, stars)))
-        log(f"pod: wrote {len(files)} libsvm files of {BATCH} rows and {2 * MF_BATCH} ratings "
-            f"in {time.perf_counter() - t0:.2f} s")
-        # every run's worlds at once: most of a world's time is its ranks'
+        # W&D: phase 9's kind of rows; word2vec: phase 10's Zipf ids
+        wd_rows = make_sparse_logistic(2 * POD_E2E_STEPS * WD_BATCH, WD_FEATURES,
+                                       nnz_per_example=WD_FIELDS, noise=0.4, seed=SEED + 2)[:3]
+        for i in range(2 * POD_E2E_STEPS):
+            sel = slice(i * WD_BATCH, (i + 1) * WD_BATCH)
+            write_libsvm(tmp / f"wd-{i}.svm", *(a[sel] for a in wd_rows))
+        tokens = zipf_ids(np.random.default_rng(SEED + 3), W2V_ZIPF, POD_W2V_VOCAB,
+                          2 * POD_W2V_TOKENS)
+        for d in range(2):
+            (tmp / f"corpus-{d}.txt").write_text(
+                " ".join(map(str, tokens[d * POD_W2V_TOKENS:(d + 1) * POD_W2V_TOKENS])))
+        log(f"pod: wrote {len(files)} libsvm files of {BATCH} rows, {2 * MF_BATCH} ratings, "
+            f"{2 * POD_E2E_STEPS} W&D libsvm files of {WD_BATCH} rows and 2 corpus files of "
+            f"{POD_W2V_TOKENS} tokens in {time.perf_counter() - t0:.2f} s")
+        # a wave's worlds at once: most of a world's time is its ranks'
         # start-up, which overlaps
         runs = [(app, mode, ("cuda",) if mode == "quantized" else ("cuda", "cpu"))
                 for app, mode in POD_RUNS]
@@ -1400,23 +1762,27 @@ def phase_pod(dev, gen, batches, raw, ratings) -> dict:
             app_file.write_text(json.dumps(pod_conf(app, mode, files, tmp)))
             for device in devices:
                 out = tmp / f"{app}-{mode}-{device}"
-                extra = (["--model_out", str(out) + ".npz"] if app == "matrix_fac"
-                         else ["--ckpt_dir", str(out)] if mode != "quantized"
-                         else ["--audit_quantized"])
+                extra = (["--model_out", str(out) + (".npy" if app == "word2vec" else ".npz")]
+                         if app != "linear_method"
+                         else ["--ckpt_dir", str(out)] if mode != "quantized" else [])
+                if mode == "quantized":
+                    extra.append("--audit_quantized")
                 specs[out.name] = (app_file, device, extra)
-        t0 = time.perf_counter()
-        worlds = start_worlds(root, tmp, specs, POD_TIMEOUT_S)
-        t_up = time.perf_counter() - t0
-        got = wait_worlds(worlds, POD_TIMEOUT_S)
-        log(f"pod: {len(worlds)} worlds of {POD_RANKS} ranks, run at once, took "
-            f"{time.perf_counter() - t0:.1f} s ({t_up:.1f} s until every rank 0 listened; "
-            f"each world's last rank exited after "
-            f"{ {tag: round(g['seconds'], 1) for tag, g in got.items()} } s more)")
-        for app, mode, devices in runs:
-            check_pod_run(f"{app}-{mode}", app, mode,
-                          {device: got[f"{app}-{mode}-{device}"] for device in devices},
-                          tmp, res)
-    return res
+        got = {}
+        for wave in POD_WAVES:
+            part = {tag: spec for tag, spec in specs.items() if tag.split("-")[0] in wave}
+            if not part:
+                continue
+            t0 = time.perf_counter()
+            worlds = start_worlds(root, tmp, part, POD_TIMEOUT_S)
+            t_up = time.perf_counter() - t0
+            got.update(wait_worlds(worlds, POD_TIMEOUT_S))
+            log(f"pod: {len(worlds)} worlds of {POD_RANKS} ranks ({', '.join(wave)}), run at "
+                f"once, took {time.perf_counter() - t0:.1f} s ({t_up:.1f} s until every rank 0 "
+                f"listened; each world's last rank exited after "
+                f"{ {tag: round(got[tag]['seconds'], 1) for tag in worlds} } s more)")
+        for app, mode, _ in runs:
+            check_pod_run(app, mode, got, tmp, res)
 
 
 def pod_conf(app: str, mode: str, files: list, tmp: Path) -> dict:
@@ -1427,51 +1793,91 @@ def pod_conf(app: str, mode: str, files: list, tmp: Path) -> dict:
                 "solver": {"minibatch": BATCH},
                 "lr": {"alpha": HYPER["alpha"], "beta": HYPER["beta"]},
                 "penalty": {"lambda_l1": HYPER["l1"], "lambda_l2": HYPER["l2"]}}
-    else:
+    elif app == "matrix_fac":
         conf = {"app": "matrix_fac", "seed": SEED,
                 "data": {"files": [str(tmp / "ratings.txt")]},
                 "solver": {"epochs": POD_E2E_STEPS},
                 "mf": {"num_users": MF_USERS, "num_items": MF_ITEMS, "rank": MF_RANK,
                        "eta": MF_ETA, "l2": MF_L2, "batch_size": MF_BATCH}}
+    elif app == "wide_deep":
+        conf = {"app": "wide_deep", "seed": SEED,
+                "data": {"files": [str(tmp / f"wd-{i}.svm") for i in range(2 * POD_E2E_STEPS)],
+                         "num_keys": POD_WD_KEYS, "max_nnz_per_example": 4 * WD_FIELDS},
+                "solver": {"minibatch": WD_BATCH},
+                "wd": {"emb_dim": WD_EMB_DIM, "hidden": WD_HIDDEN, "emb_eta": WD_EMB_ETA,
+                       "mlp_lr": WD_MLP_LR},
+                "lr": {"alpha": WD_FTRL["alpha"], "beta": WD_FTRL["beta"]},
+                "penalty": {"lambda_l1": WD_FTRL["lambda_l1"],
+                            "lambda_l2": WD_FTRL["lambda_l2"]}}
+    else:
+        conf = {"app": "word2vec", "seed": SEED,
+                "data": {"files": [str(tmp / f"corpus-{d}.txt") for d in range(2)]},
+                "w2v": {"vocab_size": POD_W2V_VOCAB, "dim": W2V_DIM, "window": W2V_WINDOW,
+                        "negatives": W2V_NEG, "eta": POD_W2V_ETA, "batch_size": W2V_BATCH}}
     conf["parallel"] = {"data_shards": 2, "kv_shards": 2, "push_mode": mode}
     return conf
 
 
-def check_pod_run(tag: str, app: str, mode: str, got: dict, tmp: Path, res: dict) -> None:
+def check_pod_run(app: str, mode: str, got: dict, tmp: Path, res: dict) -> None:
     """Phase 11 (b)'s checks of one 2x2 run (its card world and, but for the
-    quantized run, its CPU world); adds its launches and times to ``res``."""
-    card = got["cuda"]
-    want = POD_KERNELS[(app, mode)]
+    quantized runs, its CPU world; ``got`` holds every world's result);
+    adds its launches and times to ``res``."""
+    from parameter_server_tpu_torch.models.wide_deep import normal_table
+
+    tag = f"{app}-{mode}"
+    card = got[f"{tag}-cuda"]
     counts = [r["launches"] for r in card["results"]]
-    if want is not None and not all(c[want] > 0 for c in counts):
-        raise AssertionError(f"pod 2x2 {tag} on the card: {want} launches by rank "
-                             f"{[c[want] for c in counts]}")
+    for kernel in POD_KERNELS[(app, mode)]:
+        if not all(c[kernel] > 0 for c in counts):
+            raise AssertionError(f"pod 2x2 {tag} on the card: {kernel} launches by rank "
+                                 f"{[c[kernel] for c in counts]}")
+    if app == "word2vec" and any(any(c.values()) for c in counts):
+        raise AssertionError(f"pod 2x2 {tag} on the card: launches {counts}, want none")
     res["launches"][f"pod_2x2_{tag}"] = {
         k: sum(c[k] for c in counts) for k in counts[0]}
     objv = [r["objv"] for r in card["rows"]]
-    if len(objv) < POD_E2E_STEPS:
+    if app != "word2vec" and len(objv) < POD_E2E_STEPS:
         raise AssertionError(f"pod 2x2 {tag}: {len(objv)} progress rows")
     msg = ""
     if mode == "quantized":
-        if not objv[POD_E2E_STEPS - 1] < objv[0]:
-            raise AssertionError(f"pod 2x2 {tag}: the loss did not fall: {objv}")
         # each rank held every push's gathered gradient to the rounding
         # bounds (cli train --audit_quantized)
         audits = [r["quant_audit"] for r in card["results"]]
-        if not all(a["pushes"] >= POD_E2E_STEPS and a["off_grid"] == 0
+        tables = 2 if app == "wide_deep" else 1
+        if not all(a["pushes"] >= tables * POD_E2E_STEPS and a["off_grid"] == 0
                    and a["scale_mismatch"] == 0 for a in audits):
             raise AssertionError(f"pod 2x2 {tag}: rounding audits by rank {audits}")
-        msg = (f"; the loss fell ({objv[0]} -> {objv[POD_E2E_STEPS - 1]}); every rank's "
-               f"pushes kept the JAX scale and floor(t) + {{0, 1}} ({audits[0]['pushes']} "
-               "pushes a rank)")
+        if app == "linear_method":
+            if not objv[POD_E2E_STEPS - 1] < objv[0]:
+                raise AssertionError(f"pod 2x2 {tag}: the loss did not fall: {objv}")
+            msg = f"; the loss fell ({objv[0]} -> {objv[POD_E2E_STEPS - 1]})"
+        else:
+            pw = [r["objv"] for r in got[f"{app}-per_worker-cuda"]["rows"]]
+            if not (np.isclose(objv[0], pw[0], rtol=E2E_RTOL + PRINT_RTOL, atol=0.0)
+                    and np.allclose(objv[1:POD_E2E_STEPS], pw[1:POD_E2E_STEPS],
+                                    rtol=POD_QUANT_RTOL, atol=0.0)
+                    and objv[POD_E2E_STEPS - 1] < objv[0]):
+                raise AssertionError(f"pod 2x2 {tag}: objv {objv} vs per_worker's {pw}, or "
+                                     "the loss did not fall")
+            msg = (f"; objv {objv[:POD_E2E_STEPS]} tracks per_worker's {pw[:POD_E2E_STEPS]}"
+                   " and falls")
+        msg += (f"; every rank's pushes kept the JAX scale and floor(t) + {{0, 1}} "
+                f"({audits[0]['pushes']} pushes a rank)")
     else:
-        cpu = [r["objv"] for r in got["cpu"]["rows"]]
-        # the table prints 5 significant digits: a unit of the last
-        # digit on top of the tolerance
-        if not np.allclose(objv[:POD_E2E_STEPS], cpu[:POD_E2E_STEPS],
-                           rtol=E2E_RTOL + PRINT_RTOL, atol=0.0):
-            raise AssertionError(f"pod 2x2 {tag}: card objv {objv} vs CPU {cpu}")
-        msg = f"; first {POD_E2E_STEPS} steps' objv {objv[:POD_E2E_STEPS]} match the CPU's"
+        cpu_world = got[f"{tag}-cpu"]
+        if app == "word2vec":
+            losses = [w["results"][0]["mean_loss"] for w in (card, cpu_world)]
+            if not np.isclose(*losses, rtol=E2E_RTOL, atol=0.0):
+                raise AssertionError(f"pod 2x2 {tag}: mean loss card vs CPU {losses}")
+            msg = f"; mean loss {losses[0]} matches the CPU's {losses[1]}"
+        else:
+            cpu = [r["objv"] for r in cpu_world["rows"]]
+            # the table prints 5 significant digits: a unit of the last
+            # digit on top of the tolerance
+            if not np.allclose(objv[:POD_E2E_STEPS], cpu[:POD_E2E_STEPS],
+                               rtol=E2E_RTOL + PRINT_RTOL, atol=0.0):
+                raise AssertionError(f"pod 2x2 {tag}: card objv {objv} vs CPU {cpu}")
+            msg = f"; first {POD_E2E_STEPS} steps' objv {objv[:POD_E2E_STEPS]} match the CPU's"
         if app == "matrix_fac":
             a = np.load(tmp / f"{tag}-cuda.npz")
             c = np.load(tmp / f"{tag}-cpu.npz")
@@ -1482,6 +1888,25 @@ def check_pod_run(tag: str, app: str, mode: str, got: dict, tmp: Path, res: dict
                     raise AssertionError(f"pod 2x2 {tag} {k}: card vs CPU {err}")
                 worst = max(worst, float(err))
             msg += f", and so do the final factors (max abs err {worst:.3g})"
+        elif app == "wide_deep":
+            with np.load(tmp / f"{tag}-cuda.npz") as a, np.load(tmp / f"{tag}-cpu.npz") as c:
+                worst = max(check_e2e(f"pod 2x2 {tag} {k}", torch.from_numpy(a[k]),
+                                      torch.from_numpy(c[k])) for k in c.files if k != "emb_w")
+                init = normal_table(np.random.default_rng(SEED), POD_WD_KEYS, WD_EMB_DIM,
+                                    0.05, "cpu")
+                init[0] = 0.0
+                emb = check_moved(f"pod 2x2 {tag} emb_w", torch.from_numpy(a["emb_w"]),
+                                  torch.from_numpy(c["emb_w"]), init, WD_EMB_ETA)
+            msg += (f", and so does the dump (wide weights and MLP: worst {worst:.3g} of scale; "
+                    f"embeddings: {emb})")
+        elif app == "word2vec":
+            init = torch.from_numpy(np.random.default_rng(SEED).uniform(
+                -0.5 / W2V_DIM, 0.5 / W2V_DIM, size=(POD_W2V_VOCAB, W2V_DIM)).astype(np.float32))
+            emb = check_moved(f"pod 2x2 {tag} embeddings",
+                              torch.from_numpy(np.load(tmp / f"{tag}-cuda.npy")),
+                              torch.from_numpy(np.load(tmp / f"{tag}-cpu.npy")), init,
+                              POD_W2V_ETA)
+            msg += f", and so do the embeddings ({emb})"
         else:
             from parameter_server_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -1953,14 +2378,16 @@ def main() -> int:
     }
 
     # 9. wide_deep: K1 pushes the wide table, K3 the embedding table
-    wd_launches, wd_kernels, err_wd_k1, err_wd_k3 = phase_wide_deep(dev, gen)
+    wd_launches, wd_kernels, err_wd_k1, err_wd_k3, wd_batches, wd_init = phase_wide_deep(
+        dev, gen)
     torch.cuda.empty_cache()
     # 10. word2vec: plain PyTorch, no kernel
     phase_word2vec(dev)
     torch.cuda.empty_cache()
     # 11. pod: the SPMD tier, K1, K2 and K3 on every kv shard
     pod = phase_pod(dev, gen, batches, (labels, keys, vals),
-                    (mf_users, mf_items, mf_ratings))
+                    (mf_users, mf_items, mf_ratings), wd_batches, wd_init)
+    del wd_init
     torch.cuda.empty_cache()
     pl = pod["launches"]
 
@@ -1972,8 +2399,13 @@ def main() -> int:
         "server": server_launches, "wide_deep": wd_launches["ftrl_push"],
         "pod_1x1_per_worker": pl["pod_1x1_per_worker"]["ftrl_push"],
         "pod_2x2_per_worker": pl["pod_2x2_linear_method-per_worker"]["ftrl_push"],
-        "pod_2x2_quantized": pl["pod_2x2_linear_method-quantized"]["ftrl_push"]}
+        "pod_2x2_quantized": pl["pod_2x2_linear_method-quantized"]["ftrl_push"],
+        "pod_1x1_wd_per_worker": pl["pod_1x1_wd_per_worker"]["ftrl_push"],
+        "pod_2x2_wd_per_worker": pl["pod_2x2_wide_deep-per_worker"]["ftrl_push"],
+        "pod_2x2_wd_quantized": pl["pod_2x2_wide_deep-quantized"]["ftrl_push"]}
     kernels["ftrl_push"]["pod_1x1"] = pod["times"]["pod_1x1_per_worker"]
+    kernels["ftrl_push"]["pod_1x1_wd"] = pod["times"]["pod_1x1_wd_per_worker"]
+    kernels["adagrad_push"]["pod_1x1_wd"] = pod["times"]["pod_1x1_wd_per_worker"]
     kernels["ftrl_push"]["launches"] = sum(kernels["ftrl_push"]["launches_by_path"].values())
     kernels["ftrl_push"]["wide_deep"] = wd_kernels["ftrl_push"]
     kernels["adagrad_push"]["wide_deep"] = wd_kernels["adagrad_push"]
@@ -1981,14 +2413,23 @@ def main() -> int:
     kernels["ftrl_delta"]["launches_by_path"] = {
         "worker": worker_launches["ftrl_delta"],
         "pod_1x1_aggregate": pl["pod_1x1_aggregate"]["ftrl_delta"],
-        "pod_2x2_aggregate": pl["pod_2x2_linear_method-aggregate"]["ftrl_delta"]}
+        "pod_2x2_aggregate": pl["pod_2x2_linear_method-aggregate"]["ftrl_delta"],
+        "pod_1x1_wd_aggregate": pl["pod_1x1_wd_aggregate"]["ftrl_delta"],
+        "pod_2x2_wd_aggregate": pl["pod_2x2_wide_deep-aggregate"]["ftrl_delta"]}
     kernels["ftrl_delta"]["launches"] = sum(kernels["ftrl_delta"]["launches_by_path"].values())
     kernels["ftrl_delta"]["shard"] = pod["times"]["k2_shard"]
+    wd_agg = pod["times"]["pod_1x1_wd_aggregate"]
+    kernels["ftrl_delta"]["wd_shard"] = {
+        "ms": wd_agg["ftrl_delta_ms"], "rows": WD_KEYS, "bound_ms": wd_agg["ftrl_delta_bound_ms"],
+        "bound_by": wd_agg["ftrl_delta_bound_by"], "peak_memory_gib": wd_agg["peak_memory_gib"]}
     kernels["adagrad_push"]["launches_by_path"] = {
         "mf": mf_launches["adagrad_push"], "embedding_server": emb_launches,
         "codec_round_trip": codec_launches["adagrad_push"],
         "wide_deep": wd_launches["adagrad_push"],
-        "pod_2x2_mf_per_worker": pl["pod_2x2_matrix_fac-per_worker"]["adagrad_push"]}
+        "pod_2x2_mf_per_worker": pl["pod_2x2_matrix_fac-per_worker"]["adagrad_push"],
+        "pod_1x1_wd_per_worker": pl["pod_1x1_wd_per_worker"]["adagrad_push"],
+        "pod_2x2_wd_per_worker": pl["pod_2x2_wide_deep-per_worker"]["adagrad_push"],
+        "pod_2x2_wd_quantized": pl["pod_2x2_wide_deep-quantized"]["adagrad_push"]}
     kernels["adagrad_push"]["launches"] = sum(kernels["adagrad_push"]["launches_by_path"].values())
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")

@@ -7,12 +7,12 @@ and flags are those of the JAX package's CLI; every other app, option and
 subcommand exits with "not ported yet".
 
 A mesh larger than 1x1 (``parallel.data_shards`` x ``parallel.kv_shards``)
-runs ``linear_method`` through ``PodTrainer`` and ``matrix_fac`` through its
-mesh path, one process per mesh cell: start D x KV processes with the same
-``--coordinator host:port``, ``--num_processes`` D x KV and each its own
-``--process_id``. ``--dist_backend`` picks the collectives (``nccl`` on the
-card, ``gloo`` on the CPU by default; ranks that share one card need
-``gloo``). The wide_deep and word2vec mesh paths are not ported yet.
+runs ``linear_method`` through ``PodTrainer`` and the other three apps
+through their mesh paths, one process per mesh cell: start D x KV
+processes with the same ``--coordinator host:port``, ``--num_processes``
+D x KV and each its own ``--process_id``. ``--dist_backend`` picks the
+collectives (``nccl`` on the card, ``gloo`` on the CPU by default; ranks
+that share one card need ``gloo``). Rank 0 writes ``--model_out``.
 
 Usage:
   python -m parameter_server_tpu_torch.cli train  --app_file cfg.json [--model_out m.txt|m.npz|m.npy] [--device cpu]
@@ -92,8 +92,6 @@ def _check_ported(cfg: PSConfig) -> None:
     if cfg.app == "linear_method" and cfg.solver.algo == "darlin":
         raise _not_ported("the darlin batch solver")
     mesh = cfg.parallel.data_shards * cfg.parallel.kv_shards > 1
-    if mesh and cfg.app in ("wide_deep", "word2vec"):
-        raise _not_ported(f"the {cfg.app} mesh path (parallel.data_shards/kv_shards)")
     if cfg.app == "matrix_fac" and not mesh and cfg.parallel.push_mode != "per_worker":
         raise _not_ported(f"parallel.push_mode {cfg.parallel.push_mode!r} on one device")
     if cfg.trace.trace_dir or cfg.profile.hz > 0 or cfg.timeseries.metrics_port:
@@ -109,8 +107,15 @@ def run_train(cfg: PSConfig, args: argparse.Namespace) -> dict:
     if not cfg.data.files:
         raise SystemExit("config data.files is empty")
     sharded = bool(args.coordinator) or cfg.parallel.data_shards * cfg.parallel.kv_shards > 1
-    if sharded and cfg.app not in ("linear_method", "matrix_fac"):
-        raise _not_ported(f"the {cfg.app} mesh path (--coordinator)")
+    if sharded:
+        from parameter_server_tpu_torch.parallel.spmd import PUSH_MODES
+
+        # the apps' own refusal (the JAX apps raise it building the mesh
+        # step), made before this rank joins the world
+        modes = {"word2vec": ("per_worker", "aggregate"),
+                 "matrix_fac": ("per_worker", "aggregate")}.get(cfg.app, PUSH_MODES)
+        if cfg.parallel.push_mode not in modes:
+            raise ValueError(f"unknown push_mode {cfg.parallel.push_mode!r}")
     if not sharded and (args.num_processes != 1 or args.process_id or args.dist_backend
                         or args.audit_quantized):
         raise SystemExit("--num_processes/--process_id/--dist_backend/--audit_quantized "
@@ -119,7 +124,7 @@ def run_train(cfg: PSConfig, args: argparse.Namespace) -> dict:
         if args.ckpt_dir or args.resume:
             raise SystemExit(f"the {cfg.app} app takes no --ckpt_dir/--resume")
         if sharded:
-            return _run_sharded(cfg, args, _run_train_mf)
+            return _run_sharded(cfg, args, _APP_RUNNERS[cfg.app])
         return _APP_RUNNERS[cfg.app](cfg, args)
     if sharded:
         return _run_sharded(cfg, args, _run_train_pod)
@@ -249,10 +254,10 @@ def _run_train_mf(cfg: PSConfig, args: argparse.Namespace, runtime=None) -> dict
     return out
 
 
-def _run_train_w2v(cfg: PSConfig, args: argparse.Namespace) -> dict:
+def _run_train_w2v(cfg: PSConfig, args: argparse.Namespace, runtime=None) -> dict:
     """The word2vec app: stream the token files (``.npy`` or whitespace-
     separated ids), report the mean loss, save the input embeddings as a
-    ``.npy``."""
+    ``.npy`` (on a mesh: ``runtime``'s, and rank 0 writes the dump)."""
     import numpy as np
 
     from parameter_server_tpu_torch.models.word2vec import Word2Vec
@@ -263,6 +268,7 @@ def _run_train_w2v(cfg: PSConfig, args: argparse.Namespace) -> dict:
         num_negatives=w.negatives, window=w.window, seed=cfg.seed,
         max_delay=max(cfg.solver.max_delay, 0), push_mode=cfg.parallel.push_mode,
         steps_per_call=cfg.solver.steps_per_call, device=args.device,
+        mesh=runtime.mesh if runtime is not None else None,
     )
     # one call: train_files runs its epoch loop and counts the vocabulary once
     mean = app.train_files(
@@ -271,18 +277,23 @@ def _run_train_w2v(cfg: PSConfig, args: argparse.Namespace) -> dict:
     )
     out: dict = {"mean_loss": mean, "vocab_size": w.vocab_size, "dim": w.dim}
     if args.model_out:
-        np.save(args.model_out, app.embeddings())
+        emb = app.embeddings()
+        if runtime is None or runtime.process_index == 0:
+            np.save(args.model_out, emb)
         out["model_out"] = args.model_out
     return out
 
 
-def _run_train_wd(cfg: PSConfig, args: argparse.Namespace) -> dict:
+def _run_train_wd(cfg: PSConfig, args: argparse.Namespace, runtime=None) -> dict:
     """The wide_deep app: streaming file-driven training over the
-    linear_method text formats, validation AUC, an npz dump."""
+    linear_method text formats, validation AUC, an npz dump (on a mesh:
+    ``runtime``'s; every rank parses every file, evaluates the validation
+    files, and rank 0 writes the dump)."""
     from parameter_server_tpu_torch.data.batch import eval_builder, training_builder
     from parameter_server_tpu_torch.models.wide_deep import WideDeep
 
-    app = WideDeep.from_config(cfg, device=args.device)
+    app = WideDeep.from_config(cfg, device=args.device,
+                               mesh=runtime.mesh if runtime is not None else None)
     out = dict(app.train_files(
         cfg.data.files, cfg.data.format, training_builder(cfg),
         epochs=max(1, cfg.solver.epochs), report_every=args.report_interval,

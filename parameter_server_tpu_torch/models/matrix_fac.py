@@ -163,10 +163,10 @@ def _make_mf_spmd(
     (K, ...) ones: step(user_state, item_state, batch) -> (user_state,
     item_state, the data group's SSE), the tables updated in place."""
     from parameter_server_tpu_torch.parallel.spmd import (
-        _local_pull,
         _local_push,
         _local_push_aggregate,
         _shard_size,
+        pull,
     )
 
     if push_mode not in ("per_worker", "aggregate"):
@@ -176,8 +176,8 @@ def _make_mf_spmd(
 
     def micro(user_l: State, item_l: State, b: dict) -> torch.Tensor:
         uk, ik = b["user_keys"], b["item_keys"]
-        U = mesh.psum_(_local_pull(user_up, user_l, uk, u_shard, mesh.k * u_shard), "kv")
-        V = mesh.psum_(_local_pull(item_up, item_l, ik, i_shard, mesh.k * i_shard), "kv")
+        U = pull(user_up, user_l, uk, u_shard, mesh)
+        V = pull(item_up, item_l, ik, i_shard, mesh)
         loss, g_u, g_v = _mf_loss_and_grads(U, V, b, l2)
         if push_mode == "aggregate":
             _local_push_aggregate(user_up, user_l, uk, g_u, u_shard, mesh)
@@ -356,13 +356,12 @@ class MatrixFactorization:
         (e.g. the JAX app's ``user_state``/``item_state`` via ``np.asarray``;
         on a mesh, the full tables: each rank keeps its slice)."""
         if self.mesh is not None:
-            from parameter_server_tpu_torch.parallel.spmd import shard_state
+            from parameter_server_tpu_torch.parallel.spmd import full_like, shard_state
 
             # the full tables' shapes (this rank holds a padded slice)
             for name, have, rows, new in (("user", self.user_state, self.num_user_rows, user),
                                           ("item", self.item_state, self.num_item_rows, item)):
-                check_state_like(name, {k: v.new_empty((rows, *v.shape[1:]), device="meta")
-                                        for k, v in have.items()}, new)
+                check_state_like(name, full_like(have, rows), new)
             self.user_state = shard_state(user, self.mesh)
             self.item_state = shard_state(item, self.mesh)
             return

@@ -15,11 +15,25 @@ zero-gradient pad slot on key 0, are exactly their contract. The step
 pushes only the batch's real prefix of unique keys, not its pad slots.
 
 Unlike the JAX step, which donates the tables and returns new ones, the
-port updates them IN PLACE. The SPMD mesh path is not ported yet.
+port updates them IN PLACE.
+
+On a mesh (``parallel/mesh.py``) each rank holds its kv slice of both
+tables and a replica of the MLP and Adam, and runs the JAX mesh step
+(``make_wd_spmd_train_step``): both tables pulled by masked gathers
+summed over the kv group; ``per_worker`` pushes gathered over the data
+group and applied one data shard after another (K1 for the wide table,
+K3 for the embeddings: D launches of each a step on every kv rank);
+``aggregate`` one FTRL step (K2 over the whole shard) and one AdaGrad
+step over the summed gradients; ``quantized`` ``per_worker`` with int8
+gradients on the wire (streams 1 and 2); the MLP's gradients summed over
+the data group in one all-reduce, and Adam stepped only when some data
+shard had examples. Every rank reads the whole batch stream and keeps
+batch ``k*D + d`` of each group of D*K, as the JAX app deals them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import time
 from collections.abc import Iterable
@@ -28,7 +42,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from parameter_server_tpu_torch.data.batch import CSRBatch
+from parameter_server_tpu_torch.data.batch import CSRBatch, zero_extend
 from parameter_server_tpu_torch.data.reader import MinibatchReader
 from parameter_server_tpu_torch.device import resolve_device
 from parameter_server_tpu_torch.kv.store import (
@@ -42,6 +56,18 @@ from parameter_server_tpu_torch.kv.updaters import Adagrad, Ftrl, Updater
 from parameter_server_tpu_torch.models import metrics as M
 from parameter_server_tpu_torch.models.linear import batch_to_device
 from parameter_server_tpu_torch.ops.sparse import csr_logits
+from parameter_server_tpu_torch.parallel.spmd import (
+    _check_push_mode,
+    _local_push,
+    _local_push_aggregate,
+    _local_push_quantized,
+    _push_seed,
+    _shard_size,
+    full_like,
+    pull,
+    shard_state,
+    unshard_state,
+)
 from parameter_server_tpu_torch.parallel.ssp import DispatchWindow
 from parameter_server_tpu_torch.utils.metrics import ProgressReporter
 
@@ -63,16 +89,24 @@ def init_mlp(dim: int, hidden: list[int], seed: int = 0) -> list[dict[str, np.nd
 
 
 def normal_table(
-    rng: np.random.Generator, num_rows: int, dim: int, scale: float, device: Any
+    rng: np.random.Generator, num_rows: int, dim: int, scale: float, device: Any,
+    lo: int = 0, hi: int | None = None,
 ) -> torch.Tensor:
-    """``rng.normal(scale=scale, size=(num_rows, dim))`` cast to float32 on
-    ``device``, drawn ``INIT_CHUNK_ROWS`` rows at a time. The generator
-    fills sequentially, so the table equals the one-shot draw."""
-    out = torch.empty((num_rows, dim), dtype=torch.float32, device=device)
-    for lo in range(0, num_rows, INIT_CHUNK_ROWS):
-        hi = min(lo + INIT_CHUNK_ROWS, num_rows)
-        block = rng.normal(scale=scale, size=(hi - lo, dim)).astype(np.float32)
-        out[lo:hi].copy_(torch.from_numpy(block))
+    """Rows [lo, hi) (all by default) of ``rng.normal(scale=scale,
+    size=(num_rows, dim))`` cast to float32 on ``device``, drawn
+    ``INIT_CHUNK_ROWS`` rows at a time; rows at or past ``num_rows`` (a kv
+    shard's pad rows) are zero. The generator fills sequentially, so the
+    rows equal the one-shot draw's; the rows before ``lo`` are drawn and
+    dropped, so a kv shard never holds the whole table."""
+    hi = num_rows if hi is None else hi
+    out = torch.zeros((hi - lo, dim), dtype=torch.float32, device=device)
+    end = min(hi, num_rows)
+    for c in range(0, end, INIT_CHUNK_ROWS):
+        e = min(c + INIT_CHUNK_ROWS, end)
+        block = rng.normal(scale=scale, size=(e - c, dim))
+        if e > lo:
+            first = max(c, lo)
+            out[first - lo:e - lo].copy_(torch.from_numpy(block[first - c:].astype(np.float32)))
     return out
 
 
@@ -173,14 +207,119 @@ def wd_train_step(
     return loss.detach(), torch.sigmoid(logits.detach())
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet to parameter_server_tpu_torch")
+def _make_wd_spmd(
+    wide_up: Updater, emb_up: Updater, mesh, num_keys: int, push_mode: str,
+    multistep: bool,
+):
+    """The Wide&Deep step on this rank's mesh cell, one microstep or K
+    (see the two makers below)."""
+    _check_push_mode(push_mode)
+    shard_size = _shard_size(num_keys, mesh.kv)
+    begin = mesh.k * shard_size
+
+    def micro(wide_l, emb_l, mlp, opt, b, num_unique: int, active: bool, seed: int):
+        idx = b["unique_keys"][:num_unique]
+        # the pulled weights as leaves for autograd, as ``_pull_rows``
+        w_u = pull(wide_up, wide_l, idx, shard_size, mesh).requires_grad_()
+        e_u = pull(emb_up, emb_l, idx, shard_size, mesh).requires_grad_()
+        params = list(mlp.parameters())
+        loss, logits = _forward(w_u, e_u, mlp, b)
+        g_wide, g_emb, *g_mlp = torch.autograd.grad(loss, [w_u, e_u, *params])
+        if push_mode == "aggregate":
+            _local_push_aggregate(wide_up, wide_l, idx, g_wide, shard_size, mesh)
+            _local_push_aggregate(emb_up, emb_l, idx, g_emb, shard_size, mesh)
+        elif push_mode == "quantized":
+            # the JAX app's streams: the two tables' rounding noise is
+            # independent under the microstep's one seed
+            _local_push_quantized(wide_up, wide_l, idx, g_wide, shard_size, mesh, seed,
+                                  stream=1)
+            _local_push_quantized(emb_up, emb_l, idx, g_emb, shard_size, mesh, seed,
+                                  stream=2)
+        else:
+            all_idx = mesh.all_gather(idx, "data")
+            _local_push(wide_up, wide_l, all_idx, mesh.all_gather(g_wide, "data"), begin,
+                        shard_size)
+            _local_push(emb_up, emb_l, all_idx, mesh.all_gather(g_emb, "data"), begin,
+                        shard_size)
+        # the MLP's gradients and the loss, summed over the data group in
+        # one buffer: every replica then takes the same Adam step
+        flat = mesh.psum_(torch.cat([*(g.reshape(-1) for g in g_mlp),
+                                     loss.detach().reshape(1)]), "data")
+        if active:
+            for p, g in zip(params, flat[:-1].split([p.numel() for p in params])):
+                p.grad = g.view_as(p)
+            opt.step()
+        return flat[-1], torch.sigmoid(logits.detach())
+
+    def step(wide_l, emb_l, mlp, opt, batch, num_unique, active, push_seed=None):
+        seed = _push_seed(push_seed, push_mode)
+        if not multistep:
+            return micro(wide_l, emb_l, mlp, opt, batch, int(num_unique), bool(active), seed)
+        losses, probs = [], []
+        for i, (b, u, act) in enumerate(zip(batch, num_unique, active)):
+            if act:
+                loss, p = micro(wide_l, emb_l, mlp, opt, b, int(u), True, seed + i)
+            else:
+                # inert on every data shard: an exact no-op in the JAX
+                # program (zero gradients, Adam gated), and every rank knows
+                # it from the host, so all of them skip it
+                loss = torch.zeros((), device=mesh.device)
+                p = torch.zeros(b["labels"].shape, device=mesh.device)
+            losses.append(loss)
+            probs.append(p)
+        return torch.stack(losses), torch.stack(probs)
+
+    return step
+
+
+def make_wd_spmd_train_step(
+    wide_up: Updater, emb_up: Updater, mesh, num_keys: int, push_mode: str = "per_worker"
+):
+    """The Wide&Deep step over the (data, kv) mesh, both tables range-
+    sharded over the kv ranks, the MLP and Adam replicated.
+
+    step(wide_l, emb_l, mlp, opt, batch, num_unique, active, push_seed=None)
+    -> (the data group's loss sum, (B,) this shard's probabilities), the
+    tables, the MLP and Adam updated in place. ``batch``: this rank's data
+    shard's batch on the device (``models.linear.batch_to_device``);
+    ``num_unique``: the largest ``num_unique`` of the microstep's D
+    batches, the real prefix of unique keys pulled and pushed (the slots
+    past a shard's own count are pads, key 0 with zero gradient, so this
+    is the JAX step, which pushes them all); ``active``: whether any data
+    shard has examples (Adam steps only then). Both are the same on every
+    rank, and known on the host. ``quantized`` needs a per-call
+    ``push_seed``."""
+    return _make_wd_spmd(wide_up, emb_up, mesh, num_keys, push_mode, multistep=False)
+
+
+def make_wd_spmd_train_multistep(
+    wide_up: Updater, emb_up: Updater, mesh, num_keys: int, push_mode: str = "per_worker"
+):
+    """K Wide&Deep steps a call, one after another: ``batch``,
+    ``num_unique`` and ``active`` are K-long sequences, and microstep i
+    draws push seed ``push_seed + i``. Returns the (K,) loss sums and the
+    (K, B) probabilities; a microstep inert on every data shard is
+    skipped (loss 0, probabilities 0)."""
+    return _make_wd_spmd(wide_up, emb_up, mesh, num_keys, push_mode, multistep=True)
+
+
+def _inert_like(b: CSRBatch) -> CSRBatch:
+    """The JAX app's pad of a partial group: b's shapes, every field zero
+    (no example, no entry; slot 0, the pad key)."""
+    return CSRBatch(**{f: np.zeros_like(getattr(b, f)) for f in
+                       ("unique_keys", "local_ids", "row_ids", "values", "labels",
+                        "example_mask", "row_splits")},
+                    num_examples=0, num_unique=1, num_entries=0)
 
 
 class WideDeep:
     """The Wide&Deep app: one hashed key space for the wide weights and
     the embeddings, on one device (``cuda`` unless the caller passes
-    ``device="cpu"``)."""
+    ``device="cpu"``), or, with ``mesh``, both tables range-sharded over
+    its kv ranks on the mesh's device and the batch stream dealt over its
+    data ranks (then every rank of the world runs the same calls:
+    training, ``predict``/``evaluate``, ``state_dict``, ``load_state`` and
+    ``dump_model`` are collective)."""
 
     def __init__(
         self,
@@ -199,30 +338,48 @@ class WideDeep:
         device: Any = "cuda",
     ):
         if mesh is not None:
-            raise _not_ported("the Wide&Deep mesh path (mesh=...)")
+            _check_push_mode(push_mode)
         # K sequential steps per window entry: their losses are summed on
         # the device and read back once; report_every counts such groups
         if steps_per_call < 1:
             raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
         self.num_keys = num_keys
-        self.reporter = reporter or ProgressReporter()
+        # on a mesh the table prints on rank 0; every rank keeps its history
+        self.reporter = reporter or ProgressReporter(
+            print_fn=print if mesh is None or mesh.rank == 0 else (lambda *_: None))
         self.steps_per_call = steps_per_call
         self.hidden = list(hidden or [32, 16])
         self.emb_dim = emb_dim
         self.mlp_lr = mlp_lr
         self.push_mode = push_mode  # inert on one device, as in the JAX app
         self.max_delay = max_delay  # SSP dispatch bound
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.wide_up = Ftrl(**(ftrl_kw or {"alpha": 0.1, "lambda_l1": 0.5}))
         self.emb_up = Adagrad(eta=emb_eta)
-        self.wide_state = self.wide_up.init(num_keys, 1, device=self.device)
         # the JAX package's embedding draw (one float64 normal table, cast;
-        # pad row 0 zeroed), made in row chunks on the host
-        w = normal_table(np.random.default_rng(seed), num_keys, emb_dim, 0.05, self.device)
-        w[0] = 0.0
+        # pad row 0 zeroed), made in row chunks on the host; on a mesh each
+        # rank keeps its own rows
+        rng = np.random.default_rng(seed)
+        if mesh is None:
+            self.wide_state = self.wide_up.init(num_keys, 1, device=self.device)
+            w = normal_table(rng, num_keys, emb_dim, 0.05, self.device)
+            w[0] = 0.0
+        else:
+            s = _shard_size(num_keys, mesh.kv)
+            self.wide_state = self.wide_up.init(s, 1, device=self.device)
+            w = normal_table(rng, num_keys, emb_dim, 0.05, self.device, mesh.k * s,
+                             (mesh.k + 1) * s)
+            if mesh.k == 0:
+                w[0] = 0.0
+            maker = make_wd_spmd_train_multistep if steps_per_call > 1 else make_wd_spmd_train_step
+            self._spmd_step = maker(self.wide_up, self.emb_up, mesh, num_keys, push_mode)
         self.emb_state = {"w": w, "n": torch.zeros_like(w)}
         self._set_mlp(init_mlp(emb_dim, self.hidden, seed=seed))
         self.examples_seen = 0
+        # quantized push: each call draws seeds call * K + i, so the
+        # rounding noise never repeats
+        self._push_calls = 0
 
     def _set_mlp(self, layers: list[dict[str, np.ndarray]]) -> None:
         """The MLP from numpy layers, with a fresh Adam (optax.adam's
@@ -256,7 +413,12 @@ class WideDeep:
 
     def state_dict(self) -> dict[str, Any]:
         """Host copies of both tables' state and the MLP layers, in the JAX
-        package's layout (``wide_state``, ``emb_state``, ``mlp_params``)."""
+        package's layout (``wide_state``, ``emb_state``, ``mlp_params``;
+        on a mesh the full tables of ``num_keys`` rows, gathered)."""
+        if self.mesh is not None:
+            return {"wide": unshard_state(self.wide_state, self.mesh, self.num_keys),
+                    "emb": unshard_state(self.emb_state, self.mesh, self.num_keys),
+                    "mlp": self.mlp.layers()}
         return {"wide": state_to_numpy(self.wide_state),
                 "emb": state_to_numpy(self.emb_state),
                 "mlp": self.mlp.layers()}
@@ -264,9 +426,12 @@ class WideDeep:
     def load_state(self, wide: dict[str, np.ndarray], emb: dict[str, np.ndarray],
                    mlp: list[dict[str, np.ndarray]]) -> None:
         """Replace both tables and the MLP with numpy state of the same
-        layout; Adam starts fresh."""
-        check_state_like("wide", self.wide_state, wide)
-        check_state_like("emb", self.emb_state, emb)
+        layout (on a mesh the full tables: each rank keeps its slice); Adam
+        starts fresh."""
+        for name, have, new in (("wide", self.wide_state, wide), ("emb", self.emb_state, emb)):
+            if self.mesh is not None:  # the full tables' shapes, not the slice's
+                have = full_like(have, self.num_keys)
+            check_state_like(name, have, new)
         have = self.mlp.layers()
         if len(mlp) != len(have) or any(
             set(new) != {"W", "b"} or any(np.shape(new[k]) != old[k].shape for k in old)
@@ -274,8 +439,12 @@ class WideDeep:
         ):
             raise ValueError("mlp layers do not match "
                              f"{[{k: v.shape for k, v in old.items()} for old in have]}")
-        self.wide_state = state_from_numpy(wide, self.device)
-        self.emb_state = state_from_numpy(emb, self.device)
+        if self.mesh is not None:
+            self.wide_state = shard_state(wide, self.mesh)
+            self.emb_state = shard_state(emb, self.mesh)
+        else:
+            self.wide_state = state_from_numpy(wide, self.device)
+            self.emb_state = state_from_numpy(emb, self.device)
         self._set_mlp(mlp)
 
     def _dispatch(self, chunk: list[CSRBatch]):
@@ -283,6 +452,8 @@ class WideDeep:
         (summed loss, (k, B) probabilities, metas), all unretired; metas
         align step k -> (num_examples, labels). A partial group is not
         padded: the JAX app's inert pad batches are exact no-ops."""
+        if self.mesh is not None:
+            return self._dispatch_mesh(chunk)
         loss, probs = None, []
         for b in chunk:
             step_loss, p = wd_train_step(
@@ -295,11 +466,44 @@ class WideDeep:
         metas = [(b.num_examples, b.labels[: b.num_examples]) for b in chunk]
         return loss, torch.stack(probs), metas
 
+    def _dispatch_mesh(self, chunk: list[CSRBatch]):
+        """``_dispatch`` on a mesh: ``chunk`` holds up to D*K batches of the
+        pod's stream, batch k*D + d for data shard d of microstep k, and a
+        partial group is padded with inert batches, as the JAX app deals
+        them. Every rank sees the whole chunk, so it knows each
+        microstep's real prefix and activity without a collective; it
+        moves only its own shard's batches to the device. Returns the
+        pod's summed loss, this shard's (K, B) probabilities, its metas."""
+        D, d, K = self.mesh.data, self.mesh.d, self.steps_per_call
+        full = chunk + [_inert_like(chunk[0])] * (D * K - len(chunk))
+        batches, uniq, active, metas = [], [], [], []
+        for k in range(K):
+            group = full[k * D:(k + 1) * D]
+            u = max(b.num_unique for b in group)
+            mine = group[d]
+            if len(mine.unique_keys) < u:  # bucketed capacities differ
+                mine = dataclasses.replace(mine, unique_keys=zero_extend(mine.unique_keys, u))
+            batches.append(batch_to_device(mine, self.device))
+            uniq.append(u)
+            active.append(any(b.num_examples for b in group))
+            metas.append((mine.num_examples, mine.labels[: mine.num_examples]))
+        seed = self._push_calls * K
+        self._push_calls += 1
+        if K == 1:
+            loss, probs = self._spmd_step(self.wide_state, self.emb_state, self.mlp, self.opt,
+                                          batches[0], uniq[0], active[0], seed)
+            return loss, probs[None], metas
+        losses, probs = self._spmd_step(self.wide_state, self.emb_state, self.mlp, self.opt,
+                                        batches, uniq, active, seed)
+        return losses.sum(), probs, metas
+
     def train(self, batches: Iterable[CSRBatch], report_every: int = 100) -> dict:
         """Train over a CSRBatch stream, ``steps_per_call`` steps a window
         entry. Dispatch is SSP-gated (``max_delay`` entries in flight;
         losses and probabilities are read back only on retirement).
-        report_every counts window entries."""
+        report_every counts window entries. On a mesh ``batches`` is the
+        pod's whole stream, the same on every rank; each entry takes D*K
+        batches of it."""
         window_p, window_y, losses = [], [], []
         n_since = 0
         t0 = time.perf_counter()
@@ -317,8 +521,9 @@ class WideDeep:
         gate = DispatchWindow(self.max_delay, _retire)
         it = iter(batches)
         call_i = 0
+        per_call = self.steps_per_call * (self.mesh.data if self.mesh is not None else 1)
         while True:
-            chunk = list(itertools.islice(it, self.steps_per_call))
+            chunk = list(itertools.islice(it, per_call))
             if not chunk:
                 break
             gate.gate(call_i)
@@ -340,7 +545,8 @@ class WideDeep:
     def train_files(self, files: list[str], fmt: str, builder, epochs: int = 1,
                     report_every: int = 100) -> dict:
         """Streaming file-driven training: parse -> localize -> W&D step,
-        per epoch."""
+        per epoch. On a mesh every rank parses every file (the JAX app's
+        one stream, dealt by ``train``)."""
         last: dict = {}
         for _ in range(max(1, epochs)):
             last = self.train(MinibatchReader(files, fmt, builder),
@@ -352,11 +558,24 @@ class WideDeep:
 
     def dump_model(self, path: str) -> str:
         """Dump the inference weights as an npz with the JAX package's keys:
-        derived wide weights, embedding table, MLP layers."""
-        host = {
-            "wide_w": self.wide_up.weights(self.wide_state).cpu().numpy(),
-            "emb_w": self.emb_up.weights(self.emb_state).cpu().numpy(),
-        }
+        derived wide weights, embedding table, MLP layers. On a mesh the
+        tables are gathered (every rank calls it) as the JAX app's sharded
+        tables hold them, zero-padded to the kv multiple, and rank 0
+        writes."""
+        if self.mesh is None:
+            host = {
+                "wide_w": self.wide_up.weights(self.wide_state).cpu().numpy(),
+                "emb_w": self.emb_up.weights(self.emb_state).cpu().numpy(),
+            }
+        else:
+            wide = unshard_state(self.wide_state, self.mesh)
+            host = {
+                "wide_w": self.wide_up.weights(
+                    {k: torch.from_numpy(v) for k, v in wide.items()}).numpy(),
+                "emb_w": unshard_state(self.emb_state, self.mesh)["w"],
+            }
+            if self.mesh.rank != 0:
+                return path
         for i, layer in enumerate(self.mlp.layers()):
             host[f"mlp_W{i}"] = layer["W"]
             host[f"mlp_b{i}"] = layer["b"]
@@ -366,6 +585,13 @@ class WideDeep:
     def _flush(self, losses, window_p, window_y, n_since, t0):
         p = np.concatenate(window_p) if window_p else np.zeros(0)
         y = np.concatenate(window_y) if window_y else np.zeros(0)
+        if self.mesh is not None:
+            # the AUC over every data shard: the ranks of kv column 0 send
+            # their shards' labels and probabilities (the host-side group)
+            parts = [x for x in self.mesh.all_gather_object(
+                (y, p) if self.mesh.k == 0 else None) if x is not None]
+            y = np.concatenate([x[0] for x in parts])
+            p = np.concatenate([x[1] for x in parts])
         return self.reporter.report(
             examples=self.examples_seen,
             objv=float(sum(losses)) / max(n_since, 1),
@@ -374,13 +600,19 @@ class WideDeep:
         )
 
     def predict(self, batches: Iterable[CSRBatch]) -> tuple[np.ndarray, np.ndarray]:
-        """Returns (labels, probabilities) over the stream."""
-        return _predict(
-            batches, self.device, self.mlp,
-            lambda idx: self.wide_up.weights(
-                {k: v.index_select(0, idx) for k, v in self.wide_state.items()}),
-            lambda idx: self.emb_state["w"].index_select(0, idx),
-        )
+        """Returns (labels, probabilities) over the stream (on a mesh the
+        rows are pulled through the kv group; collective)."""
+        if self.mesh is None:
+            return _predict(
+                batches, self.device, self.mlp,
+                lambda idx: self.wide_up.weights(
+                    {k: v.index_select(0, idx) for k, v in self.wide_state.items()}),
+                lambda idx: self.emb_state["w"].index_select(0, idx),
+            )
+        s = _shard_size(self.num_keys, self.mesh.kv)
+        return _predict(batches, self.device, self.mlp,
+                        lambda idx: pull(self.wide_up, self.wide_state, idx, s, self.mesh),
+                        lambda idx: pull(self.emb_up, self.emb_state, idx, s, self.mesh))
 
     def evaluate(self, batches: Iterable[CSRBatch]) -> dict:
         y, p = self.predict(batches)

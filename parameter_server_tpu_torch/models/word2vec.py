@@ -13,7 +13,19 @@ most once, and coalescing first would change the function (AdaGrad is not
 linear in g), so the step is plain PyTorch and launches no hand-written
 kernel. The data side (sampler, window pairs, token blocks, the streaming
 ``PairStream``) is host numpy copied from the JAX package, so both draw
-the same batches. The SPMD mesh path is not ported yet.
+the same batches.
+
+On a mesh (``parallel/mesh.py``) each rank holds its kv slice of both
+tables and feeds its data shard's pairs: pulls are masked gathers summed
+over the kv group; ``per_worker`` gathers every shard's ids and gradients
+over the data group and applies them one shard after another through the
+SPMD push's route for repeated ids (``_local_push(..., unique=False)``:
+gather, one delta an occurrence, ``index_add_``; never K3), and
+``aggregate`` sums the gradients over the data group before one AdaGrad
+step. ``train_epoch`` draws every shard's negatives from the one sampler,
+in shard order, as the JAX loop does; ``train_files`` runs one
+``PairStream`` a data shard over its own file shard, and a drained rank
+feeds inert batches until a step counts no pair pod-wide.
 """
 
 from __future__ import annotations
@@ -34,6 +46,15 @@ from parameter_server_tpu_torch.kv.store import (
     state_to_numpy,
 )
 from parameter_server_tpu_torch.kv.updaters import Adagrad, Updater
+from parameter_server_tpu_torch.parallel.spmd import (
+    _local_push,
+    _local_push_aggregate,
+    _shard_size,
+    full_like,
+    pull,
+    shard_state,
+    unshard_state,
+)
 from parameter_server_tpu_torch.parallel.ssp import DispatchWindow
 from parameter_server_tpu_torch.parallel.workload import WorkloadPool
 from parameter_server_tpu_torch.utils.metrics import ProgressReporter
@@ -94,6 +115,79 @@ def sgns_train_step(
     return loss
 
 
+W2V_PUSH_MODES = ("per_worker", "aggregate")
+
+
+def _make_w2v_spmd(
+    in_up: Updater, out_up: Updater, mesh, vocab_size: int, push_mode: str,
+    multistep: bool,
+):
+    """The SGNS step on this rank's mesh cell, one microstep or K stacked
+    (K, ...) ones (see the two makers below)."""
+    if push_mode not in W2V_PUSH_MODES:
+        raise ValueError(f"unknown push_mode {push_mode!r}")
+    shard_size = _shard_size(vocab_size, mesh.kv)
+    begin = mesh.k * shard_size
+
+    def micro(in_l: State, out_l: State, b: dict) -> torch.Tensor:
+        center, context, negatives = b["center"], b["context"], b["negatives"]
+        B, K = negatives.shape
+        out_ids = torch.cat([context[:, None], negatives], dim=1).reshape(-1)
+        loss, g_u, g_v = _sgns_weights_math(
+            pull(in_up, in_l, center, shard_size, mesh),
+            pull(out_up, out_l, out_ids, shard_size, mesh), B, K,
+            mask=b.get("mask"),
+        )
+        if push_mode == "aggregate":
+            # the dense buffers' scatter sums repeated ids before the one
+            # update, as the JAX push does
+            _local_push_aggregate(in_up, in_l, center, g_u, shard_size, mesh)
+            _local_push_aggregate(out_up, out_l, out_ids, g_v, shard_size, mesh)
+        else:
+            # ids repeat within a shard's batch and across shards: each
+            # occurrence's delta from the same pulled row, scatter-added
+            _local_push(in_up, in_l, mesh.all_gather(center, "data"),
+                        mesh.all_gather(g_u, "data"), begin, shard_size, unique=False)
+            _local_push(out_up, out_l, mesh.all_gather(out_ids, "data"),
+                        mesh.all_gather(g_v, "data"), begin, shard_size, unique=False)
+        pairs = b["mask"].sum() if "mask" in b else loss.new_tensor(float(B))
+        return torch.stack([loss, pairs])
+
+    def step(in_state: State, out_state: State, batch: dict):
+        if multistep:
+            sums = sum(micro(in_state, out_state, {k: v[i] for k, v in batch.items()})
+                       for i in range(batch["center"].shape[0]))
+        else:
+            sums = micro(in_state, out_state, batch)
+        return in_state, out_state, mesh.psum_(sums, "data")
+
+    return step
+
+
+def make_w2v_spmd_train_step(
+    in_up: Updater, out_up: Updater, mesh, vocab_size: int, push_mode: str = "per_worker"
+):
+    """The SGNS step over the (data, kv) mesh: both tables range-sharded
+    over the kv ranks, pair batches over the data ranks.
+
+    step(in_state, out_state, batch) -> (in_state, out_state, sums), the
+    tables updated in place; ``batch`` this rank's data shard's
+    (center (B,), context (B,), negatives (B, K)[, mask (B,)]) on the
+    device; ``sums`` (2,): the data group's loss sum and real-pair count
+    (the drained signal of ``train_files``). ``aggregate`` pre-sums the
+    gradients over the data group and applies ONE AdaGrad step (standard
+    synchronous aggregation: another trajectory than ``per_worker``)."""
+    return _make_w2v_spmd(in_up, out_up, mesh, vocab_size, push_mode, multistep=False)
+
+
+def make_w2v_spmd_train_multistep(
+    in_up: Updater, out_up: Updater, mesh, vocab_size: int, push_mode: str = "per_worker"
+):
+    """K SGNS steps a call, one after another: batch fields stacked
+    (K, ...); ``sums`` summed over the microsteps."""
+    return _make_w2v_spmd(in_up, out_up, mesh, vocab_size, push_mode, multistep=True)
+
+
 def _group_microbatches(items: list[dict], k_steps: int) -> dict:
     """Stack up to K per-microstep host batch dicts on a new leading
     microstep axis. A ones mask is added where absent, and a partial final
@@ -120,6 +214,14 @@ class NegativeSampler:
 
     def sample(self, shape) -> np.ndarray:
         u = self.rng.random(size=shape)
+        return np.searchsorted(self._cdf, u, side="right")
+
+    def sample_shard(self, shape, shards: int, index: int) -> np.ndarray:
+        """Shard ``index`` of ``shards`` consecutive ``sample(shape)``
+        draws: the uniforms of all of them are drawn (``random`` fills
+        sequentially, so one (shards, *shape) draw equals ``shards`` draws
+        of ``shape``), and only this shard's are looked up."""
+        u = self.rng.random(size=(shards, *shape))[index]
         return np.searchsorted(self._cdf, u, side="right")
 
 
@@ -324,13 +426,13 @@ class PairStream:
         }
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet to parameter_server_tpu_torch")
-
-
 class Word2Vec:
     """SGNS app over vocab_size words, dim-dimensional embeddings, on one
-    device (``cuda`` unless the caller passes ``device="cpu"``)."""
+    device (``cuda`` unless the caller passes ``device="cpu"``), or, with
+    ``mesh``, both tables range-sharded over its kv ranks on the mesh's
+    device and the pairs over its data ranks (then every rank of the world
+    runs the same calls: training, ``state_dict``, ``load_state``,
+    ``embeddings`` and ``similarity`` are collective)."""
 
     def __init__(
         self,
@@ -347,8 +449,8 @@ class Word2Vec:
         steps_per_call: int = 1,
         device: Any = "cuda",
     ):
-        if mesh is not None:
-            raise _not_ported("the word2vec mesh path (mesh=...)")
+        if mesh is not None and push_mode not in W2V_PUSH_MODES:
+            raise ValueError(f"unknown push_mode {push_mode!r}")
         # K sequential SGNS steps per window entry (the solver.steps_per_call
         # idiom): their loss is summed on the device and read back once;
         # max_delay then counts such K-step groups in flight
@@ -358,33 +460,56 @@ class Word2Vec:
         self.dim = dim
         self.K = num_negatives
         self.window = window
-        self.reporter = reporter or ProgressReporter()
+        # on a mesh the table prints on rank 0; every rank keeps its history
+        self.reporter = reporter or ProgressReporter(
+            print_fn=print if mesh is None or mesh.rank == 0 else (lambda *_: None))
         self.in_up = Adagrad(eta=eta)
         self.out_up = Adagrad(eta=eta)
         self.max_delay = max_delay  # SSP dispatch bound
         self.push_mode = push_mode  # inert on one device, as in the JAX app
         self.steps_per_call = steps_per_call
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         # the JAX package's float64 draw, cast once: both packages start
         # from the same input table bit for bit; the output table starts
-        # at zero (standard word2vec init)
+        # at zero (standard word2vec init). On a mesh each rank keeps its
+        # slice, zero-padded to the kv multiple.
         rng = np.random.default_rng(seed)
-        self.in_state = self.in_up.init(vocab_size, dim, device=self.device)
-        self.out_state = self.out_up.init(vocab_size, dim, device=self.device)
-        self.in_state["w"] = torch.from_numpy(
-            rng.uniform(-0.5 / dim, 0.5 / dim, size=(vocab_size, dim)).astype(np.float32)
-        ).to(self.device)
+        w0 = rng.uniform(-0.5 / dim, 0.5 / dim, size=(vocab_size, dim)).astype(np.float32)
+        if mesh is None:
+            self.in_state = self.in_up.init(vocab_size, dim, device=self.device)
+            self.out_state = self.out_up.init(vocab_size, dim, device=self.device)
+            self.in_state["w"] = torch.from_numpy(w0).to(self.device)
+            return
+        self.in_state = shard_state({"w": w0, "n": np.zeros_like(w0)}, mesh)
+        self.out_state = self.out_up.init(_shard_size(vocab_size, mesh.kv), dim,
+                                          device=self.device)
+        maker = make_w2v_spmd_train_multistep if steps_per_call > 1 else make_w2v_spmd_train_step
+        self._spmd_step = maker(self.in_up, self.out_up, mesh, vocab_size, push_mode)
 
     def state_dict(self) -> dict[str, dict[str, np.ndarray]]:
-        """Host copies of both tables' state, in the JAX package's layout."""
+        """Host copies of both tables' state, in the JAX package's layout
+        (on a mesh the full tables of ``vocab_size`` rows, gathered)."""
+        if self.mesh is not None:
+            return {"in": unshard_state(self.in_state, self.mesh, self.vocab_size),
+                    "out": unshard_state(self.out_state, self.mesh, self.vocab_size)}
         return {"in": state_to_numpy(self.in_state), "out": state_to_numpy(self.out_state)}
 
     def load_state(self, in_state: dict[str, np.ndarray],
                    out_state: dict[str, np.ndarray]) -> None:
         """Replace both tables' state with numpy dicts of the same layout
-        (e.g. the JAX app's ``in_state``/``out_state`` via ``np.asarray``)."""
-        check_state_like("in", self.in_state, in_state)
-        check_state_like("out", self.out_state, out_state)
+        (e.g. the JAX app's ``in_state``/``out_state`` via ``np.asarray``;
+        on a mesh the full tables of ``vocab_size`` rows: each rank keeps
+        its slice)."""
+        for name, have, new in (("in", self.in_state, in_state),
+                                ("out", self.out_state, out_state)):
+            if self.mesh is not None:  # the full tables' shapes, not the slice's
+                have = full_like(have, self.vocab_size)
+            check_state_like(name, have, new)
+        if self.mesh is not None:
+            self.in_state = shard_state(in_state, self.mesh)
+            self.out_state = shard_state(out_state, self.mesh)
+            return
         self.in_state = state_from_numpy(in_state, self.device)
         self.out_state = state_from_numpy(out_state, self.device)
 
@@ -405,14 +530,30 @@ class Word2Vec:
             "negatives": sampler.sample((len(sel), self.K)).astype(np.int32),
         }
 
+    def _make_shard_batch(self, centers, contexts, sampler, sel, batch_size: int) -> dict:
+        """This data shard's batch of a global step ``sel``: its slice of
+        the pairs and its draw of the negatives of all D shards, so the
+        sampler advances as the JAX loop's D draws do."""
+        D, d = self.mesh.data, self.mesh.d
+        mine = sel[d * batch_size:(d + 1) * batch_size]
+        return {
+            "center": centers[mine].astype(np.int32),
+            "context": contexts[mine].astype(np.int32),
+            "negatives": sampler.sample_shard((batch_size, self.K), D, d).astype(np.int32),
+        }
+
     def _dispatch_prepared(self, batch_np: dict, k_steps: int) -> torch.Tensor:
         """Issue one window entry on ready host arrays (microstep-grouped on
         a leading axis when ``k_steps > 1``): one host-to-device copy a
         field, then the microsteps back to back; returns their summed loss
         on the device, unretired. A group's padded microsteps (mask all 0)
-        are exact no-ops in the JAX step and are skipped."""
+        are exact no-ops in the JAX step and are skipped. On a mesh every
+        microstep runs (a pad on this shard may be real on another) and
+        the result is the (2,) pod-wide loss and pair count."""
         dev = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                for k, v in batch_np.items()}
+        if self.mesh is not None:
+            return self._spmd_step(self.in_state, self.out_state, dev)[2]
         if k_steps == 1:
             return sgns_train_step(self.in_up, self.out_up, self.in_state,
                                    self.out_state, dev)
@@ -441,29 +582,35 @@ class Word2Vec:
     ) -> float:
         """One shuffled pass. Dispatch is SSP-gated: up to ``max_delay + 1``
         window entries stay in flight and losses are read back only on
-        retirement, never a per-batch device sync."""
+        retirement, never a per-batch device sync. On a mesh a global step
+        takes ``batch_size`` pairs a data shard (every step is full, so no
+        rank drains early)."""
         counts = np.bincount(corpus, minlength=self.vocab_size)
         sampler = NegativeSampler(counts, seed=seed)
         centers, contexts = self.make_pairs(corpus)
         rng = np.random.default_rng(seed)
         order = rng.permutation(len(centers))
+        global_bs = batch_size * (self.mesh.data if self.mesh is not None else 1)
 
         total_loss, n = 0.0, 0
         t0 = time.perf_counter()
 
         def _retire(step: int, loss_arr) -> None:
             nonlocal total_loss
-            total_loss += float(loss_arr)  # sync point, bounded by the gate
+            # sync point, bounded by the gate; a mesh step's (loss, pairs)
+            total_loss += float(loss_arr if self.mesh is None else loss_arr[0])
 
         gate = DispatchWindow(self.max_delay, _retire)
         K_steps = self.steps_per_call
-        starts = list(range(0, len(order) - batch_size + 1, batch_size))
+        starts = list(range(0, len(order) - global_bs + 1, global_bs))
         for call_i, c in enumerate(range(0, len(starts), K_steps)):
             gate.gate(call_i)
             micro = []
             for s in starts[c : c + K_steps]:
-                sel = order[s : s + batch_size]
-                micro.append(self._make_batch(centers, contexts, sampler, sel))
+                sel = order[s : s + global_bs]
+                micro.append(
+                    self._make_batch(centers, contexts, sampler, sel) if self.mesh is None
+                    else self._make_shard_batch(centers, contexts, sampler, sel, batch_size))
                 n += len(sel)
             gate.add(call_i, self._dispatch(micro, K_steps))
         gate.drain()
@@ -488,19 +635,24 @@ class Word2Vec:
         PrefetchPipeline threads (``pipeline_depth`` > 0) or inline (0) and
         dispatched SSP-gated. Pairs are never materialized corpus-wide.
 
+        On a mesh data shard d streams its file shard ``files[d::D]`` as
+        the JAX app's stream d (its sampler and shuffle seeds), which is
+        the JAX app's assignment when the streams take one file each.
+
         counts: pre-computed unigram counts (else one streaming counting
-        pass feeds the negative sampler)."""
+        pass over every file feeds the negative sampler)."""
         if counts is None:
             counts = count_vocab(files, self.vocab_size, block_tokens)
+        d, D = (self.mesh.d, self.mesh.data) if self.mesh is not None else (0, 1)
         total_loss, n_pairs = 0.0, 0
         t0 = time.perf_counter()
         for ep in range(epochs):
-            pool = WorkloadPool([str(f) for f in files])
+            pool = WorkloadPool([str(f) for f in files][d::D])
             stream = PairStream(
-                0, pool,
+                d, pool,
                 window=self.window, batch_size=batch_size,
                 num_negatives=self.K,
-                sampler=NegativeSampler(counts, seed=seed + 31 * ep),
+                sampler=NegativeSampler(counts, seed=seed + 31 * ep + d),
                 block_tokens=block_tokens, seed=seed + 997 * ep,
             )
             loss, n = self._train_stream([stream], pipeline_depth)
@@ -516,17 +668,30 @@ class Word2Vec:
     def _train_stream(self, streams, pipeline_depth: int) -> tuple[float, int]:
         """SSP-gated dispatch of streamed pair batches; returns (sum loss,
         real pairs). pipeline_depth 0 builds batches serially inline (no
-        threads)."""
+        threads).
+
+        On a mesh (the drained contract): a drained rank keeps issuing
+        inert window entries (mask 0) and every rank stops after retiring
+        one whose pod-wide pair count is 0; the retirement schedule is the
+        same on every rank, so all stop at the same step."""
 
         def prepare(batches: list[dict]) -> tuple[dict, int]:
-            # one stream on one device: its lone batch
+            # one stream: its lone batch
             return batches[0], int(sum(b["mask"].sum() for b in batches))
 
         total_loss, n_pairs = 0.0, 0
+        drained = False  # a mesh: a retired entry counted no pair pod-wide
+        mesh = self.mesh is not None
 
         def _retire(step: int, loss_arr) -> None:
-            nonlocal total_loss
-            total_loss += float(loss_arr)
+            nonlocal total_loss, n_pairs, drained
+            if not mesh:
+                total_loss += float(loss_arr)
+                return
+            loss, pairs = loss_arr.tolist()
+            total_loss += loss
+            n_pairs += int(pairs)
+            drained = pairs == 0
 
         gate = DispatchWindow(self.max_delay, _retire)
         K_steps = self.steps_per_call
@@ -555,16 +720,28 @@ class Word2Vec:
                     for i, b in enumerate(batches)
                 ])
 
+        inert = None  # a drained mesh rank's window entry
+
+        def inert_entry() -> dict:
+            nonlocal inert
+            if inert is None:
+                empty = streams[0]._empty()
+                inert = empty if K_steps == 1 else _group_microbatches([empty], K_steps)
+            return inert
+
         call_i = 0
         with pipeline:
             while True:
                 gate.gate(call_i)
+                if drained:
+                    break
                 if piped or K_steps == 1:
                     item = next_item()  # pre-assembled when piped and K > 1
-                    if item is None:
+                    if item is None and not mesh:
                         break
-                    batch, n = item
-                    n_pairs += n
+                    batch, n = item if item is not None else (inert_entry(), 0)
+                    if not mesh:
+                        n_pairs += n
                     loss = self._dispatch_prepared(batch, K_steps)
                 else:  # serial path: group inline
                     micro = []
@@ -573,16 +750,25 @@ class Word2Vec:
                         if item is None:
                             break
                         micro.append(item[0])
-                        n_pairs += item[1]
-                    if not micro:
+                        if not mesh:
+                            n_pairs += item[1]
+                    if micro:
+                        loss = self._dispatch(micro, K_steps)
+                    elif mesh:
+                        loss = self._dispatch_prepared(inert_entry(), K_steps)
+                    else:
                         break
-                    loss = self._dispatch(micro, K_steps)
                 gate.add(call_i, loss)
                 call_i += 1
             gate.drain()
         return total_loss, n_pairs
 
     def embeddings(self) -> np.ndarray:
+        """The input table's weights (on a mesh gathered over the kv group,
+        collective, and, as the JAX app's sharded table, zero-padded to
+        the kv multiple)."""
+        if self.mesh is not None:
+            return unshard_state(self.in_state, self.mesh)["w"]
         return self.in_up.weights(self.in_state).cpu().numpy()
 
     def similarity(self, a: int, b: int) -> float:

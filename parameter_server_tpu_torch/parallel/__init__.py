@@ -27,6 +27,13 @@ The design mapping from the JAX package (``parameter_server_tpu/parallel``):
   microsteps run one after another per call, and every rank runs the same
   collectives step for step until a retired step counts 0 pod-wide
   examples (the drained contract).
+- **The apps on the tier.** ``linear_method`` runs through ``PodTrainer``;
+  matrix factorization, Wide&Deep and word2vec take ``mesh=`` and run the
+  JAX apps' mesh steps on the same pulls and pushes. Wide&Deep's MLP and
+  Adam are replicated, their gradients summed over the data group.
+  ``_local_push`` is told whether a worker's ids are unique: unique keys
+  (linear, MF, W&D) push through the fused kernels, repeated ids
+  (word2vec) through gather, one delta an occurrence and ``index_add_``.
 
 Not ported yet: the backends (``backend.py``, ``meshbackend.py``), the wire
 tier (``multislice.py``, ``control.py``, ``chaos.py``) and the push window.

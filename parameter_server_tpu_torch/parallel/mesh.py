@@ -46,6 +46,9 @@ class Mesh:
     # a dict to hold every quantized push to its rounding bounds
     # (spmd.audit_rounding); None: no audit
     quant_audit: dict | None = None
+    # the host-side (gloo, CPU) group over the world: the apps' progress
+    # AUC gathers their data shards' labels and probabilities over it
+    cp_group: Any = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -80,14 +83,23 @@ class Mesh:
         dist.all_gather(list(out.unbind(0)), t, group=group)
         return out
 
+    def all_gather_object(self, obj: Any) -> list:
+        """``obj`` from every rank of the world, in rank order, on the
+        host-side group (no device sync). Collective."""
+        out: list = [None] * (self.data * self.kv)
+        dist.all_gather_object(out, obj, group=self.cp_group)
+        return out
+
 
 def make_mesh(
-    data_shards: int, kv_shards: int, device: torch.device | str | None = None
+    data_shards: int, kv_shards: int, device: torch.device | str | None = None,
+    cp_group: Any = None,
 ) -> Mesh:
     """This rank's view of a ``data_shards`` x ``kv_shards`` mesh over the
     initialized world (see ``runtime.init``), which must hold exactly
     D x KV ranks. ``device`` defaults to the CPU on gloo and to the current
-    CUDA device on nccl. Collective: every rank of the world calls it."""
+    CUDA device on nccl; ``cp_group`` is the world's host-side group, if
+    any. Collective: every rank of the world calls it."""
     if not dist.is_initialized():
         raise RuntimeError(
             "make_mesh needs an initialized torch.distributed world: call "
@@ -117,5 +129,5 @@ def make_mesh(
     ]
     return Mesh(
         data=data_shards, kv=kv_shards, d=d, k=k, device=torch.device(device),
-        data_group=data_groups[k], kv_group=kv_groups[d],
+        data_group=data_groups[k], kv_group=kv_groups[d], cp_group=cp_group,
     )

@@ -132,9 +132,7 @@ class Runtime:
     def all_gather_object(self, obj: Any) -> list:
         """``obj`` from every rank, in rank order, on the host-side group.
         Collective."""
-        out: list = [None] * self.process_count
-        dist.all_gather_object(out, obj, group=self.cp_group)
-        return out
+        return self.mesh.all_gather_object(obj)
 
     def barrier(self) -> None:
         dist.barrier(group=self.cp_group)
@@ -205,7 +203,7 @@ def init(
         world = dist.get_world_size()
         data = data_shards if data_shards is not None else world // kv_shards
         cp_group = dist.new_group(backend="gloo")
-        mesh = make_mesh(data, kv_shards, device=dev)
+        mesh = make_mesh(data, kv_shards, device=dev, cp_group=cp_group)
     except BaseException:
         dist.destroy_process_group()
         raise

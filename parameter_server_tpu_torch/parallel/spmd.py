@@ -13,7 +13,9 @@ the world runs this module's step on its own cell (``parallel/mesh.py``):
           JAX ``lax.scan``). FTRL pushes through the fused kernel K1
           (``ftrl_push``) and AdaGrad through K3 (``adagrad_push``), given
           ``keys - begin``: both skip the rows of other shards. SGD has no
-          kernel and goes the JAX way (mask, ``index_add_``);
+          kernel and goes the JAX way (mask, ``index_add_``), and so does
+          every updater when the caller's ids may repeat (``unique=False``,
+          word2vec), since K1 and K3 take each key at most once;
           ``aggregate``: one dense (S, vdim) buffer of this shard's range
           and a touched count, summed over the data group, then ONE updater
           step over the whole shard (FTRL on the card: K2 over S rows),
@@ -168,6 +170,22 @@ def _local_pull(
     return torch.where(in_range[:, None], updater.weights(rows), 0.0)
 
 
+def pull(
+    updater: Updater, state_l: State, idx: torch.Tensor, shard_size: int, mesh: Mesh
+) -> torch.Tensor:
+    """The pulled weights of global ids ``idx``, (U, vdim): every shard's
+    masked gather summed over this rank's kv group. Collective."""
+    return mesh.psum_(_local_pull(updater, state_l, idx, shard_size, mesh.k * shard_size),
+                      "kv")
+
+
+def full_like(state_l: State, rows: int) -> dict[str, torch.Tensor]:
+    """Shape-only (meta) tensors of the full tables of ``rows`` rows whose
+    kv slice is ``state_l``: what an app's ``load_state`` on a mesh holds
+    the full host tables to before each rank takes its slice."""
+    return {k: v.new_empty((rows, *v.shape[1:]), device="meta") for k, v in state_l.items()}
+
+
 def _local_index(idx: torch.Tensor, begin: int, shard_size: int) -> torch.Tensor:
     """Global ids as int32 rows of this shard; every key of another shard
     lands on -1 or ``shard_size``, which the fused pushes skip."""
@@ -176,14 +194,15 @@ def _local_index(idx: torch.Tensor, begin: int, shard_size: int) -> torch.Tensor
 
 def _push_one(
     updater: Updater, state_l: State, idx: torch.Tensor, g: torch.Tensor,
-    begin: int, shard_size: int,
+    begin: int, shard_size: int, unique: bool = True,
 ) -> None:
-    """One worker's push into this shard, in place."""
+    """One worker's push into this shard, in place (``unique``: see
+    ``_local_push``)."""
     local = _local_index(idx, begin, shard_size)
     g = g.contiguous()
-    if isinstance(updater, Ftrl):
+    if unique and isinstance(updater, Ftrl):
         ftrl_push(state_l["z"], state_l["n"], local, g, **updater.hyper)
-    elif isinstance(updater, Adagrad):
+    elif unique and isinstance(updater, Adagrad):
         adagrad_push(state_l["w"], state_l["n"], local, g, eta=updater.eta,
                      eps=updater.eps, l2=updater.lambda_l2)
     else:
@@ -198,13 +217,23 @@ def _push_one(
 
 def _local_push(
     updater: Updater, state_l: State, all_idx: torch.Tensor, all_grad: torch.Tensor,
-    begin: int, shard_size: int,
+    begin: int, shard_size: int, unique: bool = True,
 ) -> State:
     """Apply every worker's push to this kv shard, one after another in
     data-index order (each worker's push is its own updater step).
-    ``all_idx`` (D, U) global ids, ``all_grad`` (D, U, vdim)."""
+    ``all_idx`` (D, U) global ids, ``all_grad`` (D, U, vdim).
+
+    ``unique`` states the contract of each worker's ids. True: a key at
+    most once in a worker's push, but for zero-gradient pad slots (a
+    batch's unique keys); FTRL and AdaGrad then push through the fused
+    kernels K1 and K3, which take each key at most once and store with
+    plain stores, no atomics (``csrc/adagrad.cu:60-63``). False: ids may
+    repeat (word2vec's centers, contexts and negatives); every updater
+    then gathers the rows, takes one delta per occurrence from the same
+    pulled row and ``index_add_``s the deltas, the JAX push's function,
+    and no kernel runs. The caller states which holds: nothing checks."""
     for j in range(all_idx.shape[0]):
-        _push_one(updater, state_l, all_idx[j], all_grad[j], begin, shard_size)
+        _push_one(updater, state_l, all_idx[j], all_grad[j], begin, shard_size, unique)
     return state_l
 
 
@@ -319,22 +348,27 @@ def _check_push_mode(push_mode: str) -> None:
         raise ValueError(f"unknown push_mode {push_mode!r}; known: {PUSH_MODES}")
 
 
+def _push_seed(push_seed, push_mode: str) -> int:
+    """The push_seed contract of every step maker: a seed that varies per
+    step, required in quantized mode, 0 by default otherwise."""
+    if push_seed is None:
+        if push_mode == "quantized":
+            # a defaulted seed would reuse the same uniforms every step,
+            # correlating the rounding noise instead of averaging it out
+            raise ValueError(
+                "quantized push mode requires a per-step push_seed: "
+                "pass the step's index as push_seed"
+            )
+        return 0
+    return int(push_seed)
+
+
 def _wrap_stepper(step, push_mode: str):
-    """The push_seed contract of the single- and multi-step makers:
-    ``step(state, batch, push_seed)`` with a seed that varies per step,
-    required in quantized mode."""
+    """``step(state, batch, push_seed=None)`` over the single- and
+    multi-step makers' ``step(state, batch, push_seed)``."""
 
     def stepper(state: State, batch: Batch, push_seed=None):
-        if push_seed is None:
-            if push_mode == "quantized":
-                # a defaulted seed would reuse the same uniforms every step,
-                # correlating the rounding noise instead of averaging it out
-                raise ValueError(
-                    "quantized push mode requires a per-step push_seed: "
-                    "call step(state, batch, step_index)"
-                )
-            push_seed = 0
-        return step(state, batch, int(push_seed))
+        return step(state, batch, _push_seed(push_seed, push_mode))
 
     return stepper
 
@@ -350,7 +384,7 @@ def _microstep(
     idx = b["unique_keys"]
     row_ids = _row_ids_of(b)
     values = _values_of(b)
-    w_u = mesh.psum_(_local_pull(updater, state_l, idx, shard_size, begin), "kv")
+    w_u = pull(updater, state_l, idx, shard_size, mesh)
     logits = csr_logits(
         w_u, values, b["local_ids"], row_ids, num_rows=b["labels"].shape[0]
     )
@@ -423,9 +457,7 @@ def make_spmd_predict_step(updater: Updater, mesh: Mesh, num_keys: int):
 
     def predict(state: State, batch: Batch) -> torch.Tensor:
         idx = batch["unique_keys"]
-        w_u = mesh.psum_(
-            _local_pull(updater, state, idx, shard_size, mesh.k * shard_size), "kv"
-        )
+        w_u = pull(updater, state, idx, shard_size, mesh)
         logits = csr_logits(
             w_u, _values_of(batch), batch["local_ids"], _row_ids_of(batch),
             num_rows=batch["labels"].shape[0],

@@ -13,7 +13,14 @@ plan's cases and writes its results to ``<plan out>/rank<r>.npz``. Modes:
   on its ratings;
 - ``cli``: the port's command line, as its own rank of a world;
 - ``pod``: ``PodTrainer`` loads each of the plan's checkpoints, evaluates
-  files and predicts its data shard's batch (``d<shard>_<field>``).
+  files and predicts its data shard's batch (``d<shard>_<field>``);
+- ``wd``: ``WideDeep(mesh=...)`` trains on the plan's CSR batch stream
+  (``<stream>/b<i>/<field>``), predicts, dumps; the slots of every fused
+  push are recorded;
+- ``w2v``: ``Word2Vec(mesh=...)`` runs ``train_epoch`` on the plan's
+  corpus or ``train_files`` on its files.
+
+``<mode>`` may name several modes, joined by "+", run in one world.
 
 Imports no JAX: the rank asserts it never loaded.
 """
@@ -133,6 +140,119 @@ def _pod(rt, plan: dict, inputs) -> dict:
     return out
 
 
+def _quiet():
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    return ProgressReporter(print_fn=lambda *_: None)
+
+
+_SLOTS: dict = {}
+
+
+def _count_pushes() -> dict:
+    """Record the slot count of every fused push the SPMD tier makes (on
+    the CPU, the kernels' plain versions under the same names), from now
+    on; the lists start empty."""
+    from parameter_server_tpu_torch.parallel import spmd
+
+    if _SLOTS:
+        for v in _SLOTS.values():
+            v.clear()
+        return _SLOTS
+    slots = _SLOTS
+    slots.update({"ftrl_push": [], "adagrad_push": []})
+
+    def counting(name, fn):
+        def run(a, b, idx, g, **kw):
+            slots[name].append(int(idx.shape[0]))
+            return fn(a, b, idx, g, **kw)
+        return run
+
+    for name in slots:
+        setattr(spmd, name, counting(name, getattr(spmd, name)))
+    return slots
+
+
+def _csr_stream(inputs, key: str) -> list:
+    from parameter_server_tpu_torch.data.batch import CSRBatch
+
+    out = []
+    while f"{key}/b{len(out)}/values" in inputs:
+        pre = f"{key}/b{len(out)}/"
+        out.append(CSRBatch(
+            **{f: inputs[pre + f] for f in ("unique_keys", "local_ids", "row_ids", "values",
+                                             "labels", "example_mask", "row_splits")},
+            **{f: int(inputs[pre + f]) for f in ("num_examples", "num_unique",
+                                                  "num_entries")}))
+    return out
+
+
+def _wd(rt, plan: dict, inputs) -> dict:
+    from parameter_server_tpu_torch.models.wide_deep import WideDeep
+
+    slots = _count_pushes()
+    out = {}
+    for case in plan["wd_cases"]:
+        name = case["name"]
+        rt.mesh.quant_audit = {} if case["push_mode"] == "quantized" else None
+        app = WideDeep(case["num_keys"], mesh=rt.mesh, reporter=_quiet(), **case["kw"])
+        batches = _csr_stream(inputs, case["stream"])
+        for k in slots:
+            slots[k].clear()
+        for _ in range(case.get("epochs", 1)):
+            app.train(batches, report_every=case.get("report_every", 1))
+        for k, v in slots.items():
+            out[f"{name}/slots_{k}"] = np.array(v, dtype=np.int64)
+        hist = app.reporter.history
+        for col in ("examples", "objv", "auc"):
+            out[f"{name}/hist_{col}"] = np.array([r[col] for r in hist], dtype=np.float64)
+        out[f"{name}/push_calls"] = np.int64(app._push_calls)
+        y, p = app.predict(batches[:case.get("predict", 2)])
+        out[f"{name}/predict_y"], out[f"{name}/predict_p"] = y, p
+        st = app.state_dict()
+        for table in ("wide", "emb"):
+            for k, v in st[table].items():
+                out[f"{name}/{table}/{k}"] = v
+        for i, layer in enumerate(st["mlp"]):
+            for k, v in layer.items():
+                out[f"{name}/mlp{i}/{k}"] = v
+        for i, (param, st_) in enumerate(app.opt.state_dict()["state"].items()):
+            for k, v in st_.items():
+                out[f"{name}/adam{i}/{k}"] = v.numpy()
+        if case.get("dump"):
+            app.dump_model(str(Path(plan["out"]) / f"{name}.npz"))
+        if rt.mesh.quant_audit is not None:
+            out[f"{name}/audit"] = np.array([int(rt.mesh.quant_audit[k]) for k in (
+                "pushes", "off_grid", "scale_mismatch")])
+    return out
+
+
+def _w2v(rt, plan: dict, inputs) -> dict:
+    from parameter_server_tpu_torch.models.word2vec import Word2Vec
+
+    slots = _count_pushes()
+    out = {}
+    for case in plan["w2v_cases"]:
+        name = case["name"]
+        app = Word2Vec(case["vocab"], mesh=rt.mesh, reporter=_quiet(), **case["kw"])
+        if case.get("files"):
+            losses = [app.train_files(case["files"], batch_size=case["batch_size"],
+                                      block_tokens=case["block_tokens"], seed=case["seed"],
+                                      pipeline_depth=0)]
+            out[f"{name}/pairs"] = np.int64(app.reporter.history[-1]["examples"])
+        else:
+            losses = [app.train_epoch(inputs[case["corpus"]], batch_size=case["batch_size"],
+                                      seed=ep) for ep in range(case.get("epochs", 1))]
+        out[f"{name}/loss"] = np.array(losses)
+        for table, st in app.state_dict().items():
+            for k, v in st.items():
+                out[f"{name}/{table}/{k}"] = v
+        out[f"{name}/embeddings"] = app.embeddings()
+    # the repeated-ids route: no fused push, on every case
+    out["w2v_fused_pushes"] = np.int64(sum(len(v) for v in slots.values()))
+    return out
+
+
 def main(argv: list[str]) -> int:
     if argv[0] == "cli":  # python tests/_torch_rank.py cli <cli train arguments>
         from parameter_server_tpu_torch import cli
@@ -155,7 +275,10 @@ def main(argv: list[str]) -> int:
         rt = runtime.init(f"127.0.0.1:{port}", int(world), int(rank), kv_shards=kv,
                           data_shards=d, device="cpu")
     try:
-        out = {"spmd": _spmd, "mf": _mf, "pod": _pod}[mode](rt, plan, inputs)
+        modes = {"spmd": _spmd, "mf": _mf, "pod": _pod, "wd": _wd, "w2v": _w2v}
+        out = {}
+        for m in mode.split("+"):
+            out.update(modes[m](rt, plan, inputs))
     finally:
         rt.shutdown()
     if "jax" in sys.modules:

@@ -346,3 +346,86 @@ def test_word2vec_on_card_matches_cpu(dev):
         assert sum(fk.LAUNCHES.values()) + sum(ak.LAUNCHES.values()) == 0
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
     np.testing.assert_allclose(emb["cuda"], emb["cpu"], rtol=1e-4, atol=1e-5)
+
+
+def _repeated_push_reference(kind, state, all_idx, all_grad, begin, s, hyper):
+    """The plain scatter-add push, on its own: for each data shard in
+    order, gather the shard's rows at every occurrence, one delta an
+    occurrence from the same gathered row, ``index_add_`` the deltas.
+    Returns the tables and, per element, the sum of the |deltas| added to
+    it (a hot row sums hundreds of deltas, whose order the card's atomic
+    adds change: the sum's rounding scales with it)."""
+    out = {k: v.clone() for k, v in state.items()}
+    mass = {k: torch.zeros_like(v) for k, v in state.items()}
+    for idx, g in zip(all_idx, all_grad):
+        local = idx.long() - begin
+        keep = (local >= 0) & (local < s)
+        local, g = local[keep], g[keep]
+        if kind == "adagrad":
+            n = out["n"].index_select(0, local)
+            deltas = {"w": -hyper["eta"] * g / (torch.sqrt(n + g * g) + 1e-8), "n": g * g}
+        else:
+            dz, dn = fk.ftrl_delta_plain(out["z"].index_select(0, local),
+                                         out["n"].index_select(0, local), g, **hyper)
+            deltas = {"z": dz, "n": dn}
+        for k, d in deltas.items():
+            out[k].index_add_(0, local, d)
+            mass[k].index_add_(0, local, d.abs())
+    return out, mass
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,vdim", [("adagrad", 16), ("adagrad", 64), ("ftrl", 1)])
+@pytest.mark.parametrize("kv,k", [(1, 0), (3, 1)])
+def test_local_push_repeated_ids_takes_no_fused_push(dev, kind, vdim, kv, k):
+    """word2vec's mesh push: ``_local_push(..., unique=False)`` on kv shard
+    k of ``kv`` with ids repeated inside each data shard's push and across
+    the D = 2 pushes, the ids of other shards among them, matches the plain
+    scatter-add computed on its own, and launches neither K3 nor K1 (whose
+    one-key-a-slot contract repeated ids break). Each element is held to
+    TOL of itself plus the summed |deltas| it took."""
+    from parameter_server_tpu_torch.kv.updaters import Adagrad, Ftrl
+    from parameter_server_tpu_torch.parallel.spmd import _local_push
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows = 3001
+    s = -(-rows // kv)
+    begin = k * s
+    hyper = ({"eta": 0.05} if kind == "adagrad"
+             else {"alpha": 0.1, "beta": 1.0, "l1": 0.5, "l2": 0.0})
+    up = (Adagrad(eta=0.05) if kind == "adagrad"
+          else Ftrl(alpha=0.1, beta=1.0, lambda_l1=0.5, lambda_l2=0.0))
+    names = ("w", "n") if kind == "adagrad" else ("z", "n")
+    state = {names[0]: torch.randn((s, vdim), generator=gen, device=dev),
+             names[1]: torch.rand((s, vdim), generator=gen, device=dev)}
+    # ids over the whole table, and 20 hot ids of this shard, shuffled
+    spread = torch.randint(0, rows, (2, 4096), generator=gen, device=dev)
+    hot = begin + torch.randint(0, 20, (2, 4096), generator=gen, device=dev)
+    both = torch.cat([spread, hot], 1)
+    all_idx = both.gather(1, torch.argsort(torch.rand(both.shape, generator=gen,
+                                                      device=dev), 1)).to(torch.int32)
+    local = all_idx.long() - begin
+    mine = (local >= 0) & (local < s)
+    assert kv == 1 or (~mine).any()
+    assert torch.bincount(local[mine]).max() > 100
+    all_grad = torch.randn((2, 8192, vdim), generator=gen, device=dev)
+    want, mass = _repeated_push_reference(kind, state, all_idx, all_grad, begin, s,
+                                          hyper if kind == "ftrl" else {"eta": 0.05})
+    got = {n: v.clone() for n, v in state.items()}
+    ak.reset_launches()
+    fk.reset_launches()
+    _local_push(up, got, all_idx, all_grad, begin, s, unique=False)
+    torch.cuda.synchronize()
+    assert ak.LAUNCHES["adagrad_push"] == 0 and fk.LAUNCHES["ftrl_push"] == 0
+    for n in names:
+        err = (got[n] - want[n]).abs()
+        bound = TOL["rtol"] * (want[n].abs() + mass[n]) + TOL["atol"]
+        assert bool((err <= bound).all()), (n, err.max().item())
+    # the unique route on the same shard launches the fused push once a
+    # data shard (on deduplicated ids)
+    uniq = [torch.unique(all_idx[j]) for j in range(2)]
+    m = min(len(x) for x in uniq)
+    _local_push(up, got, torch.stack([x[:m] for x in uniq]).to(torch.int32),
+                all_grad[:, :m], begin, s)
+    torch.cuda.synchronize()
+    assert (ak.LAUNCHES["adagrad_push"] if kind == "adagrad" else fk.LAUNCHES["ftrl_push"]) == 2

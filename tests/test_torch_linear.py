@@ -183,7 +183,7 @@ def test_cli_refuses_unported_paths(tmp_path, argv, match):
 
 @pytest.mark.parametrize("section", [
     {"app": "graph_partition"}, {"solver": {"algo": "darlin"}},
-    {"app": "wide_deep", "parallel": {"data_shards": 2}}, {"trace": {"trace_dir": "t"}},
+    {"app": "sketch"}, {"trace": {"trace_dir": "t"}},
 ])
 def test_cli_refuses_unported_config(tmp_path, section):
     app_file = tmp_path / "cfg.json"

@@ -32,6 +32,7 @@ from parameter_server_tpu_torch.models import wide_deep as TW
 from parameter_server_tpu_torch.models.linear import batch_to_device
 from parameter_server_tpu_torch.ops import adagrad_kernels as ak
 from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+from parameter_server_tpu_torch.parallel.mesh import Mesh
 from parameter_server_tpu_torch.utils.metrics import ProgressReporter as TR
 
 torch.set_num_threads(1)
@@ -328,7 +329,9 @@ def test_state_dict_round_trip_and_checks():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh": object()}, "not ported yet"),
+    # a mesh cell without process groups: the refusal comes first
+    ({"mesh": Mesh(data=1, kv=1, d=0, k=0, device=torch.device("cpu")),
+      "push_mode": "bogus"}, "unknown push_mode"),
     ({"steps_per_call": 0}, "steps_per_call"),
 ])
 def test_unported_and_bad_options_raise(kw, match):
@@ -388,11 +391,12 @@ def test_cli_train_and_evaluate_wide_deep(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,section", [
     (["train", "--ckpt_dir", "ck"], {}),
-    (["train"], {"parallel": {"data_shards": 2, "kv_shards": 2}}),
+    # the JAX app's refusal on a mesh, made before the rank joins a world
+    (["train"], {"parallel": {"data_shards": 2, "kv_shards": 2, "push_mode": "bogus"}}),
 ])
 def test_cli_wide_deep_refuses_unsupported(tmp_path, argv, section):
     app_file = tmp_path / "cfg.json"
     app_file.write_text(json.dumps({"app": "wide_deep", "data": {"files": ["x"]},
                                     **section}))
-    with pytest.raises(SystemExit, match="wide_deep|not ported yet"):
+    with pytest.raises((SystemExit, ValueError), match="wide_deep|unknown push_mode"):
         TC.main([*argv, "--app_file", str(app_file), "--device", "cpu"])

@@ -25,6 +25,7 @@ from parameter_server_tpu_torch import cli as TC
 from parameter_server_tpu_torch.models import word2vec as TV
 from parameter_server_tpu_torch.ops import adagrad_kernels as ak
 from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+from parameter_server_tpu_torch.parallel.mesh import Mesh
 from parameter_server_tpu_torch.parallel.workload import WorkloadPool as TPool
 from parameter_server_tpu_torch.utils.metrics import ProgressReporter as TR
 
@@ -314,7 +315,10 @@ def test_state_dict_round_trip_and_checks():
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"mesh": object()}, "not ported yet"),
+    # the JAX app refuses a quantized push on a mesh (a mesh cell without
+    # process groups: the refusal comes first)
+    ({"mesh": Mesh(data=1, kv=1, d=0, k=0, device=torch.device("cpu")),
+      "push_mode": "quantized"}, "unknown push_mode"),
     ({"steps_per_call": 0}, "steps_per_call"),
 ])
 def test_unported_and_bad_options_raise(kw, match):
@@ -367,8 +371,11 @@ def test_cli_train_word2vec_matches_jax(tmp_path, capsys):
 
 
 def test_cli_word2vec_refuses_a_mesh(tmp_path):
+    """A quantized push on a mesh, which the JAX app refuses; the port's
+    rank refuses it before it joins a world."""
     app_file = tmp_path / "cfg.json"
     app_file.write_text(json.dumps({"app": "word2vec", "data": {"files": ["x"]},
-                                    "parallel": {"data_shards": 2, "kv_shards": 2}}))
-    with pytest.raises(SystemExit, match="not ported yet"):
+                                    "parallel": {"data_shards": 2, "kv_shards": 2,
+                                                 "push_mode": "quantized"}}))
+    with pytest.raises(ValueError, match="unknown push_mode 'quantized'"):
         TC.main(["train", "--app_file", str(app_file), "--device", "cpu"])
