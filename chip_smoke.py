@@ -141,10 +141,34 @@ the script exits nonzero without printing a result:
              and word2vec's ranks none. Any rank's nonzero exit, or a
              world outlasting POD_TIMEOUT_S, kills every rank of every
              world and fails.
+12. wire  — the wire tier (parallel/control.py, multislice.py, backend.py,
+             meshbackend.py) over loopback TCP. (a) Phase 5's FTRL table
+             (2^27 keys) split over 2 card ShardServers by even_divide, one
+             ServerHandle a server behind a SocketBackend: phase 5's 24
+             pushes one at a time (the first round under the profiler: the
+             device's idle share), K1 once an apply batch, launches = the
+             servers' apply_batches, every launch's index checked unique on
+             the card, the pull of every touched key against a CPU replay
+             (rtol 1e-5, atol 1e-6); then 8 handles in threads push 12
+             pipelined pushes each into an SGD table ([wire] window 8,
+             [server] defaults): every push acked, some coalesced, the table
+             -eta x the sum of every gradient (rtol 1e-5 of itself plus of
+             the table's largest element). (b) Phase 7's AdaGrad table (2^22
+             x 64) the same way, K3 once an apply batch; then with [filter]
+             fixing_float_bytes 1: each handle encodes on the card (K4),
+             every decoded payload within one step (+ ROUNDING_ULPS) of its
+             gradient, the table against a CPU replay of what the servers
+             decoded. (c) train_linear at the worker's width (2^24 keys, 12
+             batches of 8192 examples, 32 hashed Zipf ids each) through the socket
+             backend (2 card servers), the mesh backend on a world of one
+             over NCCL (quant off and int8) and the socket backend on the
+             CPU: socket and mesh probabilities equal (within 1e-6), both
+             within E2E_RTOL of the CPU run, the int8 AUC within 0.002 of
+             f32; ex/s and push payload bytes per arm; each arm launched K1.
 
 Launch counters are reset just before each of phases 4-7, the round trip
-of phase 8, the training runs of phases 9 and 10 and each mode of phase
-11 (a), and read just after; phase 11 (b)'s ranks start from 0 in their
+of phase 8, the training runs of phases 9 and 10, each mode of phase
+11 (a) and each arm of phase 12, and read just after; phase 11 (b)'s ranks start from 0 in their
 own processes and print their counts: each must have launched its kernels
 (phase 10: none). The line before the last is the kernels' JSON summary;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -315,6 +339,21 @@ POD_MOVED_OFF_SHARE = 1e-2
 POD_QUANT_RTOL = 0.1
 # the progress table prints 5 significant digits
 PRINT_RTOL = 1e-4
+# phase 12, the wire tier: phase 5's FTRL table and pushes over 2 loopback
+# shard servers (an even key-range divide), one handle a server behind a
+# SocketBackend; the concurrent arm's 8 handles push WIRE_CONC_PUSHES each,
+# pipelined (cycling their phase-5 key sets, fresh gradients), into an SGD
+# table, whose sum of deltas does not depend on how pushes coalesce
+WIRE_SERVERS, WIRE_CONC_PUSHES, WIRE_SGD_ETA = 2, 12, 1.0
+# (c) train_linear at the worker's width (WORKER_KEYS, STEPS batches of
+# BATCH examples, NNZ_PER ids each over FEATURES), with the FTRL of the JAX
+# backend tests (sized for per-example mean gradients) and the int8 arm's
+# AUC bound
+TL_FTRL = {"alpha": 1.0, "beta": 1.0, "lambda_l1": 1e-4, "lambda_l2": 0.0}
+TL_AUC_BOUND = 0.002
+# the ids' Zipf exponent: word frequencies' (W2V_ZIPF); at phase 4's 1.3 the
+# tail carries too little signal for the AUC bound to test anything
+TL_ZIPF = 1.1
 
 
 def log(msg: str) -> None:
@@ -1931,6 +1970,438 @@ def check_pod_run(app: str, mode: str, got: dict, tmp: Path, res: dict) -> None:
         f"launches by rank {counts}")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the wire tier (shard servers, handles, both backends)
+# ---------------------------------------------------------------------------
+
+
+def latency_ms(lat_s: list) -> dict:
+    a = np.asarray(lat_s) * 1e3
+    return {"p50_ms": float(np.percentile(a, 50)), "p99_ms": float(np.percentile(a, 99)),
+            "n": len(a)}
+
+
+class IndexAudit:
+    """While armed, wraps the store's K1 and K3 wrappers (the names
+    ``kv.store.push`` calls) to keep a device copy of each launch's index;
+    ``check`` then holds every one to its contract: no row twice."""
+
+    NAMES = ("ftrl_push", "adagrad_push")
+
+    def __init__(self):
+        self.idx = {n: [] for n in self.NAMES}
+
+    @contextlib.contextmanager
+    def armed(self):
+        from parameter_server_tpu_torch.kv import store as kv_store
+
+        saved = {n: getattr(kv_store, n) for n in self.NAMES}
+
+        def wrap(name, fn):
+            def run(a, b, idx, grad, **kw):
+                self.idx[name].append(idx.clone())
+                return fn(a, b, idx, grad, **kw)
+            return run
+
+        for n, fn in saved.items():
+            setattr(kv_store, n, wrap(n, fn))
+        try:
+            yield self
+        finally:
+            for n, fn in saved.items():
+                setattr(kv_store, n, fn)
+
+    def check(self, name: str) -> int:
+        """Applies seen since the last check, each with unique rows."""
+        for i in self.idx[name]:
+            if torch.unique(i).numel() != i.numel():
+                raise AssertionError(f"a {name} launch of the server apply repeats a row")
+        n = len(self.idx[name])
+        self.idx[name].clear()
+        return n
+
+
+def cpu_replay(make_updater, pushes, vdim: int):
+    """``pushes`` (global keys, grads) one after another on the CPU, into a
+    table of their union (row 0 the pad row). Returns (union, its weights)."""
+    from parameter_server_tpu_torch.kv.store import KVStore
+
+    union = np.unique(np.concatenate([k for k, _ in pushes]))
+    store = KVStore(make_updater(), len(union) + 1, vdim=vdim, device="cpu")
+    for k, g in pushes:
+        store.push(np.searchsorted(union, k) + 1, g)
+    return union, store.pull(np.arange(1, len(union) + 1))
+
+
+def server_counts(be, name: str) -> int:
+    return sum(srv.counters[name] for srv in be._servers)
+
+
+def wire_deterministic(name, be, pushes, make_updater, vdim: int, kernel: str, counter,
+                       audit: IndexAudit, profile_first: int = 0) -> dict:
+    """``pushes`` through ``be`` one at a time (each acked before the next,
+    so each server applies it alone), the first ``profile_first`` under the
+    profiler; then a pull of every touched key against the CPU replay."""
+    torch.cuda.synchronize()
+    for k in counter:
+        counter[k] = 0
+    out: dict = {}
+    with audit.armed():
+        if profile_first:
+            def first():
+                for k, g in pushes[:profile_first]:
+                    be.push(k, g)
+            wall_ms, busy_ms, rows = profile(first)
+            out["profile"] = {"pushes": profile_first, "wall_ms": wall_ms,
+                              "busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
+                              "top": [(k[:60], t) for k, t, _ in rows[:6]]}
+            log(f"wire {name}: profile of the first {profile_first} pushes: wall "
+                f"{wall_ms:.3f} ms, device busy {busy_ms:.3f} ms (idle share "
+                f"{1 - busy_ms / wall_ms:.3f}); top device time: {out['profile']['top']}")
+        lat = []
+        t0 = time.perf_counter()
+        for k, g in pushes[profile_first:]:
+            t1 = time.perf_counter()
+            be.push(k, g)
+            lat.append(time.perf_counter() - t1)
+        dt = time.perf_counter() - t0
+        be.flush()
+    launches = counter[kernel]
+    batches = server_counts(be, "apply_batches")
+    audited = audit.check(kernel)
+    if not (launches == batches == audited == WIRE_SERVERS * len(pushes)):
+        raise AssertionError(f"wire {name}: {kernel} launched {launches} times, the servers "
+                             f"applied {batches} batches ({audited} audited), want "
+                             f"{WIRE_SERVERS} x {len(pushes)}")
+    union, want = cpu_replay(make_updater, pushes, vdim)
+    got = torch.from_numpy(be.pull(union))
+    err = check_close(f"wire {name} pull", got, want)
+    timed = pushes[profile_first:]
+    out.update({
+        "pushes": len(pushes), "timed_pushes": len(timed), "seconds": dt,
+        "pushes_per_s": len(timed) / dt,
+        "rows_per_s": sum(len(k) for k, _ in timed) / dt,
+        "latency": latency_ms(lat), "launches": launches, "apply_batches": batches,
+        "max_abs_err": err, "keys": len(union),
+    })
+    log(f"wire {name} ok: {len(pushes)} pushes one at a time through {WIRE_SERVERS} card "
+        f"servers; {kernel} launched {launches} times = apply batches, every index unique; "
+        f"pull of {len(union)} keys matches the CPU replay (max abs err {err:.3g}); "
+        f"{out['pushes_per_s']:.1f} pushes/s, {out['rows_per_s']:.4g} rows/s, latency "
+        f"p50 {out['latency']['p50_ms']:.3f} / p99 {out['latency']['p99_ms']:.3f} ms "
+        f"over {len(timed)} pushes")
+    return out
+
+
+def wire_concurrent(be0, ranges, rounds, cfg) -> dict:
+    """8 handles (one SocketBackend each, sharing be0's servers) push
+    pipelined in threads; the SGD table must equal -eta times the sum of
+    every gradient (float64 reference), every push acked, some coalesced."""
+    import threading
+
+    from parameter_server_tpu_torch.parallel.backend import SocketBackend
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle
+
+    workers = len(rounds[0][0])
+    rng = np.random.default_rng(SEED + 12)
+    plan = [[(rounds[j % len(rounds)][0][w],
+              rng.normal(size=len(rounds[j % len(rounds)][0][w])).astype(np.float32))
+             for j in range(WIRE_CONC_PUSHES)] for w in range(workers)]
+    backends = [be0] + [
+        SocketBackend([ServerHandle(s.address, i, w, cfg, range_size=r.size, device="cuda")
+                       for i, (s, r) in enumerate(zip(be0._servers, ranges))],
+                      ranges, SERVER_KEYS)
+        for w in range(1, workers)]
+    lat: list = []
+    lat_lock = threading.Lock()
+    errors: list = []
+
+    def run(w: int) -> None:
+        try:
+            futs = []
+            for k, g in plan[w]:
+                t_issue = time.perf_counter()
+                f = backends[w].push_async(k, g)
+
+                def done(_f, t=t_issue):
+                    with lat_lock:
+                        lat.append(time.perf_counter() - t)
+                f.add_done_callback(done)
+                futs.append(f)
+            for f in futs:
+                f.result(timeout=120)
+        except BaseException as e:  # noqa: BLE001 — reported by the main thread
+            errors.append(e)
+
+    try:
+        threads = [threading.Thread(target=run, args=(w,)) for w in range(workers)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        be0.flush()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        for b in backends[1:]:
+            b.close()
+    if errors:
+        raise errors[0]
+    pushes = [p for w in plan for p in w]
+    union = np.unique(np.concatenate([k for k, _ in pushes]))
+    total = np.zeros(len(union))
+    for k, g in pushes:
+        total[np.searchsorted(union, k)] += g
+    got = be0.pull(union).ravel().astype(np.float64)
+    want = -WIRE_SGD_ETA * total
+    err = np.abs(got - want)
+    scale = np.abs(want).max()
+    if not bool((err <= RTOL * (np.abs(want) + scale)).all()):
+        raise AssertionError(f"wire concurrent: table vs -eta x sum of gradients max abs err "
+                             f"{err.max()} (scale {scale})")
+    acked = server_counts(be0, "pushes")
+    coalesced = server_counts(be0, "push_coalesced")
+    if len(lat) != len(pushes) or acked != WIRE_SERVERS * len(pushes) or not coalesced > 0:
+        raise AssertionError(f"wire concurrent: {len(lat)} of {len(pushes)} pushes acked, "
+                             f"servers applied {acked}, coalesced {coalesced}")
+    out = {"pushes": len(pushes), "seconds": dt, "pushes_per_s": len(pushes) / dt,
+           "rows_per_s": sum(len(k) for k, _ in pushes) / dt, "latency": latency_ms(lat),
+           "apply_batches": server_counts(be0, "apply_batches"), "push_coalesced": coalesced,
+           "max_abs_err": float(err.max())}
+    log(f"wire concurrent ok: {workers} handles x {WIRE_CONC_PUSHES} pipelined pushes "
+        f"(window {cfg.wire.window}) into an SGD table: all acked, {coalesced} coalesced into "
+        f"{out['apply_batches']} apply batches; table = -eta x sum of gradients (max abs err "
+        f"{err.max():.3g}); {out['pushes_per_s']:.1f} pushes/s, {out['rows_per_s']:.4g} rows/s, "
+        f"latency p50 {out['latency']['p50_ms']:.3f} / p99 {out['latency']['p99_ms']:.3f} ms")
+    return out
+
+
+def wire_fixed_point(be, pushes, ranges, dev, qk, ak) -> dict:
+    """The embedding server's pushes with ``[filter] fixing_float_bytes`` 1:
+    each handle encodes its segment on the card (K4), each server decodes;
+    every decoded payload within one step (+ ROUNDING_ULPS) of its
+    gradient, and the table equal to a CPU replay of what the servers
+    decoded."""
+    from parameter_server_tpu_torch.kv.updaters import Adagrad
+
+    decoded: list = [[] for _ in be._servers]
+    for s, srv in enumerate(be._servers):
+        orig = srv._decode_grad
+
+        def record(h, arrays, s=s, orig=orig):
+            g = orig(h, arrays)
+            decoded[s].append(np.array(g, dtype=np.float32))
+            return g
+        srv._decode_grad = record
+    lat = []
+    torch.cuda.synchronize()
+    qk.reset_launches()
+    ak.reset_launches()
+    t0 = time.perf_counter()
+    for k, g in pushes:
+        t1 = time.perf_counter()
+        be.push(k, g)
+        lat.append(time.perf_counter() - t1)
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {**qk.LAUNCHES, **ak.LAUNCHES}
+    want = {"quantize_stochastic": WIRE_SERVERS * len(pushes),
+            "adagrad_push": WIRE_SERVERS * len(pushes)}
+    if launches != want:
+        raise AssertionError(f"wire fixed point launched {launches}, want {want}")
+    worst = 0.0
+    replay = []
+    for s, r in enumerate(ranges):
+        if len(decoded[s]) != len(pushes):
+            raise AssertionError(f"wire fixed point: server {s} decoded {len(decoded[s])} "
+                                 f"pushes of {len(pushes)}")
+        for (k, g), dec in zip(pushes, decoded[s]):
+            sel = (k >= r.begin) & (k < r.end)
+            g_seg = torch.from_numpy(g[sel]).to(dev)
+            lo, hi = torch.aminmax(g_seg)
+            bound = decode_bound((hi - lo) / 255, g_seg)
+            d = torch.from_numpy(dec.reshape(g_seg.shape)).to(dev)
+            worst = max(worst, ((d - g_seg).abs().max() / bound).item())
+            replay.append((k[sel], dec.reshape(g_seg.shape)))
+    if not worst <= 1.0:
+        raise AssertionError(f"wire fixed point: a decoded payload is {worst} times its "
+                             f"bound off its gradient")
+    union, want = cpu_replay(lambda: Adagrad(eta=ADAGRAD["eta"], eps=ADAGRAD["eps"]),
+                             replay, EMB_VDIM)
+    err = check_close("wire fixed point pull", torch.from_numpy(be.pull(union)), want)
+    out = {"pushes": len(pushes), "seconds": dt, "pushes_per_s": len(pushes) / dt,
+           "latency": latency_ms(lat), "worst_decode": worst, "max_abs_err": err,
+           "launches": launches}
+    log(f"wire fixed point ok: {len(pushes)} pushes encoded on the card by each handle (K4), "
+        f"decoded by the servers, worst decode {worst:.4f} of its bound; pull of {len(union)} "
+        f"keys matches a CPU replay of the decoded payloads (max abs err {err:.3g}); "
+        f"{out['pushes_per_s']:.1f} pushes/s, latency p50 {out['latency']['p50_ms']:.3f} / "
+        f"p99 {out['latency']['p99_ms']:.3f} ms")
+    return out
+
+
+def wire_workload():
+    """(c)'s examples: STEPS x BATCH, NNZ_PER ids each, Zipf (TL_ZIPF) over
+    FEATURES and hashed into the table as the batch builder hashes them
+    (spread over both servers' ranges), labels from a dense logistic model
+    (the JAX ``cli backend`` workload's law on Zipf ids)."""
+    from parameter_server_tpu_torch.utils.hashing import hash_keys
+
+    rng = np.random.default_rng(SEED + 13)
+    w_true = rng.normal(size=FEATURES)
+    ids = np.minimum(rng.zipf(TL_ZIPF, size=(STEPS * BATCH, NNZ_PER)) - 1, FEATURES - 1)
+    logits = w_true[ids].sum(axis=1) / np.sqrt(NNZ_PER)
+    y = (rng.random(len(ids)) < 1 / (1 + np.exp(-logits))).astype(np.float64)
+    # train_linear adds 1 to each id (row 0 is the pad row): ids in [0, K - 2]
+    kb = hash_keys(ids.astype(np.uint64).ravel(), WORKER_KEYS - 1).reshape(ids.shape)
+    return kb.astype(np.int64) - 1, y
+
+
+def wire_train_linear(fk) -> tuple[dict, dict]:
+    """train_linear at the worker's width through the socket backend (2
+    card servers), the mesh backend on a world of one over NCCL (quant off
+    and int8), and the socket backend on the CPU (the reference)."""
+    from parameter_server_tpu_torch.kv.updaters import Ftrl
+    from parameter_server_tpu_torch.parallel.backend import local_socket_backend, train_linear
+    from parameter_server_tpu_torch.parallel.meshbackend import MeshBackend
+    from parameter_server_tpu_torch.utils.metrics import wire_counters
+
+    kb, y = wire_workload()
+
+    def make():
+        return Ftrl(**TL_FTRL)
+
+    arms, res, launches = {}, {}, {}
+    for arm in ("socket_cpu", "socket", "mesh", "mesh_int8"):
+        if arm.startswith("socket"):
+            be = local_socket_backend(make, WORKER_KEYS, WIRE_SERVERS,
+                                      device="cpu" if arm == "socket_cpu" else "cuda")
+        else:
+            be = MeshBackend(make(), WORKER_KEYS, quant="int8" if arm == "mesh_int8" else "off",
+                             device="cuda")
+        try:
+            pay0 = (wire_counters.get("wire_push_payload_bytes")
+                    + wire_counters.get("mesh_push_payload_bytes"))
+            # warm-up: the connections, and the world's first collective,
+            # which sets up its NCCL communicator
+            be.pull(np.ones(1, np.int64))
+            torch.cuda.synchronize()
+            fk.reset_launches()
+            t0 = time.perf_counter()
+            out = train_linear(be, kb, y, BATCH)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches[arm] = fk.LAUNCHES["ftrl_push"]
+            payload = (wire_counters.get("wire_push_payload_bytes")
+                       + wire_counters.get("mesh_push_payload_bytes") - pay0)
+        finally:
+            be.close()
+        res[arm] = out
+        arms[arm] = {"ex_per_s": out["examples"] / dt, "seconds": dt, "auc": out["auc"],
+                     "push_payload_bytes": payload, "launches": launches[arm]}
+        log(f"wire train_linear {arm}: {out['examples']} examples in {dt:.3f} s "
+            f"({arms[arm]['ex_per_s']:.1f} ex/s), AUC {out['auc']:.6f}, push payload "
+            f"{payload} bytes, ftrl_push launches {launches[arm]}")
+    for arm, want in (("socket", STEPS * WIRE_SERVERS), ("mesh", STEPS), ("mesh_int8", STEPS)):
+        if launches[arm] != want:
+            raise AssertionError(f"wire train_linear {arm}: ftrl_push launched "
+                                 f"{launches[arm]} times, want {want}")
+    p_sock, p_mesh = res["socket"]["probs"], res["mesh"]["probs"]
+    diff = float(np.abs(p_sock - p_mesh).max())
+    if diff > 1e-6:
+        raise AssertionError(f"wire train_linear: socket vs mesh probabilities differ by {diff}")
+    errs = {arm: check_e2e(f"wire train_linear {arm} vs the CPU socket run",
+                           torch.from_numpy(res[arm]["probs"]),
+                           torch.from_numpy(res["socket_cpu"]["probs"]))
+            for arm in ("socket", "mesh")}
+    d_auc = abs(res["mesh_int8"]["auc"] - res["mesh"]["auc"])
+    if not d_auc <= TL_AUC_BOUND:
+        raise AssertionError(f"wire train_linear: int8 AUC {res['mesh_int8']['auc']} vs f32 "
+                             f"{res['mesh']['auc']}")
+    log(f"wire train_linear ok: socket and mesh probabilities {'equal' if diff == 0 else diff}; "
+        f"both match the CPU socket run (relative errs {errs}); int8 AUC within {d_auc:.3g} "
+        f"of f32")
+    return arms, {"socket_vs_mesh_max_diff": diff, "vs_cpu": errs, "int8_auc_delta": d_auc}
+
+
+def phase_wire(dev, rounds, emb_rounds) -> dict:
+    """Phase 12: (a) the FTRL server over the wire, deterministic and
+    concurrent; (b) the embedding server over the wire, f32 and fixed
+    point; (c) train_linear through both backends."""
+    from parameter_server_tpu_torch.kv.updaters import Adagrad, Ftrl, Sgd
+    from parameter_server_tpu_torch.ops import adagrad_kernels as ak
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.ops import quantize_kernels as qk
+    from parameter_server_tpu_torch.parallel.backend import local_socket_backend
+    from parameter_server_tpu_torch.utils.config import PSConfig
+
+    t_phase = time.perf_counter()
+    cfg = PSConfig()
+    audit = IndexAudit()
+    out: dict = {"launches": {}}
+
+    # (a) FTRL at phase 5's width: 2 servers of 2^26 rows, one push at a time
+    def ftrl():
+        return Ftrl(alpha=HYPER["alpha"], beta=HYPER["beta"], lambda_l1=HYPER["l1"],
+                    lambda_l2=HYPER["l2"])
+
+    pushes = [(k, g) for idx_list, grad_list in rounds for k, g in zip(idx_list, grad_list)]
+    be = local_socket_backend(ftrl, SERVER_KEYS, WIRE_SERVERS, cfg=cfg, device="cuda")
+    try:
+        out["ftrl"] = wire_deterministic("FTRL server", be, pushes, ftrl, 1, "ftrl_push",
+                                         fk.LAUNCHES, audit, profile_first=SERVER_WORKERS)
+    finally:
+        be.close()
+    out["launches"]["wire_ftrl_server"] = out["ftrl"]["launches"]
+    del be
+    torch.cuda.empty_cache()
+    be = local_socket_backend(lambda: Sgd(eta=WIRE_SGD_ETA), SERVER_KEYS, WIRE_SERVERS,
+                              cfg=cfg, device="cuda")
+    try:
+        out["concurrent"] = wire_concurrent(be, be.ranges, rounds, cfg)
+    finally:
+        be.close()
+    del be
+    torch.cuda.empty_cache()
+
+    # (b) the embedding server: phase 7's table and pushes, f32 then fixed point
+    def adagrad():
+        return Adagrad(eta=ADAGRAD["eta"], eps=ADAGRAD["eps"])
+
+    emb_pushes = [(k, g) for idx_list, grad_list in emb_rounds
+                  for k, g in zip(idx_list, grad_list)]
+    be = local_socket_backend(adagrad, EMB_KEYS, WIRE_SERVERS, cfg=cfg, vdim=EMB_VDIM,
+                              device="cuda")
+    try:
+        out["embedding"] = wire_deterministic("embedding server", be, emb_pushes, adagrad,
+                                              EMB_VDIM, "adagrad_push", ak.LAUNCHES, audit)
+    finally:
+        be.close()
+    out["launches"]["wire_embedding_server"] = out["embedding"]["launches"]
+    fcfg = PSConfig()
+    fcfg.filter.fixing_float_bytes = 1
+    be = local_socket_backend(adagrad, EMB_KEYS, WIRE_SERVERS, cfg=fcfg, vdim=EMB_VDIM,
+                              device="cuda")
+    try:
+        out["fixed_point"] = wire_fixed_point(be, emb_pushes, be.ranges, dev, qk, ak)
+    finally:
+        be.close()
+    fp = out["fixed_point"]["launches"]
+    out["launches"]["wire_fixed_point_handles"] = fp["quantize_stochastic"]
+    out["launches"]["wire_embedding_server_fixed_point"] = fp["adagrad_push"]
+    del be
+    torch.cuda.empty_cache()
+
+    # (c) train_linear through both backends at the worker's width
+    out["train_linear"], out["train_linear_checks"] = wire_train_linear(fk)
+    for arm in ("socket", "mesh", "mesh_int8"):
+        out["launches"][f"wire_train_linear_{arm}"] = out["train_linear"][arm]["launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"wire phase ok in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2390,6 +2861,10 @@ def main() -> int:
     del wd_init
     torch.cuda.empty_cache()
     pl = pod["launches"]
+    # 12. wire: shard servers and handles over loopback TCP, both backends
+    wire = phase_wire(dev, rounds, emb_rounds)
+    wl = wire["launches"]
+    torch.cuda.empty_cache()
 
     kernels["ftrl_push"]["max_abs_err"] = max(kernels["ftrl_push"]["max_abs_err"], err_wd_k1,
                                               pod["err"]["ftrl_push"])
@@ -2402,7 +2877,14 @@ def main() -> int:
         "pod_2x2_quantized": pl["pod_2x2_linear_method-quantized"]["ftrl_push"],
         "pod_1x1_wd_per_worker": pl["pod_1x1_wd_per_worker"]["ftrl_push"],
         "pod_2x2_wd_per_worker": pl["pod_2x2_wide_deep-per_worker"]["ftrl_push"],
-        "pod_2x2_wd_quantized": pl["pod_2x2_wide_deep-quantized"]["ftrl_push"]}
+        "pod_2x2_wd_quantized": pl["pod_2x2_wide_deep-quantized"]["ftrl_push"],
+        "wire_ftrl_server": wl["wire_ftrl_server"],
+        "wire_train_linear_socket": wl["wire_train_linear_socket"],
+        "wire_train_linear_mesh": wl["wire_train_linear_mesh"],
+        "wire_train_linear_mesh_int8": wl["wire_train_linear_mesh_int8"]}
+    kernels["ftrl_push"]["wire"] = {"server": wire["ftrl"], "concurrent_sgd": wire["concurrent"],
+                                    "train_linear": wire["train_linear"],
+                                    "train_linear_checks": wire["train_linear_checks"]}
     kernels["ftrl_push"]["pod_1x1"] = pod["times"]["pod_1x1_per_worker"]
     kernels["ftrl_push"]["pod_1x1_wd"] = pod["times"]["pod_1x1_wd_per_worker"]
     kernels["adagrad_push"]["pod_1x1_wd"] = pod["times"]["pod_1x1_wd_per_worker"]
@@ -2429,7 +2911,17 @@ def main() -> int:
         "pod_2x2_mf_per_worker": pl["pod_2x2_matrix_fac-per_worker"]["adagrad_push"],
         "pod_1x1_wd_per_worker": pl["pod_1x1_wd_per_worker"]["adagrad_push"],
         "pod_2x2_wd_per_worker": pl["pod_2x2_wide_deep-per_worker"]["adagrad_push"],
-        "pod_2x2_wd_quantized": pl["pod_2x2_wide_deep-quantized"]["adagrad_push"]}
+        "pod_2x2_wd_quantized": pl["pod_2x2_wide_deep-quantized"]["adagrad_push"],
+        "wire_embedding_server": wl["wire_embedding_server"],
+        "wire_embedding_server_fixed_point": wl["wire_embedding_server_fixed_point"]}
+    kernels["adagrad_push"]["wire"] = {"server": wire["embedding"],
+                                       "fixed_point": wire["fixed_point"]}
+    kernels["quantize_stochastic"]["launches_by_path"] = {
+        "codec_round_trip": codec_launches["quantize_stochastic"],
+        "wire_fixed_point_handles": wl["wire_fixed_point_handles"]}
+    kernels["quantize_stochastic"]["launches"] = sum(
+        kernels["quantize_stochastic"]["launches_by_path"].values())
+    kernels["quantize_stochastic"]["wire"] = wire["fixed_point"]
     kernels["adagrad_push"]["launches"] = sum(kernels["adagrad_push"]["launches_by_path"].values())
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")

@@ -15,14 +15,17 @@ Package layout (only what is ported so far):
                 synthetic data
     kv/         the KV store: pull/push/updaters
     ops/        CSR segment sums and the hand-written CUDA kernels (csrc/)
-    parallel/   the SSP dispatch window, the workload (file shard) pool
+    parallel/   the SSP dispatch window, the workload (file shard) pool, the
+                SPMD tier on torch.distributed, the wire tier's data plane
+                (shard servers, handles) and the KV backends
     models/     linear_method (sparse logistic regression, async FTRL),
                 matrix_fac (AdaGrad factor tables), wide_deep (FTRL wide +
                 AdaGrad embeddings + MLP) and word2vec (SGNS), single-device
-    cli.py      the ``train`` / ``evaluate`` commands
+    cli.py      the ``train`` / ``evaluate`` / ``backend`` commands
 
 Entry points (``KVStore``, ``LinearMethod``, ``MatrixFactorization``,
-``WideDeep``, ``Word2Vec``, ``cli --device``) run on ``cuda`` unless the
+``WideDeep``, ``Word2Vec``, ``ShardServer``, ``ServerHandle``,
+``local_socket_backend``, ``MeshBackend``, ``cli --device``) run on ``cuda`` unless the
 caller asks for ``cpu``; asking for the card where there is none raises.
 """
 

@@ -18,6 +18,13 @@ Usage:
   python -m parameter_server_tpu_torch.cli train  --app_file cfg.json [--model_out m.txt|m.npz|m.npy] [--device cpu]
       [--coordinator 127.0.0.1:29500 --num_processes 4 --process_id 0 [--dist_backend gloo]]
   python -m parameter_server_tpu_torch.cli evaluate --app_file cfg.json --model m.txt|m.npz [--device cpu]
+  python -m parameter_server_tpu_torch.cli backend --app_file cfg.json [--examples N --batch B --nnz K --servers S] [--device cpu]
+
+``backend`` drives the canonical linear trainer loop (``parallel/backend.py``
+``train_linear``) through the transport the ``[mesh] backend`` setting names:
+``socket`` starts ``--servers`` loopback shard servers in this process,
+``mesh`` joins a world of one (NCCL on the card) and holds the table on it.
+It prints one JSON object (AUC, ex/s, push payload MB, the backend's stats).
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from parameter_server_tpu_torch.utils.config import PSConfig, load_config
 #: subcommands of the JAX package's CLI that the port does not have yet
 NOT_PORTED_CMDS = (
     "node", "convert", "launch", "stats", "top", "ranges", "audit",
-    "whylate", "postmortem", "lint", "check", "verify", "backend", "explore",
+    "whylate", "postmortem", "lint", "check", "verify", "explore",
 )
 
 _KNOWN_APPS = (
@@ -80,6 +87,27 @@ def _build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--model", required=True, help="model dump (text; npz for wide_deep)")
     ev.add_argument("--data", nargs="*", default=None, help="override val files")
     ev.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    bk = sub.add_parser(
+        "backend",
+        help="drive the canonical linear trainer loop through the "
+        "configured KV backend ([mesh] section, parallel/backend.py): "
+        "'mesh' holds the table on a world of one, 'socket' spins loopback "
+        "ShardServers — one synthetic workload, JSON metrics (AUC, ex/s, "
+        "payload bytes) on stdout",
+    )
+    bk.add_argument("--app_file", required=True, help="JSON/TOML PSConfig")
+    bk.add_argument(
+        "--examples", type=int, default=1 << 14,
+        help="synthetic examples to stream through the loop",
+    )
+    bk.add_argument("--batch", type=int, default=2048)
+    bk.add_argument("--nnz", type=int, default=16, help="features/example")
+    bk.add_argument(
+        "--servers", type=int, default=2,
+        help="socket backend only: in-process loopback shard servers",
+    )
+    bk.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
 
@@ -339,13 +367,71 @@ def run_evaluate(cfg: PSConfig, args: argparse.Namespace) -> dict:
     )
 
 
+def run_backend(cfg: PSConfig, args: argparse.Namespace) -> dict:
+    """One synthetic linear workload through the configured PSBackend
+    (the ``[mesh]`` section picks the transport): the canonical
+    ``train_linear`` loop that the backend-parity tests also drive. The
+    same workload, keys and JSON keys as the JAX package's ``cli
+    backend``."""
+    import time
+
+    import numpy as np
+
+    from parameter_server_tpu_torch.models.linear import updater_from_config
+    from parameter_server_tpu_torch.parallel.backend import (
+        local_socket_backend,
+        make_backend,
+        train_linear,
+    )
+    from parameter_server_tpu_torch.utils.metrics import wire_counters
+
+    num_keys = cfg.data.num_keys
+    n = max(args.examples // args.batch, 1) * args.batch
+    rng = np.random.default_rng(cfg.seed or 7)
+    w_true = rng.normal(size=num_keys - 1)
+    kb = rng.integers(0, num_keys - 1, size=(n, args.nnz))
+    logits = w_true[kb].sum(axis=1) / np.sqrt(args.nnz)
+    y = (rng.random(n) < 1 / (1 + np.exp(-logits))).astype(np.float64)
+
+    if cfg.mesh.backend == "socket":
+        backend = local_socket_backend(
+            lambda: updater_from_config(cfg), num_keys,
+            num_servers=args.servers, cfg=cfg, device=args.device,
+        )
+    else:
+        backend = make_backend(cfg, device=args.device)
+    pay0 = wire_counters.get("mesh_push_payload_bytes") + wire_counters.get(
+        "wire_push_payload_bytes"
+    )
+    try:
+        t0 = time.perf_counter()
+        out = train_linear(backend, kb, y, args.batch)
+        dt = time.perf_counter() - t0
+        payload = (
+            wire_counters.get("mesh_push_payload_bytes")
+            + wire_counters.get("wire_push_payload_bytes")
+            - pay0
+        )
+        return {
+            "backend": cfg.mesh.backend,
+            "auc": round(out["auc"], 4),
+            "examples": out["examples"],
+            "ex_per_sec": round(out["examples"] / dt, 1),
+            "push_payload_mb": round(payload / 1e6, 3),
+            "stats": backend.stats(),
+        }
+    finally:
+        backend.close()  # owned loopback servers shut down with it
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] in NOT_PORTED_CMDS:
         raise _not_ported(f"the {argv[0]!r} subcommand")
     args = _build_parser().parse_args(argv)
     cfg = load_config(args.app_file)
-    out = run_train(cfg, args) if args.cmd == "train" else run_evaluate(cfg, args)
+    run = {"train": run_train, "evaluate": run_evaluate, "backend": run_backend}[args.cmd]
+    out = run(cfg, args)
     print(json.dumps(out, default=float))
     return 0
 

@@ -35,8 +35,15 @@ The design mapping from the JAX package (``parameter_server_tpu/parallel``):
   (linear, MF, W&D) push through the fused kernels, repeated ids
   (word2vec) through gather, one delta an occurrence and ``index_add_``.
 
-Not ported yet: the backends (``backend.py``, ``meshbackend.py``), the wire
-tier (``multislice.py``, ``control.py``, ``chaos.py``) and the push window.
+- **The wire tier's data plane** (``control.py``, ``multislice.py``): the
+  JAX package's frames, byte for byte, over TCP; ``ShardServer`` applies
+  coalesced pushes in place through K1/K3 under a publish lock that pulls
+  also take, so no pull sees part of an apply. ``backend.py`` puts the
+  socket tier (``SocketBackend``) and the kv ranks of a world
+  (``MeshBackend``) behind one ``PSBackend`` interface.
+
+Not ported yet: the coordinator and the node entry points (``cli launch``,
+``cli node``), chaos (``chaos.py``), the push window and the serving plane.
 """
 
 from parameter_server_tpu_torch.parallel import runtime  # noqa: F401

@@ -1,0 +1,426 @@
+"""Transport-neutral client data plane: the ``PSBackend`` interface.
+
+A copy of the JAX package's ``parallel/backend.py``. Reference analog:
+``KVVector`` — the worker-side handle an app holds, which hides WHERE the
+parameter servers live. Two transports sit behind it:
+
+- :class:`SocketBackend` — the wire tier: N range-sharded
+  :class:`~parameter_server_tpu_torch.parallel.multislice.ShardServer`\\ s
+  reached through :class:`ServerHandle`\\ s, which carry the filter stack
+  (key caching, the pipelined async window, the quantized transport with
+  its error-feedback residual, reconnect and dedup). This backend owns the
+  key-range fan-out: slice the batch's sorted unique keys against the
+  server ranges, issue per-shard pulls and pushes concurrently, merge.
+- :class:`~parameter_server_tpu_torch.parallel.meshbackend.MeshBackend` —
+  the table range-sharded over the kv ranks of a ``torch.distributed``
+  world (``parallel/mesh.py``): pull is a masked local gather summed over
+  the kv group, push applies each rank's own segment of the keys.
+
+``make_backend`` picks the transport from the ``[mesh]`` config section,
+and the canonical :func:`train_linear` loop runs unmodified on either.
+
+Key contract (both backends): ``keys`` are GLOBAL key indices —
+``int64``, sorted, unique, each real key at most once, all strictly
+below ``num_keys`` (row 0 is the pad row and may appear only with a zero
+gradient). ``pull`` returns ``(U, vdim)`` float32 rows; ``push`` takes
+``(U,)`` or ``(U, vdim)`` gradients.
+"""
+
+from __future__ import annotations
+
+import abc
+import threading
+from concurrent.futures import Future
+from typing import Any
+
+import numpy as np
+
+
+class PSBackend(abc.ABC):
+    """The transport-neutral client data plane (see module docstring).
+
+    ``push_async`` ack semantics are transport-specific — the socket
+    backend resolves when every shard server ACKED the apply (the SSP
+    ``PushWindow`` hangs retirement off that), the mesh backend resolves
+    at dispatch (device-program order already guarantees a later pull
+    sees the push) — but ``flush()`` means the same thing on both: every
+    push issued so far is durably applied when it returns.
+    """
+
+    num_keys: int
+    vdim: int
+
+    @abc.abstractmethod
+    def pull(self, keys: np.ndarray) -> np.ndarray:
+        """Weights for global ``keys`` -> (U, vdim) float32."""
+
+    @abc.abstractmethod
+    def push(self, keys: np.ndarray, grads: np.ndarray) -> None:
+        """Apply the server updater to ``keys`` with ``grads``; blocks
+        until the push is accepted by the transport (NOT necessarily
+        applied — see ``flush``)."""
+
+    @abc.abstractmethod
+    def pull_async(self, keys: np.ndarray) -> Future:
+        """Non-blocking ``pull``; Future of the (U, vdim) rows."""
+
+    @abc.abstractmethod
+    def push_async(self, keys: np.ndarray, grads: np.ndarray) -> Future:
+        """Non-blocking ``push``; Future resolves (to None) per this
+        backend's ack semantics (class docstring)."""
+
+    @abc.abstractmethod
+    def flush(self) -> None:
+        """Block until every push issued so far is applied."""
+
+    @abc.abstractmethod
+    def weights(self) -> np.ndarray:
+        """Materialize the full (num_keys, vdim) weight table."""
+
+    def stats(self) -> dict[str, Any]:
+        return {}
+
+    def close(self) -> None:  # noqa: B027 — optional hook
+        pass
+
+    # context-manager sugar: benches/tests hold a backend per arm
+    def __enter__(self) -> "PSBackend":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def _join_futures(futs: list[Future], combine) -> Future:
+    """One Future resolving to ``combine([f.result() for f in futs])``
+    once every input resolved; the FIRST exception wins (concurrently
+    failing shards race, so the winner is decided under a lock — a
+    second ``set_exception`` would raise InvalidStateError inside the
+    loser's callback). Completion runs on the last-resolving future's
+    callback thread, so ``combine`` must be cheap and non-blocking (a
+    concat, not a wire call)."""
+    out: Future = Future()
+    if not futs:
+        out.set_result(combine([]))
+        return out
+    lock = threading.Lock()
+    remaining = [len(futs)]
+    failed = [False]
+    results: list[Any] = [None] * len(futs)
+
+    def done(i: int, f: Future) -> None:
+        try:
+            results[i] = f.result()
+        except BaseException as e:  # noqa: BLE001 — future boundary
+            with lock:
+                first = not failed[0]
+                failed[0] = True
+            if first:
+                out.set_exception(e)
+            return
+        with lock:
+            # a failed input never decrements, so remaining can only hit
+            # zero on the all-resolved path — set_result cannot race a
+            # set_exception
+            remaining[0] -= 1
+            last = remaining[0] == 0
+        if last:
+            try:
+                out.set_result(combine(results))
+            except BaseException as e:  # noqa: BLE001 — future boundary
+                out.set_exception(e)
+
+    for i, f in enumerate(futs):
+        f.add_done_callback(lambda g, i=i: done(i, g))
+    return out
+
+
+class SocketBackend(PSBackend):
+    """The wire tier behind the neutral interface: range-sharded
+    :class:`ServerHandle`\\ s + the key-range fan-out.
+
+    The handles keep the filter stack — need_keys key caching, the
+    pipelined async window, quantized transport with exactly-once
+    error-feedback residuals, reconnect-and-dedup recovery — this class
+    only owns the slicing of a global key set against the server ranges
+    and the concurrent per-shard issue/merge.
+    """
+
+    def __init__(
+        self,
+        handles: list,
+        ranges: list,
+        num_keys: int,
+        vdim: int = 1,
+        own_handles: bool = True,
+        own_servers: list | None = None,
+    ):
+        """``handles[i]`` serves ``ranges[i]`` (contiguous, sorted,
+        covering [0, num_keys) — an EvenDivide).
+        ``own_handles=False`` leaves closing the handles to the caller;
+        ``own_servers`` hands the backend in-process loopback servers
+        whose whole lifecycle it owns — ``close()`` sends each handle a
+        shutdown and stops them (see :func:`local_socket_backend`)."""
+        if len(handles) != len(ranges):
+            raise ValueError(
+                f"{len(handles)} handles vs {len(ranges)} ranges"
+            )
+        self.handles = list(handles)
+        self.ranges = list(ranges)
+        self.num_keys = int(num_keys)
+        self.vdim = int(vdim)
+        self._own = own_handles
+        self._servers = list(own_servers or [])
+        self._begins = np.array(
+            [r.begin for r in self.ranges] + [self.num_keys], dtype=np.int64
+        )
+        # outstanding push futures for flush(): completed entries remove
+        # themselves (keeping the set bounded by the in-flight window)
+        # but a FAILURE is remembered until the next flush observes it —
+        # otherwise a fire-and-forget push_async whose recovery exhausted
+        # would vanish and flush() would lie about "durably applied"
+        self._inflight_lock = threading.Lock()
+        self._inflight: set[Future] = set()
+        self._push_failure: BaseException | None = None
+
+    def _segments(
+        self, keys: np.ndarray
+    ) -> tuple[list[np.ndarray], np.ndarray]:
+        """Slice sorted global ``keys`` into per-shard RANGE-RELATIVE
+        key arrays (the reference's parallel_ordered_match): one
+        searchsorted against the range begins; the bounds come along so
+        push can slice its gradient rows without a second pass."""
+        keys = np.asarray(keys, dtype=np.int64)
+        bounds = np.searchsorted(keys, self._begins)
+        return [
+            keys[bounds[s] : bounds[s + 1]] - self.ranges[s].begin
+            for s in range(len(self.handles))
+        ], bounds
+
+    def pull_async(self, keys: np.ndarray) -> Future:
+        segs, _bounds = self._segments(keys)
+        futs = [
+            h.pull_async(seg) for h, seg in zip(self.handles, segs)
+        ]
+        u, vdim = len(keys), self.vdim
+
+        def combine(rows: list) -> np.ndarray:
+            flat = (
+                np.concatenate([np.asarray(r).ravel() for r in rows])
+                if rows
+                else np.zeros(0, np.float32)
+            )
+            return flat.astype(np.float32, copy=False).reshape(u, vdim)
+
+        return _join_futures(futs, combine)
+
+    def pull(self, keys: np.ndarray) -> np.ndarray:
+        return self.pull_async(keys).result()
+
+    def push_async(self, keys: np.ndarray, grads: np.ndarray) -> Future:
+        segs, bounds = self._segments(keys)
+        g = np.asarray(grads, dtype=np.float32).reshape(len(keys), -1)
+        futs = [
+            h.push_async(seg, g[bounds[s] : bounds[s + 1]])
+            for s, (h, seg) in enumerate(zip(self.handles, segs))
+        ]
+        out = _join_futures(futs, lambda _res: None)
+        with self._inflight_lock:
+            self._inflight.add(out)
+
+        def _retire(f: Future) -> None:
+            exc = f.exception()
+            with self._inflight_lock:
+                self._inflight.discard(out)
+                if exc is not None and self._push_failure is None:
+                    self._push_failure = exc
+
+        out.add_done_callback(_retire)
+        return out
+
+    def push(self, keys: np.ndarray, grads: np.ndarray) -> None:
+        self.push_async(keys, grads).result()
+
+    def flush(self) -> None:
+        """Block until every push issued so far settled; raise the first
+        failure among them (even one whose future nobody retained) —
+        "returned cleanly" must mean "durably applied", not "the failed
+        futures already removed themselves"."""
+        from concurrent.futures import wait as _wait
+
+        while True:
+            with self._inflight_lock:
+                pending = list(self._inflight)
+                if not pending:
+                    exc, self._push_failure = self._push_failure, None
+                    break
+            _wait(pending)
+        if exc is not None:
+            raise exc
+
+    def weights(self) -> np.ndarray:
+        w = np.zeros((self.num_keys, self.vdim), dtype=np.float32)
+        for h in self.handles:
+            begin, rows = h.dump()
+            rows = np.asarray(rows, np.float32).reshape(-1, self.vdim)
+            w[begin : begin + len(rows)] = rows
+        return w
+
+    def stats(self) -> dict[str, Any]:
+        return {
+            "backend": "socket",
+            "shards": [h.stats() for h in self.handles],
+        }
+
+    def close(self) -> None:
+        try:
+            self.flush()
+        finally:
+            if self._servers:
+                # owned loopback servers stop on the shutdown command (the
+                # same discipline every ShardServer test uses)
+                for h in self.handles:
+                    try:
+                        h.shutdown()
+                    except Exception:  # noqa: BLE001 — server already gone
+                        pass
+                for srv in self._servers:
+                    srv.server.stop()
+            if self._own:
+                for h in self.handles:
+                    h.close()
+
+
+def local_socket_backend(
+    make_updater,
+    num_keys: int,
+    num_servers: int = 2,
+    cfg=None,
+    vdim: int = 1,
+    device: Any = "cuda",
+) -> SocketBackend:
+    """Spin up ``num_servers`` in-process loopback ShardServers on
+    ``device`` over an even key-range divide and wire connected handles
+    into a SocketBackend that OWNS them — ``close()`` shuts the servers
+    down. The one assembly ``cli backend``, ``chip_smoke.py`` and the
+    parity tests share."""
+    from parameter_server_tpu_torch.parallel.multislice import (
+        ServerHandle,
+        ShardServer,
+    )
+    from parameter_server_tpu_torch.utils.config import PSConfig
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange
+
+    cfg = cfg or PSConfig()
+    ranges = KeyRange(0, num_keys).even_divide(max(1, num_servers))
+    servers: list = []
+    handles: list = []
+    try:
+        for r in ranges:
+            servers.append(ShardServer(
+                make_updater(), r, vdim=vdim, server_cfg=cfg.server,
+                device=device,
+            ).start())
+        for i, (s, r) in enumerate(zip(servers, ranges)):
+            handles.append(ServerHandle(
+                s.address, i, 0, cfg, range_size=r.size, device=device,
+            ))
+    except BaseException:
+        for h in handles:
+            h.close()
+        for s in servers:
+            s.server.stop()
+            s.join()
+        raise
+    return SocketBackend(
+        handles, ranges, num_keys, vdim=vdim, own_servers=servers
+    )
+
+
+def make_backend(
+    cfg, updater=None, handles=None, ranges=None, device: Any = "cuda",
+) -> PSBackend:
+    """Build the configured backend from the ``[mesh]`` section.
+
+    ``backend = "mesh"`` needs only the config: the table lives on a
+    world of one on ``device``, which the backend joins and owns;
+    ``"socket"`` additionally needs the connected ``handles`` + their
+    ``ranges``."""
+    kind = cfg.mesh.backend
+    if kind == "mesh":
+        from parameter_server_tpu_torch.parallel.meshbackend import MeshBackend
+
+        if updater is None:
+            from parameter_server_tpu_torch.models.linear import updater_from_config
+
+            updater = updater_from_config(cfg)
+        return MeshBackend(
+            updater,
+            cfg.data.num_keys,
+            kv_shards=cfg.mesh.kv_shards or None,
+            quant=cfg.mesh.quant,
+            quant_seg=cfg.mesh.quant_seg,
+            device=device,
+        )
+    if kind == "socket":
+        if handles is None or ranges is None:
+            raise ValueError(
+                "[mesh] backend='socket' needs connected server handles + "
+                "ranges (see local_socket_backend)"
+            )
+        return SocketBackend(handles, ranges, cfg.data.num_keys)
+    raise ValueError(
+        f"[mesh] backend must be 'socket' or 'mesh', got {kind!r}"
+    )
+
+
+def train_linear(
+    backend: PSBackend,
+    kb_all: np.ndarray,
+    y_all: np.ndarray,
+    batch_size: int,
+    progress_from: float = 0.5,
+) -> dict[str, Any]:
+    """The canonical backend-agnostic linear trainer loop: per batch,
+    pull touched weights -> logistic loss -> per-key mean gradient ->
+    push. ONE implementation drives the backend-parity tests, ``cli
+    backend`` and ``chip_smoke.py``, so the two transports are compared
+    on literally the same client code (the JAX package's loop, copied).
+
+    ``kb_all``: (N, nnz) feature indices in [0, num_keys - 2) — shifted
+    by +1 on the wire so row 0 stays the pad row. ``y_all``: (N,) 0/1
+    labels. Returns progressive-validation AUC over the stream's tail
+    (from ``progress_from`` onward) plus the per-example probabilities
+    (for exactness assertions between backends)."""
+    from parameter_server_tpu_torch.models import metrics as M
+
+    n, nnz = kb_all.shape
+    n_batches = n // batch_size
+    start_prog = int(n_batches * progress_from)
+    ys: list[np.ndarray] = []
+    ps: list[np.ndarray] = []
+    for b in range(n_batches):
+        s = slice(b * batch_size, (b + 1) * batch_size)
+        kb, y = kb_all[s], y_all[s]
+        uniq, inv = np.unique(kb, return_inverse=True)
+        keys = (uniq + 1).astype(np.int64)  # row 0 = pad row
+        w = backend.pull(keys).astype(np.float64).reshape(-1)
+        logit = w[inv.reshape(batch_size, nnz)].sum(axis=1)
+        p = 1.0 / (1.0 + np.exp(-logit))
+        err = p - y
+        g = np.zeros(len(uniq))
+        np.add.at(
+            g, inv.reshape(batch_size, nnz).ravel(), np.repeat(err, nnz)
+        )
+        backend.push(keys, (g / batch_size).astype(np.float32))
+        if b >= start_prog:
+            ys.append(np.asarray(y, np.float64))
+            ps.append(p)
+    backend.flush()
+    y_cat = np.concatenate(ys) if ys else np.zeros(0)
+    p_cat = np.concatenate(ps) if ps else np.zeros(0)
+    return {
+        "auc": float(M.auc(y_cat, p_cat)) if len(y_cat) else float("nan"),
+        "examples": n_batches * batch_size,
+        "probs": p_cat,
+    }

@@ -1,0 +1,1158 @@
+"""The wire tier's data plane: range-sharded shard servers and their handles.
+
+The port of the data-plane half of the JAX package's
+``parallel/multislice.py``. Each ``ShardServer`` owns one contiguous key
+range of the model, holds its updater tables on a device (``cuda`` unless
+the caller asks for ``cpu``) and answers pull / push / dump / stats /
+shutdown over the wire (``parallel/control.py``). A worker reaches it
+through a ``ServerHandle``, which applies the send filters: key caching
+(a signature instead of the key list once the server holds it), zlib,
+the negotiated per-segment int8/int16 codec with client-side error
+feedback, and the fixed-point codec. The frames are the JAX package's,
+byte for byte: a JAX handle talks to a port server and a port handle to
+a JAX server.
+
+Pushes go through the batched apply engine: each decoded push lands in a
+bounded queue, one apply thread drains whatever has arrived (up to
+``[server] max_batch``), segment-sums the duplicate keys across them
+(``kv.store.coalesce_pushes``) and applies the updater once over the
+union through the port's in-place ``kv.store.push``: K1 (``ftrl_push``)
+for FTRL and K3 (``adagrad_push``) for AdaGrad on the card. A resent push
+applies once: the RPC layer's reply cache answers it, and the apply
+engine's ledger (``_applied_push``) drops any that reach it twice.
+
+In place against snapshot pulls. The JAX server publishes a new immutable
+state per batch and pulls read it without a lock. The port's push changes
+the tables in place, so one publish lock (``_pub_lock``) is held while an
+apply is issued and while a pull's or a dump's gathers are issued; the
+version is bumped inside it. On the card both only enqueue work on the
+one current stream, so stream order makes every gather see whole
+batches; on the CPU they run under the lock. The copies to the host run
+outside it.
+
+Not ported yet: chaos, checkpoints (``save_state`` / ``load_state``), the
+serving plane (the handle's key cache; the server's conditional pulls,
+shedding, encode cache and freshness stamps: a request that carries
+``if_newer``, ``sv`` or ``shed_ok`` gets an error reply), and the node
+entry points (``run_server``, ``run_worker``, ``launch_local``).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import itertools
+import queue as queue_mod
+import threading
+import time
+from collections import OrderedDict
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import Any
+
+import numpy as np
+import torch
+
+from parameter_server_tpu_torch.device import resolve_device
+from parameter_server_tpu_torch.kv import store as kv_store
+from parameter_server_tpu_torch.kv.updaters import Updater
+from parameter_server_tpu_torch.parallel.control import (
+    Arrays,
+    DeferredReply,
+    RpcClient,
+    RpcServer,
+)
+from parameter_server_tpu_torch.utils.config import PSConfig, ServerConfig
+from parameter_server_tpu_torch.utils.keyrange import KeyRange
+from parameter_server_tpu_torch.utils.metrics import wire_counters
+
+#: pull fields of the serving plane, which the port does not serve yet
+SERVING_FIELDS = ("if_newer", "sv", "shed_ok")
+
+
+def _sig(keys: np.ndarray) -> str:
+    """Key-list signature (ref: key_caching.h signatures)."""
+    return hashlib.blake2b(keys.tobytes(), digest_size=8).hexdigest()
+
+
+# Bound on cached key lists per endpoint. Streamed minibatches mostly have
+# distinct key sets (hits come from pull->push pairs and epoch repeats), so
+# an unbounded cache would grow linearly with steps; the need_keys retry
+# makes eviction always safe.
+_KEY_CACHE_CAP = 512
+
+
+class _LruSigs:
+    """Tiny thread-safe LRU over signature -> value (value may be None for a
+    set). Locked: server connection threads and the worker's in-flight push
+    threads touch these caches concurrently."""
+
+    def __init__(self, cap: int = _KEY_CACHE_CAP):
+        self._d: OrderedDict = OrderedDict()
+        self._cap = cap
+        self._lock = threading.Lock()
+
+    def get(self, k):
+        with self._lock:
+            if k in self._d:
+                self._d.move_to_end(k)
+                return self._d[k]
+            return None
+
+    def __contains__(self, k) -> bool:
+        with self._lock:
+            return k in self._d
+
+    def put(self, k, v=None) -> None:
+        with self._lock:
+            self._d[k] = v
+            self._d.move_to_end(k)
+            while len(self._d) > self._cap:
+                self._d.popitem(last=False)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._d)
+
+
+class _QueuedPush:
+    """One decoded push waiting in the apply queue: keys + decoded grad,
+    its durable dedup identity, and the Future the deferred RPC reply
+    resolves from."""
+
+    __slots__ = ("keys", "grad", "cid", "seq", "future", "t_enq")
+
+    def __init__(
+        self, keys: np.ndarray, grad: np.ndarray,
+        cid: str | None, seq: str | None,
+    ):
+        self.keys = keys
+        self.grad = grad
+        self.cid = cid
+        self.seq = seq
+        self.future: Future = Future()
+        # enqueue mark: the reply carries the queue wait (_apw_us)
+        self.t_enq = time.perf_counter()
+
+
+def _host_array(a: np.ndarray, dtype=None) -> np.ndarray:
+    """A wire array as an aligned, contiguous, writable host array (frames
+    land as views of one receive buffer, at any offset)."""
+    return np.require(a, dtype=dtype, requirements=("C", "A", "W"))
+
+
+def _strictly_unique(idx: np.ndarray) -> bool:
+    """Does every key occur once? Sorted input (the backend's fan-out)
+    answers in one pass."""
+    if len(idx) < 2 or bool(np.all(idx[1:] > idx[:-1])):
+        return True
+    return len(np.unique(idx)) == len(idx)
+
+
+class ShardServer:
+    """One server: updater state over its key range on ``device``, served
+    via RPC. Commands: pull / push / dump / stats / shutdown.
+
+    ``[server] apply_queue = 0`` disables the apply engine: pushes apply
+    inline under the apply lock, the JAX package's serial discipline."""
+
+    def __init__(
+        self,
+        updater: Updater,
+        key_range: KeyRange,
+        vdim: int = 1,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        advertise_host: str = "",
+        fault_plan: None = None,
+        server_cfg: ServerConfig | None = None,
+        device: Any = "cuda",
+    ):
+        scfg = server_cfg or ServerConfig()
+        if scfg.adaptive_batch:
+            raise NotImplementedError(
+                "[server] adaptive_batch is not ported yet to parameter_server_tpu_torch"
+            )
+        self.device = resolve_device(device)
+        self.updater = updater
+        self.range = key_range
+        self.vdim = int(vdim)
+        self.state = updater.init(key_range.size, self.vdim, device=self.device)
+        # the publish lock (module docstring): every in-place apply and
+        # every gather a reply is built from is issued under it
+        self._pub_lock = threading.Lock()
+        self._version = 1
+        self._key_cache = _LruSigs()  # (worker, sig) -> key array
+        # the apply lock: the ledger check, the apply and the ledger record
+        # of one batch (or one serial push) are one unit
+        self._lock = threading.Lock()
+        self._max_batch = max(1, int(scfg.max_batch))
+        self._apply_q: queue_mod.Queue[_QueuedPush] | None = (
+            queue_mod.Queue(maxsize=int(scfg.apply_queue))
+            if scfg.apply_queue > 0
+            else None
+        )
+        self._apply_open = self._apply_q is not None
+        self._apply_thread: threading.Thread | None = None
+        self._ctr_lock = threading.Lock()  # counters bumped by conn threads
+        # durable push dedup: cid -> recently applied push seqs (str-keyed).
+        # Mutated ONLY under self._lock, in the same critical section as
+        # the apply it describes, so a push that reaches the engine twice
+        # (a duplicate within one batch, or a resend after the reply
+        # cache evicted it) is acked without applying again.
+        self._applied_push: OrderedDict[str, OrderedDict[str, None]] = OrderedDict()
+        self.counters = {
+            "pulls": 0, "pushes": 0, "cache_hits": 0, "need_keys": 0,
+            "push_replays": 0, "apply_batches": 0, "push_coalesced": 0,
+        }
+        if host in ("0.0.0.0", "::", "") and not advertise_host:
+            raise ValueError(
+                "binding a wildcard address requires advertise_host: "
+                "publishing 0.0.0.0 would point remote workers at their "
+                "own loopback"
+            )
+        self.server = RpcServer(
+            self._handle, host, port, fault_plan=fault_plan,
+            # pull/dump/stats re-apply harmlessly — bypassing the reply
+            # cache keeps their row-payload replies from being pinned
+            idempotent_cmds=frozenset({"pull", "dump", "stats"}),
+            expose_identity=True,  # push branch keeps the durable ledger
+            lane_hi=scfg.lane_hi,
+            lane_lo=scfg.lane_lo,
+            withheld_max_bytes=scfg.withheld_max_mb << 20,
+            # this server decodes the per-segment quantized codec: acking
+            # "qwire" is what lets a quantized client leave the float path
+            features=frozenset({"qwire"}),
+        )
+        _, bound_port = self.server.address.rsplit(":", 1)
+        self.address = f"{advertise_host or host}:{bound_port}"
+
+    # push-ledger bounds: wider than the reply cache's — entries are tiny
+    # (short strings) and must cover more than the last in-flight call per
+    # client
+    _LEDGER_SEQS = 64
+    _LEDGER_CLIENTS = 1024
+
+    def _record_push(self, cid: str, seq: str) -> None:
+        """Record an applied push in the dedup ledger. Caller holds
+        ``self._lock``."""
+        per = self._applied_push.get(cid)
+        if per is None:
+            per = self._applied_push[cid] = OrderedDict()
+            while len(self._applied_push) > self._LEDGER_CLIENTS:
+                self._applied_push.popitem(last=False)
+        else:
+            self._applied_push.move_to_end(cid)
+        per[seq] = None
+        while len(per) > self._LEDGER_SEQS:
+            per.popitem(last=False)
+
+    def _bump(self, name: str) -> None:
+        with self._ctr_lock:
+            self.counters[name] += 1
+
+    @property
+    def version(self) -> int:
+        """Applies published so far, plus one (the JAX server's
+        ``state_ver`` is an opaque per-life id; this one only counts)."""
+        with self._pub_lock:
+            return self._version
+
+    def start(self) -> "ShardServer":
+        self._start_apply_thread()
+        self.server.start()
+        return self
+
+    def join(self, timeout: float | None = None) -> None:
+        """Wait for the apply thread to exit after a ``shutdown``."""
+        if self._apply_thread is not None:
+            self._apply_thread.join(timeout)
+
+    # -- the state, in place under the publish lock -------------------------
+
+    def _apply(self, idx: np.ndarray, grad: np.ndarray) -> None:
+        """Apply one coalesced push in place and bump the version.
+
+        ``idx`` holds the union's unique keys only. The JAX engine pads
+        the union to a power of two with PAD_KEY 0 and zero gradients
+        (``coalesce_pushes(..., pad_to_pow2=True)``,
+        ``parameter_server_tpu/parallel/multislice.py:697``) to bound its
+        compile count; the port compiles nothing, and on a server whose
+        range begins above 0 local row 0 is a real key: a pad slot on it
+        beside the key's own slot would be a write race in K1 and K3,
+        which take each key at most once and store without atomics
+        (``csrc/adagrad.cu:60-63``). A single push whose keys repeat (the
+        JAX ``.at[].add`` of its rows) goes the repeated-ids way:
+        gather, a delta an occurrence, ``index_add_``, no kernel."""
+        idx_t = torch.from_numpy(_host_array(idx, np.int64)).to(self.device)
+        g_t = torch.from_numpy(_host_array(grad, np.float32)).to(self.device)
+        g_t = g_t.reshape(len(idx), -1)
+        unique = _strictly_unique(idx)
+        with self._pub_lock:
+            if unique:
+                kv_store.push(self.updater, self.state, idx_t, g_t)
+            else:
+                rows = {k: v.index_select(0, idx_t) for k, v in self.state.items()}
+                deltas = self.updater.delta(rows, g_t)
+                for k, v in self.state.items():
+                    v.index_add_(0, idx_t, deltas[k])
+            self._version += 1
+
+    def _gather_weights(self, keys: np.ndarray) -> np.ndarray:
+        """(U, vdim) host weights of ``keys`` from one published state."""
+        idx = torch.from_numpy(_host_array(keys, np.int64)).to(self.device)
+        with self._pub_lock:
+            rows = {k: v.index_select(0, idx) for k, v in self.state.items()}
+        return self.updater.weights(rows).cpu().numpy().reshape(len(keys), -1)
+
+    def weights(self) -> np.ndarray:
+        """(range size, vdim) host weights of one published state."""
+        with self._pub_lock:
+            w = self.updater.weights(self.state)
+            if any(w.data_ptr() == v.data_ptr() for v in self.state.values()):
+                w = w.clone()  # the table itself (SGD, AdaGrad): copy it
+        return w.cpu().numpy()
+
+    # -- batched apply engine ---------------------------------------------
+
+    def _start_apply_thread(self) -> None:
+        if self._apply_q is None or self._apply_thread is not None:
+            return
+        self._apply_thread = threading.Thread(
+            target=self._apply_loop, daemon=True, name="ps-apply"
+        )
+        self._apply_thread.start()
+
+    @staticmethod
+    def _fail_stopping(item: _QueuedPush) -> None:
+        """Fail a push stranded by engine shutdown with ConnectionError —
+        the RPC layer severs the connection instead of sending a clean
+        error reply, so the client's transport heal resends the push
+        rather than hard-failing the worker on a transient condition."""
+        if not item.future.done():
+            try:
+                item.future.set_exception(ConnectionError(
+                    "shard server stopping; push not applied"
+                ))
+            except Exception:  # noqa: BLE001 — the drain beat us to it
+                pass
+
+    def _enqueue_push(self, item: _QueuedPush) -> None:
+        """Admit one decoded push into the apply queue (backpressure: a
+        full queue parks this serving thread until the engine drains).
+        Never raises — a shutdown race resolves the item's future with
+        ConnectionError instead (see _fail_stopping)."""
+        q = self._apply_q
+        assert q is not None
+        while True:
+            if not self._apply_open:
+                self._fail_stopping(item)
+                return
+            try:
+                q.put(item, timeout=0.05)
+            except queue_mod.Full:
+                continue
+            if not self._apply_open:
+                # raced with engine shutdown: the grace drain may already
+                # have finished, leaving this item parked in a queue
+                # nobody drains — fail it here (drain may also have)
+                self._fail_stopping(item)
+            return
+
+    def _apply_loop(self) -> None:
+        """The apply thread: drain whatever pushes have concurrently
+        arrived (bounded by max_batch) and apply them as ONE coalesced
+        update. Exits once the server stops, failing stragglers so no
+        serving thread parks on an unresolvable deferred reply."""
+        q = self._apply_q
+        assert q is not None
+        stop = self.server._stop
+        while not stop.is_set():
+            try:
+                first = q.get(timeout=0.2)
+            except queue_mod.Empty:
+                continue
+            batch = [first]
+            while len(batch) < self._max_batch:
+                try:
+                    batch.append(q.get_nowait())
+                except queue_mod.Empty:
+                    break
+            try:
+                self._apply_batch(batch)
+            except Exception:  # noqa: BLE001 — isolate the offender
+                # one malformed push (bad grad shape, poison payload) must
+                # not fail the innocent pushes it happened to coalesce
+                # with: each item re-runs as its own batch and only the
+                # offender's future fails (a failing batch raises before
+                # it mutates a table: coalescing and the device copies
+                # come first)
+                for p in batch:
+                    if p.future.done():
+                        continue
+                    try:
+                        self._apply_batch([p])
+                    except Exception as e1:  # noqa: BLE001
+                        if not p.future.done():
+                            p.future.set_exception(e1)
+        self._apply_open = False
+        deadline = time.monotonic() + 0.5  # grace: racing enqueuers land
+        while time.monotonic() < deadline:
+            try:
+                p = q.get_nowait()
+            except queue_mod.Empty:
+                time.sleep(0.05)
+                continue
+            self._fail_stopping(p)
+
+    def _apply_batch(self, batch: list[_QueuedPush]) -> None:
+        """Coalesce and apply one batch: segment-sum duplicate keys across
+        the batch's pushes, ONE updater apply over the union of touched
+        rows, the whole batch recorded in the ledger in the same critical
+        section."""
+        todo: list[_QueuedPush] = []
+        dups: list[_QueuedPush] = []
+        t_apply0 = t_apply1 = 0.0
+        with self._lock:
+            seen: set[tuple[str | None, str | None]] = set()
+            for p in batch:
+                if p.cid is not None:
+                    per = self._applied_push.get(p.cid)
+                    if per is not None and p.seq in per:
+                        # already applied (and ledgered): ack immediately
+                        self._bump("push_replays")
+                        wire_counters.inc("rpc_dedup_hits")
+                        if not p.future.done():
+                            p.future.set_result(({"ok": True}, {}))
+                        continue
+                    if (p.cid, p.seq) in seen:
+                        # duplicate within THIS batch: its first instance
+                        # has not applied yet, so the ack must WAIT for
+                        # the apply — acking now would break 'acked =>
+                        # applied' if the apply then fails
+                        self._bump("push_replays")
+                        wire_counters.inc("rpc_dedup_hits")
+                        dups.append(p)
+                        continue
+                    seen.add((p.cid, p.seq))
+                todo.append(p)
+            if todo:
+                t_apply0 = time.perf_counter()
+                idx, grad = kv_store.coalesce_pushes(
+                    [p.keys for p in todo], [p.grad for p in todo]
+                )
+                self._apply(idx, grad)
+                for p in todo:
+                    if p.cid is not None:
+                        self._record_push(p.cid, p.seq)
+        t_apply1 = time.perf_counter()
+        apl_us = int(max(t_apply1 - t_apply0, 0.0) * 1e6) if todo else 0
+        with self._ctr_lock:
+            self.counters["pushes"] += len(todo)
+            self.counters["apply_batches"] += 1
+            # only genuinely APPLIED pushes count as coalesced
+            self.counters["push_coalesced"] += max(len(todo) - 1, 0)
+        if len(todo) > 1:
+            wire_counters.inc("push_coalesced", len(todo) - 1)
+        # dups resolve here too: the apply they waited on has happened.
+        # The reply carries the queue wait (_apw_us) and the apply's host
+        # time (_apl_us), as the JAX server's does.
+        for p in todo + dups:
+            if not p.future.done():  # the shutdown race may fail one first
+                try:
+                    p.future.set_result((
+                        {
+                            "ok": True,
+                            "_apw_us": int(
+                                max(t_apply0 - p.t_enq, 0.0) * 1e6
+                            ),
+                            "_apl_us": apl_us,
+                        },
+                        {},
+                    ))
+                except Exception:  # noqa: BLE001 — lost the race benignly
+                    pass
+
+    # -- request handling ---------------------------------------------------
+
+    def _resolve_keys(
+        self, h: dict[str, Any], arrays: Arrays
+    ) -> np.ndarray | None:
+        """Key-caching filter, server side: prefer the cached list for this
+        (worker, signature); fall back to the sent keys and cache them."""
+        ck = (int(h["worker"]), h["sig"])
+        if "keys" in arrays:
+            keys = arrays["keys"].astype(np.int64)
+            self._key_cache.put(ck, keys)
+            return keys
+        keys = self._key_cache.get(ck)
+        if keys is None:
+            self._bump("need_keys")
+            return None
+        self._bump("cache_hits")
+        return keys
+
+    def _handle(self, h: dict[str, Any], arrays: Arrays):
+        cmd = h["cmd"]
+        if cmd == "pull":
+            return self._handle_pull(h, arrays)
+        if cmd == "push":
+            cid = h.get("_cid")
+            seq = None if cid is None else str(h.get("_seq"))
+            if cid is not None:
+                with self._lock:
+                    per = self._applied_push.get(cid)
+                    if per is not None and seq in per:
+                        # this exact push already applied; its reply was
+                        # lost and the resend must not re-apply
+                        self._bump("push_replays")
+                        wire_counters.inc("rpc_dedup_hits")
+                        return {"ok": True}, {}
+            keys = self._resolve_keys(h, arrays)
+            if keys is None:
+                # _transient: nothing committed — the reply cache must NOT
+                # pin this bounce, so the keyed follow-up (same seq) re-runs
+                return {"ok": True, "need_keys": True, "_transient": True}, {}
+            g = self._decode_grad(h, arrays).reshape(len(keys), -1)
+            if (
+                self._apply_q is not None
+                and self._apply_thread is not None
+                and cid is not None
+            ):
+                # batched apply engine: enqueue the DECODED push and defer
+                # the reply — the serving thread keeps draining buffered
+                # requests and the RPC layer settles this reply once the
+                # batch applied, so an acked push is an applied one. Raw
+                # no-cid frames and a handler driven directly (no
+                # start()) keep the inline path.
+                item = _QueuedPush(
+                    _host_array(keys, np.int64), _host_array(g, np.float32),
+                    cid, seq,
+                )
+                self._enqueue_push(item)
+                return DeferredReply(item.future), {}
+            # serial path ([server] apply_queue = 0): apply inline under
+            # the apply lock
+            with self._lock:
+                self._apply(keys, g)
+                if cid is not None:
+                    self._record_push(cid, seq)
+            self._bump("pushes")
+            return {"ok": True}, {}
+        if cmd == "dump":
+            return {"ok": True, "begin": self.range.begin, "end": self.range.end}, {
+                "w": self.weights()
+            }
+        if cmd == "stats":
+            return {
+                "ok": True,
+                **self.counters,
+                # NOT the key "ver": that is a binary-header-v2 slot, and
+                # stats replies stay v1-decodable
+                "state_ver": self.version,
+                "bytes_out": self.server.bytes_out,
+                "bytes_in": self.server.bytes_in,
+                "frames_in": self.server.frames_in,
+                "cached_sigs": len(self._key_cache),
+                # process-wide counters, as the JAX server reports them
+                "rpc_dedup_hits": wire_counters.get("rpc_dedup_hits"),
+                "wire_quant_bytes_saved": wire_counters.get(
+                    "wire_quant_bytes_saved"
+                ),
+            }, {}
+        if cmd == "shutdown":
+            raise RpcServer.Shutdown
+        raise ValueError(f"unknown server command {cmd!r}")
+
+    def _handle_pull(
+        self, h: dict[str, Any], arrays: Arrays
+    ) -> tuple[dict[str, Any], Arrays]:
+        """The read path: the keys' weights from one published state,
+        as float32 rows or, for a quant-negotiated ``quant`` request,
+        round-to-nearest per-segment integers."""
+        serving = [f for f in SERVING_FIELDS if f in h]
+        if serving:
+            raise ValueError(
+                f"pull fields {serving} belong to the serving plane, which "
+                "is not ported yet to parameter_server_tpu_torch"
+            )
+        keys = self._resolve_keys(h, arrays)
+        if keys is None:
+            return {"ok": True, "need_keys": True}, {}
+        w = self._gather_weights(keys)
+        self._bump("pulls")
+        qn = int(h.get("quant", 0))
+        if qn:
+            # quantized pull (read-mostly traffic): round-to-NEAREST, not
+            # stochastic — reads have no error-feedback loop, and repeated
+            # reads of one unchanged state stay bit-identical
+            from parameter_server_tpu_torch.filters.quant import SegmentQuantizer
+
+            qz = SegmentQuantizer(qn, int(h.get("qseg", 256)))
+            q, qs = qz.encode_nearest(w.ravel())
+            wire_counters.inc(
+                "wire_quant_bytes_saved",
+                max(w.nbytes - q.nbytes - qs.nbytes, 0),
+            )
+            return {"ok": True, "codec": qn, "qseg": qz.seg}, {"q": q, "qs": qs}
+        return {"ok": True, "zip": h.get("zip", False)}, {"w": w.ravel()}
+
+    def _decode_grad(self, h: dict[str, Any], arrays: Arrays) -> np.ndarray:
+        """The push's float32 gradient on the host: as sent, the
+        per-segment codec (``"qwire"``) decoded on the host, or the
+        fixed-point codec decoded on this server's device."""
+        codec_bytes = int(h.get("codec", 0))
+        if not codec_bytes:
+            return arrays["g"]
+        if "qs" in arrays:
+            from parameter_server_tpu_torch.filters.quant import SegmentQuantizer
+
+            qz = SegmentQuantizer(codec_bytes, int(h.get("qseg", 256)))
+            return qz.decode(arrays["q"], arrays["qs"])
+        # legacy whole-array affine codec (filters/fixed_point, the
+        # un-negotiated [filter] fixing_float_bytes knob)
+        from parameter_server_tpu_torch.filters.fixed_point import (
+            Encoded,
+            FixedPointCodec,
+        )
+
+        def dev(a):
+            return torch.from_numpy(_host_array(a)).to(self.device)
+
+        e = Encoded(dev(arrays["q"]), dev(arrays["lo"])[0], dev(arrays["scale"])[0])
+        return FixedPointCodec(num_bytes=codec_bytes).decode(e).cpu().numpy()
+
+
+class ServerHandle:
+    """Worker-side proxy to one shard server, applying the send filters
+    (ref: SharedParameter's per-call FilterConfigs). ``device`` is where
+    the fixed-point codec encodes (``[filter] fixing_float_bytes``): K4
+    on the card."""
+
+    def __init__(
+        self,
+        address: str,
+        rank: int,
+        worker: int,
+        cfg: PSConfig,
+        range_size: int = 0,
+        resolve_addr=None,  # () -> current address, for server-restart recovery
+        reconnect_timeout_s: float | None = None,
+        serving: bool = False,
+        device: Any = "cuda",
+    ):
+        if serving:
+            raise NotImplementedError(
+                "serving handles (the client key cache, filters/keycache.py) "
+                "are not ported yet to parameter_server_tpu_torch"
+            )
+        self.device = resolve_device(device)
+        self.rank = rank
+        self.worker = worker
+        self._resolve_addr = resolve_addr
+        self._reconnect_timeout_s = (
+            reconnect_timeout_s
+            if reconnect_timeout_s is not None
+            else cfg.fault.reconnect_timeout_s
+        )
+        # client-internal same-address retry window: short, so transient
+        # connection loss heals in place with the SAME sequence numbers
+        # (dedup-safe), while a genuinely moved server falls through to
+        # the resolver loop in _keyed_call quickly
+        self._client_window_s = min(3.0, self._reconnect_timeout_s)
+        self._pipeline_window = max(1, cfg.wire.window)
+        self._hdr_codec = cfg.wire.hdr_codec
+        if cfg.wire.adaptive_window:
+            raise NotImplementedError(
+                "[wire] adaptive_window is not ported yet to parameter_server_tpu_torch"
+            )
+        # quantized push transport ([wire] quant, filters/quant.py):
+        # negotiated per connection via the "qwire" feature advert —
+        # until (unless) the peer acks, pushes stay on the float path
+        qmode = cfg.wire.quant
+        if qmode not in ("off", "int8", "int16"):
+            raise ValueError(
+                f"[wire] quant must be off|int8|int16, got {qmode!r}"
+            )
+        self._quant_bytes = {"off": 0, "int8": 1, "int16": 2}[qmode]
+        self._quant_pull = bool(cfg.wire.quant_pull) and self._quant_bytes > 0
+        self._features = (
+            frozenset({"qwire"}) if self._quant_bytes else frozenset()
+        )
+        if self._quant_bytes:
+            from parameter_server_tpu_torch.filters.quant import SegmentQuantizer
+
+            self._quantizer = SegmentQuantizer(
+                self._quant_bytes, max(1, int(cfg.wire.quant_seg))
+            )
+        # error-feedback accumulator: the residual each quantized push
+        # loses to rounding, folded into the NEXT push of the same keys.
+        # Folded exactly once per logical push at encode time (resends
+        # reuse the encoded payload), guarded by its own lock so a
+        # recovery-thread re-encode can never race the worker loop.
+        self._res_lock = threading.Lock()
+        self._residual: np.ndarray | None = None
+        self._res_vdim = 0
+        self._res_range = int(range_size)
+        self._res_map: dict[int, int] | None = None
+        self.client = RpcClient(
+            address, reconnect_timeout_s=self._client_window_s,
+            window=self._pipeline_window,
+            hdr_codec=self._hdr_codec,
+            features=self._features,
+        )
+        # a worker's pull and in-flight push threads share this handle;
+        # concurrent failures must rebuild the connection once — the
+        # generation counter lets a late-arriving failing thread see that
+        # another thread already replaced the client and just retry
+        self._reconnect_lock = threading.Lock()
+        # the recovery executor's own lock: the client's reader thread
+        # calls _recovery() from a completion callback and must never park
+        # behind a thread sleeping inside _reconnect
+        self._pool_lock = threading.Lock()
+        self._conn_gen = 0
+        self._sent_sigs = _LruSigs()
+        self._key_caching = cfg.filter.key_caching
+        self._zip = cfg.filter.compressing
+        self._codec_bytes = cfg.filter.fixing_float_bytes
+        # local (range-relative) keys ride the wire as u32 when the range
+        # fits, u64 otherwise — a silent u32 truncation at 10^9+ feature
+        # scale would corrupt the model
+        self._key_dtype = (
+            np.uint64 if range_size > (1 << 32) else np.uint32
+        )
+        # atomic: concurrent in-flight push threads must not reuse a
+        # stochastic-rounding seed
+        self._quant_seed = itertools.count()
+        # logical-call sequence numbers ("k<n>" — a namespace disjoint from
+        # RpcClient's internal integer counter): one per _keyed_call, held
+        # constant across client rebuilds so every delivery of a logical
+        # push is one dedup identity on the server
+        self._kseq = itertools.count()
+        # lazy single-thread executor for the RESOLVER retry path of async
+        # calls: a reader thread completing a failed future must never run
+        # the blocking reconnect loop itself
+        self._recovery_pool: ThreadPoolExecutor | None = None
+        if self._codec_bytes:
+            from parameter_server_tpu_torch.filters.fixed_point import FixedPointCodec
+
+            self._codec = FixedPointCodec(num_bytes=self._codec_bytes)
+
+    def _keyed_call(
+        self, cmd: str, keys: np.ndarray, arrays: Arrays,
+        lseq: str | None = None, **fields,
+    ):
+        """Issue a keyed request, sending the key list only when the server
+        doesn't hold it (key-caching filter, worker side). A lost
+        connection triggers reconnect-and-retry against the (possibly
+        relaunched) server when a resolver was provided. ``lseq`` re-enters
+        a logical call that already holds a dedup identity (the async
+        recovery path); fresh calls allocate their own."""
+        if lseq is None:
+            lseq = f"k{next(self._kseq)}"
+        gen = self._conn_gen
+        try:
+            return self._keyed_call_once(cmd, keys, arrays, lseq, **fields)
+        except (ConnectionError, BrokenPipeError, OSError):
+            if self._resolve_addr is None:
+                raise
+        # retry until the reconnect window closes: a connect can land in a
+        # dying listen socket's backlog and reset on first use
+        t0 = time.monotonic()
+        deadline = t0 + self._reconnect_timeout_s
+        while True:
+            self._reconnect(gen, deadline)
+            gen = self._conn_gen
+            try:
+                return self._keyed_call_once(cmd, keys, arrays, lseq, **fields)
+            except (ConnectionError, BrokenPipeError, OSError) as e:
+                if time.monotonic() > deadline:
+                    raise ConnectionError(
+                        f"server rank {self.rank} kept resetting for "
+                        f"{time.monotonic() - t0:.1f}s across reconnects: {e}"
+                    ) from e
+                time.sleep(0.3)
+
+    def _reconnect(self, failed_gen: int, deadline: float | None = None) -> None:
+        """Rebuild the connection to wherever this rank's server now lives.
+        The relaunch starts with an empty key cache, so our sent-signature
+        memory is dropped.
+
+        failed_gen: the connection generation the caller's failure was
+        observed on — if another thread already replaced that connection,
+        this call must NOT tear the fresh one down, just retry on it."""
+        if deadline is None:
+            deadline = time.monotonic() + self._reconnect_timeout_s
+        with self._reconnect_lock:
+            if self._conn_gen != failed_gen:
+                return  # a concurrent failure already rebuilt the client
+            self.client.close()
+            # the rebuilt client must BE the old one to the server's dedup
+            # machinery: same cid so retried "k<n>" seqs are recognized,
+            # start_seq past the old internal counter so fresh un-keyed
+            # calls (dump/stats) can't collide with cached old replies
+            cid, next_seq = self.client.identity
+            last: Exception | None = None
+            while time.monotonic() < deadline:
+                try:
+                    addr = self._resolve_addr()
+                    self.client = RpcClient(
+                        addr, retries=1,
+                        reconnect_timeout_s=self._client_window_s,
+                        cid=cid, start_seq=next_seq,
+                        window=self._pipeline_window,
+                        hdr_codec=self._hdr_codec,
+                        features=self._features,
+                    )
+                    self._sent_sigs = _LruSigs()
+                    self._conn_gen += 1
+                    return
+                except (ConnectionError, OSError) as e:
+                    last = e
+                    time.sleep(0.3)
+        raise ConnectionError(
+            f"server rank {self.rank} unreachable for "
+            f"{self._reconnect_timeout_s}s: {last}"
+        )
+
+    def _keyed_call_once(
+        self, cmd: str, keys: np.ndarray, arrays: Arrays, lseq: str, **fields
+    ):
+        sig = _sig(keys)
+        send_keys = not (self._key_caching and sig in self._sent_sigs)
+        payload = dict(arrays)
+        if send_keys:
+            payload["keys"] = keys.astype(self._key_dtype)
+        rep, out = self.client.call(
+            cmd, arrays=payload, worker=self.worker, sig=sig,
+            zip=self._zip, _seq=lseq, **fields,
+        )
+        if rep.get("need_keys"):  # cache miss on a sig we believed was cached
+            # SAME lseq: a need_keys bounce is marked non-committing server
+            # side, so this follow-up re-runs the handler while the logical
+            # mutation keeps a single dedup identity end to end
+            payload["keys"] = keys.astype(self._key_dtype)
+            rep, out = self.client.call(
+                cmd, arrays=payload, worker=self.worker, sig=sig,
+                zip=self._zip, _seq=lseq, **fields,
+            )
+        self._sent_sigs.put(sig)
+        return rep, out
+
+    # -- async (pipelined) issue path -------------------------------------
+
+    def _keyed_call_async(
+        self, cmd: str, keys: np.ndarray, arrays: Arrays, **fields
+    ):
+        """Async twin of ``_keyed_call``: issues the request onto the
+        client's pipelined window and returns a Future of (rep, arrays).
+        The need_keys bounce re-issues with the SAME "k<n>" seq from the
+        completion callback (``_urgent``: a reader thread must not block
+        on window space it is responsible for freeing), and a connection
+        that outlives the client's own heal window falls back to the
+        blocking resolver retry loop on the handle's recovery thread."""
+        outer: Future = Future()
+        lseq = f"k{next(self._kseq)}"
+        sig = _sig(keys)
+        send_keys = not (self._key_caching and sig in self._sent_sigs)
+        payload = dict(arrays)
+        if send_keys:
+            payload["keys"] = keys.astype(self._key_dtype)
+
+        def on_reply(f, bounced: bool = False) -> None:
+            # NOTHING may escape this callback: concurrent.futures logs
+            # and swallows done-callback exceptions, which would leave
+            # ``outer`` unresolved and its waiter parked forever
+            try:
+                try:
+                    rep, out = f.result()
+                except (ConnectionError, BrokenPipeError, OSError):
+                    if self._resolve_addr is None:
+                        raise
+                    self._recovery().submit(
+                        self._recover_async, cmd, keys, arrays, lseq,
+                        fields, outer,
+                    )
+                    return
+                if rep.get("need_keys"):
+                    if bounced:  # keys were in the frame: a repeat is a bug
+                        raise RuntimeError(
+                            f"server rank {self.rank} bounced a keyed {cmd}"
+                        )
+                    p2 = dict(arrays)
+                    p2["keys"] = keys.astype(self._key_dtype)
+                    f2 = self.client.call_async(
+                        cmd, arrays=p2, worker=self.worker, sig=sig,
+                        zip=self._zip, _seq=lseq, _urgent=True, **fields,
+                    )
+                    f2.add_done_callback(lambda g: on_reply(g, bounced=True))
+                    return
+                self._sent_sigs.put(sig)
+                outer.set_result((rep, out))
+            except BaseException as e:  # noqa: BLE001 — future boundary
+                if not outer.done():
+                    outer.set_exception(e)
+
+        try:
+            f1 = self.client.call_async(
+                cmd, arrays=payload, worker=self.worker, sig=sig,
+                zip=self._zip, _seq=lseq, **fields,
+            )
+        except (ConnectionError, BrokenPipeError, OSError):
+            if self._resolve_addr is None:
+                raise
+            self._recovery().submit(
+                self._recover_async, cmd, keys, arrays, lseq, fields, outer
+            )
+            return outer
+        f1.add_done_callback(on_reply)
+        return outer
+
+    def _recover_async(
+        self, cmd, keys, arrays, lseq, fields, outer
+    ) -> None:
+        """Recovery-thread tail of a failed async call: the synchronous
+        resolver retry loop, completing the caller's outer future."""
+        try:
+            outer.set_result(
+                self._keyed_call(cmd, keys, arrays, lseq=lseq, **fields)
+            )
+        except BaseException as e:  # noqa: BLE001 — future boundary
+            outer.set_exception(e)
+
+    def _recovery(self) -> ThreadPoolExecutor:
+        with self._pool_lock:
+            if self._recovery_pool is None:
+                self._recovery_pool = ThreadPoolExecutor(
+                    max_workers=1,
+                    thread_name_prefix=f"ps-recover-{self.rank}",
+                )
+            return self._recovery_pool
+
+    def pull_async(self, local_keys: np.ndarray):
+        """Issue a pull without blocking; Future of the float32 rows."""
+        out_f: Future = Future()
+        if len(local_keys) == 0:
+            out_f.set_result(np.zeros(0, dtype=np.float32))
+            return out_f
+        inner = self._keyed_call_async(
+            "pull", local_keys, {}, **self._pull_fields()
+        )
+
+        def done(f) -> None:
+            # nothing may escape (see _keyed_call_async.on_reply)
+            try:
+                _, out = f.result()
+                out_f.set_result(self._decode_pull(out))
+            except BaseException as e:  # noqa: BLE001 — future boundary
+                if not out_f.done():
+                    out_f.set_exception(e)
+
+        inner.add_done_callback(done)
+        return out_f
+
+    def push_async(self, local_keys: np.ndarray, grads: np.ndarray):
+        """Issue a push without blocking; the Future resolves (to None)
+        once the server acked the apply."""
+        done_f: Future = Future()
+        if len(local_keys) == 0:
+            done_f.set_result(None)
+            return done_f
+        fields, arrays = self._encode_push(local_keys, grads)
+        inner = self._keyed_call_async("push", local_keys, arrays, **fields)
+
+        def done(f) -> None:
+            # nothing may escape (see _keyed_call_async.on_reply)
+            try:
+                f.result()
+                done_f.set_result(None)
+            except BaseException as e:  # noqa: BLE001 — future boundary
+                if not done_f.done():
+                    done_f.set_exception(e)
+
+        inner.add_done_callback(done)
+        return done_f
+
+    # -- error-feedback accumulator (quantized transport) ------------------
+
+    #: above this many rows the accumulator switches from a dense
+    #: range-indexed array to a compact touched-keys-only map — a sparse
+    #: workload on a 10^9-key shard must not allocate the whole range
+    #: client-side just because one high key was pushed
+    _DENSE_RESIDUAL_ROWS = 1 << 22
+
+    def _res_rows(self, keys: np.ndarray, vdim: int) -> np.ndarray:
+        """Row indices into the residual buffer for ``keys``, allocating
+        as needed (caller holds ``_res_lock``). Small known ranges index
+        the buffer by the range-relative key directly; large or unknown
+        ranges go through a compact key->row map."""
+        if self._residual is None or self._res_vdim != vdim:
+            self._residual = np.zeros((0, vdim), np.float32)
+            self._res_vdim = vdim
+            self._res_map = (
+                None
+                if 0 < self._res_range <= self._DENSE_RESIDUAL_ROWS
+                else {}
+            )
+        if self._res_map is None:
+            rows = keys
+            hi = int(keys.max()) + 1 if len(keys) else 0
+        else:
+            m = self._res_map
+            rows = np.empty(len(keys), np.int64)
+            for i, k in enumerate(keys.tolist()):
+                j = m.get(k)
+                if j is None:
+                    j = m[k] = len(m)
+                rows[i] = j
+            hi = len(m)
+        if hi > len(self._residual):
+            grown = np.zeros(
+                (max(hi, 2 * len(self._residual)), vdim), np.float32
+            )
+            grown[: len(self._residual)] = self._residual
+            self._residual = grown
+        return rows
+
+    def residual_rows(self, keys: np.ndarray) -> np.ndarray:
+        """Current residual rows for ``keys``, zeros where nothing
+        accumulated. Strictly read-only: it never allocates map entries
+        or grows the buffer."""
+        with self._res_lock:
+            if self._residual is None:
+                return np.zeros((len(keys), 1), np.float32)
+            out = np.zeros((len(keys), self._res_vdim), np.float32)
+            if self._res_map is None:
+                known = keys < len(self._residual)
+                out[known] = self._residual[keys[known]]
+            else:
+                m = self._res_map
+                for i, k in enumerate(keys.tolist()):
+                    j = m.get(k)
+                    if j is not None:
+                        out[i] = self._residual[j]
+            return out
+
+    def residual_norm(self) -> float:
+        """Mean |residual| over allocated rows."""
+        with self._res_lock:
+            if self._residual is None:
+                return 0.0
+            n = (
+                len(self._res_map)
+                if self._res_map is not None
+                else len(self._residual)
+            )
+            if n == 0:
+                return 0.0
+            return float(np.abs(self._residual[:n]).mean())
+
+    def _encode_push(
+        self, local_keys: np.ndarray, grads: np.ndarray
+    ) -> tuple[dict[str, Any], Arrays]:
+        """Apply the send filters to one push payload: the negotiated
+        per-segment quantized codec with error feedback, the legacy
+        fixed-point filter, else f32.
+
+        Called exactly once per LOGICAL push — transport resends, the
+        need_keys bounce and the keyed-seq recovery path all reuse the
+        returned arrays — so the residual fold happens exactly once. The
+        per-segment codec is the JAX handle's numpy encode with the same
+        seed counter, so its payload is the JAX handle's byte for byte;
+        the fixed-point codec encodes on this handle's device (K4 on the
+        card), where the JAX handle draws from threefry: those payloads
+        agree with the JAX handle's in distribution only."""
+        fields: dict[str, Any] = {"codec": 0}
+        g = grads.astype(np.float32, copy=False).reshape(len(local_keys), -1)
+        if self._quant_bytes and "qwire" in self.client.peer_features:
+            with self._res_lock:
+                rows = self._res_rows(local_keys, g.shape[1])
+                g_tot = g + self._residual[rows]
+                q, qs = self._quantizer.encode(next(self._quant_seed), g_tot)
+                res = g_tot - self._quantizer.decode(q, qs).reshape(
+                    g_tot.shape
+                )
+                self._residual[rows] = res
+            arrays: Arrays = {"q": q, "qs": qs}
+            fields["codec"] = self._quant_bytes
+            fields["qseg"] = self._quantizer.seg
+            wire_counters.inc(
+                "wire_quant_bytes_saved",
+                max(int(g_tot.nbytes) - q.nbytes - qs.nbytes, 0),
+            )
+        elif self._quant_bytes:
+            # quant configured but the peer never acked "qwire" (the
+            # pre-negotiation first frames, or an old server): float path
+            # — flushing any residual accumulated before a downgrade so no
+            # gradient mass is ever stranded
+            with self._res_lock:
+                if self._residual is not None and len(self._residual):
+                    rows = self._res_rows(local_keys, g.shape[1])
+                    g = g + self._residual[rows]  # fresh buffer
+                    self._residual[rows] = 0.0
+                else:
+                    g = np.array(g, dtype=np.float32)  # own the buffer
+            arrays = {"g": g}
+        elif self._codec_bytes:
+            x = torch.from_numpy(np.array(grads, dtype=np.float32)).to(self.device)
+            e = self._codec.encode(next(self._quant_seed), x)
+            arrays = {
+                "q": e.q.cpu().numpy(),
+                "lo": e.lo.cpu().numpy()[None],
+                "scale": e.scale.cpu().numpy()[None],
+            }
+            fields["codec"] = self._codec_bytes
+        else:
+            # own the buffer (np.array always copies): the async pipeline
+            # serializes at send — and heal RESEND — time, so aliasing
+            # the caller's gradient array would let a reused buffer
+            # silently corrupt an in-flight push
+            arrays = {"g": np.array(g, dtype=np.float32)}
+        # push payload accounting (pre-compression, keys excluded)
+        wire_counters.inc(
+            "wire_push_payload_bytes",
+            sum(int(a.nbytes) for a in arrays.values()),
+        )
+        return fields, arrays
+
+    # -- quantized pull (read-mostly traffic) ------------------------------
+
+    def _pull_fields(self) -> dict[str, Any]:
+        """Extra pull request fields: ask for quantized rows only once
+        the peer negotiated the codec ([wire] quant_pull)."""
+        if self._quant_pull and "qwire" in self.client.peer_features:
+            return {"quant": self._quant_bytes, "qseg": self._quantizer.seg}
+        return {}
+
+    def _decode_pull(self, out: Arrays) -> np.ndarray:
+        """Decode one pull reply: quantized rows when the server sent
+        them, the float rows otherwise."""
+        if "q" in out:
+            return self._quantizer.decode(out["q"], out["qs"])
+        return out["w"].astype(np.float32)
+
+    def pull(self, local_keys: np.ndarray) -> np.ndarray:
+        if len(local_keys) == 0:
+            return np.zeros(0, dtype=np.float32)
+        _, out = self._keyed_call("pull", local_keys, {}, **self._pull_fields())
+        return self._decode_pull(out)
+
+    def push(self, local_keys: np.ndarray, grads: np.ndarray) -> None:
+        if len(local_keys) == 0:
+            return
+        fields, arrays = self._encode_push(local_keys, grads)
+        self._keyed_call("push", local_keys, arrays, **fields)
+
+    def dump(self) -> tuple[int, np.ndarray]:
+        rep, out = self.client.call("dump")
+        return int(rep["begin"]), out["w"]
+
+    def stats(self) -> dict[str, Any]:
+        rep, _ = self.client.call("stats")
+        return {k: v for k, v in rep.items() if k != "ok"}
+
+    def shutdown(self) -> None:
+        self.client.call("shutdown")
+
+    def close(self) -> None:
+        self.client.close()
+        if self._recovery_pool is not None:
+            self._recovery_pool.shutdown(wait=False)

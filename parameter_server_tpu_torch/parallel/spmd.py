@@ -287,13 +287,22 @@ def push_generator(
     return torch.Generator(device=device).manual_seed(seed)
 
 
+def int8_scale(grad: torch.Tensor) -> torch.Tensor:
+    """max|g| / 127 + 1e-30, the quotient rounded once on every device. On a
+    CUDA tensor PyTorch divides by a Python scalar as a product with its
+    float32 reciprocal, one ulp away at times, so the divisor is a tensor on
+    the gradient's device."""
+    top = grad.abs().max()
+    return top / torch.full((), 127.0, dtype=top.dtype, device=top.device) + 1e-30
+
+
 def quantize_int8(
     grad: torch.Tensor, generator: torch.Generator
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 with one scale and stochastic (unbiased) rounding, as
     the JAX quantized push: scale = max|g| / 127 + 1e-30, t = g / scale,
     q = floor(t) + (u < t - floor(t)), clipped to [-127, 127]."""
-    scale = grad.abs().max() / 127.0 + 1e-30
+    scale = int8_scale(grad)
     t = grad / scale
     floor = torch.floor(t)
     u = torch.rand(grad.shape, generator=generator, device=grad.device)
@@ -309,7 +318,7 @@ def audit_rounding(audit: dict, grad: torch.Tensor, q: torch.Tensor,
     t = g / scale. Adds to ``audit``'s "pushes" (an int), "off_grid" and
     "scale_mismatch" (device counts, read when the run ends, so the audit
     adds no host sync)."""
-    want = grad.abs().max() / 127.0 + 1e-30
+    want = int8_scale(grad)
     fl = torch.floor(grad / want)
     qf = q.to(grad.dtype)
     off = ((qf != fl) & (qf != fl + 1)).sum()

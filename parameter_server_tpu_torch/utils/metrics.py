@@ -1,8 +1,11 @@
-"""The training progress table (the JAX package's ``ProgressReporter``)."""
+"""The training progress table (the JAX package's ``ProgressReporter``),
+and a copy of the wire tier's counters (``CounterSet``, the process-global
+``wire_counters``)."""
 
 from __future__ import annotations
 
 import json
+import threading
 import time
 from pathlib import Path
 from typing import Any
@@ -58,3 +61,76 @@ class ProgressReporter:
             else:
                 cells.append(f"{v!s:>12}")
         self._print("  ".join(cells))
+
+
+class CounterSet:
+    """Thread-safe named monotonic counters (ref: the Postoffice per-node
+    counter tables). One process-global instance, ``wire_counters``, is the
+    observability spine of the self-healing control plane: RpcClient bumps
+    ``rpc_retries``/``rpc_reconnects`` on every mid-call failure it
+    absorbs, RpcServer bumps ``rpc_dedup_hits`` when the reply cache
+    suppresses a resent/duplicated non-idempotent command — so a recovery
+    test can assert not just that a run survived but that the machinery it
+    claims to test actually engaged."""
+
+    def __init__(self) -> None:
+        self._d: dict[str, int] = {}
+        # windowed high-watermarks: the same *_peak gauges, but reset at
+        # every roll_peaks snapshot — so the telemetry plane reports
+        # peak-since-last-snapshot and a one-time spike DECAYS out of
+        # ``cli stats`` instead of latching forever
+        self._win: dict[str, int] = {}
+        self._lock = threading.Lock()
+
+    def inc(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._d[name] = self._d.get(name, 0) + n
+
+    def inc_many(self, items: dict[str, int]) -> None:
+        """Several counters under ONE lock acquisition (hot-path callers
+        like the header codec bump two per frame)."""
+        with self._lock:
+            d = self._d
+            for name, n in items.items():
+                d[name] = d.get(name, 0) + n
+
+    def observe_max(self, name: str, v: int) -> None:
+        """High-watermark counter (e.g. ``rpc_inflight_peak``: the deepest
+        pipelined request window any connection actually reached).
+        Tracked twice: cumulative (``get``/plain ``snapshot``) and per
+        telemetry window (``snapshot(roll_peaks=True)``)."""
+        with self._lock:
+            if v > self._d.get(name, 0):
+                self._d[name] = v
+            if v > self._win.get(name, 0):
+                self._win[name] = v
+
+    def get(self, name: str) -> int:
+        with self._lock:
+            return self._d.get(name, 0)
+
+    def snapshot(self, roll_peaks: bool = False) -> dict[str, int]:
+        """Counter snapshot. ``roll_peaks=True`` (the telemetry/heartbeat
+        path) reports each ``observe_max`` gauge's peak SINCE THE LAST
+        ROLL and resets that window — so the cluster dashboard shows
+        recent peaks, not peak-since-boot; ``get()`` and the default
+        snapshot keep the cumulative value for tests and process-exit
+        reporting."""
+        with self._lock:
+            out = dict(self._d)
+            if roll_peaks:
+                out.update(self._win)
+                for k in self._win:
+                    self._win[k] = 0
+            return out
+
+    def reset(self) -> None:
+        """Zero everything (tests only: production counters are cumulative
+        for the life of the process, like the reference's)."""
+        with self._lock:
+            self._d.clear()
+            self._win.clear()
+
+
+#: process-global wire/recovery counters (see CounterSet docstring)
+wire_counters = CounterSet()

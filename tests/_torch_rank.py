@@ -18,7 +18,10 @@ plan's cases and writes its results to ``<plan out>/rank<r>.npz``. Modes:
   (``<stream>/b<i>/<field>``), predicts, dumps; the slots of every fused
   push are recorded;
 - ``w2v``: ``Word2Vec(mesh=...)`` runs ``train_epoch`` on the plan's
-  corpus or ``train_files`` on its files.
+  corpus or ``train_files`` on its files;
+- ``backend``: ``MeshBackend`` on the world's mesh: pushes into a table of
+  the plan's awkward size, ``train_linear`` on the plan's workload (f32
+  and int8), and the int8 error feedback's telescoping pushes.
 
 ``<mode>`` may name several modes, joined by "+", run in one world.
 
@@ -253,6 +256,38 @@ def _w2v(rt, plan: dict, inputs) -> dict:
     return out
 
 
+def _backend(rt, plan: dict, inputs) -> dict:
+    from parameter_server_tpu_torch.kv.updaters import Ftrl, Sgd
+    from parameter_server_tpu_torch.parallel.backend import train_linear
+    from parameter_server_tpu_torch.parallel.meshbackend import MeshBackend
+
+    out = {}
+    mb = MeshBackend(Sgd(eta=0.5), plan["odd_keys"], mesh=rt.mesh)
+    keys = np.asarray(plan["odd_push"], dtype=np.int64)
+    mb.push(keys, np.ones(len(keys), np.float32))
+    out["odd/rows"] = np.array([mb._rows, mb._shard])
+    out["odd/weights"] = mb.weights()
+    out["odd/pull"] = mb.pull(keys)
+    out["odd/pull_async"] = mb.pull_async(keys).result(30)
+    mb.close()
+    for quant in ("off", "int8"):
+        mb = MeshBackend(Ftrl(**plan["ftrl"]), plan["num_keys"], mesh=rt.mesh, quant=quant)
+        res = train_linear(mb, inputs["kb"], inputs["y"], plan["batch"])
+        out[f"train_{quant}/probs"] = res["probs"]
+        out[f"train_{quant}/auc"] = np.array(res["auc"])
+        out[f"train_{quant}/weights"] = mb.weights()
+        mb.close()
+    mb = MeshBackend(Sgd(eta=1.0), 256, mesh=rt.mesh, quant="int8", quant_seg=32)
+    tkeys = np.arange(1, 129, dtype=np.int64)
+    for i in range(6):
+        mb.push(tkeys, inputs[f"tele{i}"])
+    mb.flush()
+    out["tele/weights"] = mb.weights()[tkeys]
+    out["tele/residual"] = mb.residual_rows(tkeys)
+    mb.close()
+    return out
+
+
 def main(argv: list[str]) -> int:
     if argv[0] == "cli":  # python tests/_torch_rank.py cli <cli train arguments>
         from parameter_server_tpu_torch import cli
@@ -275,7 +310,8 @@ def main(argv: list[str]) -> int:
         rt = runtime.init(f"127.0.0.1:{port}", int(world), int(rank), kv_shards=kv,
                           data_shards=d, device="cpu")
     try:
-        modes = {"spmd": _spmd, "mf": _mf, "pod": _pod, "wd": _wd, "w2v": _w2v}
+        modes = {"spmd": _spmd, "mf": _mf, "pod": _pod, "wd": _wd, "w2v": _w2v,
+                 "backend": _backend}
         out = {}
         for m in mode.split("+"):
             out.update(modes[m](rt, plan, inputs))

@@ -212,6 +212,20 @@ def test_quantize_kernel_matches_plain(dev, n, num_bytes):
 
 
 @pytest.mark.cuda
+def test_int8_push_scale_on_card_equals_cpu_quotient(dev):
+    """The quantized push's scale is max|g| / 127 + 1e-30 rounded once on
+    the card as on the CPU, bit for bit, over 4096 maxima (a product with
+    float32(1/127) is one ulp away for some of them)."""
+    from parameter_server_tpu_torch.parallel.spmd import int8_scale
+
+    rng = np.random.default_rng(5)
+    tops = (rng.random(4096) * 1e3).astype(np.float32)
+    want = tops / np.float32(127.0) + np.float32(1e-30)
+    got = [int8_scale(torch.tensor([[-t], [t / 2]], device=dev)).item() for t in tops]
+    assert np.array_equal(np.asarray(got, dtype=np.float32), want)
+
+
+@pytest.mark.cuda
 def test_quantize_keeps_lo_and_scale_on_the_card(dev):
     codec = FixedPointCodec(1)
     x = torch.randn(1 << 16, device=dev)
@@ -429,3 +443,160 @@ def test_local_push_repeated_ids_takes_no_fused_push(dev, kind, vdim, kv, k):
                 all_grad[:, :m], begin, s)
     torch.cuda.synchronize()
     assert (ak.LAUNCHES["adagrad_push"] if kind == "adagrad" else fk.LAUNCHES["ftrl_push"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# the wire tier: shard servers and backends on the card
+# ---------------------------------------------------------------------------
+
+
+def _wire_pushes(rng, size: int, vdim: int, rounds: int = 4):
+    """Sorted unique local key sets, local row 0 in every other one."""
+    out = []
+    for r in range(rounds):
+        keys = np.unique(rng.integers(0, size, 700))
+        if r % 2 == 0:
+            keys = np.union1d(keys, [0])
+        out.append((keys, rng.normal(size=(len(keys), vdim)).astype(np.float32)))
+    return out
+
+
+def _unique_index_guard(monkeypatch, counts: dict):
+    """Wrap the store's K1 and K3 wrappers: every launch's index must hold
+    each row once (the kernels store without atomics)."""
+    from parameter_server_tpu_torch.kv import store as kv_store
+
+    def guard(name, fn):
+        def wrapped(a, b, idx, grad, **kw):
+            assert torch.unique(idx).numel() == idx.numel(), f"{name}: repeated row"
+            counts[name] = counts.get(name, 0) + 1
+            return fn(a, b, idx, grad, **kw)
+        return wrapped
+
+    monkeypatch.setattr(kv_store, "ftrl_push", guard("ftrl_push", kv_store.ftrl_push))
+    monkeypatch.setattr(kv_store, "adagrad_push", guard("adagrad_push", kv_store.adagrad_push))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("begin", [0, 3 << 12])
+@pytest.mark.parametrize("algo,vdim", [("ftrl", 1), ("adagrad", 16)])
+def test_shard_server_on_card_launches_its_kernel_and_matches_plain(
+        dev, algo, vdim, begin, monkeypatch):
+    """A card ShardServer applies each push through K1 (FTRL) or K3
+    (AdaGrad), once an apply batch, with no repeated row; its table matches
+    the plain store replayed on the CPU (TOL). Local row 0 is pushed in
+    every other round: on a range that begins above 0 it is a real key."""
+    from parameter_server_tpu_torch.kv.store import KVStore
+    from parameter_server_tpu_torch.kv.updaters import Adagrad, Ftrl
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle, ShardServer
+    from parameter_server_tpu_torch.utils.config import PSConfig
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange
+
+    size = 1 << 12
+
+    def make():
+        return (Ftrl(alpha=0.3, beta=1.0, lambda_l1=0.5, lambda_l2=0.1) if algo == "ftrl"
+                else Adagrad(eta=0.05))
+
+    counts: dict = {}
+    _unique_index_guard(monkeypatch, counts)
+    pushes = _wire_pushes(np.random.default_rng(11), size, vdim)
+    srv = ShardServer(make(), KeyRange(begin, begin + size), vdim=vdim, device="cuda").start()
+    h = ServerHandle(srv.address, 0, 0, PSConfig(), range_size=size, device="cuda")
+    kernel = "ftrl_push" if algo == "ftrl" else "adagrad_push"
+    launches = fk.LAUNCHES if algo == "ftrl" else ak.LAUNCHES
+    try:
+        before = launches[kernel]
+        for keys, g in pushes:
+            h.push(keys, g)
+        got = h.pull(np.arange(size)).reshape(size, vdim)
+        assert launches[kernel] - before == srv.counters["apply_batches"] == len(pushes)
+        assert counts[kernel] == len(pushes)
+    finally:
+        h.shutdown()
+        h.close()
+    store = KVStore(make(), size, vdim=vdim, device="cpu")
+    for keys, g in pushes:
+        store.push(keys, g)
+    want = store.weights().numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    assert np.abs(got[0]).max() > 0  # row 0 moved, as its key was pushed
+
+
+@pytest.mark.cuda
+def test_card_server_concurrent_pushes_coalesce_through_k1(dev, monkeypatch):
+    """8 pipelined pushers against a card FTRL server: every push acked,
+    one K1 launch an apply batch, no launch with a repeated row."""
+    from parameter_server_tpu_torch.kv.updaters import Ftrl
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle, ShardServer
+    from parameter_server_tpu_torch.utils.config import PSConfig
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange
+
+    counts: dict = {}
+    _unique_index_guard(monkeypatch, counts)
+    size = 1 << 14
+    srv = ShardServer(Ftrl(), KeyRange(size, 2 * size), device="cuda").start()
+    hs = [ServerHandle(srv.address, 0, w, PSConfig(), range_size=size, device="cuda")
+          for w in range(8)]
+    rng = np.random.default_rng(5)
+    try:
+        before = fk.LAUNCHES["ftrl_push"]
+        futs = []
+        for _ in range(6):
+            for h in hs:
+                keys = np.unique(rng.integers(0, size, 2000))
+                futs.append(h.push_async(keys, rng.normal(size=len(keys)).astype(np.float32)))
+        for f in futs:
+            f.result(timeout=60)
+        assert srv.counters["pushes"] == 48
+        assert fk.LAUNCHES["ftrl_push"] - before == srv.counters["apply_batches"]
+        assert counts["ftrl_push"] == srv.counters["apply_batches"]
+    finally:
+        hs[0].shutdown()
+        for h in hs:
+            h.close()
+
+
+@pytest.mark.cuda
+def test_backends_on_card_agree_and_launch_k1(dev):
+    """train_linear through the socket backend (2 card servers) and the mesh
+    backend (a world of one on NCCL): the same probabilities, K1 on both."""
+    from parameter_server_tpu_torch.kv.updaters import Ftrl
+    from parameter_server_tpu_torch.parallel.backend import local_socket_backend, train_linear
+    from parameter_server_tpu_torch.parallel.meshbackend import MeshBackend
+
+    num_keys = 1 << 12
+    rng = np.random.default_rng(3)
+    kb = rng.integers(0, num_keys - 1, size=(2048, 16))
+    y = (rng.random(2048) < 0.5).astype(np.float64)
+    probs = {}
+    for kind in ("socket", "mesh"):
+        before = fk.LAUNCHES["ftrl_push"]
+        be = (local_socket_backend(lambda: Ftrl(alpha=1.0, lambda_l1=1e-4), num_keys, 2,
+                                   device="cuda") if kind == "socket"
+              else MeshBackend(Ftrl(alpha=1.0, lambda_l1=1e-4), num_keys, device="cuda"))
+        try:
+            probs[kind] = train_linear(be, kb, y, 256)["probs"]
+        finally:
+            be.close()
+        assert fk.LAUNCHES["ftrl_push"] - before >= 8
+    np.testing.assert_allclose(probs["mesh"], probs["socket"], rtol=0, atol=1e-6)
+
+
+def test_wire_entry_points_raise_without_a_card():
+    """No CPU fallback: without a card the wire tier's entry points raise
+    at their default device (this test runs where there is none)."""
+    from parameter_server_tpu_torch.kv.updaters import Sgd
+    from parameter_server_tpu_torch.parallel.backend import local_socket_backend
+    from parameter_server_tpu_torch.parallel.meshbackend import MeshBackend
+    from parameter_server_tpu_torch.parallel.multislice import ShardServer
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable here")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ShardServer(Sgd(), KeyRange(0, 8))
+    with pytest.raises(RuntimeError, match="cuda"):
+        local_socket_backend(Sgd, 64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        MeshBackend(Sgd(), 64)

@@ -243,3 +243,39 @@ def test_prefetch_pipeline_raises_a_builder_error():
             while pipe.get() is not None:
                 pass
     assert threading.active_count() == before
+
+
+@pytest.mark.parametrize("begin,end,n", [(0, 1 << 12, 2), (7, 1001, 3), (5, 5, 4), (0, 3, 5)])
+def test_key_range_matches_jax(begin, end, n):
+    from parameter_server_tpu.utils.keyrange import KeyRange as JKR
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange as TKR
+
+    t, j = TKR(begin, end), JKR(begin, end)
+    assert [(r.begin, r.end) for r in t.even_divide(n)] == [
+        (r.begin, r.end) for r in j.even_divide(n)]
+    assert t.size == j.size
+    for key in range(begin, end, max(1, (end - begin) // 37)):
+        assert t.contains(key) and t.shard_of(key, n) == j.shard_of(key, n)
+    o = (begin + 2, end + 9)
+    assert (t.intersect(TKR(*o)).begin, t.intersect(TKR(*o)).end) == (
+        j.intersect(JKR(*o)).begin, j.intersect(JKR(*o)).end)
+    with pytest.raises(ValueError):
+        TKR(end + 1, end)
+    with pytest.raises(ValueError):
+        t.even_divide(0)
+
+
+def test_wire_counters_match_jax():
+    from parameter_server_tpu.utils import metrics as JMT
+    from parameter_server_tpu_torch.utils import metrics as TMT
+
+    for mod in (JMT, TMT):
+        c = mod.CounterSet()
+        c.inc("a")
+        c.inc_many({"a": 2, "b": 5})
+        c.observe_max("p", 3)
+        c.observe_max("p", 2)
+        assert c.snapshot() == {"a": 3, "b": 5, "p": 3}
+        assert c.snapshot(roll_peaks=True)["p"] == 3 and c.snapshot(roll_peaks=True)["p"] == 0
+        c.reset()
+        assert c.get("a") == 0

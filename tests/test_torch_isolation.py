@@ -49,6 +49,10 @@ def test_port_imports_without_jax_or_the_jax_package():
     # the SPMD tier, named so that losing a module from the walk shows here
     assert {f"{PKG}.parallel.{m}" for m in (
         "mesh", "runtime", "traffic", "spmd", "trainer", "ssp")} <= set(res["imported"])
+    # the wire tier and the backends, and the copies they need
+    assert {f"{PKG}.parallel.{m}" for m in (
+        "control", "multislice", "backend", "meshbackend")} <= set(res["imported"])
+    assert f"{PKG}.utils.keyrange" in res["imported"]
     assert res["leaked"] == []
     assert res["jax"] == []
 
