@@ -165,12 +165,37 @@ the script exits nonzero without printing a result:
              CPU: socket and mesh probabilities equal (within 1e-6), both
              within E2E_RTOL of the CPU run, the int8 AUC within 0.002 of
              f32; ex/s and push payload bytes per arm; each arm launched K1.
+13. cluster — the cluster as processes (parallel/multislice.py
+             launch_local, cli launch): a scheduler, 2 shard servers and the
+             workers, each a `python -m parameter_server_tpu_torch.cli node`
+             process on the card, over phase 12 (c)'s rows written as 8
+             libsvm files of 8192 rows (one step each) and a validation
+             file of 8192, a 2^24-key table, phase 4's FTRL, key caching
+             and compression on. (a) 1 worker, max_delay 0, one
+             epoch: the model_out weights match the same launch on the CPU
+             (E2E_RTOL), so does the merged objv; each card server launched
+             K1 once an apply batch and nothing else, the worker nothing.
+             (d) The same with AdaGrad: K3 once an apply batch, the weights
+             against the CPU launch's as phase 11 (b)'s AdaGrad tables.
+             (a) and (d), card and CPU, run at once. (b) `cli launch` with
+             2 workers, max_delay 1: every workload done once, no dead
+             worker, both servers pushed and pulled, the validation AUC
+             within CLUSTER_AUC_BOUND of (a)'s, K1 in both servers; the
+             wall time from spawn to result, each node's start-up, the
+             merged ex/s and the servers' pushes/s. (c) 2 epochs, a worker
+             SIGKILLed after the workers' first step (timed from (b)): it
+             is declared dead and the workload ledger balances; beside it a
+             server killed and restarted from its 0.5 s checkpoints: no
+             dead worker, every workload done once, the replacement resumed
+             and launched K1 once an apply batch, the validation AUC within
+             CLUSTER_RESTART_AUC_BOUND of (a)'s. Any node's nonzero exit or
+             a launch past CLUSTER_TIMEOUT_S fails the phase.
 
 Launch counters are reset just before each of phases 4-7, the round trip
 of phase 8, the training runs of phases 9 and 10, each mode of phase
-11 (a) and each arm of phase 12, and read just after; phase 11 (b)'s ranks start from 0 in their
-own processes and print their counts: each must have launched its kernels
-(phase 10: none). The line before the last is the kernels' JSON summary;
+11 (a) and each arm of phase 12, and read just after; phase 11 (b)'s ranks and phase 13's
+nodes start from 0 in their own processes and print their counts: each
+must have launched its kernels (phase 10: none). The line before the last is the kernels' JSON summary;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -354,6 +379,24 @@ TL_AUC_BOUND = 0.002
 # the ids' Zipf exponent: word frequencies' (W2V_ZIPF); at phase 4's 1.3 the
 # tail carries too little signal for the AUC bound to test anything
 TL_ZIPF = 1.1
+
+# phase 13, the cluster: scheduler, CLUSTER_SERVERS card servers and the
+# workers as processes (launch_local / cli launch) over phase 12 (c)'s rows
+# in CLUSTER_FILES libsvm files of BATCH rows (one step each) and one
+# validation file of BATCH rows, at phase 4's table width and FTRL
+# hyperparameters, key caching and compression on; each launch must end
+# within CLUSTER_TIMEOUT_S; the fault arms beat every 0.5 s and declare a
+# node dead after 2.5 s of silence. The asynchronous runs' validation AUC
+# is held to the deterministic run's within CLUSTER_AUC_BOUND (one epoch)
+# and CLUSTER_RESTART_AUC_BOUND (the server restart's two epochs): over 8
+# steps it depends on how the two workers' first steps interleave. Both
+# steps from zero weights at once cost ~0.045: the JAX package's own
+# cluster on these files (2^20 keys, CPU) gave 0.6891 deterministic and
+# 0.6441-0.6476 asynchronous in 3 runs, the port's 0.6460-0.6891
+CLUSTER_FILES, CLUSTER_SERVERS, CLUSTER_TIMEOUT_S = 8, 2, 300
+CLUSTER_AUC_BOUND, CLUSTER_RESTART_AUC_BOUND = 0.05, 0.06
+CLUSTER_FAULT = {"heartbeat_interval_s": 0.5, "heartbeat_timeout_s": 2.5}
+CLUSTER_ADAGRAD_ETA = 0.1  # the [lr] eta default
 
 
 def log(msg: str) -> None:
@@ -2241,18 +2284,24 @@ def wire_fixed_point(be, pushes, ranges, dev, qk, ak) -> dict:
     return out
 
 
-def wire_workload():
-    """(c)'s examples: STEPS x BATCH, NNZ_PER ids each, Zipf (TL_ZIPF) over
-    FEATURES and hashed into the table as the batch builder hashes them
-    (spread over both servers' ranges), labels from a dense logistic model
-    (the JAX ``cli backend`` workload's law on Zipf ids)."""
-    from parameter_server_tpu_torch.utils.hashing import hash_keys
-
+def zipf_rows() -> tuple[np.ndarray, np.ndarray]:
+    """Phase 12 (c)'s examples before hashing: STEPS x BATCH rows of
+    NNZ_PER ids, Zipf (TL_ZIPF) over FEATURES, labels from a dense logistic
+    model (the JAX ``cli backend`` workload's law on Zipf ids)."""
     rng = np.random.default_rng(SEED + 13)
     w_true = rng.normal(size=FEATURES)
     ids = np.minimum(rng.zipf(TL_ZIPF, size=(STEPS * BATCH, NNZ_PER)) - 1, FEATURES - 1)
     logits = w_true[ids].sum(axis=1) / np.sqrt(NNZ_PER)
     y = (rng.random(len(ids)) < 1 / (1 + np.exp(-logits))).astype(np.float64)
+    return ids, y
+
+
+def wire_workload():
+    """(c)'s examples (``zipf_rows``), hashed into the table as the batch
+    builder hashes them (spread over both servers' ranges)."""
+    from parameter_server_tpu_torch.utils.hashing import hash_keys
+
+    ids, y = zipf_rows()
     # train_linear adds 1 to each id (row 0 is the pad row): ids in [0, K - 2]
     kb = hash_keys(ids.astype(np.uint64).ravel(), WORKER_KEYS - 1).reshape(ids.shape)
     return kb.astype(np.int64) - 1, y
@@ -2399,6 +2448,247 @@ def phase_wire(dev, rounds, emb_rounds) -> dict:
         out["launches"][f"wire_train_linear_{arm}"] = out["train_linear"][arm]["launches"]
     out["seconds"] = time.perf_counter() - t_phase
     log(f"wire phase ok in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
+def cluster_conf(files: list, val: Path, algo: str = "ftrl", max_delay: int = 0,
+                 epochs: int = 1, fault: dict | None = None) -> dict:
+    """Phase 13's config of one launch: phase 4's table width and FTRL
+    hyperparameters (AdaGrad: the [lr] eta default), key caching and
+    compression on (as JAX tests/test_multislice.py:416)."""
+    conf = {"app": "linear_method",
+            "data": {"files": [str(f) for f in files], "format": "libsvm",
+                     "num_keys": WORKER_KEYS, "val_files": [str(val)],
+                     "max_nnz_per_example": 4 * NNZ_PER},
+            "solver": {"algo": algo, "minibatch": BATCH, "max_delay": max_delay,
+                       "epochs": epochs},
+            "lr": {"alpha": HYPER["alpha"], "beta": HYPER["beta"],
+                   "eta": CLUSTER_ADAGRAD_ETA},
+            "penalty": {"lambda_l1": HYPER["l1"], "lambda_l2": HYPER["l2"]},
+            "filter": {"key_caching": True, "compressing": True}}
+    if fault:
+        conf["fault"] = fault
+    return conf
+
+
+def cluster_launches(name: str, out: dict, kernel: str, workers: int) -> int:
+    """Each card server launched ``kernel`` once an apply batch and nothing
+    else; every worker launched nothing. Returns the servers' launches."""
+    total = 0
+    for i, st in enumerate(out["server_stats"]):
+        rep = out["nodes"][f"server-{i}"]
+        got = rep["launches"]
+        if not got[kernel] == st["apply_batches"] > 0:
+            raise AssertionError(f"{name}: server {i} launched {got}, "
+                                 f"{st['apply_batches']} apply batches")
+        if any(v for k, v in got.items() if k != kernel):
+            raise AssertionError(f"{name}: server {i} launched {got}")
+        if not str(rep["device"]).startswith("cuda"):
+            raise AssertionError(f"{name}: server {i} ran on {rep['device']}")
+        total += got[kernel]
+    for r in range(workers):
+        rep = out["nodes"][f"worker-{r}"]
+        if any(rep["launches"].values()):
+            raise AssertionError(f"{name}: worker {r} launched {rep['launches']}")
+    return total
+
+
+def cluster_timing(out: dict, t_result: float) -> dict:
+    """Wall time from the first spawn to the result, each node's start-up
+    (register time minus spawn time), the workers' training window (first
+    step to last push acked), the merged ex/s, the servers' pushes/s over
+    that window."""
+    nodes = out["nodes"]
+    spawn0 = min(n["spawn_time"] for n in nodes.values())
+    workers = [n for tag, n in nodes.items() if tag.startswith("worker")]
+    window = max(w["t_done"] for w in workers) - min(w["t_first_step"] for w in workers)
+    return {
+        "wall_s": t_result - spawn0,
+        "startup_s": {tag: n["t_register"] - n["spawn_time"] for tag, n in nodes.items()
+                      if "t_register" in n},
+        "train_window_s": window,
+        "first_step_after_register_s": max(w["t_first_step"] - w["t_register"]
+                                           for w in workers),
+        "step_s": window / max(max(w["steps"] for w in workers), 1),
+        "ex_per_s": out["merged"]["ex_per_sec"],
+        "pushes_per_s": [st["pushes"] / window for st in out["server_stats"]],
+    }
+
+
+def phase_cluster() -> dict:
+    """Phase 13: the cluster as processes (launch_local, cli launch) on
+    the card, its servers applying through K1 (FTRL) or K3 (AdaGrad)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from parameter_server_tpu_torch.parallel.multislice import launch_local
+    from parameter_server_tpu_torch.utils.checkpoint import load_weights_text
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    out: dict = {"launches": {}}
+    ids, y = zipf_rows()
+    with tempfile.TemporaryDirectory() as tmp_s:
+        tmp = Path(tmp_s)
+        t0 = time.perf_counter()
+        files = []
+        for i in range(CLUSTER_FILES + 1):
+            rows = slice(i * BATCH, (i + 1) * BATCH)
+            path = tmp / (f"part-{i}.svm" if i < CLUSTER_FILES else "val.svm")
+            path.write_text("".join(
+                f"{int(lab)} " + " ".join(f"{k}:1" for k in row) + "\n"
+                for lab, row in zip(y[rows], ids[rows].tolist())))
+            files.append(path)
+        files, val = files[:-1], files[-1]
+
+        def conf_file(tag: str, **kw) -> Path:
+            path = tmp / f"{tag}.json"
+            path.write_text(json.dumps(cluster_conf(files, val, **kw)))
+            return path
+
+        log(f"cluster: wrote {CLUSTER_FILES} libsvm files of {BATCH} rows and a validation "
+            f"file of {BATCH} ({time.perf_counter() - t0:.2f} s)")
+
+        # (a) deterministic FTRL and (d) AdaGrad: 2 servers, 1 worker,
+        # max_delay 0, each on the card and on the CPU, the four at once
+        runs = {}
+        with ThreadPoolExecutor(4) as ex:
+            for algo in ("ftrl", "adagrad"):
+                app = conf_file(f"det-{algo}", algo=algo)
+                for device in ("cuda", "cpu"):
+                    runs[algo, device] = ex.submit(
+                        launch_local, str(app), CLUSTER_SERVERS, 1,
+                        model_out=str(tmp / f"{algo}-{device}.txt"),
+                        timeout=CLUSTER_TIMEOUT_S, device=device)
+            res = {k: f.result() for k, f in runs.items()}
+        w = {k: torch.from_numpy(load_weights_text(tmp / f"{k[0]}-{k[1]}.txt", WORKER_KEYS))
+             for k in res}
+        a, a_cpu = res["ftrl", "cuda"], res["ftrl", "cpu"]
+        err_a = check_e2e("cluster (a) FTRL model_out, card vs CPU", w["ftrl", "cuda"],
+                          w["ftrl", "cpu"])
+        objv, objv_cpu = a["merged"]["objv"], a_cpu["merged"]["objv"]
+        if not abs(objv - objv_cpu) <= E2E_RTOL * abs(objv_cpu):
+            raise AssertionError(f"cluster (a): merged objv {objv} on the card, {objv_cpu} "
+                                 "on the CPU")
+        want_wl = {"pending": 0, "active": 0, "done": CLUSTER_FILES,
+                   "attempts": CLUSTER_FILES, "reassigned": 0}
+        for k, r in res.items():
+            if r["workloads"] != want_wl or r["dead_workers"] != []:
+                raise AssertionError(f"cluster {k}: workloads {r['workloads']}, dead "
+                                     f"{r['dead_workers']}")
+        out["launches"]["cluster_a_ftrl_push"] = cluster_launches("cluster (a)", a,
+                                                                  "ftrl_push", 1)
+        d = res["adagrad", "cuda"]
+        moved_d = check_moved("cluster (d) AdaGrad model_out, card vs CPU",
+                              w["adagrad", "cuda"], w["adagrad", "cpu"],
+                              torch.zeros(WORKER_KEYS), CLUSTER_ADAGRAD_ETA)
+        out["launches"]["cluster_d_adagrad_push"] = cluster_launches("cluster (d)", d,
+                                                                     "adagrad_push", 1)
+        out["deterministic"] = {
+            "max_abs_err_over_scale": err_a, "objv": objv, "objv_cpu": objv_cpu,
+            "val_auc": a["val_auc"], "val_auc_cpu": a_cpu["val_auc"],
+            "apply_batches": [st["apply_batches"] for st in a["server_stats"]],
+            "adagrad": moved_d, "adagrad_val_auc": d["val_auc"],
+            "adagrad_apply_batches": [st["apply_batches"] for st in d["server_stats"]]}
+        log(f"cluster (a) ok: FTRL model card vs CPU within E2E_RTOL (max abs err "
+            f"{err_a:.3g} of scale), objv {objv:.9g} vs {objv_cpu:.9g}, val AUC "
+            f"{a['val_auc']:.6f} vs {a_cpu['val_auc']:.6f}; K1 launches = apply batches "
+            f"{out['deterministic']['apply_batches']} on the card servers, none on the worker")
+        log(f"cluster (d) ok: AdaGrad model card vs CPU: {moved_d}; K3 launches = apply "
+            f"batches {out['deterministic']['adagrad_apply_batches']}; val AUC "
+            f"{d['val_auc']:.6f}")
+
+        # (b) the real entry point: cli launch, 2 workers, max_delay 1
+        app = conf_file("async", max_delay=1)
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            p for p in (str(root), os.environ.get("PYTHONPATH", "")) if p)}
+        proc = subprocess.run(
+            [sys.executable, "-m", "parameter_server_tpu_torch.cli", "launch",
+             "--app_file", str(app), "--num_servers", str(CLUSTER_SERVERS),
+             "--num_workers", "2", "--device", "cuda"],
+            cwd=tmp, env=env, capture_output=True, text=True,
+            timeout=CLUSTER_TIMEOUT_S + 60)
+        t_result = time.time()
+        if proc.returncode != 0:
+            raise AssertionError(f"cluster (b): cli launch exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-3000:]}")
+        b = json.loads(proc.stdout.strip().splitlines()[-1])
+        if b["workloads"] != want_wl or b["dead_workers"] != []:
+            raise AssertionError(f"cluster (b): workloads {b['workloads']}, dead "
+                                 f"{b['dead_workers']}")
+        if not all(st["pushes"] > 0 and st["pulls"] > 0 for st in b["server_stats"]):
+            raise AssertionError(f"cluster (b): server stats {b['server_stats']}")
+        out["launches"]["cluster_b_ftrl_push"] = cluster_launches("cluster (b)", b,
+                                                                  "ftrl_push", 2)
+        tb = cluster_timing(b, t_result)
+        out["async"] = {**tb, "val_auc": b["val_auc"], "objv": b["merged"]["objv"],
+                        "apply_batches": [st["apply_batches"] for st in b["server_stats"]],
+                        "pushes": [st["pushes"] for st in b["server_stats"]],
+                        "push_coalesced": [st["push_coalesced"] for st in b["server_stats"]]}
+        log(f"cluster (b): cli launch, 2 servers + 2 workers: {tb['wall_s']:.2f} s from "
+            f"spawn to result; start-up (register - spawn) "
+            f"{ {k: round(v, 2) for k, v in tb['startup_s'].items()} } s; training window "
+            f"{tb['train_window_s']:.3f} s; merged {tb['ex_per_s']:.1f} ex/s; servers "
+            f"{[round(x, 1) for x in tb['pushes_per_s']]} pushes/s; val AUC "
+            f"{b['val_auc']:.6f} ((a) {a['val_auc']:.6f}); K1 = apply batches "
+            f"{out['async']['apply_batches']}")
+        if not abs(b["val_auc"] - a["val_auc"]) <= CLUSTER_AUC_BOUND:
+            raise AssertionError(f"cluster (b): val AUC {b['val_auc']} vs (a)'s {a['val_auc']}")
+
+        # (c) recovery on the card, 2 epochs: a worker killed, a server
+        # killed and restarted from its checkpoint, the kills after the
+        # workers' first step (timed from (b)), both launches at once
+        delay = tb["first_step_after_register_s"] + 1.5 * tb["step_s"]
+        fault = {**CLUSTER_FAULT, "server_ckpt_interval_s": 0.5,
+                 "server_restart_grace_s": 60.0, "reconnect_timeout_s": 60.0}
+        kill_app = conf_file("kill", max_delay=1, epochs=2, fault=CLUSTER_FAULT)
+        restart_app = conf_file("restart", max_delay=1, epochs=2, fault=fault)
+        with ThreadPoolExecutor(2) as ex:
+            f_kill = ex.submit(launch_local, str(kill_app), CLUSTER_SERVERS, 2,
+                               timeout=CLUSTER_TIMEOUT_S, device="cuda",
+                               fault_kill=f"worker:1@{delay:.3f}")
+            f_restart = ex.submit(launch_local, str(restart_app), CLUSTER_SERVERS, 2,
+                                  timeout=CLUSTER_TIMEOUT_S, device="cuda",
+                                  fault_kill=f"server:1@{delay:.3f}", fault_restart_after=0.5,
+                                  ckpt_dir=str(tmp / "ckpt"))
+            kill, restart = f_kill.result(), f_restart.result()
+        wl = kill["workloads"]
+        if kill["dead_workers"] != [1] or (wl["pending"], wl["active"], wl["done"]) != (
+                0, 0, 2 * CLUSTER_FILES) or wl["attempts"] != wl["done"] + wl["reassigned"]:
+            raise AssertionError(f"cluster (c) worker kill: dead {kill['dead_workers']}, "
+                                 f"workloads {wl}")
+        want2 = {"pending": 0, "active": 0, "done": 2 * CLUSTER_FILES,
+                 "attempts": 2 * CLUSTER_FILES, "reassigned": 0}
+        if restart["dead_workers"] != [] or restart["workloads"] != want2:
+            raise AssertionError(f"cluster (c) server restart: dead "
+                                 f"{restart['dead_workers']}, workloads {restart['workloads']}")
+        r1 = restart["nodes"].get("server-1-r1", {})
+        if not r1.get("resumed"):
+            raise AssertionError("cluster (c): the restarted server did not resume from "
+                                 f"its checkpoint: {r1}")
+        # the replacement launched K1 once an apply batch of its own life
+        if not r1["launches"]["ftrl_push"] == r1["counters"]["apply_batches"] > 0:
+            raise AssertionError(f"cluster (c): the restarted server launched "
+                                 f"{r1['launches']}, {r1['counters']['apply_batches']} batches")
+        out["launches"]["cluster_c_ftrl_push"] = (
+            sum(kill["nodes"][f"server-{i}"]["launches"]["ftrl_push"]
+                for i in range(CLUSTER_SERVERS))
+            + restart["nodes"]["server-0"]["launches"]["ftrl_push"]
+            + r1["launches"]["ftrl_push"])
+        out["recovery"] = {
+            "kill_delay_s": delay, "worker_kill_workloads": wl,
+            "worker_kill_val_auc": kill["val_auc"],
+            "restart_val_auc": restart["val_auc"],
+            "restart_startup_s": r1["t_register"] - r1["spawn_time"]}
+        log(f"cluster (c): kills {delay:.2f} s after register; worker 1 killed: dead "
+            f"{kill['dead_workers']}, workloads {wl}, val AUC {kill['val_auc']:.6f}; server "
+            f"1 killed and restarted from its checkpoint (start-up "
+            f"{out['recovery']['restart_startup_s']:.2f} s): no dead worker, every workload "
+            f"done once, val AUC {restart['val_auc']:.6f} ((a) {a['val_auc']:.6f})")
+        if not abs(restart["val_auc"] - a["val_auc"]) <= CLUSTER_RESTART_AUC_BOUND:
+            raise AssertionError(f"cluster (c): val AUC {restart['val_auc']} after the "
+                                 f"server restart vs (a)'s {a['val_auc']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"cluster phase ok in {out['seconds']:.1f} s; launches {out['launches']}")
     return out
 
 
@@ -2865,6 +3155,9 @@ def main() -> int:
     wire = phase_wire(dev, rounds, emb_rounds)
     wl = wire["launches"]
     torch.cuda.empty_cache()
+    # 13. cluster: scheduler, servers and workers as processes on the card
+    cluster = phase_cluster()
+    cl = cluster["launches"]
 
     kernels["ftrl_push"]["max_abs_err"] = max(kernels["ftrl_push"]["max_abs_err"], err_wd_k1,
                                               pod["err"]["ftrl_push"])
@@ -2881,7 +3174,10 @@ def main() -> int:
         "wire_ftrl_server": wl["wire_ftrl_server"],
         "wire_train_linear_socket": wl["wire_train_linear_socket"],
         "wire_train_linear_mesh": wl["wire_train_linear_mesh"],
-        "wire_train_linear_mesh_int8": wl["wire_train_linear_mesh_int8"]}
+        "wire_train_linear_mesh_int8": wl["wire_train_linear_mesh_int8"],
+        "cluster_deterministic": cl["cluster_a_ftrl_push"],
+        "cluster_async": cl["cluster_b_ftrl_push"],
+        "cluster_recovery": cl["cluster_c_ftrl_push"]}
     kernels["ftrl_push"]["wire"] = {"server": wire["ftrl"], "concurrent_sgd": wire["concurrent"],
                                     "train_linear": wire["train_linear"],
                                     "train_linear_checks": wire["train_linear_checks"]}
@@ -2913,9 +3209,12 @@ def main() -> int:
         "pod_2x2_wd_per_worker": pl["pod_2x2_wide_deep-per_worker"]["adagrad_push"],
         "pod_2x2_wd_quantized": pl["pod_2x2_wide_deep-quantized"]["adagrad_push"],
         "wire_embedding_server": wl["wire_embedding_server"],
-        "wire_embedding_server_fixed_point": wl["wire_embedding_server_fixed_point"]}
+        "wire_embedding_server_fixed_point": wl["wire_embedding_server_fixed_point"],
+        "cluster_adagrad": cl["cluster_d_adagrad_push"]}
     kernels["adagrad_push"]["wire"] = {"server": wire["embedding"],
                                        "fixed_point": wire["fixed_point"]}
+    kernels["ftrl_push"]["cluster"] = {k: cluster[k] for k in
+                                       ("deterministic", "async", "recovery")}
     kernels["quantize_stochastic"]["launches_by_path"] = {
         "codec_round_trip": codec_launches["quantize_stochastic"],
         "wire_fixed_point_handles": wl["wire_fixed_point_handles"]}

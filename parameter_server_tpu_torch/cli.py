@@ -19,12 +19,23 @@ Usage:
       [--coordinator 127.0.0.1:29500 --num_processes 4 --process_id 0 [--dist_backend gloo]]
   python -m parameter_server_tpu_torch.cli evaluate --app_file cfg.json --model m.txt|m.npz [--device cpu]
   python -m parameter_server_tpu_torch.cli backend --app_file cfg.json [--examples N --batch B --nnz K --servers S] [--device cpu]
+  python -m parameter_server_tpu_torch.cli launch --app_file cfg.json --num_servers 2 --num_workers 2 [--model_out m.txt] [--device cpu]
+  python -m parameter_server_tpu_torch.cli node --role scheduler|server|worker --rank R --scheduler host:port
+      --num_servers S --num_workers W --app_file cfg.json [--model_out m.txt] [--ckpt_dir d] [--device cpu]
 
 ``backend`` drives the canonical linear trainer loop (``parallel/backend.py``
 ``train_linear``) through the transport the ``[mesh] backend`` setting names:
 ``socket`` starts ``--servers`` loopback shard servers in this process,
 ``mesh`` joins a world of one (NCCL on the card) and holds the table on it.
 It prints one JSON object (AUC, ex/s, push payload MB, the backend's stats).
+
+``launch`` runs the ``linear_method`` cluster on this host (ref:
+script/local.sh): a scheduler, ``--num_servers`` shard servers and
+``--num_workers`` workers, each a ``node`` process, all on ``--device``.
+It prints the scheduler's result (merged progress, the servers' stats,
+the workload ledger, dead workers, validation AUC) with each node's
+report. ``node`` runs one of them; a server or a worker prints its report
+(its kernel launches) at exit.
 """
 
 from __future__ import annotations
@@ -37,7 +48,7 @@ from parameter_server_tpu_torch.utils.config import PSConfig, load_config
 
 #: subcommands of the JAX package's CLI that the port does not have yet
 NOT_PORTED_CMDS = (
-    "node", "convert", "launch", "stats", "top", "ranges", "audit",
+    "convert", "stats", "top", "ranges", "audit",
     "whylate", "postmortem", "lint", "check", "verify", "explore",
 )
 
@@ -108,6 +119,46 @@ def _build_parser() -> argparse.ArgumentParser:
         help="socket backend only: in-process loopback shard servers",
     )
     bk.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+    # the multi-process tier (ref: main.cc role flags + script/local.sh)
+    nd = sub.add_parser("node", help="run one scheduler/server/worker process")
+    nd.add_argument("--role", required=True, choices=("scheduler", "server", "worker"))
+    nd.add_argument("--rank", type=int, default=0, help="ref: -my_node id")
+    nd.add_argument("--scheduler", required=True, help="host:port (ref: -scheduler)")
+    nd.add_argument("--num_servers", type=int, required=True)
+    nd.add_argument("--num_workers", type=int, required=True)
+    nd.add_argument("--app_file", required=True)
+    nd.add_argument("--model_out", default="")
+    nd.add_argument(
+        "--bind_host", default="127.0.0.1",
+        help="server bind address (0.0.0.0 to accept remote workers)",
+    )
+    nd.add_argument(
+        "--advertise_host", default="",
+        help="routable hostname published to the coordinator (defaults to bind_host)",
+    )
+    nd.add_argument(
+        "--ckpt_dir", default="",
+        help="server recovery dir: resume this range's dump if present; "
+        "periodic dumps per [fault] server_ckpt_interval_s",
+    )
+    nd.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    # options of the JAX CLI's chaos and tracing paths: accepted so command
+    # lines stay interchangeable, refused when set
+    nd.add_argument("--fault_plan", default="")
+    nd.add_argument("--fault_seed", type=int, default=0)
+    nd.add_argument("--trace_dir", default="")
+
+    la = sub.add_parser("launch", help="spawn a local multi-process run (ref: script/local.sh)")
+    la.add_argument("--app_file", required=True)
+    la.add_argument("--num_servers", type=int, default=1)
+    la.add_argument("--num_workers", type=int, default=1)
+    la.add_argument("--model_out", default="")
+    la.add_argument("--device", default="cuda", help="cuda (default) or cpu, for every node")
+    la.add_argument("--fault_plan", default="")
+    la.add_argument("--fault_seed", type=int, default=0)
+    la.add_argument("--trace_dir", default="")
+    la.add_argument("--blackbox_dir", default="")
     return p
 
 
@@ -424,13 +475,52 @@ def run_backend(cfg: PSConfig, args: argparse.Namespace) -> dict:
         backend.close()  # owned loopback servers shut down with it
 
 
+def _check_cluster(cfg: PSConfig, args: argparse.Namespace) -> None:
+    """Refuse what the cluster path (``node``, ``launch``) has not ported:
+    other apps, chaos, tracing and the black box."""
+    _check_ported(cfg)
+    if cfg.app != "linear_method":
+        raise _not_ported(f"the cluster path for app {cfg.app!r}")
+    if args.fault_plan:
+        raise _not_ported("chaos (--fault_plan)")
+    if args.trace_dir:
+        raise _not_ported("--trace_dir")
+    if getattr(args, "blackbox_dir", ""):
+        raise _not_ported("--blackbox_dir")
+
+
+def run_node_cmd(cfg: PSConfig, args: argparse.Namespace) -> dict:
+    """One node of the cluster; the scheduler prints the run's result, a
+    server or a worker its report."""
+    from parameter_server_tpu_torch.parallel.multislice import run_node
+
+    _check_cluster(cfg, args)
+    return run_node(
+        cfg, args.role, args.rank, args.scheduler, args.num_servers,
+        args.num_workers, args.model_out, bind_host=args.bind_host,
+        advertise_host=args.advertise_host, ckpt_dir=args.ckpt_dir,
+        device=args.device,
+    )
+
+
+def run_launch(cfg: PSConfig, args: argparse.Namespace) -> dict:
+    from parameter_server_tpu_torch.parallel.multislice import launch_local
+
+    _check_cluster(cfg, args)
+    return launch_local(
+        args.app_file, args.num_servers, args.num_workers, args.model_out,
+        device=args.device,
+    )
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] in NOT_PORTED_CMDS:
         raise _not_ported(f"the {argv[0]!r} subcommand")
     args = _build_parser().parse_args(argv)
     cfg = load_config(args.app_file)
-    run = {"train": run_train, "evaluate": run_evaluate, "backend": run_backend}[args.cmd]
+    run = {"train": run_train, "evaluate": run_evaluate, "backend": run_backend,
+           "node": run_node_cmd, "launch": run_launch}[args.cmd]
     out = run(cfg, args)
     print(json.dumps(out, default=float))
     return 0

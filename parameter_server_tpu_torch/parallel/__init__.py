@@ -41,9 +41,13 @@ The design mapping from the JAX package (``parameter_server_tpu/parallel``):
   also take, so no pull sees part of an apply. ``backend.py`` puts the
   socket tier (``SocketBackend``) and the kv ranks of a world
   (``MeshBackend``) behind one ``PSBackend`` interface.
+- **The control plane and the cluster** (``control.py`` ``Coordinator``,
+  ``ControlClient``; ``multislice.py`` ``run_scheduler``, ``run_server``,
+  ``run_worker``, ``launch_local``, ``run_node``): one process a node, as
+  ``cli launch`` / ``cli node`` start them; servers hold their tables on
+  the card and checkpoint them (``save_state`` / ``load_state``).
 
-Not ported yet: the coordinator and the node entry points (``cli launch``,
-``cli node``), chaos (``chaos.py``), the push window and the serving plane.
+Not ported yet: chaos (``chaos.py``) and the serving plane.
 """
 
 from parameter_server_tpu_torch.parallel import runtime  # noqa: F401

@@ -1,12 +1,15 @@
-"""The wire tier's frame protocol and RPC layer over TCP.
+"""The wire tier's frame protocol, RPC layer and coordinator over TCP.
 
-The port of the data-plane half of the JAX package's
-``parallel/control.py``: the frame layout, the header codecs, per-array
-compression and the pipelined, self-healing ``RpcServer`` /
-``RpcClient`` the shard servers and their handles talk over. Nothing here
-touches a tensor: frames carry numpy arrays, as in the JAX package, so a
-JAX client and a port server (or the reverse) share one wire, byte for
-byte. The coordinator (the control-plane half) is not ported yet.
+The port of the JAX package's ``parallel/control.py``: the frame layout,
+the header codecs, per-array compression and the pipelined, self-healing
+``RpcServer`` / ``RpcClient`` the shard servers and their handles talk
+over, and the control plane on top of them: the scheduler's
+``Coordinator`` (node registry, barriers, a blob KV, the workload pool,
+merged progress, heartbeats, the SSP clock, the dead-worker recovery
+sweep) and its typed ``ControlClient``. Nothing here touches a tensor:
+frames carry numpy arrays, as in the JAX package, so a JAX client and a
+port server (or the reverse) share one wire, byte for byte, and a JAX
+``ControlClient`` drives a port ``Coordinator`` (and the reverse).
 
 Wire format (ref: Message = Task proto header + SArray payloads):
 
@@ -31,9 +34,12 @@ answers a resent non-idempotent command from the cache: at-least-once on
 the wire, exactly-once at the handler.
 
 Trimmed from the JAX module: the flight recorder, tracing, the watchdog
-and the latency histograms' export. Chaos (``FaultPlan``) waits for a
-later slice: ``RpcServer`` accepts only ``fault_plan=None`` and refuses to
-start under a ``PS_FAULT_PLAN`` environment variable. The process-global
+and the latency histograms' export; the coordinator's time series, SLO
+engine and audit plane (its ``telemetry`` reply carries ``nodes``,
+``coordinator`` and a counters-only ``merged`` view; ``audit`` answers
+"not ported yet"). Chaos (``FaultPlan``) waits for a later slice:
+``RpcServer`` accepts only ``fault_plan=None`` and refuses to start under
+a ``PS_FAULT_PLAN`` environment variable. The process-global
 ``wire_counters`` (``utils/metrics.py``) keep the counts that ``stats``
 replies carry.
 """
@@ -49,13 +55,21 @@ import threading
 import time
 import uuid
 import zlib
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from concurrent.futures import Future
 from typing import Any, Callable
 
 import numpy as np
 
-from parameter_server_tpu_torch.utils.metrics import wire_counters
+from parameter_server_tpu_torch.parallel.ssp import SSPClock
+from parameter_server_tpu_torch.parallel.workload import WorkloadPool
+from parameter_server_tpu_torch.utils.heartbeat import HeartbeatMonitor
+from parameter_server_tpu_torch.utils.metrics import (
+    merge_progress,
+    merge_telemetry,
+    telemetry_snapshot,
+    wire_counters,
+)
 
 #: the JAX package's chaos switch (``parallel/chaos.py`` ``PLAN_ENV``)
 PLAN_ENV = "PS_FAULT_PLAN"
@@ -706,8 +720,8 @@ _DEDUP_CLIENTS = 1024
 
 class RpcServer:
     """Thread-per-connection TCP server dispatching framed requests to a
-    handler (the shard servers'). The handler may raise ``Shutdown`` to
-    stop the server after replying.
+    handler (the shard servers' or the coordinator's). The handler may
+    raise ``Shutdown`` to stop the server after replying.
 
     Requests carrying a client id + sequence number are deduplicated
     through a per-client reply cache (see module docstring). Fault
@@ -726,6 +740,7 @@ class RpcServer:
         fault_plan: None = None,
         idempotent_cmds: frozenset[str] = frozenset(),
         expose_identity: bool = False,
+        blocking_cmds: frozenset[str] = frozenset(),
         prio_cmds: frozenset[str] = _PRIO_CMDS,
         lane_hi: int = 4,
         lane_lo: int = 16,
@@ -750,6 +765,11 @@ class RpcServer:
         self._lane_hi = max(1, int(lane_hi))
         self._lane_lo = max(1, int(lane_lo))
         self._withheld_max_bytes = int(withheld_max_bytes)
+        # commands whose handler may PARK the connection thread (barrier,
+        # ssp_wait, blocking kv_get): coalesced replies must flush before
+        # dispatching one, or earlier requests' replies would be withheld
+        # for as long as the blocking command parks
+        self._blocking_cmds = blocking_cmds
         # re-applying these is harmless, so resends bypass the reply cache
         # entirely — caching their (potentially large: pull/dump/kv_get
         # payloads) replies would pin the arrays of the last
@@ -939,6 +959,11 @@ class RpcServer:
                     else None
                 )
                 cmd_name = header.get("cmd", "?")
+                if (hi_bufs or lo_bufs or deferred) and (
+                    cmd_name in self._blocking_cmds
+                ):
+                    settle_deferred()
+                    flush_replies()  # see blocking_cmds in __init__
                 t_svc = time.perf_counter()
                 try:
                     rep, rep_arrays = self._dispatch(cid, seq, header, arrays)
@@ -1636,3 +1661,461 @@ class RpcClient:
                 p.future.set_exception(
                     ConnectionError(f"client to {self._address} is closed")
                 )
+
+
+class Coordinator:
+    """The scheduler endpoint (ref: Postoffice on the scheduler node).
+
+    Owns: node registry, named barriers, a blob KV (small host arrays),
+    the workload pool, merged progress, heartbeats, and the SSP clock.
+    All commands are served by ``RpcServer`` threads; blocking commands
+    (barrier / blocking kv_get / ssp_wait) park the connection's thread.
+
+    Self-healing control plane: ``start_recovery`` runs a sweep thread that
+    promotes ``HeartbeatMonitor.dead()`` into ``WorkloadPool.
+    reassign_worker`` + SSP-clock release, so a dead worker's tasks drain
+    onto survivors without any scheduler-side polling logic.
+    """
+
+    def __init__(
+        self,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        heartbeat_timeout_s: float = 30.0,
+        recovery_interval_s: float = 0.0,
+        fault_plan: None = None,
+    ):
+        self._nodes: dict[int, dict[str, Any]] = {}
+        self._next_id = 0
+        self._barriers: dict[str, list[int]] = {}  # name -> [arrived, generation]
+        self._kv: dict[str, tuple[dict, Arrays]] = {}
+        self._pool: WorkloadPool | None = None
+        self._progress: dict[int, dict[str, Any]] = {}
+        self._monitor = HeartbeatMonitor(heartbeat_timeout_s)
+        self._clock: SSPClock | None = None
+        self._cv = threading.Condition()
+        # batched beat/progress ingestion: these commands arrive from
+        # EVERY node at heartbeat cadence. Frames land in this deque
+        # (GIL-atomic append, no lock) and ONE serving thread at a time
+        # drains everything queued under a single _cv acquire + a single
+        # monitor-lock acquire (beat_many); concurrent ingest threads skip
+        # the drain and their frames ride the owner's loop. Beats and
+        # progress are last-writer-wins telemetry; readers (dead /
+        # telemetry / progress_merged / sweep) drain with wait=True first,
+        # so every frame acked before a read is visible to it.
+        self._ingest: deque[tuple[str, int, Any]] = deque()
+        self._ingest_lock = threading.Lock()  # one drainer at a time
+        self._recovered: dict[int, dict[str, Any]] = {}  # worker rank -> info
+        self._sweep_stop = threading.Event()
+        self._sweep_thread: threading.Thread | None = None
+        self.server = RpcServer(
+            self._handle, host, port, fault_plan=fault_plan,
+            # reads and last-writer-wins/monotonic writes: re-applying a
+            # resend is harmless, and kv_get replies can carry model-sized
+            # blobs that must not be pinned in the reply cache
+            idempotent_cmds=frozenset({
+                "kv_get", "kv_set", "nodes", "beat", "progress",
+                "progress_merged", "workload_stats", "ssp_progress",
+                "telemetry", "audit",
+            }),
+            blocking_cmds=frozenset({"barrier", "ssp_wait", "kv_get"}),
+        )
+        self.server.start()
+        self.address = self.server.address
+        if recovery_interval_s > 0:
+            self.start_recovery(recovery_interval_s)
+
+    # -- recovery sweep --------------------------------------------------
+
+    def start_recovery(self, interval_s: float = 0.5) -> None:
+        """Arm the dead-node sweep (idempotent): every ``interval_s`` the
+        monitor's overdue workers have their workloads requeued and their
+        SSP clock retired, so surviving workers drain their tasks."""
+        if self._sweep_thread is not None:
+            return
+
+        def sweep() -> None:
+            while not self._sweep_stop.wait(interval_s):
+                self._sweep_once()
+
+        self._sweep_thread = threading.Thread(
+            target=sweep, daemon=True, name="ps-coord-sweep"
+        )
+        self._sweep_thread.start()
+
+    def _sweep_once(self) -> None:
+        self._drain_ingest(wait=True)  # a queued beat must not read dead
+        for nid in self._monitor.dead():
+            with self._cv:
+                info = dict(self._nodes.get(nid, {}))
+            if info.get("role") != "worker" or "rank" not in info:
+                continue  # dead servers are the scheduler's call (grace /
+                # checkpoint-restart policy lives there, not here)
+            rank = int(info["rank"])
+            with self._cv:
+                finished = f"worker_done/{rank}" in self._kv
+            if finished:
+                # clean completion: drop the corpse so dead() stays the
+                # actionable list
+                self._monitor.forget(nid)
+                continue
+            # no handled-before guard: forget(nid) below keeps a handled
+            # death out of dead(), and a forgotten node only reappears
+            # through a fresh beat, i.e. it was alive again and may hold
+            # fresh workloads, so its next death must be recovered too
+            requeued = self._pool.reassign_worker(rank) if self._pool else []
+            if self._clock is not None:
+                self._clock.retire(rank)
+            with self._cv:
+                self._recovered[rank] = {"node_id": nid, "requeued": requeued}
+                self._cv.notify_all()
+            self._monitor.forget(nid)
+            wire_counters.inc("workers_recovered")
+
+    # -- dispatch --------------------------------------------------------
+
+    def _handle(
+        self, header: dict[str, Any], arrays: Arrays
+    ) -> tuple[dict[str, Any], Arrays]:
+        cmd = header.pop("cmd")
+        fn = getattr(self, f"_cmd_{cmd}", None)
+        if fn is None:
+            raise ValueError(f"unknown control command {cmd!r}")
+        return fn(header, arrays)
+
+    def _cmd_register(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        with self._cv:
+            node_id = self._next_id
+            self._next_id += 1
+            self._nodes[node_id] = {"role": h.get("role", "?"), **h}
+            self._cv.notify_all()
+        return {"ok": True, "node_id": node_id}, {}
+
+    def _cmd_nodes(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        with self._cv:
+            # copy: serialization happens after the lock is released
+            return {"ok": True, "nodes": dict(self._nodes)}, {}
+
+    def _cmd_barrier(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        """Block until ``count`` callers reach barrier ``name`` (ref:
+        Postoffice::Barrier over node groups)."""
+        name, count = h["name"], int(h["count"])
+        with self._cv:
+            st = self._barriers.setdefault(name, [0, 0])
+            st[0] += 1
+            if st[0] >= count:
+                st[0] = 0
+                st[1] += 1
+                self._cv.notify_all()
+                return {"ok": True}, {}
+            gen = st[1]
+            ok = self._cv.wait_for(
+                lambda: self._barriers[name][1] > gen, timeout=h.get("timeout")
+            )
+            if not ok and self._barriers[name][1] == gen:
+                st[0] -= 1  # withdraw our arrival: a later generation must
+                # not release early on a participant that already gave up
+        return {"ok": ok, "error": "barrier timeout" if not ok else None}, {}
+
+    def _cmd_kv_set(self, h: dict, arrays: Arrays) -> tuple[dict, Arrays]:
+        with self._cv:
+            self._kv[h["key"]] = ({"fields": h.get("fields", {})}, arrays)
+            self._cv.notify_all()
+        return {"ok": True}, {}
+
+    def _cmd_kv_get(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        key = h["key"]
+        with self._cv:
+            if h.get("block"):
+                if not self._cv.wait_for(
+                    lambda: key in self._kv, timeout=h.get("timeout")
+                ):
+                    return {"ok": False, "error": f"kv_get timeout on {key!r}"}, {}
+            if key not in self._kv:
+                return {"ok": True, "found": False}, {}
+            meta, arrays = self._kv[key]
+            return {"ok": True, "found": True, **meta}, arrays
+
+    def _cmd_workload_init(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        with self._cv:
+            if self._pool is None:
+                self._pool = WorkloadPool(h["items"])
+        return {"ok": True}, {}
+
+    def _pool_or_raise(self) -> WorkloadPool:
+        # explicit raise, not assert: must hold under ``python -O``
+        if self._pool is None:
+            raise RuntimeError("workload_init must be called first")
+        return self._pool
+
+    def _clock_or_raise(self) -> SSPClock:
+        if self._clock is None:
+            raise RuntimeError("ssp_init must be called first")
+        return self._clock
+
+    def _cmd_workload_fetch(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        pool = self._pool_or_raise()
+        return {"ok": True, "workload": pool.fetch(int(h["worker"]))}, {}
+
+    def _cmd_workload_finish(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        self._pool_or_raise().finish(h["workload"])
+        return {"ok": True}, {}
+
+    def _cmd_workload_stats(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        pool = self._pool_or_raise()
+        return {"ok": True, "stats": pool.stats(), "all_done": pool.all_done}, {}
+
+    def _cmd_workload_reassign(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        """Requeue workloads of a dead worker and/or stragglers by age."""
+        pool = self._pool_or_raise()
+        requeued: list[str] = []
+        if h.get("worker") is not None:
+            requeued += pool.reassign_worker(int(h["worker"]))
+        if h.get("older_than") is not None:
+            requeued += pool.reassign_stragglers(float(h["older_than"]))
+        return {"ok": True, "requeued": requeued}, {}
+
+    def _cmd_progress(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        self._ingest.append(("progress", int(h["worker"]), h["record"]))
+        self._drain_ingest()
+        return {"ok": True}, {}
+
+    def _cmd_progress_merged(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        self._drain_ingest(wait=True)  # every acked progress is merged
+        with self._cv:
+            reports = [dict(r) for r in self._progress.values()]
+        return {"ok": True, "merged": merge_progress(reports)}, {}
+
+    def _cmd_beat(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        self._ingest.append(("beat", int(h["node_id"]), h.get("stats")))
+        self._drain_ingest()
+        return {"ok": True}, {}
+
+    def _drain_ingest(self, wait: bool = False) -> None:
+        """Apply every queued beat/progress frame in batches: progress
+        records under ONE ``_cv`` acquire, beats under ONE monitor lock
+        (``beat_many``). Ingest callers pass ``wait=False``: if another
+        thread owns the drain, this frame rides that thread's loop.
+        Readers pass ``wait=True`` so they observe every frame whose reply
+        has been (or is being) sent before they read."""
+        if not self._ingest_lock.acquire(blocking=wait):
+            return
+        try:
+            while True:
+                batch: list[tuple[str, int, Any]] = []
+                while True:
+                    try:
+                        batch.append(self._ingest.popleft())
+                    except IndexError:
+                        break
+                if not batch:
+                    return
+                beats = [(k, v) for t, k, v in batch if t == "beat"]
+                prog = [(k, v) for t, k, v in batch if t == "progress"]
+                if prog:
+                    with self._cv:
+                        for worker, record in prog:
+                            self._progress[worker] = record
+                        self._cv.notify_all()
+                if beats:
+                    self._monitor.beat_many(beats)
+                if len(batch) > 1:
+                    wire_counters.inc("coord_ingest_coalesced", len(batch) - 1)
+                # loop: frames appended while we applied are ours too
+        finally:
+            self._ingest_lock.release()
+
+    def _cmd_telemetry(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        """Cluster telemetry: every node's last heartbeat piggybacked a
+        counters snapshot; this merges them, plus the coordinator's own
+        process, into one cluster view, and returns the per-node detail.
+        The JAX coordinator's ``series``, ``slo`` and ``audit`` blocks are
+        not ported."""
+        self._drain_ingest(wait=True)  # acked beats are in latest_stats
+        with self._cv:
+            registry = {int(k): dict(v) for k, v in self._nodes.items()}
+        per_node: dict[str, dict[str, Any]] = {}
+        node_snaps: list[dict[str, Any]] = []
+        for nid, stats in self._monitor.latest_stats().items():
+            stats = dict(stats)
+            tel = stats.pop("telemetry", None)
+            info = registry.get(nid, {})
+            per_node[str(nid)] = {
+                "role": info.get("role", "?"),
+                "rank": info.get("rank"),
+                "stats": stats,
+                "telemetry": tel,
+            }
+            if tel:
+                node_snaps.append(tel)
+        local = telemetry_snapshot()  # the coordinator's own process
+        return {
+            "ok": True,
+            "nodes": per_node,
+            "coordinator": local,
+            "merged": merge_telemetry(node_snaps + [local]),
+        }, {}
+
+    def _cmd_audit(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        return {
+            "ok": False,
+            "error": "the audit plane is not ported yet to parameter_server_tpu_torch",
+        }, {}
+
+    def _cmd_dead(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        self._drain_ingest(wait=True)  # an acked beat must never read dead
+        return {
+            "ok": True, "dead": self._monitor.dead(), "alive": self._monitor.alive(),
+        }, {}
+
+    def _cmd_recovered(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        """Worker ranks the recovery sweep has already handled (requeued +
+        clock-retired); the scheduler merges these instead of running its
+        own dead-worker logic."""
+        with self._cv:
+            return {
+                "ok": True,
+                "recovered": {str(r): dict(v) for r, v in self._recovered.items()},
+            }, {}
+
+    def _cmd_ssp_init(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        with self._cv:
+            if self._clock is None:
+                self._clock = SSPClock(int(h["num_workers"]), int(h["max_delay"]))
+        return {"ok": True}, {}
+
+    def _cmd_ssp_wait(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        clock = self._clock_or_raise()
+        ok = clock.wait(int(h["worker"]), int(h["step"]), h.get("timeout"))
+        return {"ok": True, "granted": ok}, {}
+
+    def _cmd_ssp_finish(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        self._clock_or_raise().finish(int(h["worker"]), int(h["step"]))
+        return {"ok": True}, {}
+
+    def _cmd_ssp_retire(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        self._clock_or_raise().retire(int(h["worker"]))
+        return {"ok": True}, {}
+
+    def _cmd_ssp_progress(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        return {"ok": True, **self._clock_or_raise().progress()}, {}
+
+    def _cmd_shutdown(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        raise RpcServer.Shutdown
+
+    def stop(self) -> None:
+        self._sweep_stop.set()
+        if self._sweep_thread is not None:
+            self._sweep_thread.join(timeout=5)
+            self._sweep_thread = None
+        self.server.stop()
+
+
+class ControlClient(RpcClient):
+    """Typed convenience wrapper over the coordinator's commands."""
+
+    def register(self, role: str, **fields: Any) -> int:
+        rep, _ = self.call("register", role=role, **fields)
+        return int(rep["node_id"])
+
+    def barrier(self, name: str, count: int, timeout: float | None = None) -> None:
+        rep, _ = self.call("barrier", name=name, count=count, timeout=timeout)
+        if not rep["ok"]:
+            raise TimeoutError(f"barrier {name!r} timed out")
+
+    def kv_set(self, key: str, arrays: Arrays | None = None, **fields: Any) -> None:
+        self.call("kv_set", arrays=arrays, key=key, fields=fields)
+
+    def kv_get(
+        self, key: str, block: bool = False, timeout: float | None = None
+    ) -> tuple[dict[str, Any], Arrays] | None:
+        rep, arrays = self.call("kv_get", key=key, block=block, timeout=timeout)
+        if not rep.get("found"):
+            return None
+        return rep.get("fields", {}), arrays
+
+    def workload_init(self, items: list[str]) -> None:
+        self.call("workload_init", items=items)
+
+    def workload_fetch(self, worker: int) -> str | None:
+        rep, _ = self.call("workload_fetch", worker=worker)
+        return rep["workload"]
+
+    def workload_finish(self, workload: str) -> None:
+        self.call("workload_finish", workload=workload)
+
+    def workload_all_done(self) -> bool:
+        rep, _ = self.call("workload_stats")
+        return bool(rep["all_done"])
+
+    def workload_stats(self) -> dict[str, int]:
+        rep, _ = self.call("workload_stats")
+        return rep["stats"]
+
+    def workload_reassign(
+        self, worker: int | None = None, older_than: float | None = None
+    ) -> list[str]:
+        rep, _ = self.call(
+            "workload_reassign", worker=worker, older_than=older_than
+        )
+        return rep["requeued"]
+
+    def nodes(self) -> dict[str, dict[str, Any]]:
+        """Registry snapshot; keys are node-id strings (JSON wire)."""
+        rep, _ = self.call("nodes")
+        return rep["nodes"]
+
+    def dead_nodes(self) -> tuple[list[int], list[int]]:
+        rep, _ = self.call("dead")
+        return rep["dead"], rep["alive"]
+
+    def recovered_workers(self) -> dict[int, dict[str, Any]]:
+        """Worker ranks the coordinator's recovery sweep has handled."""
+        rep, _ = self.call("recovered")
+        return {int(r): v for r, v in rep["recovered"].items()}
+
+    def progress(self, worker: int, record: dict[str, Any]) -> None:
+        self.call("progress", worker=worker, record=record)
+
+    def progress_merged(self) -> dict[str, Any]:
+        rep, _ = self.call("progress_merged")
+        return rep["merged"]
+
+    def beat(self, node_id: int, stats: dict | None = None) -> None:
+        self.call("beat", node_id=node_id, stats=stats)
+
+    def telemetry(self, window_s: float | None = None) -> dict[str, Any]:
+        """Cluster telemetry: per-node snapshots and the merged view (and,
+        from a JAX coordinator, its ``series``, ``slo`` and ``audit``
+        blocks)."""
+        rep, _ = self.call("telemetry", window_s=window_s)
+        return {
+            k: rep[k]
+            for k in (
+                "nodes", "coordinator", "merged", "series", "slo", "audit",
+            )
+            if k in rep
+        }
+
+    def audit(self, recent: int = 20) -> dict[str, Any]:
+        """The audit plane's summary (a JAX coordinator's; a port
+        coordinator answers that it is not ported)."""
+        rep, _ = self.call("audit", recent=recent)
+        return rep["audit"]
+
+    def ssp_init(self, num_workers: int, max_delay: int) -> None:
+        self.call("ssp_init", num_workers=num_workers, max_delay=max_delay)
+
+    def ssp_wait(self, worker: int, step: int, timeout: float | None = None) -> bool:
+        rep, _ = self.call("ssp_wait", worker=worker, step=step, timeout=timeout)
+        return bool(rep["granted"])
+
+    def ssp_finish(self, worker: int, step: int) -> None:
+        self.call("ssp_finish", worker=worker, step=step)
+
+    def ssp_retire(self, worker: int) -> None:
+        self.call("ssp_retire", worker=worker)
+
+    def shutdown_server(self) -> None:
+        """Ask the remote RpcServer to stop (after acking)."""
+        self.call("shutdown")

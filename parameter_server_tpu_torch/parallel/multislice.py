@@ -30,17 +30,34 @@ one current stream, so stream order makes every gather see whole
 batches; on the CPU they run under the lock. The copies to the host run
 outside it.
 
-Not ported yet: chaos, checkpoints (``save_state`` / ``load_state``), the
-serving plane (the handle's key cache; the server's conditional pulls,
-shedding, encode cache and freshness stamps: a request that carries
-``if_newer``, ``sv`` or ``shed_ok`` gets an error reply), and the node
-entry points (``run_server``, ``run_worker``, ``launch_local``).
+A server checkpoints its range (``save_state`` / ``load_state``) in the
+JAX server's file name and layout, ledger included, so a dump of either
+package's server loads into the other's.
+
+The node entry points run the cluster, one process a node (ref:
+script/local.sh): ``run_scheduler`` (the coordinator, the monitor loop,
+the model dump and its evaluation), ``run_server`` (a ``ShardServer`` on
+its device, checkpoint-backed restart), ``run_worker`` (the async-SGD
+loop: segment sums on its device, pulls and pushes through a
+``SocketBackend``, a ``PushWindow`` bounded by the SSP delay),
+``run_node`` (role dispatch, what ``cli node`` calls) and
+``launch_local`` (what ``cli launch`` calls: spawns them all, optionally
+kills and restarts one). Every node runs on ``cuda`` unless asked for
+``cpu``.
+
+Not ported yet: chaos (fault plans), tracing, the black box, the
+profiler, the metrics endpoint, the audit spool, and the serving plane
+(the handle's key cache; the server's conditional pulls, shedding, encode
+cache and freshness stamps: a request that carries ``if_newer``, ``sv``
+or ``shed_ok`` gets an error reply).
 """
 
 from __future__ import annotations
 
 import hashlib
 import itertools
+import json
+import os
 import queue as queue_mod
 import threading
 import time
@@ -56,13 +73,16 @@ from parameter_server_tpu_torch.kv import store as kv_store
 from parameter_server_tpu_torch.kv.updaters import Updater
 from parameter_server_tpu_torch.parallel.control import (
     Arrays,
+    ControlClient,
+    Coordinator,
     DeferredReply,
     RpcClient,
     RpcServer,
 )
 from parameter_server_tpu_torch.utils.config import PSConfig, ServerConfig
+from parameter_server_tpu_torch.utils.heartbeat import HeartbeatReporter, host_stats
 from parameter_server_tpu_torch.utils.keyrange import KeyRange
-from parameter_server_tpu_torch.utils.metrics import wire_counters
+from parameter_server_tpu_torch.utils.metrics import telemetry_snapshot, wire_counters
 
 #: pull fields of the serving plane, which the port does not serve yet
 SERVING_FIELDS = ("if_newer", "sv", "shed_ok")
@@ -192,6 +212,8 @@ class ShardServer:
         )
         self._apply_open = self._apply_q is not None
         self._apply_thread: threading.Thread | None = None
+        self._ckpt_write_lock = threading.Lock()  # one dump writer at a time
+        self._ckpt_thread: threading.Thread | None = None
         self._ctr_lock = threading.Lock()  # counters bumped by conn threads
         # durable push dedup: cid -> recently applied push seqs (str-keyed).
         # Mutated ONLY under self._lock, in the same critical section as
@@ -261,10 +283,108 @@ class ShardServer:
         self.server.start()
         return self
 
+    def serve_forever(self) -> None:
+        """Start serving and block until a ``shutdown`` stops the server;
+        the apply thread has exited when this returns."""
+        self.start()
+        while not self.server._stop.wait(0.2):
+            pass
+        self.join()
+
     def join(self, timeout: float | None = None) -> None:
         """Wait for the apply thread to exit after a ``shutdown``."""
         if self._apply_thread is not None:
             self._apply_thread.join(timeout)
+
+    # -- checkpoint/restart (ref: each server dumps its own key range;
+    # resume = reload the range before continuing) ------------------------
+
+    def _ckpt_path(self, ckpt_dir: str) -> str:
+        r = self.range
+        return os.path.join(ckpt_dir, f"server-{r.begin}-{r.end}.npz")
+
+    def save_state(self, ckpt_dir: str) -> None:
+        """Atomic dump of this range's updater state, in the JAX server's
+        file name and layout (its tables and the ``__push_ledger__``), so
+        either package's server loads the other's dump. Tmp + rename: a
+        crash mid-write never leaves a torn checkpoint; writers serialize.
+
+        The tables change in place, so the state is captured as a device
+        copy of every table, taken under the apply lock and the publish
+        lock together with the ledger: the dump holds exactly the pushes
+        its ledger lists. On the card the copies are enqueued on the one
+        current stream before any later apply, so an apply issued after
+        the locks are released is not in them. The device-to-host copy
+        and the write run outside the locks."""
+        with self._lock, self._pub_lock:
+            state = {k: v.clone() for k, v in self.state.items()}
+            ledger = json.dumps(
+                {cid: list(per) for cid, per in self._applied_push.items()}
+            )
+        host = {k: v.cpu().numpy() for k, v in state.items()}
+        del state
+        with self._ckpt_write_lock:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            path = self._ckpt_path(ckpt_dir)
+            tmp = path + ".tmp.npz"  # .npz: savez must not append one
+            np.savez(
+                tmp,
+                __push_ledger__=np.frombuffer(ledger.encode(), dtype=np.uint8),
+                **host,
+            )
+            os.replace(tmp, path)
+
+    def load_state(self, ckpt_dir: str) -> bool:
+        """Load this range's dump if one exists; False when absent. The
+        host-to-device copies run outside the locks; the new tables and
+        the ledger are swapped in under them, as one unit."""
+        path = self._ckpt_path(ckpt_dir)
+        if not os.path.exists(path):
+            return False
+        with np.load(path) as z:
+            host = {k: z[k] for k in z.files}
+        ledger_raw = host.pop("__push_ledger__", None)
+        if set(host) != set(self.state) or any(
+            host[k].shape != tuple(self.state[k].shape) for k in host
+        ):
+            raise ValueError(
+                f"checkpoint {path} does not match this server's state "
+                "layout (different updater or key range?)"
+            )
+        applied: OrderedDict[str, OrderedDict[str, None]] = OrderedDict()
+        if ledger_raw is not None:  # absent in pre-ledger checkpoints
+            for cid, seqs in json.loads(ledger_raw.tobytes().decode()).items():
+                applied[cid] = OrderedDict((str(s), None) for s in seqs)
+        new_state = {
+            k: torch.from_numpy(_host_array(v, np.float32)).to(self.device)
+            for k, v in host.items()
+        }
+        with self._lock, self._pub_lock:
+            self.state = new_state
+            self._applied_push = applied
+            self._version += 1
+        return True
+
+    def start_checkpointing(self, ckpt_dir: str, interval_s: float) -> None:
+        """Background periodic dumps until the server stops (pushes since
+        the last dump are lost on a crash: the bounded-staleness price of
+        checkpoint recovery)."""
+
+        def loop() -> None:
+            while not self.server._stop.wait(interval_s):
+                self.save_state(ckpt_dir)
+
+        self._ckpt_thread = threading.Thread(
+            target=loop, daemon=True, name="ps-ckpt"
+        )
+        self._ckpt_thread.start()
+
+    def stop_checkpointing(self) -> None:
+        """Join the periodic dump thread (the stop event must already be
+        set: ``serve_forever`` has returned)."""
+        if self._ckpt_thread is not None:
+            self._ckpt_thread.join(timeout=30)
+            self._ckpt_thread = None
 
     # -- the state, in place under the publish lock -------------------------
 
@@ -1156,3 +1276,693 @@ class ServerHandle:
         self.client.close()
         if self._recovery_pool is not None:
             self._recovery_pool.shutdown(wait=False)
+
+
+# ---------------------------------------------------------------------------
+# node entry points (ref: main.cc role dispatch; spawned by launch_local or
+# the `cli node` subcommand: one process per node, like script/local.sh)
+# ---------------------------------------------------------------------------
+
+
+def _launch_counts() -> dict[str, int]:
+    """This process's kernel launches so far (the counters start at 0 in
+    a spawned node)."""
+    from parameter_server_tpu_torch.ops import adagrad_kernels, ftrl_kernels, quantize_kernels
+
+    return {**ftrl_kernels.LAUNCHES, **adagrad_kernels.LAUNCHES,
+            **quantize_kernels.LAUNCHES}
+
+
+class _RemoteBeatSink:
+    """Adapter giving ``HeartbeatReporter`` a coordinator RPC sink.
+
+    Opens its OWN connection: the node's main ControlClient serializes
+    calls and legitimately parks for long stretches (blocking kv_get,
+    ssp_wait); beats riding it would stall and read as a dead node
+    exactly when the node is merely waiting."""
+
+    def __init__(self, scheduler: str):
+        self._scheduler = scheduler
+        # short retry window: a beat is periodic, and retrying one for
+        # longer than the beat interval just delays the next, fresher one
+        self._ctl: ControlClient | None = ControlClient(
+            scheduler, reconnect_timeout_s=1.0
+        )
+
+    def beat(self, node_id: int, stats: dict | None = None) -> bool:
+        # a single transient socket failure must not silence beats forever
+        # (a healthy node would read as dead): drop the connection and
+        # rebuild it on the next beat
+        try:
+            if self._ctl is None:
+                self._ctl = ControlClient(
+                    self._scheduler, retries=1, retry_delay=0.0,
+                    reconnect_timeout_s=1.0,
+                )
+            self._ctl.beat(node_id, stats)
+            return True
+        except Exception:  # noqa: BLE001 — the next beat retries
+            if self._ctl is not None:
+                self._ctl.close()
+            self._ctl = None
+            return False
+
+    def close(self) -> None:
+        if self._ctl is not None:
+            self._ctl.close()
+
+
+class _Beats:
+    """A node's liveness heartbeat: HeartbeatReporter over a dedicated
+    coordinator connection (liveness must not depend on training
+    cadence). Each beat piggybacks the host stats and this process's
+    counters snapshot, which the coordinator's ``telemetry`` merges."""
+
+    def __init__(self, scheduler: str, node_id: int, interval_s: float):
+        self._sink = _RemoteBeatSink(scheduler)
+        self._rep = HeartbeatReporter(
+            self._sink, node_id, interval_s,
+            stats_fn=lambda: {**host_stats(), "telemetry": telemetry_snapshot()},
+        )
+        self._rep.start()
+
+    def stop(self) -> None:
+        self._rep.stop()
+        self._sink.close()
+
+
+def run_server(
+    cfg: PSConfig,
+    scheduler: str,
+    rank: int,
+    num_servers: int,
+    bind_host: str = "127.0.0.1",
+    advertise_host: str = "",
+    ckpt_dir: str = "",
+    device: Any = "cuda",
+) -> dict[str, Any]:
+    """One server process: a ``ShardServer`` over this rank's range of
+    the key space, its tables on ``device``. ``bind_host="0.0.0.0"`` + a
+    routable ``advertise_host`` lets workers on other hosts connect.
+
+    ``ckpt_dir`` enables recovery: an existing dump for this range is
+    loaded on start-up (a relaunched server resumes where its last dump
+    left off), with ``[fault] server_ckpt_interval_s > 0`` the state is
+    re-dumped periodically while serving, and once more at shutdown.
+    Returns this node's report (its kernel launches, its counters)."""
+    from parameter_server_tpu_torch.models.linear import updater_from_config
+
+    dev = resolve_device(device)
+    ranges = KeyRange(0, cfg.data.num_keys).even_divide(num_servers)
+    srv = ShardServer(
+        updater_from_config(cfg), ranges[rank], host=bind_host,
+        advertise_host=advertise_host, server_cfg=cfg.server, device=dev,
+    )
+    resumed = False
+    if ckpt_dir:
+        resumed = srv.load_state(ckpt_dir)
+        if resumed:
+            print(f"[server {rank}] resumed from {ckpt_dir}", flush=True)
+        if cfg.fault.server_ckpt_interval_s > 0:
+            srv.start_checkpointing(ckpt_dir, cfg.fault.server_ckpt_interval_s)
+    ctl = ControlClient(scheduler, reconnect_timeout_s=cfg.fault.reconnect_timeout_s)
+    node_id = ctl.register("server", rank=rank)
+    t_register = time.time()
+    # set AFTER any resume: workers re-resolving this key must never beat
+    # the state load and pull pre-resume zeros
+    ctl.kv_set(f"server_addr/{rank}", addr=srv.address)
+    beats = _Beats(scheduler, node_id, cfg.fault.heartbeat_interval_s)
+    srv.serve_forever()  # until the scheduler's shutdown
+    if ckpt_dir:
+        srv.stop_checkpointing()  # no periodic writer behind the final dump
+        srv.save_state(ckpt_dir)
+    beats.stop()
+    ctl.close()
+    return {"t_register": t_register, "resumed": resumed, "counters": dict(srv.counters)}
+
+
+def _connect_servers(
+    ctl: ControlClient, worker_rank: int, num_servers: int, cfg: PSConfig,
+    device: Any = "cuda",
+) -> list[ServerHandle]:
+    ranges = KeyRange(0, cfg.data.num_keys).even_divide(num_servers)
+    handles = []
+    for s in range(num_servers):
+        fields, _ = ctl.kv_get(f"server_addr/{s}", block=True, timeout=60)
+
+        def resolve(s=s) -> str:
+            # re-read the registry: a relaunched server re-publishes its
+            # (new) address under the same rank key
+            f, _ = ctl.kv_get(f"server_addr/{s}", block=True, timeout=10)
+            return f["addr"]
+
+        handles.append(
+            ServerHandle(
+                fields["addr"], s, worker_rank, cfg,
+                range_size=ranges[s].size, resolve_addr=resolve,
+                # the training tier is never a serving handle: its
+                # staleness contract is the SSP clock
+                serving=False, device=device,
+            )
+        )
+    return handles
+
+
+def run_worker(
+    cfg: PSConfig,
+    scheduler: str,
+    rank: int,
+    num_servers: int,
+    report_interval: int = 20,
+    device: Any = "cuda",
+) -> dict[str, Any]:
+    """The async-SGD worker loop over the wire (ref: AsyncSGDWorker): the
+    step's logits, loss and gradient are segment sums on ``device``; pulls
+    and pushes go through a ``SocketBackend`` over the servers' handles.
+    Returns this node's report."""
+    from parameter_server_tpu_torch.data.batch import training_builder
+    from parameter_server_tpu_torch.data.reader import MinibatchReader
+    from parameter_server_tpu_torch.models import metrics as M
+    from parameter_server_tpu_torch.ops.sparse import csr_grad, csr_logits, logistic_loss
+    from parameter_server_tpu_torch.parallel.backend import SocketBackend
+    from parameter_server_tpu_torch.parallel.ssp import PushWindow
+
+    dev = resolve_device(device)
+    ctl = ControlClient(scheduler, reconnect_timeout_s=cfg.fault.reconnect_timeout_s)
+    node_id = ctl.register("worker", rank=rank)
+    t_register = time.time()
+    beats = _Beats(scheduler, node_id, cfg.fault.heartbeat_interval_s)
+    # the scheduler's ssp_init/workload_init must land before our first
+    # fetch; registration order doesn't guarantee it, this kv flag does
+    ctl.kv_get("scheduler_init_done", block=True, timeout=120)
+    servers = _connect_servers(ctl, rank, num_servers, cfg, device=dev)
+    ranges = KeyRange(0, cfg.data.num_keys).even_divide(num_servers)
+    backend = SocketBackend(servers, ranges, cfg.data.num_keys, own_handles=False)
+    builder = training_builder(cfg)
+
+    def grad_step(w_u: np.ndarray, b) -> tuple[float, np.ndarray, np.ndarray]:
+        t = {f: torch.from_numpy(getattr(b, f)).to(dev)
+             for f in ("values", "local_ids", "row_ids", "labels", "example_mask")}
+        w = torch.from_numpy(w_u).to(dev)
+        logits = csr_logits(w, t["values"], t["local_ids"], t["row_ids"],
+                            num_rows=len(b.labels))
+        loss, err = logistic_loss(logits, t["labels"], t["example_mask"])
+        g = csr_grad(err, t["values"], t["local_ids"], t["row_ids"], num_unique=len(w_u))
+        return (float(loss), torch.sigmoid(logits).cpu().numpy(),
+                g.reshape(-1).cpu().numpy())
+
+    # in-flight push bound, in whole steps: the SSP delay shapes it (a step
+    # only ssp_finishes when its pushes applied), and [wire]
+    # max_inflight_pushes tightens it when wire memory binds
+    max_delay = cfg.solver.max_delay
+    ssp_limit = max_delay if max_delay >= 0 else (1 << 30)
+    cap = cfg.wire.max_inflight_pushes
+    inflight_limit = ssp_limit if cap <= 0 else min(ssp_limit, cap)
+    pushes = PushWindow(
+        inflight_limit, retire=lambda step_i: ctl.ssp_finish(rank, step_i)
+    )
+
+    step = 0
+    window: list[tuple[float, np.ndarray, np.ndarray]] = []
+    t0 = time.perf_counter()
+    t_first_step = None  # wall clock, for the node's report
+    ex_seen = 0
+
+    def flush_window() -> None:
+        """Send the window's merged progress (ref: per-report_interval
+        Progress protos merged at the scheduler)."""
+        nonlocal window, t0
+        if not window:
+            return
+        n = sum(len(y) for _, _, y in window)
+        y = np.concatenate([y for _, _, y in window])
+        p = np.concatenate([pr for _, pr, _ in window])
+        ctl.progress(
+            rank,
+            {
+                "examples": n,
+                "examples_total": ex_seen,
+                "objv": sum(l for l, _, _ in window) / n,
+                "auc": M.auc(y, p),
+                "ex_per_sec": n / max(time.perf_counter() - t0, 1e-9),
+                # measured wire traffic, cumulative for this worker,
+                # counted at the frame layer (summed over workers)
+                "wire_bytes_out": wire_counters.get("wire_bytes_out"),
+                "wire_bytes_in": wire_counters.get("wire_bytes_in"),
+                "wire_bytes_saved": wire_counters.get("wire_bytes_saved"),
+                "wire_comp_skipped": wire_counters.get("wire_comp_skipped"),
+                # self-healing counters, cumulative for this worker process
+                "rpc_retries": wire_counters.get("rpc_retries"),
+                "rpc_reconnects": wire_counters.get("rpc_reconnects"),
+            },
+        )
+        window = []
+        t0 = time.perf_counter()
+
+    while True:
+        workload = ctl.workload_fetch(rank)
+        if workload is None:
+            if ctl.workload_all_done():
+                break
+            # nothing pending, but another worker still holds active
+            # shards: if it dies the scheduler requeues them, so keep
+            # polling instead of exiting
+            time.sleep(0.2)
+            continue
+        _epoch, path = workload.split(":", 1)
+        for b in MinibatchReader([path], cfg.data.format, builder):
+            # retire our own in-flight pushes first: the clock's gate for
+            # step t includes this worker's finished counter, so draining
+            # after the gate would self-deadlock
+            pushes.gate()
+            if t_first_step is None:
+                t_first_step = time.time()
+            ctl.ssp_wait(rank, step)
+            # the batch's (sorted) unique global keys, pad slot 0 left out
+            real = b.unique_keys[1 : b.num_unique]
+            pulled = backend.pull(real)
+            w_u = np.zeros(len(b.unique_keys), dtype=np.float32)
+            w_u[1 : b.num_unique] = pulled.ravel()
+            loss, probs, g = grad_step(w_u, b)
+            g_real = g[1 : b.num_unique]
+            pushes.add(step, [backend.push_async(real, g_real)])
+            ex_seen += b.num_examples
+            window.append(
+                (loss, probs[: b.num_examples], b.labels[: b.num_examples])
+            )
+            if len(window) >= report_interval:
+                flush_window()
+            step += 1
+        ctl.workload_finish(workload)
+    pushes.wait_all()  # the sync point: every in-flight push acked
+    t_done = time.time()
+    flush_window()
+    ctl.ssp_retire(rank)  # out of data: stop gating the still-running workers
+    # completion signal: the scheduler's monitor waits for every rank to
+    # be done or dead
+    ctl.kv_set(f"worker_done/{rank}")
+    beats.stop()
+    for sh in servers:
+        sh.close()
+    ctl.close()
+    return {"t_register": t_register, "t_first_step": t_first_step, "t_done": t_done,
+            "steps": step, "examples": ex_seen,
+            "max_inflight_seen": pushes.max_inflight_seen}
+
+
+def run_scheduler(
+    cfg: PSConfig,
+    coordinator: Coordinator,
+    num_servers: int,
+    num_workers: int,
+    model_out: str = "",
+    device: Any = "cuda",
+) -> dict[str, Any]:
+    """Drive a run: init the pool and the clock, wait for completion,
+    assemble the model from the servers' dumps, evaluate it on ``device``,
+    shut everything down."""
+    dev = resolve_device(device)
+    ctl = ControlClient(coordinator.address)
+    ctl.register("scheduler")
+    ctl.ssp_init(num_workers, cfg.solver.max_delay)
+    items = [
+        f"{e}:{f}" for e in range(max(cfg.solver.epochs, 1)) for f in cfg.data.files
+    ]
+    ctl.workload_init(items)
+    ctl.kv_set("scheduler_init_done")  # workers block on this before fetching
+    if cfg.fault.recovery_sweep_interval_s > 0:
+        # dead-WORKER recovery (requeue + clock release) runs inside the
+        # coordinator's sweep thread; this loop records its verdicts.
+        # Dead-SERVER policy (grace window / fail fast) stays here
+        coordinator.start_recovery(cfg.fault.recovery_sweep_interval_s)
+
+    # monitor loop: wait until every worker rank is done or dead (a plain
+    # barrier would park forever on a dead worker's missing arrival)
+    dead_ranks: set[int] = set()
+    server_dead_since: dict[int, float] = {}  # rank -> first seen dead
+    t_start = time.monotonic()
+
+    def declare_dead(r: int, why: str) -> None:
+        requeued = ctl.workload_reassign(worker=r)
+        ctl.ssp_retire(r)
+        dead_ranks.add(r)
+        print(f"[scheduler] worker {r} {why}; requeued {len(requeued)} "
+              f"shard(s), retired its clock", flush=True)
+
+    while True:
+        done = {
+            r for r in range(num_workers)
+            if ctl.kv_get(f"worker_done/{r}") is not None
+        }
+        if done | dead_ranks >= set(range(num_workers)):
+            break
+        for r, info in ctl.recovered_workers().items():
+            if r not in dead_ranks:
+                dead_ranks.add(r)
+                print(f"[scheduler] worker {r} dead (missed heartbeats); sweep "
+                      f"requeued {len(info['requeued'])} shard(s) and retired "
+                      "its clock", flush=True)
+        registry = ctl.nodes()
+        dead_ids, _alive = ctl.dead_nodes()
+        dead_set = {int(x) for x in dead_ids}
+        alive_server_ranks = {
+            int(n["rank"])
+            for nid2, n in registry.items()
+            if n.get("role") == "server" and "rank" in n and int(nid2) not in dead_set
+        }
+        for nid in dead_ids:
+            info = registry.get(str(nid), {})
+            role = info.get("role")
+            if role == "server":
+                r = int(info.get("rank", -1))
+                grace = cfg.fault.server_restart_grace_s
+                if r in alive_server_ranks:
+                    # a replacement re-registered under this rank (resumed
+                    # from its checkpoint); the old corpse can be ignored
+                    server_dead_since.pop(r, None)
+                    continue
+                now = time.monotonic()
+                since = server_dead_since.setdefault(r, now)
+                if grace <= 0 or now - since > grace:
+                    # without checkpoint-backed restart a dead server's
+                    # key range is gone: fail fast with the cause
+                    raise RuntimeError(
+                        f"shard server rank {r} died (missed heartbeats) "
+                        + (f"and no replacement registered within {grace}s; "
+                           if grace > 0 else "; ")
+                        + "aborting the run"
+                    )
+                continue
+            if role != "worker":
+                continue
+            r = int(info.get("rank", -1))
+            if r not in dead_ranks and r not in done:
+                # sweep disabled (recovery_sweep_interval_s == 0): fall
+                # back to scheduler-driven recovery over the wire
+                declare_dead(r, "dead (missed heartbeats)")
+        if time.monotonic() - t_start > cfg.fault.startup_grace_s:
+            # a rank that NEVER registered is neither dead (no beats) nor
+            # done: without this it would park the monitor forever
+            registered = {
+                int(n["rank"]) for n in registry.values()
+                if n.get("role") == "worker" and "rank" in n
+            }
+            for r in set(range(num_workers)) - registered - dead_ranks - done:
+                declare_dead(r, "never registered (startup failure?)")
+        if cfg.fault.straggler_reassign_s > 0:
+            ctl.workload_reassign(older_than=cfg.fault.straggler_reassign_s)
+        time.sleep(0.5)
+
+    from parameter_server_tpu_torch.parallel.backend import SocketBackend
+
+    servers = _connect_servers(ctl, -1, num_servers, cfg, device=dev)
+    w = SocketBackend(
+        servers, KeyRange(0, cfg.data.num_keys).even_divide(num_servers),
+        cfg.data.num_keys, own_handles=False,
+    ).weights().ravel()
+    out: dict[str, Any] = {
+        "merged": ctl.progress_merged(),
+        "server_stats": [sh.stats() for sh in servers],
+        "nnz_w": int(np.count_nonzero(w)),
+        "workloads": ctl.workload_stats(),
+        "dead_workers": sorted(dead_ranks),
+        # scheduler-process wire/recovery counters (the coordinator runs
+        # in-process)
+        "wire": wire_counters.snapshot(),
+        # cluster counters merged from every node's heartbeat snapshot
+        "telemetry": ctl.telemetry()["merged"],
+    }
+    if model_out:
+        from parameter_server_tpu_torch.utils.checkpoint import dump_weights_text
+
+        dump_weights_text(w, model_out)
+        out["model_out"] = model_out
+    if cfg.data.val_files:
+        from parameter_server_tpu_torch.models.evaluation import evaluate_model
+
+        ev = evaluate_model(
+            w, cfg.data.val_files, cfg.data.format, cfg.data.num_keys,
+            batch_size=cfg.solver.minibatch,
+            max_nnz_per_example=cfg.data.max_nnz_per_example, device=dev,
+        )
+        out["val_auc"] = ev["auc"]
+        out["val_logloss"] = ev["logloss"]
+    for sh in servers:
+        sh.shutdown()
+        sh.close()
+    ctl.close()
+    coordinator.stop()
+    return out
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet to parameter_server_tpu_torch")
+
+
+def launch_local(
+    app_file: str,
+    num_servers: int,
+    num_workers: int,
+    model_out: str = "",
+    timeout: float = 600.0,
+    device: Any = "cuda",
+    fault_kill: str = "",
+    fault_restart_after: float = -1.0,
+    ckpt_dir: str = "",
+    fault_plan: str = "",
+    fault_seed: int = 0,
+    trace_dir: str = "",
+    trace_sample: int = 1,
+    blackbox_dir: str = "",
+    log_dir: str = "",
+) -> dict[str, Any]:
+    """Spawn scheduler + servers + workers as real processes on this host
+    (ref: script/local.sh): each a ``python -m parameter_server_tpu_torch.
+    cli node --device <device>`` process. On the card every node shares
+    the one card (no collective runs on this path).
+
+    ``fault_kill="worker:1@2.0"`` SIGKILLs the named node 2.0 s after it
+    registers with the coordinator (dead-node detection + workload
+    requeue); ``fault_restart_after >= 0`` respawns it that many seconds
+    after the kill, which with ``ckpt_dir`` (server checkpoints, see
+    ``run_server``) exercises checkpoint-backed server recovery.
+
+    The nodes' output lands in ``log_dir`` (a fresh temporary directory
+    by default) as ``<role>-<rank>.out`` / ``.err``. Returns the
+    scheduler's result, plus ``nodes``: each node's spawn time, exit code
+    and the JSON report it printed at exit (its launches, its register
+    time). Chaos (``fault_plan``), tracing and the black box are not
+    ported."""
+    import socket as socket_mod
+    import subprocess
+    import sys
+    import tempfile
+
+    resolve_device(device)  # no card: raise here, before spawning anything
+    if fault_plan:
+        raise _not_ported("chaos (fault_plan)")
+    if trace_dir or trace_sample > 1:
+        raise _not_ported("tracing (trace_dir, trace_sample)")
+    if blackbox_dir:
+        raise _not_ported("the black box (blackbox_dir)")
+
+    with socket_mod.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    addr = f"127.0.0.1:{port}"
+    child_env = dict(os.environ)
+    # the children import this package from where this process found it
+    pkg_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    child_env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (pkg_root, child_env.get("PYTHONPATH", "")) if p
+    )
+    logdir = log_dir or tempfile.mkdtemp(prefix="pslaunch_")
+    os.makedirs(logdir, exist_ok=True)
+
+    def spawn(role: str, rank: int, attempt: int = 0) -> subprocess.Popen:
+        cmd = [
+            sys.executable, "-m", "parameter_server_tpu_torch.cli", "node",
+            "--role", role, "--rank", str(rank), "--scheduler", addr,
+            "--num_servers", str(num_servers), "--num_workers", str(num_workers),
+            "--app_file", app_file, "--device", str(device),
+        ]
+        if role == "scheduler" and model_out:
+            cmd += ["--model_out", model_out]
+        if role == "server" and ckpt_dir:
+            cmd += ["--ckpt_dir", ckpt_dir]
+        # child output goes to files, not pipes: nobody drains N pipes
+        # while training runs, and a chatty child must never block
+        tag = f"{role}-{rank}" + (f"-r{attempt}" if attempt else "")
+        out_f = open(f"{logdir}/{tag}.out", "w+")
+        err_f = open(f"{logdir}/{tag}.err", "w+")
+        t_spawn = time.time()
+        p = subprocess.Popen(cmd, stdout=out_f, stderr=err_f, text=True, env=child_env)
+        p._ps_logs = (out_f, err_f)  # type: ignore[attr-defined]
+        p._ps_tag = f"{role}:{rank}"  # type: ignore[attr-defined]
+        p._ps_name = tag  # type: ignore[attr-defined]
+        p._ps_spawn = t_spawn  # type: ignore[attr-defined]
+        return p
+
+    def logs_of(p: subprocess.Popen) -> tuple[str, str]:
+        out_f, err_f = p._ps_logs  # type: ignore[attr-defined]
+        out_f.seek(0)
+        err_f.seek(0)
+        return out_f.read(), err_f.read()
+
+    procs = [spawn("scheduler", 0)]
+    procs += [spawn("server", r) for r in range(num_servers)]
+    procs += [spawn("worker", r) for r in range(num_workers)]
+    victims: list[subprocess.Popen] = []  # processes whose death is the test
+    replacement_box: list[subprocess.Popen] = []  # assassin -> main handoff
+    respawn_lock = threading.Lock()
+    harness_done = threading.Event()
+    assassin_thread: threading.Thread | None = None
+    if fault_kill:
+        role_rank, delay_s = fault_kill.split("@")
+        kill_role, kill_rank = role_rank.split(":")
+        killed_tag = f"{kill_role}:{int(kill_rank)}"
+        victim = next(p for p in procs if p._ps_tag == killed_tag)  # type: ignore[attr-defined]
+        victims.append(victim)
+
+        def assassin() -> None:
+            # wait for the victim to REGISTER first: killing a process that
+            # never reached the coordinator would leave the scheduler unable
+            # to tell "dead" from "still starting up"
+            ctl = ControlClient(addr, retries=600)
+            try:
+                while not harness_done.is_set():
+                    if any(
+                        n.get("role") == kill_role
+                        and int(n.get("rank", -1)) == int(kill_rank)
+                        for n in ctl.nodes().values()
+                    ):
+                        break
+                    time.sleep(0.2)
+            except Exception:  # noqa: BLE001 — the run ended first
+                return
+            finally:
+                ctl.close()
+            if harness_done.wait(float(delay_s)):
+                return
+            victim.kill()
+            if fault_restart_after >= 0:
+                if harness_done.wait(fault_restart_after):
+                    return
+                # checkpoint-backed recovery: the replacement re-registers
+                # under the same rank and reloads its range dump; spawned
+                # only while the scheduler is alive, or nobody would ever
+                # shut it down
+                with respawn_lock:
+                    if not harness_done.is_set() and procs[0].poll() is None:
+                        replacement_box.append(
+                            spawn(kill_role, int(kill_rank), attempt=1)
+                        )
+
+        assassin_thread = threading.Thread(target=assassin, daemon=True,
+                                           name="ps-launch-assassin")
+        assassin_thread.start()
+    deadline = time.monotonic() + timeout
+    timed_out = False
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1))
+            except subprocess.TimeoutExpired:
+                timed_out = True
+                break
+        # the replacement (if any) exits when the scheduler shuts it down;
+        # one spawned too close to the run's end may have nobody left to
+        # do that: reap it leniently rather than hang or fail the run
+        with respawn_lock:
+            harness_done.set()  # no further respawns
+        for p in replacement_box:
+            if not timed_out:
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    pass
+    finally:
+        with respawn_lock:
+            harness_done.set()
+        if assassin_thread is not None:
+            assassin_thread.join(timeout=30)
+        for p in replacement_box:
+            victims.append(p)  # its rc never decides the run's outcome
+            procs.append(p)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = [(p, *logs_of(p)) for p in procs]
+    for p, _, _ in outs:
+        p._ps_logs[0].close()  # type: ignore[attr-defined]
+        p._ps_logs[1].close()  # type: ignore[attr-defined]
+    if timed_out:
+        tails = "\n".join(
+            f"--- {p._ps_tag} rc={p.returncode} ---\n{err[-1500:]}"  # type: ignore[attr-defined]
+            for p, _, err in outs
+        )
+        raise RuntimeError(f"multi-process run timed out after {timeout}s:\n{tails}")
+    for p, stdout, stderr in outs:
+        if p.returncode != 0 and not any(p is v for v in victims):
+            raise RuntimeError(
+                f"node {p._ps_tag} failed rc={p.returncode}:\n{stderr[-2000:]}"  # type: ignore[attr-defined]
+            )
+    # every node prints its result JSON on its last stdout line (the
+    # scheduler's is the run's result)
+    nodes: dict[str, dict[str, Any]] = {}
+    for p, stdout, _ in outs:
+        lines = stdout.strip().splitlines()
+        report = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+        nodes[p._ps_name] = {"spawn_time": p._ps_spawn, "rc": p.returncode,  # type: ignore[attr-defined]
+                             **({} if p._ps_name == "scheduler-0" else report)}  # type: ignore[attr-defined]
+    result = json.loads(outs[0][1].strip().splitlines()[-1])
+    result["nodes"] = nodes
+    return result
+
+
+def run_node(
+    cfg: PSConfig,
+    role: str,
+    rank: int,
+    scheduler: str,
+    num_servers: int,
+    num_workers: int,
+    model_out: str = "",
+    bind_host: str = "127.0.0.1",
+    advertise_host: str = "",
+    ckpt_dir: str = "",
+    device: Any = "cuda",
+) -> dict[str, Any]:
+    """Role dispatch for one spawned process (ref: App::Create + main.cc).
+    The scheduler returns the run's result; a server or a worker its
+    report: ``{"node": "server-0", "device": ..., "launches": {...}}``
+    with its kernel launches, its register time and its counters."""
+    if role not in ("scheduler", "server", "worker"):
+        raise ValueError(f"unknown role {role!r}")
+    if cfg.trace.trace_dir:
+        raise _not_ported("tracing ([trace] trace_dir)")
+    if cfg.blackbox.dir:
+        raise _not_ported("the black box ([blackbox] dir)")
+    if cfg.profile.hz > 0:
+        raise _not_ported("the profiler ([profile] hz)")
+    if cfg.timeseries.metrics_port:
+        raise _not_ported("the metrics endpoint ([timeseries] metrics_port)")
+    if cfg.fault.fault_plan:
+        raise _not_ported("chaos ([fault] fault_plan)")
+    dev = resolve_device(device)
+    if role == "scheduler":
+        host, port = scheduler.rsplit(":", 1)
+        coord = Coordinator(
+            host, int(port), heartbeat_timeout_s=cfg.fault.heartbeat_timeout_s,
+        )
+        return run_scheduler(cfg, coord, num_servers, num_workers, model_out, device=dev)
+    if role == "server":
+        report = run_server(
+            cfg, scheduler, rank, num_servers, bind_host=bind_host,
+            advertise_host=advertise_host, ckpt_dir=ckpt_dir, device=dev,
+        )
+    else:
+        report = run_worker(cfg, scheduler, rank, num_servers, device=dev)
+    return {"node": f"{role}-{rank}", "device": str(dev),
+            "launches": _launch_counts(), **report}

@@ -1,9 +1,10 @@
 """Bounded-staleness (SSP) dispatch: the host-side window of in-flight
 steps, and the SSP clock.
 
-Copies of the JAX package's ``DispatchWindow`` and ``SSPClock``
-(``parallel/ssp.py``), the clock without its flight-recorder and
-wire-counter hooks; the push window comes with the wire tier. PyTorch
+Copies of the JAX package's ``DispatchWindow``, ``PushWindow`` (the wire
+tier's window of in-flight push futures) and ``SSPClock``
+(``parallel/ssp.py``), the clock without its flight-recorder,
+wire-counter and watchdog hooks. PyTorch
 queues CUDA work
 asynchronously as JAX dispatches jitted steps, so the same window bounds
 how far the host runs ahead of the device: an entry (a step's device loss)
@@ -47,6 +48,59 @@ class DispatchWindow:
     def drain(self) -> None:
         while self._q:
             self._retire(*self._q.popleft())
+
+    def __len__(self) -> int:
+        return len(self._q)
+
+
+class PushWindow:
+    """Bounded window of in-flight push *futures* — the wire tier's sibling
+    of :class:`DispatchWindow`. The worker loop issues one step's fan-out
+    of async pushes (one future per shard server), then:
+
+        window.gate()            # retire done heads; block over the bound
+        ... issue step t's pushes ...
+        window.add(t, futures)
+    and at a sync point: window.wait_all().
+
+    ``retire(step)`` fires exactly once per step, AFTER every one of its
+    pushes completed (the worker hangs its ``ssp_finish`` there, so the
+    SSP clock's bounded-delay contract holds with a pipelined wire:
+    a step only counts as finished when its pushes are actually applied).
+    ``max_inflight`` bounds whole steps riding the wire; blocking on the
+    oldest step's futures IS the bound taking effect."""
+
+    def __init__(self, max_inflight: int, retire: Callable[[int], None]):
+        self.max_inflight = max(0, max_inflight)
+        self._retire = retire
+        self._q: deque[tuple[int, list]] = deque()
+        self.max_inflight_seen = 0  # observability: peak step depth reached
+
+    def gate(self) -> None:
+        """Retire every finished head step, then keep retiring (blocking
+        on unfinished pushes) until at most ``max_inflight`` steps remain
+        in flight."""
+        while self._q and (
+            len(self._q) > self.max_inflight
+            or all(f.done() for f in self._q[0][1])
+        ):
+            self._retire_head()
+
+    def add(self, step: int, futures: list) -> None:
+        self._q.append((step, list(futures)))
+        self.max_inflight_seen = max(self.max_inflight_seen, len(self._q))
+
+    def wait_all(self) -> None:
+        """Full sync point: block until every in-flight push completed and
+        every step retired (surfacing any push error)."""
+        while self._q:
+            self._retire_head()
+
+    def _retire_head(self) -> None:
+        step, futs = self._q.popleft()
+        for f in futs:
+            f.result()  # blocks; surfaces push errors to the caller
+        self._retire(step)
 
     def __len__(self) -> int:
         return len(self._q)

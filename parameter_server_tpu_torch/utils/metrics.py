@@ -1,6 +1,9 @@
 """The training progress table (the JAX package's ``ProgressReporter``),
-and a copy of the wire tier's counters (``CounterSet``, the process-global
-``wire_counters``)."""
+a copy of the wire tier's counters (``CounterSet``, the process-global
+``wire_counters``), and the scheduler's merges: ``merge_progress`` of the
+workers' reports and counters-only ``telemetry_snapshot`` /
+``merge_telemetry`` (the JAX package's latency histograms and named timers
+are not ported, so their blocks come back empty)."""
 
 from __future__ import annotations
 
@@ -134,3 +137,68 @@ class CounterSet:
 
 #: process-global wire/recovery counters (see CounterSet docstring)
 wire_counters = CounterSet()
+
+
+def telemetry_snapshot(roll_peaks: bool = True) -> dict[str, Any]:
+    """This process's telemetry state, counters only: nodes piggyback it
+    on every heartbeat and the coordinator merges the cluster view. Peak
+    gauges roll here (see ``CounterSet.snapshot``); ``roll_peaks=False``
+    observes without consuming the window. ``hists`` and ``timers`` stay
+    empty: those registries are not ported."""
+    return {
+        "counters": wire_counters.snapshot(roll_peaks=roll_peaks),
+        "hists": {},
+        "timers": {},
+    }
+
+
+def merge_telemetry(snaps: list[dict[str, Any]]) -> dict[str, Any]:
+    """Cluster merge of telemetry snapshots: counters sum, high-watermark
+    gauges (``*_peak``, fed by ``observe_max``) merge as a max: summing
+    per-node peaks would report a depth nothing reached."""
+    counters: dict[str, int] = {}
+    for s in snaps:
+        for k, v in s.get("counters", {}).items():
+            if k.endswith("_peak"):
+                counters[k] = max(counters.get(k, 0), v)
+            else:
+                counters[k] = counters.get(k, 0) + v
+    return {"counters": counters, "hists": {}, "timers": {}}
+
+
+def merge_progress(reports: list[dict[str, Any]]) -> dict[str, Any]:
+    """Merge per-worker progress the way the reference scheduler does:
+    sums for counters, example-weighted means for metrics."""
+    if not reports:
+        return {}
+    out: dict[str, Any] = {}
+    n = sum(r.get("examples", 0) for r in reports)
+    out["examples"] = n
+    for k in ("objv", "auc", "logloss"):
+        pairs = [(r[k], r.get("examples", 0)) for r in reports if k in r]
+        if pairs:
+            if all(w > 0 for _, w in pairs):
+                tot = sum(w for _, w in pairs)
+                out[k] = sum(x * w for x, w in pairs) / tot
+            else:  # any report without a count: fall back to unweighted mean
+                out[k] = sum(x for x, _ in pairs) / len(pairs)
+    for k in (
+        "nnz_w",
+        "ex_per_sec",
+        "bytes_pushed",
+        "bytes_pulled",
+        "wire_bytes_out",
+        "wire_bytes_in",
+        "wire_bytes_saved",
+        "wire_comp_skipped",
+        "est_collective_bytes",
+        # self-healing control plane (each worker reports its cumulative
+        # wire_counters; the merge is the cluster total)
+        "rpc_retries",
+        "rpc_reconnects",
+        "rpc_dedup_hits",
+    ):
+        vals = [r[k] for r in reports if k in r]
+        if vals:
+            out[k] = sum(vals)
+    return out

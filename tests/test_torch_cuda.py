@@ -600,3 +600,115 @@ def test_wire_entry_points_raise_without_a_card():
         local_socket_backend(Sgd, 64)
     with pytest.raises(RuntimeError, match="cuda"):
         MeshBackend(Sgd(), 64)
+
+
+@pytest.mark.cuda
+def test_card_save_state_under_pushes_holds_its_ledger(dev, tmp_path):
+    """``save_state`` on a card server, taken again and again while 8
+    pipelined pushers' pushes are being applied: each dump's table is
+    exactly the pushes its ledger lists (SGD, eta 1, integer gradients:
+    every sum is exact), so no apply issued after the copy's locks were
+    released is in it, and none the ledger lists is missing."""
+    import threading
+
+    from parameter_server_tpu_torch.kv.updaters import Sgd
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle, ShardServer
+    from parameter_server_tpu_torch.utils.config import PSConfig
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange
+
+    size, per = 1 << 14, 40  # per handle: within the ledger's 64 seqs a client
+    srv = ShardServer(Sgd(eta=1.0), KeyRange(0, size), device="cuda").start()
+    hs = [ServerHandle(srv.address, 0, w, PSConfig(), range_size=size, device="cuda")
+          for w in range(8)]
+    rng = np.random.default_rng(9)
+    pushes = {}  # (cid, "k<i>") -> (keys, grad)
+    for h in hs:
+        cid = h.client.identity[0]
+        for i in range(per):
+            keys = np.unique(rng.integers(0, size, 2000))
+            pushes[(cid, f"k{i}")] = (keys, rng.integers(-3, 4, len(keys)).astype(np.float32))
+    stop = threading.Event()
+    dumps = []
+
+    def snapshot():
+        while not stop.is_set():
+            d = tmp_path / f"d{len(dumps)}"
+            srv.save_state(str(d))
+            dumps.append(d)
+
+    t = threading.Thread(target=snapshot)
+    try:
+        t.start()
+        futs = [h.push_async(*pushes[(h.client.identity[0], f"k{i}")])
+                for i in range(per) for h in hs]
+        for f in futs:
+            f.result(timeout=120)
+    finally:
+        stop.set()
+        t.join(timeout=60)
+        hs[0].shutdown()
+        for h in hs:
+            h.close()
+    import json
+
+    sizes = []
+    for d in dumps:
+        with np.load(d / f"server-0-{size}.npz") as z:
+            w = z["w"].ravel()
+            ledger = json.loads(z["__push_ledger__"].tobytes().decode())
+        want = np.zeros(size, np.float32)
+        n = 0
+        for cid, seqs in ledger.items():
+            for seq in seqs:
+                keys, g = pushes[(cid, seq)]
+                want[keys] -= g
+                n += 1
+        np.testing.assert_array_equal(w, want)
+        sizes.append(n)
+    assert sizes and max(sizes) <= len(pushes)
+    assert any(0 < n < len(pushes) for n in sizes), sizes  # taken mid-run
+
+
+@pytest.mark.cuda
+def test_launch_local_on_card_matches_cpu(dev, tmp_path):
+    """A one-worker cluster (2 card servers, max_delay 0) against the same
+    cluster on the CPU: the weights within 1e-4 of themselves plus 1e-4 of
+    the table's largest (the card's segment sums add in another order);
+    each server launched K1 once an apply batch, the worker none."""
+    import json
+
+    from parameter_server_tpu_torch.data.synthetic import make_sparse_logistic, write_libsvm
+    from parameter_server_tpu_torch.parallel.multislice import launch_local
+    from parameter_server_tpu_torch.utils.checkpoint import load_weights_text
+
+    labels, keys, vals, _ = make_sparse_logistic(3000, 800, nnz_per_example=10,
+                                                 noise=0.3, seed=11)
+    files = []
+    for i in range(4):
+        sl = slice(i * 700, (i + 1) * 700)
+        files.append(str(tmp_path / f"part-{i}.libsvm"))
+        write_libsvm(files[-1], labels[sl], keys[sl], vals[sl])
+    write_libsvm(tmp_path / "val.libsvm", labels[2800:], keys[2800:], vals[2800:])
+    app = tmp_path / "app.json"
+    app.write_text(json.dumps({
+        "app": "linear_method",
+        "data": {"files": files, "format": "libsvm", "num_keys": 1 << 15,
+                 "val_files": [str(tmp_path / "val.libsvm")], "max_nnz_per_example": 64},
+        "solver": {"algo": "ftrl", "minibatch": 256, "max_delay": 0, "epochs": 1},
+        "lr": {"alpha": 0.3, "beta": 1.0}, "penalty": {"lambda_l1": 0.005},
+        "filter": {"key_caching": True, "compressing": True}}))
+    out, w = {}, {}
+    for device in ("cuda", "cpu"):
+        model = tmp_path / f"{device}.txt"
+        out[device] = launch_local(str(app), 2, 1, model_out=str(model), timeout=300,
+                                   device=device)
+        w[device] = load_weights_text(model, 1 << 15)
+    assert np.count_nonzero(w["cpu"]) > 0
+    bound = 1e-4 * np.abs(w["cpu"]) + 1e-4 * np.abs(w["cpu"]).max()
+    assert np.all(np.abs(w["cuda"] - w["cpu"]) <= bound)
+    assert out["cuda"]["workloads"] == out["cpu"]["workloads"]
+    nodes = out["cuda"]["nodes"]
+    for s, st in zip(("server-0", "server-1"), out["cuda"]["server_stats"]):
+        assert nodes[s]["device"] == "cuda:0" or nodes[s]["device"].startswith("cuda")
+        assert nodes[s]["launches"]["ftrl_push"] == st["apply_batches"] > 0
+    assert set(nodes["worker-0"]["launches"].values()) == {0}

@@ -53,8 +53,32 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert {f"{PKG}.parallel.{m}" for m in (
         "control", "multislice", "backend", "meshbackend")} <= set(res["imported"])
     assert f"{PKG}.utils.keyrange" in res["imported"]
+    # the control plane and the cluster's entry points, and their copies
+    assert {f"{PKG}.utils.heartbeat", f"{PKG}.parallel.workload", f"{PKG}.cli"} <= set(
+        res["imported"])
     assert res["leaked"] == []
     assert res["jax"] == []
+
+
+def test_cluster_entry_points_stand_alone():
+    """The coordinator, its client, the node entry points and the CLI's
+    ``node`` / ``launch`` live in the port, with JAX absent."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    probe = (
+        'import sys, json; sys.modules["jax"] = None\n'
+        "from parameter_server_tpu_torch.parallel.control import Coordinator, ControlClient\n"
+        "from parameter_server_tpu_torch.parallel.multislice import (launch_local, run_node,\n"
+        "    run_scheduler, run_server, run_worker)\n"
+        "from parameter_server_tpu_torch.parallel.ssp import PushWindow\n"
+        "from parameter_server_tpu_torch.utils.heartbeat import HeartbeatMonitor\n"
+        "from parameter_server_tpu_torch import cli\n"
+        "assert 'node' not in cli.NOT_PORTED_CMDS and 'launch' not in cli.NOT_PORTED_CMDS\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "    ('parameter_server_tpu', 'jax') and sys.modules[m] is not None)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 _SMOKE_PROBE = r"""
