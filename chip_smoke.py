@@ -188,12 +188,42 @@ the script exits nonzero without printing a result:
              server killed and restarted from its 0.5 s checkpoints: no
              dead worker, every workload done once, the replacement resumed
              and launched K1 once an apply batch, the validation AUC within
-             CLUSTER_RESTART_AUC_BOUND of (a)'s. Any node's nonzero exit or
-             a launch past CLUSTER_TIMEOUT_S fails the phase.
+             CLUSTER_RESTART_AUC_BOUND of (a)'s. (e) (a)'s launch on the
+             card with every node under CHAOS_PLAN (launch_local(
+             fault_plan=...), through PS_FAULT_PLAN): the model matches the
+             clean card model (E2E_RTOL), every workload done once, K1 once
+             an apply batch, each server's plan fired. (a), (d) and (e) run
+             at once. Any node's nonzero exit or a launch past
+             CLUSTER_TIMEOUT_S fails the phase.
+14. chaos and serving — (a) phase 12 (a)'s FTRL servers and 24 pushes,
+             each server under CHAOS_PLAN (drop, disconnect every 5th push,
+             duplicate, delay): the pull of every touched key against the
+             CPU replay of each push applied once (rtol 1e-5, atol 1e-6),
+             K1 once an apply batch with every index unique, each server's
+             push ledger holding each push once, every action fired;
+             pushes/s and p50/p99 beside phase 12 (a)'s clean figures, the
+             idle share of the first 8 pushes. (b) The same on phase 12
+             (b)'s 2^22 x 64 AdaGrad servers through K3. (c) The serving
+             plane: 2^24 FTRL keys over 4 card servers of 2^22 rows (each
+             range [serve] snapshot_keys_max, so the host snapshot runs);
+             8 frontend threads, each multiplexing 32 clients on their own
+             Zipf(1.1) streams over 512 key sets of 32 keys, through serving
+             handles sharing one ClientKeyCache (TTL 1 s, staleness ceiling
+             4 s), while a writer pushes a key set every 20 ms through K1:
+             every row a serving handle installed equals a CPU replay of
+             its server's table at the reply's version (rtol 1e-5, atol
+             1e-6), the writer reads its own writes, no served row is
+             older than max(TTL, ceiling), uncached pulls move the servers'
+             pulls counter each time; pulls/s, p50/p99 by path (local or
+             wire), hits, not_modified, encodes and reuses; the host
+             snapshot's time at 2^22 rows; a profiled second of the
+             traffic. Then a shed arm: two writers flood async pushes, one
+             queued push marks a server overloaded, and revalidations are
+             shed and served from the cache.
 
 Launch counters are reset just before each of phases 4-7, the round trip
 of phase 8, the training runs of phases 9 and 10, each mode of phase
-11 (a) and each arm of phase 12, and read just after; phase 11 (b)'s ranks and phase 13's
+11 (a) and each arm of phases 12 and 14, and read just after; phase 11 (b)'s ranks and phase 13's
 nodes start from 0 in their own processes and print their counts: each
 must have launched its kernels (phase 10: none). The line before the last is the kernels' JSON summary;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -397,6 +427,31 @@ CLUSTER_FILES, CLUSTER_SERVERS, CLUSTER_TIMEOUT_S = 8, 2, 300
 CLUSTER_AUC_BOUND, CLUSTER_RESTART_AUC_BOUND = 0.05, 0.06
 CLUSTER_FAULT = {"heartbeat_interval_s": 0.5, "heartbeat_timeout_s": 2.5}
 CLUSTER_ADAGRAD_ETA = 0.1  # the [lr] eta default
+
+# phase 14: chaos and the serving plane. (a), (b) phase 12 (a)'s FTRL and
+# (b)'s embedding servers, the server of rank r armed with CHAOS_PLAN
+# (every action of the wire's fault language) from seed CHAOS_SEED + r: two
+# servers fed the same command sequence under one seed decide alike, and
+# over an arm's ~30 frames seed 7's stream draws no drop where seed 8's
+# does, so the arm fires every action; phase 13 (e) arms every node of
+# (a)'s launch with the plan and CHAOS_SEED. (c) The serving plane at the worker's width:
+# WORKER_KEYS FTRL keys over SERVE_SERVERS card servers, so each range is
+# [serve] snapshot_keys_max rows; the traffic of the JAX bench.py serve
+# cell: SERVE_THREADS frontend threads, each multiplexing SERVE_CLIENTS
+# clients on their own Zipf(SERVE_ZIPF) streams over SERVE_SETS key sets of
+# SERVE_SET_KEYS keys, one shared client cache (TTL SERVE_TTL_MS, staleness
+# ceiling SERVE_MAX_STALE_MS), a writer pushing a key set every
+# SERVE_WRITER_PERIOD_S through K1; then a shed arm under a flood of two
+# writers' windows of 32 async pushes, where SHED_QUEUE_DEPTH queued pushes
+# mark a server overloaded (1: any backlog; the card drains a queue of 4
+# faster than revalidations arrive)
+CHAOS_PLAN = ("drop,prob=0.05;disconnect,cmd=push,every=5;duplicate,prob=0.05;"
+              "delay,prob=0.1,delay_s=0.002")
+CHAOS_SEED = 7
+SERVE_SERVERS, SERVE_SETS, SERVE_SET_KEYS, SERVE_ZIPF = 4, 512, 32, 1.1
+SERVE_THREADS, SERVE_CLIENTS = 8, 32
+SERVE_TTL_MS, SERVE_MAX_STALE_MS, SERVE_WRITER_PERIOD_S = 1000, 4000, 0.02
+SERVE_SECONDS, SHED_SECONDS, SHED_QUEUE_DEPTH = 6.0, 3.0, 1
 
 
 def log(msg: str) -> None:
@@ -1694,7 +1749,8 @@ def phase_pod(dev, gen, batches, raw, ratings, wd_batches, wd_init) -> dict:
                                 d0["example_mask"])
         g = csr_grad(err0, d0["values"], d0["local_ids"], d0["row_ids"],
                      num_unique=b0.unique_keys.shape[0])
-        want_scale = g.cpu().abs().max() / 127.0 + 1e-30
+        # the jitted reference: max|g| * float32(1/127) + 1e-30 (F5)
+        want_scale = g.cpu().abs().max() * torch.tensor(np.float32(1 / 127)) + 1e-30
         total = torch.zeros_like(g)
         resid = []
         for seed in range(POD_QUANT_SEEDS):
@@ -2549,16 +2605,20 @@ def phase_cluster() -> dict:
             f"file of {BATCH} ({time.perf_counter() - t0:.2f} s)")
 
         # (a) deterministic FTRL and (d) AdaGrad: 2 servers, 1 worker,
-        # max_delay 0, each on the card and on the CPU, the four at once
+        # max_delay 0, each on the card and on the CPU; (e) (a) on the card
+        # with every node under CHAOS_PLAN; the five at once
         runs = {}
-        with ThreadPoolExecutor(4) as ex:
-            for algo in ("ftrl", "adagrad"):
+        with ThreadPoolExecutor(5) as ex:
+            for algo, tags in (("ftrl", ("cuda", "cpu", "chaos")), ("adagrad", ("cuda", "cpu"))):
                 app = conf_file(f"det-{algo}", algo=algo)
-                for device in ("cuda", "cpu"):
-                    runs[algo, device] = ex.submit(
+                for tag in tags:
+                    chaos = {"fault_plan": CHAOS_PLAN, "fault_seed": CHAOS_SEED} if (
+                        tag == "chaos") else {}
+                    runs[algo, tag] = ex.submit(
                         launch_local, str(app), CLUSTER_SERVERS, 1,
-                        model_out=str(tmp / f"{algo}-{device}.txt"),
-                        timeout=CLUSTER_TIMEOUT_S, device=device)
+                        model_out=str(tmp / f"{algo}-{tag}.txt"),
+                        timeout=CLUSTER_TIMEOUT_S, device="cpu" if tag == "cpu" else "cuda",
+                        **chaos)
             res = {k: f.result() for k, f in runs.items()}
         w = {k: torch.from_numpy(load_weights_text(tmp / f"{k[0]}-{k[1]}.txt", WORKER_KEYS))
              for k in res}
@@ -2596,6 +2656,23 @@ def phase_cluster() -> dict:
         log(f"cluster (d) ok: AdaGrad model card vs CPU: {moved_d}; K3 launches = apply "
             f"batches {out['deterministic']['adagrad_apply_batches']}; val AUC "
             f"{d['val_auc']:.6f}")
+        # (e) the same launch under a fault plan on every node: exactly once
+        e = res["ftrl", "chaos"]
+        err_e = check_e2e("cluster (e) FTRL model_out under chaos vs the clean card model",
+                          w["ftrl", "chaos"], w["ftrl", "cuda"])
+        faults_e = [st.get("faults") for st in e["server_stats"]]
+        if not all(f and f["disconnect"] >= 1 for f in faults_e):
+            raise AssertionError(f"cluster (e): the servers' plans did not fire: {faults_e}")
+        out["launches"]["cluster_e_ftrl_push"] = cluster_launches("cluster (e)", e,
+                                                                  "ftrl_push", 1)
+        out["chaos"] = {"max_abs_err_over_scale": err_e, "objv": e["merged"]["objv"],
+                        "val_auc": e["val_auc"], "faults": faults_e,
+                        "apply_batches": [st["apply_batches"] for st in e["server_stats"]],
+                        "rpc_dedup_hits": [st["rpc_dedup_hits"] for st in e["server_stats"]]}
+        log(f"cluster (e) ok: under {CHAOS_PLAN!r} on every node the model matches the clean "
+            f"card launch's (max abs err {err_e:.3g} of scale), objv {e['merged']['objv']:.9g} "
+            f"vs {objv:.9g}; every workload done once; K1 = apply batches "
+            f"{out['chaos']['apply_batches']}; server faults {faults_e}")
 
         # (b) the real entry point: cli launch, 2 workers, max_delay 1
         app = conf_file("async", max_delay=1)
@@ -2689,6 +2766,428 @@ def phase_cluster() -> dict:
                                  f"server restart vs (a)'s {a['val_auc']}")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"cluster phase ok in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: chaos on the wire, and the serving plane
+# ---------------------------------------------------------------------------
+
+
+def chaos_backend(make_updater, num_keys: int, vdim: int):
+    """Phase 12's loopback SocketBackend, its card server of rank r armed
+    with its own FaultPlan(CHAOS_PLAN, CHAOS_SEED + r)."""
+    from parameter_server_tpu_torch.parallel.backend import SocketBackend
+    from parameter_server_tpu_torch.parallel.chaos import FaultPlan
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle, ShardServer
+    from parameter_server_tpu_torch.utils.config import PSConfig
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange
+
+    cfg = PSConfig()
+    ranges = KeyRange(0, num_keys).even_divide(WIRE_SERVERS)
+    servers = [ShardServer(make_updater(), r, vdim=vdim, device="cuda",
+                           fault_plan=FaultPlan.parse(CHAOS_PLAN, seed=CHAOS_SEED + i)).start()
+               for i, r in enumerate(ranges)]
+    handles = [ServerHandle(s.address, i, 0, cfg, range_size=r.size, device="cuda")
+               for i, (s, r) in enumerate(zip(servers, ranges))]
+    return SocketBackend(handles, ranges, num_keys, vdim=vdim, own_servers=servers)
+
+
+def chaos_arm(name, make_updater, num_keys: int, vdim: int, pushes, kernel: str, counter,
+              audit, clean: dict) -> dict:
+    """One chaos arm: ``pushes`` one at a time through servers under the
+    plan (wire_deterministic's checks: one launch an apply batch, every
+    index unique, the pull against the CPU replay of each push applied
+    once), then each server's push ledger holds every push once and every
+    action of the plan fired."""
+    be = chaos_backend(make_updater, num_keys, vdim)
+    try:
+        out = wire_deterministic(name, be, pushes, make_updater, vdim, kernel, counter, audit,
+                                 profile_first=SERVER_WORKERS)
+        faults, ledgers = [], []
+        for srv, h in zip(be._servers, be.handles):
+            ledger = srv._applied_push.get(h.client.identity[0], {})
+            ledgers.append(len(ledger))
+            if not len(ledger) == srv.counters["pushes"] == len(pushes):
+                raise AssertionError(f"{name}: server ledger holds {len(ledger)} pushes, "
+                                     f"applied {srv.counters['pushes']}, want {len(pushes)}")
+            faults.append(srv.server.fault_stats())
+    finally:
+        be.close()
+    fired = {a: sum(f.get(a, 0) for f in faults) for a in ("drop", "disconnect", "duplicate",
+                                                            "delay")}
+    if not all(fired.values()):
+        raise AssertionError(f"{name}: not every action of the plan fired: {faults}")
+    out.update({"faults": faults, "ledger": ledgers,
+                "clean_pushes_per_s": clean["pushes_per_s"], "clean_latency": clean["latency"]})
+    log(f"{name} ok: every push applied once under {CHAOS_PLAN!r} (seeds {CHAOS_SEED} + "
+        f"rank); "
+        f"ledgers {ledgers}; faults {faults}; {out['pushes_per_s']:.1f} pushes/s, p50 "
+        f"{out['latency']['p50_ms']:.3f} / p99 {out['latency']['p99_ms']:.3f} ms, beside "
+        f"phase 12's clean {clean['pushes_per_s']:.1f} pushes/s, p50 "
+        f"{clean['latency']['p50_ms']:.3f} / p99 {clean['latency']['p99_ms']:.3f} ms")
+    return out
+
+
+def recording_cache(**kw):
+    """A ClientKeyCache that logs every install (rank, local keys, rows,
+    version): each version-stamped reply a serving handle took from the
+    wire, so every served row can be held to the table at its ``ver``.
+    Cached serves hand out copies of these rows."""
+    import threading
+
+    from parameter_server_tpu_torch.filters.keycache import ClientKeyCache
+
+    class Recording(ClientKeyCache):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.log: list = []
+            self._log_lock = threading.Lock()
+
+        def put(self, sig, keys, values, version, **kw):
+            with self._log_lock:
+                self.log.append((sig[0], np.array(keys), np.array(values), int(version)))
+            return super().put(sig, keys, values, version, **kw)
+
+    return Recording(**kw)
+
+
+def serving_stack(servers, ranges, svcfg, flood: bool):
+    """The frontends (one SocketBackend of SERVE_SERVERS serving handles a
+    thread, all sharing one recording cache) and the writers (plain
+    handles: one at ~1/SERVE_WRITER_PERIOD_S pushes/s, or two flooding
+    windows of 32 async pushes)."""
+    from parameter_server_tpu_torch.parallel.backend import SocketBackend
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle
+    from parameter_server_tpu_torch.utils.config import PSConfig
+
+    cfg = PSConfig()
+    cfg.serve = svcfg
+    cache = recording_cache(cap=svcfg.cache_entries, ttl_s=svcfg.ttl_ms / 1e3,
+                            max_stale_s=svcfg.max_stale_ms / 1e3)
+
+    def backend(worker: int, serving: bool, c=None, key_cache=None):
+        hs = [ServerHandle(s.address, i, worker, c or cfg, range_size=r.size, serving=serving,
+                           key_cache=key_cache, device="cuda")
+              for i, (s, r) in enumerate(zip(servers, ranges))]
+        return SocketBackend(hs, ranges, WORKER_KEYS)
+
+    fronts = [backend(t, True, key_cache=cache) for t in range(SERVE_THREADS)]
+    writers = [backend(100 + i, not flood, key_cache=None) for i in range(2 if flood else 1)]
+    return cache, fronts, writers
+
+
+def serving_arm(name: str, servers, ranges, svcfg, keysets, pz, seconds: float, flood: bool,
+                union: np.ndarray | None = None, verify: bool = True) -> dict:
+    """Drive one serving arm: SERVE_THREADS frontend threads, each
+    multiplexing SERVE_CLIENTS clients on their own Zipf streams over the
+    key sets, while the writers push. With ``verify``: a CPU replay of the
+    writer's pushes keeps the table after each push, every row a serving
+    handle installed equals its server's table at the reply's version, and
+    the writer reads its own writes."""
+    import threading
+
+    from parameter_server_tpu_torch.kv.store import KVStore
+    from parameter_server_tpu_torch.kv.updaters import Ftrl
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.parallel.multislice import _sig
+    from parameter_server_tpu_torch.utils.metrics import wire_counters
+
+    cache, fronts, writers = serving_stack(servers, ranges, svcfg, flood)
+    begins = np.array([r.begin for r in ranges])
+    c0 = {k: sum(s.counters[k] for s in servers) for k in
+          ("pulls", "not_modified", "shed", "pull_encodes", "encode_reuse", "apply_batches",
+           "pushes")}
+    wire_counters.reset()
+    torch.cuda.synchronize()
+    fk.reset_launches()
+    stop = threading.Event()
+    errors: list = []
+    # the replay: tables[j] is the union's weights after the writer's j-th push
+    replay = KVStore(Ftrl(alpha=HYPER["alpha"], beta=HYPER["beta"], lambda_l1=HYPER["l1"],
+                          lambda_l2=HYPER["l2"]), len(union) + 1, device="cpu") if verify else None
+    tables = [np.zeros(len(union), np.float32)] if verify else []
+    v0 = [s.version for s in servers]
+    vmap = [{v0[i]: 0} for i in range(len(servers))]
+    counts = [0] * len(servers)
+    ryw: list = []
+
+    def write(wi: int) -> None:
+        wr = np.random.default_rng(SEED + 11 + wi)
+        be, futs, j = writers[wi], [], 0
+        try:
+            while not stop.is_set():
+                ks = keysets[int(wr.integers(0, SERVE_SETS))]
+                g = (wr.normal(size=SERVE_SET_KEYS) * 0.01).astype(np.float32)
+                if flood:
+                    futs.append(be.push_async(ks, g))
+                    if len(futs) >= 32:
+                        for f in futs:
+                            f.result()
+                        futs.clear()
+                    continue
+                be.push(ks, g)
+                j += 1
+                if verify:
+                    replay.push(np.searchsorted(union, ks) + 1, g)
+                    tables.append(replay.pull(np.arange(1, len(union) + 1)).numpy().ravel())
+                    for s in np.unique(np.searchsorted(begins, ks, side="right") - 1):
+                        counts[s] += 1
+                        vmap[s][v0[s] + counts[s]] = j
+                    if j % 5 == 0:  # read your own write: the push invalidated it
+                        got = be.pull(ks).ravel()
+                        want = tables[-1][np.searchsorted(union, ks)]
+                        ryw.append(float(np.abs(got - want).max()))
+                        if not np.allclose(got, want, rtol=RTOL, atol=ATOL):
+                            raise AssertionError(f"{name}: the writer read {got} after its "
+                                                 f"push {j}, want {want}")
+                stop.wait(SERVE_WRITER_PERIOD_S)
+            for f in futs:
+                f.result()
+        except BaseException as e:  # noqa: BLE001 — reported by the arm
+            errors.append(e)
+
+    lat = {"local": [], "wire": []}
+    served = [0] * SERVE_THREADS
+    handle_pulls = [0] * SERVE_THREADS
+
+    def front(t: int) -> None:
+        be = fronts[t]
+        crngs = [np.random.default_rng(SEED + t * SERVE_CLIENTS + c)
+                 for c in range(SERVE_CLIENTS)]
+        picks = [r.choice(SERVE_SETS, size=64, p=pz) for r in crngs]
+        idx = [0] * SERVE_CLIENTS
+        mine = {"local": [], "wire": []}
+        c = n = nh = 0
+        try:
+            while not stop.is_set():
+                c = (c + 1) % SERVE_CLIENTS
+                if idx[c] >= 64:
+                    picks[c] = crngs[c].choice(SERVE_SETS, size=64, p=pz)
+                    idx[c] = 0
+                ks = keysets[int(picks[c][idx[c]])]
+                idx[c] += 1
+                segs, _ = be._segments(ks)
+                nh += sum(1 for seg in segs if len(seg))
+                # the path this pull takes: local when every shard's entry
+                # is fresh when it is issued (an entry may lapse between the
+                # look and the pull: rare at a 1 s TTL)
+                local = all(
+                    (e := cache.lookup((i, _sig(seg)))) is not None and cache.fresh(e)
+                    for i, seg in enumerate(segs) if len(seg))
+                t0 = time.perf_counter()
+                be.pull(ks)
+                mine["local" if local else "wire"].append(time.perf_counter() - t0)
+                n += 1
+        except BaseException as e:  # noqa: BLE001 — reported by the arm
+            errors.append(e)
+        served[t] = n
+        handle_pulls[t] = nh
+        for k in lat:
+            lat[k].extend(mine[k])
+
+    ths = ([threading.Thread(target=write, args=(i,), name=f"serve-writer-{i}")
+            for i in range(len(writers))]
+           + [threading.Thread(target=front, args=(t,), name=f"serve-front-{t}")
+              for t in range(SERVE_THREADS)])
+    t0 = time.perf_counter()
+    for th in ths:
+        th.start()
+    stop.wait(seconds)
+    stop.set()
+    for th in ths:
+        th.join(timeout=120)
+    dt = time.perf_counter() - t0
+    for be in writers:
+        be.flush()
+    if any(th.is_alive() for th in ths):
+        raise AssertionError(f"{name}: a frontend or writer thread hung")
+    if errors:
+        raise errors[0]
+    torch.cuda.synchronize()
+    launches = fk.LAUNCHES["ftrl_push"]
+    d = {k: sum(s.counters[k] for s in servers) - c0[k] for k in c0}
+    if launches != d["apply_batches"] or d["pushes"] == 0:
+        raise AssertionError(f"{name}: ftrl_push launched {launches} times, the servers "
+                             f"applied {d['apply_batches']} batches of {d['pushes']} pushes")
+    wc = wire_counters.snapshot()
+    bound_us = max(svcfg.ttl_ms, svcfg.max_stale_ms) * 1e3
+    age_peak = wc.get("serve_age_us_peak", 0)
+    if not age_peak <= bound_us:
+        raise AssertionError(f"{name}: a served row was {age_peak} us old, past "
+                             f"max(ttl, max_stale) = {bound_us} us")
+    checked = 0
+    if verify:
+        for rank, keys, values, ver in cache.log:
+            j = vmap[rank].get(ver)
+            if j is None:
+                raise AssertionError(f"{name}: server {rank} replied version {ver}, which "
+                                     "no writer push produced")
+            want = tables[j][np.searchsorted(union, keys + begins[rank])]
+            if not np.allclose(values.ravel(), want, rtol=RTOL, atol=ATOL):
+                raise AssertionError(f"{name}: server {rank}'s rows at version {ver} (after "
+                                     f"push {j}) are {values.ravel()}, want {want}")
+            checked += 1
+        for i, s in enumerate(servers):
+            if s.version != v0[i] + counts[i]:
+                raise AssertionError(f"{name}: server {i} at version {s.version}, want "
+                                     f"{v0[i] + counts[i]} after {counts[i]} pushes")
+    pulls = sum(served)
+    hits = wc.get("serve_cache_hits", 0) + wc.get("serve_cache_stale_hits", 0)
+    misses = wc.get("serve_cache_misses", 0)
+    out = {
+        "seconds": dt, "frontend_pulls": pulls, "pulls_per_s": pulls / dt,
+        "latency": latency_ms([x for v in lat.values() for x in v]),
+        "latency_local": latency_ms(lat["local"]) if lat["local"] else None,
+        "latency_wire": latency_ms(lat["wire"]) if lat["wire"] else None,
+        "handle_local_hits": hits, "handle_fresh_hits": wc.get("serve_cache_hits", 0),
+        "handle_stale_hits": wc.get("serve_cache_stale_hits", 0), "handle_misses": misses,
+        "handle_pulls": sum(handle_pulls),
+        "handle_hit_rate": hits / max(sum(handle_pulls), 1),
+        "server": d, "writer_launches": launches, "shed_served": wc.get("serve_shed_served", 0),
+        "age_peak_us": age_peak, "checked_installs": checked, "ryw_checks": len(ryw),
+        "withheld_peak": wc.get("wire_withheld_bytes_peak", 0),
+    }
+    for be in fronts + writers:
+        be.close()
+    log(f"{name} ok: {pulls} frontend pulls in {dt:.2f} s ({out['pulls_per_s']:.1f}/s), "
+        f"p50 {out['latency']['p50_ms']:.3f} / p99 {out['latency']['p99_ms']:.3f} ms; local "
+        f"{out['latency_local']}, wire {out['latency_wire']}; handle-level local hits {hits} "
+        f"(fresh {out['handle_fresh_hits']}, stale {out['handle_stale_hits']}), misses "
+        f"{misses}; servers {d}; shed served {out['shed_served']}; writer K1 launches "
+        f"{launches} = apply batches; oldest served row {age_peak / 1e3:.1f} ms (bound "
+        f"{bound_us / 1e3:.0f} ms); {checked} installs held to the table at their version, "
+        f"{len(ryw)} read-your-writes checks")
+    return out
+
+
+def phase_chaos_serving(rounds, emb_rounds, clean: dict) -> dict:
+    """Phase 14: (a), (b) phase 12's servers under a fault plan; (c) the
+    serving plane at the worker's width, then a shed arm."""
+    from parameter_server_tpu_torch.kv.updaters import Adagrad, Ftrl
+    from parameter_server_tpu_torch.ops import adagrad_kernels as ak
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle, ShardServer
+    from parameter_server_tpu_torch.utils.config import PSConfig, ServeConfig
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange
+
+    t_phase = time.perf_counter()
+    out: dict = {"launches": {}}
+    audit = IndexAudit()
+
+    def ftrl():
+        return Ftrl(alpha=HYPER["alpha"], beta=HYPER["beta"], lambda_l1=HYPER["l1"],
+                    lambda_l2=HYPER["l2"])
+
+    def adagrad():
+        return Adagrad(eta=ADAGRAD["eta"], eps=ADAGRAD["eps"])
+
+    pushes = [(k, g) for idx_list, grad_list in rounds for k, g in zip(idx_list, grad_list)]
+    out["ftrl"] = chaos_arm("chaos FTRL server", ftrl, SERVER_KEYS, 1, pushes, "ftrl_push",
+                            fk.LAUNCHES, audit, clean["ftrl"])
+    out["launches"]["chaos_ftrl_server"] = out["ftrl"]["launches"]
+    torch.cuda.empty_cache()
+    emb_pushes = [(k, g) for idx_list, grad_list in emb_rounds
+                  for k, g in zip(idx_list, grad_list)]
+    out["embedding"] = chaos_arm("chaos embedding server", adagrad, EMB_KEYS, EMB_VDIM,
+                                 emb_pushes, "adagrad_push", ak.LAUNCHES, audit,
+                                 clean["embedding"])
+    out["launches"]["chaos_embedding_server"] = out["embedding"]["launches"]
+    torch.cuda.empty_cache()
+
+    # (c) serving: WORKER_KEYS FTRL keys over SERVE_SERVERS card servers of
+    # snapshot_keys_max rows each, so the host snapshot path runs
+    rng = np.random.default_rng(SEED + 14)
+    keysets = [np.sort(rng.choice(WORKER_KEYS, size=SERVE_SET_KEYS, replace=False))
+               for _ in range(SERVE_SETS)]
+    union = np.unique(np.concatenate(keysets))
+    pz = np.arange(1, SERVE_SETS + 1, dtype=np.float64) ** -SERVE_ZIPF
+    pz /= pz.sum()
+    svcfg = ServeConfig(cache=True, ttl_ms=SERVE_TTL_MS, max_stale_ms=SERVE_MAX_STALE_MS,
+                        hot_min_pulls=2, encode_cache_entries=256)
+    ranges = KeyRange(0, WORKER_KEYS).even_divide(SERVE_SERVERS)
+    if not all(r.size == svcfg.snapshot_keys_max for r in ranges):
+        raise AssertionError(f"serving: ranges {[r.size for r in ranges]} are not "
+                             f"snapshot_keys_max {svcfg.snapshot_keys_max}")
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(0.001)  # a frontend is bound by thread hand-offs
+    try:
+        for arm, flood in (("serving", False), ("serving shed", True)):
+            cfg_arm = dataclasses.replace(svcfg, shed_queue_depth=SHED_QUEUE_DEPTH if flood
+                                          else 0)
+            servers = [ShardServer(ftrl(), r, serve_cfg=cfg_arm, device="cuda").start()
+                       for r in ranges]
+            try:
+                res = serving_arm(arm, servers, ranges, cfg_arm, keysets, pz,
+                                  SHED_SECONDS if flood else SERVE_SECONDS, flood,
+                                  union=union, verify=not flood)
+                if not flood:
+                    # the training tier bypasses the cache: each plain pull
+                    # moves every touched server's pulls counter
+                    plain = [ServerHandle(s.address, i, 200, PSConfig(), range_size=r.size,
+                                          device="cuda")
+                             for i, (s, r) in enumerate(zip(servers, ranges))]
+                    ks = keysets[0]
+                    touched = np.unique(np.searchsorted([r.begin for r in ranges], ks,
+                                                        side="right") - 1)
+                    before = [s.counters["pulls"] for s in servers]
+                    for _ in range(3):
+                        for i in touched:
+                            seg = ks[(ks >= ranges[i].begin) & (ks < ranges[i].end)]
+                            plain[i].pull(seg - ranges[i].begin)
+                    moved = [s.counters["pulls"] - b for s, b in zip(servers, before)]
+                    if any(moved[i] != 3 for i in touched):
+                        raise AssertionError(f"serving: 3 uncached pulls moved the servers' "
+                                             f"pulls counters by {moved}")
+                    for h in plain:
+                        h.close()
+                    # the host snapshot of a version at snapshot_keys_max rows:
+                    # the weights of the table issued under the publish lock
+                    # and copied to the host outside it
+                    d2h = []
+                    for _ in range(5):
+                        servers[0]._host_w = None
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        servers[0]._gather_weights(np.arange(8), snap=True)
+                        d2h.append((time.perf_counter() - t0) * 1e3)
+                    res["host_weights_ms"] = d2h
+                    res["host_weights_rows"] = ranges[0].size
+                    log(f"serving: _host_weights at {ranges[0].size} rows (FTRL weights on the "
+                        f"card, copy to the host): {[round(x, 3) for x in d2h]} ms; 3 uncached "
+                        f"pulls moved the touched servers' pulls by {moved}")
+                    # one profiled second of the serving traffic: the
+                    # device's idle share
+                    prof: dict = {}
+                    wall_ms, busy_ms, rows = profile(
+                        lambda: prof.update(serving_arm(
+                            "serving (profiled)", servers, ranges, cfg_arm, keysets, pz,
+                            1.0, False, union=union, verify=False)))
+                    res["profile"] = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+                                      "writer_launches": prof["writer_launches"],
+                                      "idle_share": 1 - busy_ms / wall_ms,
+                                      "top": [(k[:60], t) for k, t, _ in rows[:6]]}
+                    log(f"serving profile, 1 s of traffic: wall {wall_ms:.1f} ms, device busy "
+                        f"{busy_ms:.3f} ms (idle share {1 - busy_ms / wall_ms:.4f}); top "
+                        f"{res['profile']['top']}")
+                elif res["server"]["shed"] == 0 or res["shed_served"] == 0:
+                    raise AssertionError(f"serving shed: no revalidation was shed under the "
+                                         f"flood: {res['server']}")
+            finally:
+                for s in servers:
+                    s.server.stop()
+                for s in servers:
+                    s.join(timeout=10)
+            out["shed" if flood else "serving"] = res
+            del servers
+            torch.cuda.empty_cache()
+    finally:
+        sys.setswitchinterval(switch)
+    out["launches"]["serving_writer"] = (out["serving"]["writer_launches"]
+                                         + out["serving"]["profile"]["writer_launches"]
+                                         + out["shed"]["writer_launches"])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"chaos and serving phase ok in {out['seconds']:.1f} s; launches {out['launches']}")
     return out
 
 
@@ -3158,6 +3657,10 @@ def main() -> int:
     # 13. cluster: scheduler, servers and workers as processes on the card
     cluster = phase_cluster()
     cl = cluster["launches"]
+    torch.cuda.empty_cache()
+    # 14. chaos on the wire and the serving plane
+    chs = phase_chaos_serving(rounds, emb_rounds, wire)
+    csl = chs["launches"]
 
     kernels["ftrl_push"]["max_abs_err"] = max(kernels["ftrl_push"]["max_abs_err"], err_wd_k1,
                                               pod["err"]["ftrl_push"])
@@ -3177,7 +3680,10 @@ def main() -> int:
         "wire_train_linear_mesh_int8": wl["wire_train_linear_mesh_int8"],
         "cluster_deterministic": cl["cluster_a_ftrl_push"],
         "cluster_async": cl["cluster_b_ftrl_push"],
-        "cluster_recovery": cl["cluster_c_ftrl_push"]}
+        "cluster_recovery": cl["cluster_c_ftrl_push"],
+        "cluster_chaos": cl["cluster_e_ftrl_push"],
+        "chaos_ftrl_server": csl["chaos_ftrl_server"],
+        "serving_writer": csl["serving_writer"]}
     kernels["ftrl_push"]["wire"] = {"server": wire["ftrl"], "concurrent_sgd": wire["concurrent"],
                                     "train_linear": wire["train_linear"],
                                     "train_linear_checks": wire["train_linear_checks"]}
@@ -3210,11 +3716,15 @@ def main() -> int:
         "pod_2x2_wd_quantized": pl["pod_2x2_wide_deep-quantized"]["adagrad_push"],
         "wire_embedding_server": wl["wire_embedding_server"],
         "wire_embedding_server_fixed_point": wl["wire_embedding_server_fixed_point"],
-        "cluster_adagrad": cl["cluster_d_adagrad_push"]}
+        "cluster_adagrad": cl["cluster_d_adagrad_push"],
+        "chaos_embedding_server": csl["chaos_embedding_server"]}
     kernels["adagrad_push"]["wire"] = {"server": wire["embedding"],
                                        "fixed_point": wire["fixed_point"]}
     kernels["ftrl_push"]["cluster"] = {k: cluster[k] for k in
-                                       ("deterministic", "async", "recovery")}
+                                       ("deterministic", "async", "recovery", "chaos")}
+    kernels["ftrl_push"]["chaos"] = chs["ftrl"]
+    kernels["adagrad_push"]["chaos"] = chs["embedding"]
+    kernels["ftrl_push"]["serving"] = {k: chs[k] for k in ("serving", "shed")}
     kernels["quantize_stochastic"]["launches_by_path"] = {
         "codec_round_trip": codec_launches["quantize_stochastic"],
         "wire_fixed_point_handles": wl["wire_fixed_point_handles"]}

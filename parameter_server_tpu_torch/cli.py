@@ -143,10 +143,14 @@ def _build_parser() -> argparse.ArgumentParser:
         "periodic dumps per [fault] server_ckpt_interval_s",
     )
     nd.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    # options of the JAX CLI's chaos and tracing paths: accepted so command
-    # lines stay interchangeable, refused when set
-    nd.add_argument("--fault_plan", default="")
+    nd.add_argument(
+        "--fault_plan", default="",
+        help="chaos spec (parallel/chaos.py) armed on this node's RpcServers; "
+        "wins over [fault] fault_plan and PS_FAULT_PLAN",
+    )
     nd.add_argument("--fault_seed", type=int, default=0)
+    # the JAX CLI's tracing option: accepted so command lines stay
+    # interchangeable, refused when set
     nd.add_argument("--trace_dir", default="")
 
     la = sub.add_parser("launch", help="spawn a local multi-process run (ref: script/local.sh)")
@@ -155,7 +159,10 @@ def _build_parser() -> argparse.ArgumentParser:
     la.add_argument("--num_workers", type=int, default=1)
     la.add_argument("--model_out", default="")
     la.add_argument("--device", default="cuda", help="cuda (default) or cpu, for every node")
-    la.add_argument("--fault_plan", default="")
+    la.add_argument(
+        "--fault_plan", default="",
+        help="chaos spec armed on every spawned node (PS_FAULT_PLAN)",
+    )
     la.add_argument("--fault_seed", type=int, default=0)
     la.add_argument("--trace_dir", default="")
     la.add_argument("--blackbox_dir", default="")
@@ -477,12 +484,10 @@ def run_backend(cfg: PSConfig, args: argparse.Namespace) -> dict:
 
 def _check_cluster(cfg: PSConfig, args: argparse.Namespace) -> None:
     """Refuse what the cluster path (``node``, ``launch``) has not ported:
-    other apps, chaos, tracing and the black box."""
+    other apps, tracing and the black box."""
     _check_ported(cfg)
     if cfg.app != "linear_method":
         raise _not_ported(f"the cluster path for app {cfg.app!r}")
-    if args.fault_plan:
-        raise _not_ported("chaos (--fault_plan)")
     if args.trace_dir:
         raise _not_ported("--trace_dir")
     if getattr(args, "blackbox_dir", ""):
@@ -495,6 +500,11 @@ def run_node_cmd(cfg: PSConfig, args: argparse.Namespace) -> dict:
     from parameter_server_tpu_torch.parallel.multislice import run_node
 
     _check_cluster(cfg, args)
+    if args.fault_plan:
+        # the flag wins over the ambient env and the config file; the cfg
+        # field carries it into every RpcServer this node builds
+        cfg.fault.fault_plan = args.fault_plan
+        cfg.fault.fault_seed = args.fault_seed
     return run_node(
         cfg, args.role, args.rank, args.scheduler, args.num_servers,
         args.num_workers, args.model_out, bind_host=args.bind_host,
@@ -509,7 +519,7 @@ def run_launch(cfg: PSConfig, args: argparse.Namespace) -> dict:
     _check_cluster(cfg, args)
     return launch_local(
         args.app_file, args.num_servers, args.num_workers, args.model_out,
-        device=args.device,
+        device=args.device, fault_plan=args.fault_plan, fault_seed=args.fault_seed,
     )
 
 

@@ -10,11 +10,12 @@ Ported so far:
 - ``SegmentQuantizer`` and the device twins ``quantize_segments`` /
   ``dequantize_segments`` / ``dequantize_flat`` (``quant.py``): the wire
   codec with one symmetric scale per segment.
-
-Not ported: ``ClientKeyCache`` (``keycache.py``), which needs the wire
-tier's instruments and comes with that tier.
+- ``ClientKeyCache`` (``keycache.py``): the serving plane's client-side
+  versioned key-value cache, host numpy rows with exact push
+  invalidation.
 """
 
 from parameter_server_tpu_torch.filters.fixed_point import FixedPointCodec  # noqa: F401
 from parameter_server_tpu_torch.filters.frequency import CountMinSketch  # noqa: F401
+from parameter_server_tpu_torch.filters.keycache import ClientKeyCache  # noqa: F401
 from parameter_server_tpu_torch.filters.quant import SegmentQuantizer  # noqa: F401

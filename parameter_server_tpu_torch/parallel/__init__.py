@@ -46,8 +46,16 @@ The design mapping from the JAX package (``parameter_server_tpu/parallel``):
   ``run_worker``, ``launch_local``, ``run_node``): one process a node, as
   ``cli launch`` / ``cli node`` start them; servers hold their tables on
   the card and checkpoint them (``save_state`` / ``load_state``).
-
-Not ported yet: chaos (``chaos.py``) and the serving plane.
+- **Chaos** (``chaos.py``): a seeded ``FaultPlan`` armed on any
+  ``RpcServer`` (and so any ``ShardServer`` or ``Coordinator``, or every
+  node of ``launch_local`` through ``PS_FAULT_PLAN``) drops, delays,
+  duplicates and disconnects frames; the clients heal and the servers'
+  reply cache and push ledger keep every push applied once.
+- **The serving plane** (``multislice.py``, ``filters/keycache.py``):
+  versioned pulls (``if_newer`` / ``not_modified``), a client key cache,
+  a single-flight encode cache and load shedding. A version names the
+  in-place table a reply's rows were gathered from: it moves in the same
+  publish-lock hold as the apply.
 """
 
 from parameter_server_tpu_torch.parallel import runtime  # noqa: F401

@@ -319,7 +319,7 @@ def local_socket_backend(
         for r in ranges:
             servers.append(ShardServer(
                 make_updater(), r, vdim=vdim, server_cfg=cfg.server,
-                device=device,
+                serve_cfg=cfg.serve, device=device,
             ).start())
         for i, (s, r) in enumerate(zip(servers, ranges)):
             handles.append(ServerHandle(

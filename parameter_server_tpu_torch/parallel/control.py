@@ -33,21 +33,29 @@ under the same identities, and the server's per-client reply cache
 answers a resent non-idempotent command from the cache: at-least-once on
 the wire, exactly-once at the handler.
 
+Chaos: a seeded ``FaultPlan`` (``parallel/chaos.py``), passed as
+``fault_plan=`` or read from ``PS_FAULT_PLAN`` / ``PS_FAULT_SEED``, is
+consulted once per received frame and may drop it (before it applies),
+delay it, dispatch it twice (the second reply discarded) or apply it and
+sever the connection before the reply: the client's heal and the reply
+cache keep every command applied once. Serving plane: a handler that
+stamps a reply with its publish timestamp ``pts`` gets the realized data
+age ``_age_us`` stamped here, per serve; ``withheld_bytes`` is the
+current coalesced-reply backlog that the shard servers shed on. A client
+with ``adaptive_window`` shapes its in-flight window from its own
+completion-latency histogram.
+
 Trimmed from the JAX module: the flight recorder, tracing, the watchdog
 and the latency histograms' export; the coordinator's time series, SLO
 engine and audit plane (its ``telemetry`` reply carries ``nodes``,
 ``coordinator`` and a counters-only ``merged`` view; ``audit`` answers
-"not ported yet"). Chaos (``FaultPlan``) waits for a later slice:
-``RpcServer`` accepts only ``fault_plan=None`` and refuses to start under
-a ``PS_FAULT_PLAN`` environment variable. The process-global
-``wire_counters`` (``utils/metrics.py``) keep the counts that ``stats``
-replies carry.
+"not ported yet"). The process-global ``wire_counters``
+(``utils/metrics.py``) keep the counts that ``stats`` replies carry.
 """
 
 from __future__ import annotations
 
 import json
-import os
 import random
 import socket
 import struct
@@ -61,18 +69,18 @@ from typing import Any, Callable
 
 import numpy as np
 
+from parameter_server_tpu_torch.parallel.chaos import FaultPlan
 from parameter_server_tpu_torch.parallel.ssp import SSPClock
 from parameter_server_tpu_torch.parallel.workload import WorkloadPool
 from parameter_server_tpu_torch.utils.heartbeat import HeartbeatMonitor
 from parameter_server_tpu_torch.utils.metrics import (
+    Histogram,
+    hist_percentile,
     merge_progress,
     merge_telemetry,
     telemetry_snapshot,
     wire_counters,
 )
-
-#: the JAX package's chaos switch (``parallel/chaos.py`` ``PLAN_ENV``)
-PLAN_ENV = "PS_FAULT_PLAN"
 
 _LEN = struct.Struct("<II")
 
@@ -724,10 +732,10 @@ class RpcServer:
     raise ``Shutdown`` to stop the server after replying.
 
     Requests carrying a client id + sequence number are deduplicated
-    through a per-client reply cache (see module docstring). Fault
-    injection is not ported yet: ``fault_plan`` must be None, and a plan
-    set through the ``PS_FAULT_PLAN`` environment variable raises rather
-    than being ignored."""
+    through a per-client reply cache (see module docstring). A
+    :class:`~parameter_server_tpu_torch.parallel.chaos.FaultPlan` may be
+    armed, explicitly or through the ``PS_FAULT_PLAN`` environment
+    variable, to perturb received frames for recovery testing."""
 
     class Shutdown(Exception):
         pass
@@ -737,7 +745,7 @@ class RpcServer:
         handler: Callable[[dict[str, Any], Arrays], tuple[dict[str, Any], Arrays]],
         host: str = "127.0.0.1",
         port: int = 0,
-        fault_plan: None = None,
+        fault_plan: FaultPlan | None = None,
         idempotent_cmds: frozenset[str] = frozenset(),
         expose_identity: bool = False,
         blocking_cmds: frozenset[str] = frozenset(),
@@ -747,11 +755,6 @@ class RpcServer:
         withheld_max_bytes: int = 8 << 20,
         features: frozenset[str] = frozenset(),
     ):
-        if fault_plan is not None or os.environ.get(PLAN_ENV):
-            raise NotImplementedError(
-                "fault injection (FaultPlan, PS_FAULT_PLAN) is not ported yet "
-                "to parameter_server_tpu_torch"
-            )
         self._handler = handler
         # optional wire features this server's handler understands (e.g.
         # "qwire"): replies ack the intersection with a client's _feat
@@ -789,11 +792,17 @@ class RpcServer:
         self.bytes_out = 0
         self.frames_in = 0
         self._counter_lock = threading.Lock()  # counters shared by conn threads
+        # live withheld coalesced-reply bytes across ALL connections (the
+        # lo lane pins pull payloads while withheld): the serving plane's
+        # load-shedding signal, distinct from the *_peak gauge telemetry
+        # keeps — shedding needs the current depth, not the high-water
+        self._withheld_now = 0
         self._accept_thread: threading.Thread | None = None
         self._conns: set[socket.socket] = set()  # live, for stop() to sever
         # cid -> (seq -> _DedupEntry), both LRU-bounded
         self._dedup: OrderedDict[str, OrderedDict[int, _DedupEntry]] = OrderedDict()
         self._dedup_lock = threading.Lock()
+        self.fault_plan = fault_plan if fault_plan is not None else FaultPlan.from_env()
 
     def start(self) -> "RpcServer":
         self._accept_thread = threading.Thread(target=self._accept, daemon=True)
@@ -849,6 +858,8 @@ class RpcServer:
             # reply-coalescing memory gauge: the deepest withheld-bytes
             # point any connection reached (merged cluster-wide as a max)
             wire_counters.observe_max("wire_withheld_bytes_peak", hi_n + lo_n)
+            with self._counter_lock:
+                self._withheld_now += n
 
         def flush_replies() -> None:
             nonlocal hi_bufs, lo_bufs, hi_n, lo_n, hi_frames, lo_frames
@@ -857,6 +868,7 @@ class RpcServer:
             _send_gather(conn, hi_bufs + lo_bufs)  # control lane first
             with self._counter_lock:
                 self.bytes_out += hi_n + lo_n
+                self._withheld_now -= hi_n + lo_n
             hi_bufs, lo_bufs = [], []
             hi_n = lo_n = 0
             hi_frames = lo_frames = 0
@@ -869,13 +881,23 @@ class RpcServer:
             (``_rseq``), ack the codec advert (``_bh``) and/or the
             feature advert (``_feat``), and stamp the server-observed
             service time (``_svc_us``, which JAX clients read) on a COPY
-            — ``rep`` may be a shared reply-cache dict."""
+            — ``rep`` may be a shared reply-cache dict.
+
+            A handler that stamped its reply with the publish timestamp
+            (``pts``, µs epoch) gets the realized data age (``_age_us``)
+            computed here, per serve: the publish ts is version-constant
+            and may ride shared or cached reply dicts, but the age each
+            consumer sees depends on when this serve happened, and both
+            clocks are this process's, so the delta is skew-free."""
+            pts_d = rep.get("pts")
             if (
                 seq_d is None and not adv_d and feat_d is None
-                and svc_us is None
+                and svc_us is None and pts_d is None
             ):
                 return rep
             rep = dict(rep)
+            if type(pts_d) is int:
+                rep["_age_us"] = max(int(time.time() * 1e6) - pts_d, 0)
             if seq_d is not None:
                 rep["_rseq"] = seq_d
             if adv_d:
@@ -938,6 +960,22 @@ class RpcServer:
                 with self._counter_lock:
                     self.bytes_in += nbytes
                     self.frames_in += 1
+                fault = (
+                    self.fault_plan.decide(header.get("cmd", ""))
+                    if self.fault_plan is not None
+                    else None
+                )
+                if fault is not None and fault.action == "drop":
+                    # the fault models THIS request lost on the wire, not
+                    # the whole batch: earlier requests' withheld replies
+                    # still go out, or a periodic drop would livelock a
+                    # pipelined client (every resend round re-killed
+                    # before any reply lands)
+                    settle_deferred()
+                    flush_replies()
+                    return  # request lost before it applied; conn closed below
+                if fault is not None and fault.action == "delay":
+                    time.sleep(fault.delay_s)
                 cid = header.pop("_cid", None)
                 seq = header.pop("_seq", None)
                 # a JAX client's span identity: tracing is not ported
@@ -959,6 +997,12 @@ class RpcServer:
                     else None
                 )
                 cmd_name = header.get("cmd", "?")
+                # copy BEFORE dispatch: handlers mutate the header (pop cmd)
+                dup_header = (
+                    dict(header)
+                    if fault is not None and fault.action == "duplicate"
+                    else None
+                )
                 if (hi_bufs or lo_bufs or deferred) and (
                     cmd_name in self._blocking_cmds
                 ):
@@ -967,6 +1011,10 @@ class RpcServer:
                 t_svc = time.perf_counter()
                 try:
                     rep, rep_arrays = self._dispatch(cid, seq, header, arrays)
+                    if dup_header is not None:
+                        # the same frame delivered twice: without dedup
+                        # this double-applies (the copy's reply discarded)
+                        self._dispatch(cid, seq, dup_header, arrays)
                 except RpcServer.Shutdown:
                     try:
                         settle_deferred()
@@ -983,6 +1031,19 @@ class RpcServer:
                         # whose side effect happens after the reply)
                         self.stop()
                     return
+                if fault is not None and fault.action == "disconnect":
+                    # lose THIS reply only (see the drop branch): earlier
+                    # withheld replies flush before the conn severs. A
+                    # deferred apply is still settled first: 'disconnect'
+                    # loses the reply, never the side effect's durability.
+                    if isinstance(rep, DeferredReply):
+                        try:
+                            rep.future.result()
+                        except Exception:  # noqa: BLE001 — reply is lost
+                            pass
+                    settle_deferred()
+                    flush_replies()
+                    return  # applied, but the reply is lost; conn closed below
                 if isinstance(rep, DeferredReply):
                     deferred.append((
                         seq, rep, cmd_name, t_svc, was_bin, advert, feat_ack,
@@ -1042,6 +1103,10 @@ class RpcServer:
                 pass
             with self._counter_lock:
                 self._conns.discard(conn)
+                # replies withheld when the conn died were never sent:
+                # release their bytes from the live gauge (zero when the
+                # last flush landed) so shedding can't latch on a corpse
+                self._withheld_now -= hi_n + lo_n
 
     def _dispatch(
         self, cid: str | None, seq: int | None, header: dict[str, Any], arrays: Arrays
@@ -1130,15 +1195,26 @@ class RpcServer:
             except OSError:
                 pass
 
+    def fault_stats(self) -> dict[str, int] | None:
+        """Armed plan's fire counts (None when no plan is armed)."""
+        return None if self.fault_plan is None else self.fault_plan.stats()
+
+    def withheld_bytes(self) -> int:
+        """Current coalesced-reply bytes withheld across every live
+        connection (the serving plane's shed signal: withheld lo-lane
+        replies pin their pull payload arrays until flushed)."""
+        with self._counter_lock:
+            return self._withheld_now
+
 
 class _PendingCall:
     """One in-flight request: everything needed to complete OR resend it."""
 
-    __slots__ = ("seq", "cmd", "header", "arrays", "future", "t0", "sent")
+    __slots__ = ("seq", "cmd", "header", "arrays", "future", "t0", "retry", "sent")
 
     def __init__(
         self, seq: Any, cmd: str, header: dict[str, Any],
-        arrays: Arrays | None,
+        arrays: Arrays | None, retry: bool,
     ):
         self.seq = seq
         self.cmd = cmd
@@ -1146,6 +1222,7 @@ class _PendingCall:
         self.arrays = arrays
         self.future: Future = Future()
         self.t0 = time.perf_counter()
+        self.retry = retry  # False: fail on a lost connection, never resend
         self.sent = False  # sent on the CURRENT connection generation
 
 
@@ -1168,6 +1245,9 @@ class RpcClient:
     only bounds time spent *retrying after a failure*; a healthy blocking
     call (barrier, ssp_wait) may park indefinitely as before."""
 
+    #: completions between window adaptations (adaptive_window)
+    _ADAPT_EVERY = 64
+
     def __init__(
         self,
         address: str,
@@ -1178,6 +1258,7 @@ class RpcClient:
         start_seq: int = 0,
         window: int = 8,
         hdr_codec: str = "bin",
+        adaptive_window: bool = False,
         features: frozenset[str] | tuple = (),
     ):
         """``cid``/``start_seq`` transfer a logical client identity into a
@@ -1192,6 +1273,11 @@ class RpcClient:
         binary, then this connection switches (re-negotiated per
         reconnect, so a downgraded replacement server degrades to JSON).
 
+        ``adaptive_window=True`` derives the EFFECTIVE in-flight window
+        from this client's completion-latency histogram: halve on a p99
+        blowup, creep back up while latency is healthy and the window is
+        saturated. ``window`` stays the hard ceiling.
+
         ``features`` are optional wire capabilities to negotiate (the
         ``_feat`` advert): ``peer_features`` stays empty until a reply
         acks what the server supports, and resets on every reconnect."""
@@ -1200,6 +1286,13 @@ class RpcClient:
         self._next_seq = start_seq
         self._reconnect_timeout_s = reconnect_timeout_s
         self._window = max(1, int(window))
+        self._adaptive = bool(adaptive_window)
+        self._eff_window = self._window
+        self._lat_hist = Histogram()  # this client's own completions
+        self._adapt_last: dict[str, Any] | None = None
+        self._adapt_n = 0
+        self._adapt_peak = 0
+        self._ema_p50 = 0.0
         self._hdr_bin = hdr_codec == "bin"
         self._bin_gen_ok = False  # this connection negotiated binary
         self._rseq_gen_ok = False  # peer echoes _rseq on this connection
@@ -1310,12 +1403,66 @@ class RpcClient:
         self._conn_died(sock, gen)
 
     def _complete(self, p: _PendingCall, rep: dict[str, Any], arrays: Arrays) -> None:
+        if self._adaptive:
+            # client-observed latency: queueing + wire + service + any
+            # transparent retries/reconnects this call absorbed
+            self._lat_hist.observe(time.perf_counter() - p.t0)
+            self._adapt_n += 1
+            if self._adapt_n >= self._ADAPT_EVERY:
+                self._adapt_n = 0
+                self._maybe_adapt()
         if not rep.get("ok", True):
             p.future.set_exception(
                 RuntimeError(f"{p.cmd} failed remotely: {rep.get('error')}")
             )
         else:
             p.future.set_result((rep, arrays))
+
+    def _maybe_adapt(self) -> None:
+        """Adaptive window policy over the last ``_ADAPT_EVERY``
+        completions' latency-histogram DELTA (log2 buckets, exact under
+        subtraction): a p99 blowup past 4x the p50 EMA halves the
+        effective window (queueing delay is the symptom of a window the
+        server can't drain); a healthy p99 while the window was actually
+        saturated grows it back one step toward the ceiling."""
+        snap = self._lat_hist.snapshot()
+        last, self._adapt_last = self._adapt_last, snap
+        if last is None:
+            return
+        delta = {
+            "count": snap["count"] - last.get("count", 0),
+            "buckets": {
+                k: c - last.get("buckets", {}).get(k, 0)
+                for k, c in snap.get("buckets", {}).items()
+            },
+        }
+        if delta["count"] <= 0:
+            return
+        p50 = hist_percentile(delta, 0.5)
+        p99 = hist_percentile(delta, 0.99)
+        if self._ema_p50 == 0.0:
+            self._ema_p50 = p50
+        with self._cv:
+            peak, self._adapt_peak = self._adapt_peak, 0
+            if p99 > 4 * max(self._ema_p50, 1e-6) and self._eff_window > 1:
+                self._eff_window = max(1, self._eff_window // 2)
+                wire_counters.inc("wire_window_shrinks")
+            elif (
+                self._eff_window < self._window
+                and p99 <= 2 * max(self._ema_p50, 1e-6)
+                and peak >= self._eff_window
+            ):
+                self._eff_window += 1
+                wire_counters.inc("wire_window_grows")
+                self._cv.notify_all()  # a waiter may now fit the window
+        self._ema_p50 = 0.8 * self._ema_p50 + 0.2 * p50
+
+    @property
+    def effective_window(self) -> int:
+        """Current in-flight bound (the configured window unless
+        adaptive_window is shaping it)."""
+        with self._cv:
+            return self._eff_window
 
     @property
     def peer_features(self) -> frozenset[str]:
@@ -1359,11 +1506,22 @@ class RpcClient:
         while True:
             with self._cv:
                 closed = self._closed
+                # futures that opted out of retrying die with the conn
+                doomed = (
+                    [] if closed
+                    else [p for p in self._pending.values() if not p.retry]
+                )
+                for p in doomed:
+                    del self._pending[p.seq]
             if closed:
                 self._abort_heal(
                     ConnectionError(f"client to {self._address} is closed")
                 )
                 return
+            for p in doomed:
+                p.future.set_exception(
+                    ConnectionError(f"connection to {self._address} lost")
+                )
             try:
                 sock = self._connect()
             except OSError as e:
@@ -1469,7 +1627,7 @@ class RpcClient:
     # -- issue side -------------------------------------------------------
 
     def call_async(
-        self, cmd: str, arrays: Arrays | None = None, *,
+        self, cmd: str, arrays: Arrays | None = None, *, _retry: bool = True,
         _seq: int | str | None = None, _urgent: bool = False,
         _inline: bool = False, **fields: Any,
     ) -> Future:
@@ -1484,6 +1642,10 @@ class RpcClient:
         in a disjoint namespace (the handle uses ``"k<n>"`` strings) so
         they can never collide with the internal integer counter.
 
+        ``_retry=False`` opts this call out of the heal: a lost connection
+        fails it with ConnectionError instead of resending it (a caller
+        that would rather re-decide than replay).
+
         ``_urgent`` bypasses the window bound — ONLY for re-issues of an
         already-admitted logical call (the need_keys bounce), which may
         run on the reader thread and must never block on window space
@@ -1492,7 +1654,7 @@ class RpcClient:
             if not _urgent:
                 self._cv.wait_for(
                     lambda: self._closed
-                    or len(self._pending) < self._window
+                    or len(self._pending) < self._eff_window
                 )
             if self._closed:
                 raise ConnectionError(
@@ -1511,8 +1673,10 @@ class RpcClient:
                 # first ack; old servers leave it in the header,
                 # where every handler ignores it
                 header["_feat"] = sorted(self._features)
-            p = _PendingCall(_seq, cmd, header, arrays)
+            p = _PendingCall(_seq, cmd, header, arrays, _retry)
             self._pending[_seq] = p
+            if len(self._pending) > self._adapt_peak:
+                self._adapt_peak = len(self._pending)
             wire_counters.observe_max(
                 "rpc_inflight_peak", len(self._pending)
             )
@@ -1554,7 +1718,8 @@ class RpcClient:
 
     def _pump(self, p: _PendingCall) -> None:
         """After registering ``p``: make sure a connection exists for the
-        writer thread to carry it, healing when the wire is down."""
+        writer thread to carry it, healing (or failing fast for no-retry
+        callers) when the wire is down."""
         while True:
             with self._cv:
                 if p.future.done() or p.sent:
@@ -1564,10 +1729,13 @@ class RpcClient:
                     continue
                 if self._sock is not None:
                     return  # the connection's writer thread owns the send
-                if self._closed:
+                if self._closed or not p.retry:
                     self._pending.pop(p.seq, None)
                     self._cv.notify_all()
-                    raise ConnectionError(f"client to {self._address} is closed")
+                    raise ConnectionError(
+                        f"client to {self._address} is "
+                        + ("closed" if self._closed else "disconnected")
+                    )
                 # connection down and nobody healing: this caller becomes
                 # the healer (fresh retry window)
                 self._healing = True
@@ -1625,14 +1793,14 @@ class RpcClient:
                 self.bytes_out += total
 
     def call(
-        self, cmd: str, arrays: Arrays | None = None, *,
+        self, cmd: str, arrays: Arrays | None = None, *, _retry: bool = True,
         _seq: int | str | None = None, **fields: Any,
     ) -> tuple[dict[str, Any], Arrays]:
         """Synchronous round trip: ``call_async(...).result()`` on the
         latency fast path. Concurrent callers pipeline on the shared
         window instead of serializing."""
         fut = self.call_async(
-            cmd, arrays, _seq=_seq, _inline=True, **fields
+            cmd, arrays, _retry=_retry, _seq=_seq, _inline=True, **fields
         )
         return fut.result()
 
@@ -1683,7 +1851,7 @@ class Coordinator:
         port: int = 0,
         heartbeat_timeout_s: float = 30.0,
         recovery_interval_s: float = 0.0,
-        fault_plan: None = None,
+        fault_plan: FaultPlan | None = None,
     ):
         self._nodes: dict[int, dict[str, Any]] = {}
         self._next_id = 0

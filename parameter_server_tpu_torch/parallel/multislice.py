@@ -22,13 +22,36 @@ applies once: the RPC layer's reply cache answers it, and the apply
 engine's ledger (``_applied_push``) drops any that reach it twice.
 
 In place against snapshot pulls. The JAX server publishes a new immutable
-state per batch and pulls read it without a lock. The port's push changes
-the tables in place, so one publish lock (``_pub_lock``) is held while an
-apply is issued and while a pull's or a dump's gathers are issued; the
-version is bumped inside it. On the card both only enqueue work on the
-one current stream, so stream order makes every gather see whole
-batches; on the CPU they run under the lock. The copies to the host run
-outside it.
+(state, version, publish-ts) tuple per batch and pulls read it without a
+lock. The port's push changes the tables in place, so one publish lock
+(``_pub_lock``) is held while an apply is issued and while a pull's or a
+dump's gathers are issued; the version and its publish timestamp move
+inside the apply's hold, and a pull reads them inside its gather's hold,
+so a reply's ``ver`` names exactly the table its rows came from. On the
+card both only enqueue work on the one current stream, so stream order
+makes every gather see whole batches; on the CPU they run under the lock.
+The copies to the host run outside it.
+
+The serving plane. A version is an opaque per-life id: a random 23-bit
+nonce above a 40-bit counter, redrawn by a checkpoint restore, so a
+version a client cached in an earlier life never validates. A pull that
+carries ``if_newer`` equal to the current version is answered
+``not_modified`` with no rows; under overload (``[serve] shed_*``) a
+revalidation the client flagged ``shed_ok`` is shed with a retry-after
+hint; hot key sets share one encoded reply a version (the single-flight
+encode cache, bounded in entries and bytes), and a hot conditional pull
+of a range within ``snapshot_keys_max`` rows reads a host copy of the
+whole weights table taken once a version. A ``ServerHandle(serving=True)``
+with ``[serve] cache`` keeps the decoded rows in a ``ClientKeyCache``
+(``filters/keycache.py``), invalidated exactly by its own pushes.
+
+Chaos: a ``FaultPlan`` (``parallel/chaos.py``) armed on a server, by
+``fault_plan=``, ``[fault] fault_plan`` or ``PS_FAULT_PLAN``, perturbs its
+frames; ``launch_local(fault_plan=...)`` arms every node it spawns. The
+reply cache and the push ledger keep every push applied once. The adaptive
+knobs: ``[server] adaptive_batch`` ramps the apply thread's drain ceiling
+to the arrival rate, ``[wire] adaptive_window`` the handle's in-flight
+window to its latency.
 
 A server checkpoints its range (``save_state`` / ``load_state``) in the
 JAX server's file name and layout, ledger included, so a dump of either
@@ -45,11 +68,11 @@ loop: segment sums on its device, pulls and pushes through a
 kills and restarts one). Every node runs on ``cuda`` unless asked for
 ``cpu``.
 
-Not ported yet: chaos (fault plans), tracing, the black box, the
-profiler, the metrics endpoint, the audit spool, and the serving plane
-(the handle's key cache; the server's conditional pulls, shedding, encode
-cache and freshness stamps: a request that carries ``if_newer``, ``sv``
-or ``shed_ok`` gets an error reply).
+Not ported yet: tracing, the black box, the profiler, the metrics
+endpoint and the audit spool. The JAX serving plane's observability
+(the per-range traffic and age matrix ``RangeScope``, ``key_heat``, the
+flight recorder, the serve-age histograms) is left out with them: a
+served row's realized age feeds one peak gauge, ``serve_age_us_peak``.
 """
 
 from __future__ import annotations
@@ -71,6 +94,7 @@ import torch
 from parameter_server_tpu_torch.device import resolve_device
 from parameter_server_tpu_torch.kv import store as kv_store
 from parameter_server_tpu_torch.kv.updaters import Updater
+from parameter_server_tpu_torch.parallel.chaos import PLAN_ENV, SEED_ENV, FaultPlan
 from parameter_server_tpu_torch.parallel.control import (
     Arrays,
     ControlClient,
@@ -79,13 +103,31 @@ from parameter_server_tpu_torch.parallel.control import (
     RpcClient,
     RpcServer,
 )
-from parameter_server_tpu_torch.utils.config import PSConfig, ServerConfig
+from parameter_server_tpu_torch.utils.config import PSConfig, ServeConfig, ServerConfig
 from parameter_server_tpu_torch.utils.heartbeat import HeartbeatReporter, host_stats
 from parameter_server_tpu_torch.utils.keyrange import KeyRange
 from parameter_server_tpu_torch.utils.metrics import telemetry_snapshot, wire_counters
 
-#: pull fields of the serving plane, which the port does not serve yet
-SERVING_FIELDS = ("if_newer", "sv", "shed_ok")
+
+def _plan_from_cfg(cfg: PSConfig) -> FaultPlan | None:
+    """FaultPlan from [fault] fault_plan/fault_seed ("" = rely on the
+    PS_FAULT_PLAN env fallback inside RpcServer)."""
+    if not cfg.fault.fault_plan:
+        return None
+    return FaultPlan.parse(cfg.fault.fault_plan, seed=cfg.fault.fault_seed)
+
+
+def _now_us() -> int:
+    """Wall-clock µs since the epoch: the publish timestamp a pull's
+    ``_age_us`` is measured against."""
+    return int(time.time() * 1e6)
+
+
+def _ver_base() -> int:
+    """A fresh per-life version namespace: a random 23-bit nonce above a
+    40-bit counter, so every version fits the binary header's unsigned
+    fixed slot."""
+    return (int.from_bytes(os.urandom(3), "big") & ((1 << 23) - 1)) << 40
 
 
 def _sig(keys: np.ndarray) -> str:
@@ -133,6 +175,25 @@ class _LruSigs:
             return len(self._d)
 
 
+class _EncodeEntry:
+    """One single-flight encoded pull reply: the first puller of a hot
+    key set at a given version computes the encode; concurrent and later
+    pulls of the same (signature, version, codec) wait on ``event`` and
+    reuse the same reply header and arrays (``rep is None`` after the
+    event fires means the owner's encode failed: followers encode for
+    themselves). ``nbytes`` is the payload counted against the cache's
+    byte budget: 0 until filled, and 0 forever if the entry was evicted
+    before its owner filled it."""
+
+    __slots__ = ("event", "rep", "arrays", "nbytes")
+
+    def __init__(self) -> None:
+        self.event = threading.Event()
+        self.rep: dict[str, Any] | None = None
+        self.arrays: Arrays | None = None
+        self.nbytes = 0
+
+
 class _QueuedPush:
     """One decoded push waiting in the apply queue: keys + decoded grad,
     its durable dedup identity, and the Future the deferred RPC reply
@@ -172,7 +233,9 @@ class ShardServer:
     via RPC. Commands: pull / push / dump / stats / shutdown.
 
     ``[server] apply_queue = 0`` disables the apply engine: pushes apply
-    inline under the apply lock, the JAX package's serial discipline."""
+    inline under the apply lock, the JAX package's serial discipline.
+    ``serve_cfg`` (``[serve]``) sizes the serving plane: the encode
+    cache, the host snapshot gate and the shedding thresholds."""
 
     def __init__(
         self,
@@ -182,29 +245,51 @@ class ShardServer:
         host: str = "127.0.0.1",
         port: int = 0,
         advertise_host: str = "",
-        fault_plan: None = None,
+        fault_plan: FaultPlan | None = None,
         server_cfg: ServerConfig | None = None,
+        serve_cfg: ServeConfig | None = None,
         device: Any = "cuda",
     ):
         scfg = server_cfg or ServerConfig()
-        if scfg.adaptive_batch:
-            raise NotImplementedError(
-                "[server] adaptive_batch is not ported yet to parameter_server_tpu_torch"
-            )
+        svcfg = serve_cfg or ServeConfig()
         self.device = resolve_device(device)
         self.updater = updater
         self.range = key_range
         self.vdim = int(vdim)
         self.state = updater.init(key_range.size, self.vdim, device=self.device)
         # the publish lock (module docstring): every in-place apply and
-        # every gather a reply is built from is issued under it
+        # every gather a reply is built from is issued under it, and the
+        # version and its publish timestamp (µs epoch) change only under it
         self._pub_lock = threading.Lock()
-        self._version = 1
+        self._version = _ver_base() + 1
+        self._pts = _now_us()
+        self._serve_cfg = svcfg
+        # single-flight encoded-pull cache: (sig, version, codec) -> entry
+        self._enc_lock = threading.Lock()
+        self._enc_cache: OrderedDict[tuple, _EncodeEntry] = OrderedDict()
+        self._enc_cap = max(0, int(svcfg.encode_cache_entries))
+        self._enc_bytes = 0  # filled entries' payload bytes (LRU-bounded)
+        self._enc_bytes_max = max(0, int(svcfg.encode_cache_mb)) << 20
+        # hot-key detection: pull counts per key-set signature (advisory:
+        # a lost increment under a race only delays hotness by a pull)
+        self._hot_counts = _LruSigs(cap=4096)
+        # host weights snapshot: (version, whole weights table on the
+        # host), taken on the first hot conditional pull of a version and
+        # shared by every encode at that version; swapped as one tuple
+        self._host_w: tuple[int, np.ndarray] | None = None
         self._key_cache = _LruSigs()  # (worker, sig) -> key array
         # the apply lock: the ledger check, the apply and the ledger record
         # of one batch (or one serial push) are one unit
         self._lock = threading.Lock()
         self._max_batch = max(1, int(scfg.max_batch))
+        # adaptive batch ceiling ([server] adaptive_batch): ramp the drain
+        # bound to the observed arrival rate, doubling while batches fill
+        # and the queue stays hot, halving when arrivals go sparse;
+        # max_batch stays the hard ceiling
+        self._adaptive_batch = bool(scfg.adaptive_batch)
+        self._eff_batch = (
+            min(4, self._max_batch) if self._adaptive_batch else self._max_batch
+        )
         self._apply_q: queue_mod.Queue[_QueuedPush] | None = (
             queue_mod.Queue(maxsize=int(scfg.apply_queue))
             if scfg.apply_queue > 0
@@ -224,6 +309,11 @@ class ShardServer:
         self.counters = {
             "pulls": 0, "pushes": 0, "cache_hits": 0, "need_keys": 0,
             "push_replays": 0, "apply_batches": 0, "push_coalesced": 0,
+            # serving plane: conditional pulls answered without a payload,
+            # pulls shed under overload, real row encodes, and encodes
+            # shared across pulls by the single-flight cache
+            "not_modified": 0, "shed": 0, "pull_encodes": 0,
+            "encode_reuse": 0,
         }
         if host in ("0.0.0.0", "::", "") and not advertise_host:
             raise ValueError(
@@ -273,10 +363,89 @@ class ShardServer:
 
     @property
     def version(self) -> int:
-        """Applies published so far, plus one (the JAX server's
-        ``state_ver`` is an opaque per-life id; this one only counts)."""
+        """The current published version (opaque; see the module
+        docstring)."""
         with self._pub_lock:
             return self._version
+
+    def _publish(self) -> None:
+        """Move the version and its publish timestamp. Caller holds
+        ``_pub_lock``, in the same hold that issued the change."""
+        self._version += 1
+        self._pts = _now_us()
+
+    # -- serving plane: overload signal + single-flight encode cache ------
+
+    def overloaded(self) -> bool:
+        """Admission-control signal (``[serve] shed_*``): the apply queue
+        is backing up or this server's withheld coalesced replies pin too
+        many bytes: time to shed cache-backed pulls."""
+        svcfg = self._serve_cfg
+        if (
+            svcfg.shed_queue_depth > 0
+            and self._apply_q is not None
+            and self._apply_q.qsize() >= svcfg.shed_queue_depth
+        ):
+            return True
+        mb = svcfg.shed_withheld_mb
+        return mb > 0 and self.server.withheld_bytes() >= (mb << 20)
+
+    def _note_pull(self, sig: str) -> bool:
+        """Count one pull of this key-set signature; True once the sig is
+        hot (its encoded reply is worth caching). The threshold keeps
+        one-off training sweeps out of the encode cache."""
+        c = (self._hot_counts.get(sig) or 0) + 1
+        self._hot_counts.put(sig, c)
+        if c == self._serve_cfg.hot_min_pulls:
+            wire_counters.inc("serve_hot_keys")
+        return c >= self._serve_cfg.hot_min_pulls
+
+    def _enc_claim(self, ck: tuple) -> tuple[_EncodeEntry, bool]:
+        """(entry, owner): owner=True means this pull computes the
+        encode; False means another pull (possibly already finished) owns
+        it and the entry's event and result are to be shared."""
+        with self._enc_lock:
+            ent = self._enc_cache.get(ck)
+            if ent is not None:
+                self._enc_cache.move_to_end(ck)
+                return ent, False
+            ent = self._enc_cache[ck] = _EncodeEntry()
+            self._enc_evict_over_budget()
+            return ent, True
+
+    def _enc_evict_over_budget(self) -> None:
+        """LRU-evict past the entry AND byte budgets (caller holds
+        ``_enc_lock``): each filled entry pins its reply payload."""
+        while self._enc_cache and (
+            len(self._enc_cache) > self._enc_cap
+            or self._enc_bytes > self._enc_bytes_max
+        ):
+            _, old = self._enc_cache.popitem(last=False)
+            self._enc_bytes -= old.nbytes
+
+    def _enc_fill(
+        self, ck: tuple, ent: _EncodeEntry, rep: dict[str, Any], arrays: Arrays,
+    ) -> None:
+        """Publish the owner's finished encode to its followers and count
+        its payload against the byte budget (only while the entry is still
+        cached: a concurrent eviction wins)."""
+        nb = sum(int(a.nbytes) for a in arrays.values())
+        with self._enc_lock:
+            ent.rep, ent.arrays = rep, arrays
+            if self._enc_cache.get(ck) is ent:
+                ent.nbytes = nb
+                self._enc_bytes += nb
+                self._enc_evict_over_budget()
+        ent.event.set()
+
+    def _enc_fail(self, ck: tuple, ent: _EncodeEntry) -> None:
+        """The owner's encode raised, or its rows are not of the claimed
+        version: drop the entry and release any followers (they see
+        ``rep is None`` and encode for themselves)."""
+        with self._enc_lock:
+            if self._enc_cache.get(ck) is ent:
+                del self._enc_cache[ck]
+        ent.event.set()
 
     def start(self) -> "ShardServer":
         self._start_apply_thread()
@@ -362,7 +531,10 @@ class ShardServer:
         with self._lock, self._pub_lock:
             self.state = new_state
             self._applied_push = applied
-            self._version += 1
+            # a restored table is a new life: a version cached against
+            # the rows this restore replaced must never validate
+            self._version = _ver_base()
+            self._publish()
         return True
 
     def start_checkpointing(self, ckpt_dir: str, interval_s: float) -> None:
@@ -414,21 +586,57 @@ class ShardServer:
                 deltas = self.updater.delta(rows, g_t)
                 for k, v in self.state.items():
                     v.index_add_(0, idx_t, deltas[k])
-            self._version += 1
+            self._publish()
 
-    def _gather_weights(self, keys: np.ndarray) -> np.ndarray:
-        """(U, vdim) host weights of ``keys`` from one published state."""
+    def _table_weights(self) -> torch.Tensor:
+        """The weights of the whole table as a tensor of its own. Caller
+        holds ``_pub_lock``: where the updater's weights ARE a table (SGD,
+        AdaGrad), they are cloned, so a later in-place apply cannot reach
+        the copy."""
+        w = self.updater.weights(self.state)
+        if any(w.data_ptr() == v.data_ptr() for v in self.state.values()):
+            w = w.clone()
+        return w
+
+    def _host_weights(self, ver: int, w: torch.Tensor) -> np.ndarray:
+        """The host snapshot of version ``ver``: ``w`` is the table's
+        weights as issued under the publish lock at ``ver``
+        (``_table_weights``); the device-to-host copy runs here, outside
+        the lock, and is kept for every later encode at ``ver``. Two
+        threads materializing a fresh version duplicate bounded work; the
+        tuple swap is last-writer-wins, never torn."""
+        host = w.cpu().numpy().reshape(self.range.size, -1)
+        self._host_w = (ver, host)
+        return host
+
+    def _gather_weights(
+        self, keys: np.ndarray, snap: bool = False
+    ) -> tuple[np.ndarray, int, int]:
+        """(U, vdim) host weights of ``keys`` and the (version, publish
+        ts) of the table they were read from, both taken in one publish
+        lock hold. A host snapshot already taken at that version serves
+        the rows; with ``snap`` (a hot conditional pull of a range within
+        ``[serve] snapshot_keys_max``) a missing one is taken here."""
         idx = torch.from_numpy(_host_array(keys, np.int64)).to(self.device)
+        full = None
         with self._pub_lock:
-            rows = {k: v.index_select(0, idx) for k, v in self.state.items()}
-        return self.updater.weights(rows).cpu().numpy().reshape(len(keys), -1)
+            ver, pts = self._version, self._pts
+            cur = self._host_w
+            if cur is not None and cur[0] == ver:
+                return cur[1][keys], ver, pts
+            if snap and 0 < self.range.size <= self._serve_cfg.snapshot_keys_max:
+                full = self._table_weights()
+            else:
+                rows = {k: v.index_select(0, idx) for k, v in self.state.items()}
+        if full is not None:
+            return self._host_weights(ver, full)[keys], ver, pts
+        w = self.updater.weights(rows).cpu().numpy().reshape(len(keys), -1)
+        return w, ver, pts
 
     def weights(self) -> np.ndarray:
         """(range size, vdim) host weights of one published state."""
         with self._pub_lock:
-            w = self.updater.weights(self.state)
-            if any(w.data_ptr() == v.data_ptr() for v in self.state.values()):
-                w = w.clone()  # the table itself (SGD, AdaGrad): copy it
+            w = self._table_weights()
         return w.cpu().numpy()
 
     # -- batched apply engine ---------------------------------------------
@@ -491,11 +699,14 @@ class ShardServer:
             except queue_mod.Empty:
                 continue
             batch = [first]
-            while len(batch) < self._max_batch:
+            limit = self._eff_batch if self._adaptive_batch else self._max_batch
+            while len(batch) < limit:
                 try:
                     batch.append(q.get_nowait())
                 except queue_mod.Empty:
                     break
+            if self._adaptive_batch:
+                self._adapt_batch(len(batch), q.qsize())
             try:
                 self._apply_batch(batch)
             except Exception:  # noqa: BLE001 — isolate the offender
@@ -522,6 +733,23 @@ class ShardServer:
                 time.sleep(0.05)
                 continue
             self._fail_stopping(p)
+
+    def _adapt_batch(self, got: int, backlog: int) -> None:
+        """Adaptive batch-ceiling policy (``[server] adaptive_batch``),
+        called by the apply thread after each drain with the batch it
+        collected and the queue depth left behind. A full batch with more
+        still queued means arrivals outpace the ceiling: double it. A
+        batch far below the ceiling means arrivals are sparse: halve it,
+        so a slow client's trickle applies at low latency instead of
+        waiting to fill a ceiling sized for a burst. Every change bumps
+        ``server_batch_adapts``; ``max_batch`` stays the hard ceiling."""
+        eff = self._eff_batch
+        if got >= eff and backlog > 0 and eff < self._max_batch:
+            self._eff_batch = min(eff * 2, self._max_batch)
+        elif got <= max(1, eff // 4) and eff > 1:
+            self._eff_batch = max(1, eff // 2)
+        if self._eff_batch != eff:
+            wire_counters.inc("server_batch_adapts")
 
     def _apply_batch(self, batch: list[_QueuedPush]) -> None:
         """Coalesce and apply one batch: segment-sum duplicate keys across
@@ -662,7 +890,7 @@ class ShardServer:
                 "w": self.weights()
             }
         if cmd == "stats":
-            return {
+            rep = {
                 "ok": True,
                 **self.counters,
                 # NOT the key "ver": that is a binary-header-v2 slot, and
@@ -677,7 +905,11 @@ class ShardServer:
                 "wire_quant_bytes_saved": wire_counters.get(
                     "wire_quant_bytes_saved"
                 ),
-            }, {}
+            }
+            faults = self.server.fault_stats()
+            if faults is not None:
+                rep["faults"] = faults
+            return rep, {}
         if cmd == "shutdown":
             raise RpcServer.Shutdown
         raise ValueError(f"unknown server command {cmd!r}")
@@ -685,21 +917,95 @@ class ShardServer:
     def _handle_pull(
         self, h: dict[str, Any], arrays: Arrays
     ) -> tuple[dict[str, Any], Arrays]:
-        """The read path: the keys' weights from one published state,
-        as float32 rows or, for a quant-negotiated ``quant`` request,
-        round-to-nearest per-segment integers."""
-        serving = [f for f in SERVING_FIELDS if f in h]
-        if serving:
-            raise ValueError(
-                f"pull fields {serving} belong to the serving plane, which "
-                "is not ported yet to parameter_server_tpu_torch"
-            )
+        """The read path, in the JAX server's order:
+
+        1. conditional pull: ``if_newer=<ver>`` equal to the current
+           version answers ``not_modified``: no gather, no payload;
+        2. admission control: under overload, a revalidation the client
+           flagged ``shed_ok`` (it holds a within-bounds cached fallback)
+           is shed with a retry-after hint;
+        3. single-flight encode: pulls of a hot key set at one version
+           share one encoded reply.
+
+        Replies to version-aware pulls (``sv: 1``, sent by serving
+        handles; implied by ``if_newer``) carry ``ver`` and ``pts``, the
+        version and publish time of exactly the table the rows were
+        gathered from (read in the gather's publish-lock hold); other
+        pulls get the reply shape without them, byte for byte as
+        before."""
         keys = self._resolve_keys(h, arrays)
         if keys is None:
             return {"ok": True, "need_keys": True}, {}
-        w = self._gather_weights(keys)
-        self._bump("pulls")
+        with self._pub_lock:
+            ver, pts = self._version, self._pts
+        ifn = h.get("if_newer")
+        sv = bool(h.get("sv")) or ifn is not None
+        if ifn is not None and int(ifn) == ver:
+            # the client's cached rows ARE this version (equality, not
+            # ordering: versions are opaque per-life ids)
+            self._bump("pulls")
+            self._bump("not_modified")
+            wire_counters.inc("serve_not_modified")
+            return {"ok": True, "not_modified": True, "ver": ver, "pts": pts}, {}
+        if ifn is not None and h.get("shed_ok") and self.overloaded():
+            # shed: the client holds a cached fallback within its
+            # staleness ceiling. No ``ver``: nothing was validated.
+            self._bump("pulls")
+            self._bump("shed")
+            wire_counters.inc("serve_shed")
+            return {"ok": True, "not_modified": True, "shed": True,
+                    "retry_after_ms": self._serve_cfg.retry_after_ms}, {}
         qn = int(h.get("quant", 0))
+        ent = None
+        hot = self._enc_cap > 0 and self._note_pull(h["sig"])
+        # sv is part of the key: a version-stamped reply cached for a
+        # serving client must never be replayed to one that did not ask
+        ck = (h["sig"], ver, qn, int(h.get("qseg", 256)), bool(h.get("zip")), sv)
+        if hot:
+            ent, owner = self._enc_claim(ck)
+            if not owner:
+                # single-flight: another pull of the same keys at the same
+                # version owns the encode: share its buffers
+                if ent.event.wait(timeout=5.0) and ent.rep is not None:
+                    self._bump("pulls")
+                    self._bump("encode_reuse")
+                    wire_counters.inc("serve_encode_reuse")
+                    return ent.rep, ent.arrays
+                ent = None  # owner failed or timed out: encode ourselves
+        try:
+            # the host snapshot is taken only for a hot conditional pull
+            # (``if_newer`` proves a caching serving client): a training
+            # tier with per-step version churn must never pay a whole-
+            # table copy a step because its key sets went hot
+            rep, out, ver_g = self._encode_pull(
+                keys, h, qn, hot and ifn is not None, with_ver=sv,
+            )
+        except BaseException:
+            if ent is not None:
+                self._enc_fail(ck, ent)
+            raise
+        self._bump("pulls")
+        self._bump("pull_encodes")
+        if ent is not None:
+            if ver_g == ver:
+                self._enc_fill(ck, ent, rep, out)
+            else:
+                # an apply landed between the version read and the
+                # gather: these rows are of a later table than the key
+                self._enc_fail(ck, ent)
+        return rep, out
+
+    def _encode_pull(
+        self, keys: np.ndarray, h: dict[str, Any], qn: int, snap: bool = False,
+        with_ver: bool = False,
+    ) -> tuple[dict[str, Any], Arrays, int]:
+        """Gather and encode one pull reply (shared verbatim across
+        clients by the single-flight cache: nothing here may depend on
+        the requesting connection): float32 rows or, for a
+        quant-negotiated ``quant`` request, round-to-nearest per-segment
+        integers. Returns the reply, its arrays and the version the rows
+        were gathered at."""
+        w, ver, pts = self._gather_weights(keys, snap)
         if qn:
             # quantized pull (read-mostly traffic): round-to-NEAREST, not
             # stochastic — reads have no error-feedback loop, and repeated
@@ -712,8 +1018,14 @@ class ShardServer:
                 "wire_quant_bytes_saved",
                 max(w.nbytes - q.nbytes - qs.nbytes, 0),
             )
-            return {"ok": True, "codec": qn, "qseg": qz.seg}, {"q": q, "qs": qs}
-        return {"ok": True, "zip": h.get("zip", False)}, {"w": w.ravel()}
+            rep: dict[str, Any] = {"ok": True, "codec": qn, "qseg": qz.seg}
+            out: Arrays = {"q": q, "qs": qs}
+        else:
+            rep, out = {"ok": True, "zip": h.get("zip", False)}, {"w": w.ravel()}
+        if with_ver:  # only version-aware clients (see _handle_pull)
+            rep["ver"] = ver
+            rep["pts"] = pts  # the wire layer derives each serve's _age_us
+        return rep, out, ver
 
     def _decode_grad(self, h: dict[str, Any], arrays: Arrays) -> np.ndarray:
         """The push's float32 gradient on the host: as sent, the
@@ -757,16 +1069,33 @@ class ServerHandle:
         resolve_addr=None,  # () -> current address, for server-restart recovery
         reconnect_timeout_s: float | None = None,
         serving: bool = False,
+        key_cache=None,
         device: Any = "cuda",
     ):
-        if serving:
-            raise NotImplementedError(
-                "serving handles (the client key cache, filters/keycache.py) "
-                "are not ported yet to parameter_server_tpu_torch"
-            )
+        """``serving=True`` marks this handle as part of the read-mostly
+        serving tier: with ``[serve] cache`` on, it arms the client-side
+        versioned key cache (``filters/keycache.py``): pulls are served
+        locally within the TTL, revalidated by version past it, and
+        invalidated exactly by this handle's own pushes. ``key_cache``
+        lets a serving frontend share one cache across all its handles,
+        one shard or many: entries and the inverted invalidation index
+        are namespaced by this handle's ``rank``. The training tier never
+        passes serving=True: its staleness contract is the SSP clock, not
+        a TTL (see ``_connect_servers``)."""
         self.device = resolve_device(device)
         self.rank = rank
         self.worker = worker
+        self._kcache = None
+        if serving and cfg.serve.cache:
+            from parameter_server_tpu_torch.filters.keycache import ClientKeyCache
+
+            # `is not None`, NOT `or`: the cache defines __len__, so a
+            # shared instance that happens to be empty is falsy
+            self._kcache = key_cache if key_cache is not None else ClientKeyCache(
+                cap=cfg.serve.cache_entries,
+                ttl_s=cfg.serve.ttl_ms / 1e3,
+                max_stale_s=cfg.serve.max_stale_ms / 1e3,
+            )
         self._resolve_addr = resolve_addr
         self._reconnect_timeout_s = (
             reconnect_timeout_s
@@ -780,10 +1109,7 @@ class ServerHandle:
         self._client_window_s = min(3.0, self._reconnect_timeout_s)
         self._pipeline_window = max(1, cfg.wire.window)
         self._hdr_codec = cfg.wire.hdr_codec
-        if cfg.wire.adaptive_window:
-            raise NotImplementedError(
-                "[wire] adaptive_window is not ported yet to parameter_server_tpu_torch"
-            )
+        self._adaptive_window = cfg.wire.adaptive_window
         # quantized push transport ([wire] quant, filters/quant.py):
         # negotiated per connection via the "qwire" feature advert —
         # until (unless) the peer acks, pushes stay on the float path
@@ -817,6 +1143,7 @@ class ServerHandle:
             address, reconnect_timeout_s=self._client_window_s,
             window=self._pipeline_window,
             hdr_codec=self._hdr_codec,
+            adaptive_window=self._adaptive_window,
             features=self._features,
         )
         # a worker's pull and in-flight push threads share this handle;
@@ -920,6 +1247,7 @@ class ServerHandle:
                         cid=cid, start_seq=next_seq,
                         window=self._pipeline_window,
                         hdr_codec=self._hdr_codec,
+                        adaptive_window=self._adaptive_window,
                         features=self._features,
                     )
                     self._sent_sigs = _LruSigs()
@@ -1048,21 +1376,43 @@ class ServerHandle:
             return self._recovery_pool
 
     def pull_async(self, local_keys: np.ndarray):
-        """Issue a pull without blocking; Future of the float32 rows."""
+        """Issue a pull without blocking; Future of the float32 rows.
+        Serving handles consult the key cache first: a fresh entry
+        resolves the future at once with no wire traffic."""
         out_f: Future = Future()
         if len(local_keys) == 0:
             out_f.set_result(np.zeros(0, dtype=np.float32))
             return out_f
-        inner = self._keyed_call_async(
-            "pull", local_keys, {}, **self._pull_fields()
-        )
+        extra: dict[str, Any] = {}
+        sig = ent = gen = None
+        own = False
+        if self._kcache is not None:
+            vals, extra, sig, ent, own, gen = self._cache_try(local_keys)
+            if vals is not None:
+                out_f.set_result(vals)
+                return out_f
+        try:
+            inner = self._keyed_call_async(
+                "pull", local_keys, {}, **self._pull_fields(), **extra
+            )
+        except BaseException:
+            if own:
+                self._kcache.end_refresh(sig)
+            raise
 
         def done(f) -> None:
             # nothing may escape (see _keyed_call_async.on_reply)
             try:
-                _, out = f.result()
-                out_f.set_result(self._decode_pull(out))
+                rep, out = f.result()
+                if self._kcache is not None:
+                    out_f.set_result(
+                        self._cache_settle(rep, out, local_keys, sig, ent, own, gen)
+                    )
+                else:
+                    out_f.set_result(self._decode_pull(out))
             except BaseException as e:  # noqa: BLE001 — future boundary
+                if own:
+                    self._kcache.end_refresh(sig)  # idempotent release
                 if not out_f.done():
                     out_f.set_exception(e)
 
@@ -1083,6 +1433,14 @@ class ServerHandle:
             # nothing may escape (see _keyed_call_async.on_reply)
             try:
                 f.result()
+                if self._kcache is not None:
+                    # second, ack-time invalidation: the server defers the
+                    # ack until the batched apply published, so a pull
+                    # raced between the encode-time invalidation and this
+                    # ack may have re-cached the pre-apply rows: drop
+                    # them now, and read-your-writes holds from the moment
+                    # this future resolves
+                    self._kcache.invalidate_keys(local_keys, rank=self.rank)
                 done_f.set_result(None)
             except BaseException as e:  # noqa: BLE001 — future boundary
                 if not done_f.done():
@@ -1180,6 +1538,11 @@ class ServerHandle:
         the fixed-point codec encodes on this handle's device (K4 on the
         card), where the JAX handle draws from threefry: those payloads
         agree with the JAX handle's in distribution only."""
+        if self._kcache is not None:
+            # exact self-invalidation (serving handles): this handle must
+            # never read its own write stale out of its own cache. Done at
+            # encode time, once per logical push
+            self._kcache.invalidate_keys(local_keys, rank=self.rank)
         fields: dict[str, Any] = {"codec": 0}
         g = grads.astype(np.float32, copy=False).reshape(len(local_keys), -1)
         if self._quant_bytes and "qwire" in self.client.peer_features:
@@ -1249,10 +1612,113 @@ class ServerHandle:
             return self._quantizer.decode(out["q"], out["qs"])
         return out["w"].astype(np.float32)
 
+    # -- client-side versioned key cache (serving handles only) -----------
+
+    @staticmethod
+    def _book_serve_age(age_us: float) -> None:
+        """Book the realized data age one serve handed its consumer. The
+        JAX handle feeds its serve-age histogram and range matrix (not
+        ported); here it feeds the peak gauge ``serve_age_us_peak``."""
+        wire_counters.observe_max("serve_age_us_peak", int(max(float(age_us), 0.0)))
+
+    def _cache_try(
+        self, local_keys: np.ndarray
+    ) -> tuple[np.ndarray | None, dict[str, Any], Any, Any, bool, int]:
+        """Consult the key cache for one pull: (locally served rows or
+        None, extra wire fields, sig, entry, owns-refresh, the cache's
+        invalidation generation at issue). A fresh entry short-circuits
+        the wire; a stale one turns the pull into an ``if_newer``
+        revalidation, claimed single-flight, so while one caller
+        refreshes, concurrent pulls of the same keys serve the
+        bounded-stale rows. ``shed_ok`` is advertised only while the
+        entry is within the hard staleness ceiling. A caller holding the
+        refresh claim must settle it (``_cache_settle`` or
+        ``end_refresh``)."""
+        # (rank, digest): keys are range-relative, so a shared multi-shard
+        # cache must namespace entries by shard
+        sig = (self.rank, _sig(local_keys))
+        gen = self._kcache.gen
+        ent = self._kcache.lookup(sig)
+        if ent is None:
+            wire_counters.inc("serve_cache_misses")
+            return None, {"sv": 1}, sig, None, False, gen
+        if self._kcache.fresh(ent):
+            wire_counters.inc("serve_cache_hits")
+            self._book_serve_age(ent.age_us())
+            # a copy: callers own their rows, the cache stays pristine
+            return ent.values.copy(), {}, sig, ent, False, gen
+        if not self._kcache.begin_refresh(sig):
+            if self._kcache.can_shed(ent):
+                # another thread's refresh is in flight: serve the
+                # bounded-stale rows rather than duplicate its round trip
+                wire_counters.inc("serve_cache_stale_hits")
+                self._book_serve_age(ent.age_us())
+                return ent.values.copy(), {}, sig, ent, False, gen
+            # past the staleness ceiling: correctness wins
+            return None, {"if_newer": ent.version}, sig, ent, False, gen
+        fields: dict[str, Any] = {"if_newer": ent.version}
+        if self._kcache.can_shed(ent):
+            fields["shed_ok"] = 1
+        return None, fields, sig, ent, True, gen
+
+    def _cache_settle(
+        self, rep: dict[str, Any], out: Arrays, local_keys: np.ndarray,
+        sig, ent, own: bool = False, gen: int | None = None,
+    ) -> np.ndarray:
+        """Interpret one pull reply against the cache and return the
+        rows. ``ent`` is the entry captured at issue time; ``own``
+        releases this pull's refresh claim; ``gen`` makes an install lose
+        to any invalidation since the pull was issued."""
+        try:
+            age = rep.get("_age_us")  # server-measured realized age
+            if rep.get("not_modified") and ent is not None:
+                if rep.get("shed"):
+                    # the server shed our revalidation: keep serving the
+                    # cached rows (shed_ok was advertised only inside
+                    # max_stale) and back off for retry_after
+                    wire_counters.inc("serve_shed_served")
+                    self._kcache.shed_backoff(
+                        sig, float(rep.get("retry_after_ms", 20)) / 1e3
+                    )
+                    self._book_serve_age(ent.age_us())
+                else:
+                    self._kcache.revalidated(sig, int(rep["ver"]), age_us=age)
+                    self._book_serve_age(age if age is not None else ent.age_us())
+                return ent.values.copy()
+            vals = self._decode_pull(out)
+            ver = rep.get("ver")
+            if ver is not None:
+                self._kcache.put(
+                    sig, local_keys, vals, int(ver), as_of=gen,
+                    rank=self.rank, age_us=age,
+                )
+                if age is not None:
+                    self._book_serve_age(age)
+            return vals
+        finally:
+            if own:
+                self._kcache.end_refresh(sig)
+
     def pull(self, local_keys: np.ndarray) -> np.ndarray:
         if len(local_keys) == 0:
             return np.zeros(0, dtype=np.float32)
-        _, out = self._keyed_call("pull", local_keys, {}, **self._pull_fields())
+        extra: dict[str, Any] = {}
+        sig = ent = gen = None
+        own = False
+        if self._kcache is not None:
+            vals, extra, sig, ent, own, gen = self._cache_try(local_keys)
+            if vals is not None:
+                return vals  # served locally: zero wire traffic
+        try:
+            rep, out = self._keyed_call(
+                "pull", local_keys, {}, **self._pull_fields(), **extra
+            )
+        except BaseException:
+            if own:
+                self._kcache.end_refresh(sig)
+            raise
+        if self._kcache is not None:
+            return self._cache_settle(rep, out, local_keys, sig, ent, own, gen)
         return self._decode_pull(out)
 
     def push(self, local_keys: np.ndarray, grads: np.ndarray) -> None:
@@ -1260,6 +1726,10 @@ class ServerHandle:
             return
         fields, arrays = self._encode_push(local_keys, grads)
         self._keyed_call("push", local_keys, arrays, **fields)
+        if self._kcache is not None:
+            # ack-time invalidation (see push_async.done): a pull that
+            # raced the deferred apply may have re-cached pre-push rows
+            self._kcache.invalidate_keys(local_keys, rank=self.rank)
 
     def dump(self) -> tuple[int, np.ndarray]:
         rep, out = self.client.call("dump")
@@ -1376,7 +1846,8 @@ def run_server(
     ranges = KeyRange(0, cfg.data.num_keys).even_divide(num_servers)
     srv = ShardServer(
         updater_from_config(cfg), ranges[rank], host=bind_host,
-        advertise_host=advertise_host, server_cfg=cfg.server, device=dev,
+        advertise_host=advertise_host, fault_plan=_plan_from_cfg(cfg),
+        server_cfg=cfg.server, serve_cfg=cfg.serve, device=dev,
     )
     resumed = False
     if ckpt_dir:
@@ -1751,16 +2222,19 @@ def launch_local(
     by default) as ``<role>-<rank>.out`` / ``.err``. Returns the
     scheduler's result, plus ``nodes``: each node's spawn time, exit code
     and the JSON report it printed at exit (its launches, its register
-    time). Chaos (``fault_plan``), tracing and the black box are not
-    ported."""
+    time).
+
+    ``fault_plan`` (a ``parallel/chaos.py`` spec) arms a seeded FaultPlan
+    on every spawned node's RpcServers through the ``PS_FAULT_PLAN`` /
+    ``PS_FAULT_SEED`` environment variables: frame-level drop, delay,
+    disconnect and duplicate chaos on top of (or instead of) the
+    process-kill fault. Tracing and the black box are not ported."""
     import socket as socket_mod
     import subprocess
     import sys
     import tempfile
 
     resolve_device(device)  # no card: raise here, before spawning anything
-    if fault_plan:
-        raise _not_ported("chaos (fault_plan)")
     if trace_dir or trace_sample > 1:
         raise _not_ported("tracing (trace_dir, trace_sample)")
     if blackbox_dir:
@@ -1776,6 +2250,10 @@ def launch_local(
     child_env["PYTHONPATH"] = os.pathsep.join(
         p for p in (pkg_root, child_env.get("PYTHONPATH", "")) if p
     )
+    if fault_plan:
+        FaultPlan.parse(fault_plan, seed=fault_seed)  # fail fast on a typo
+        child_env[PLAN_ENV] = fault_plan
+        child_env[SEED_ENV] = str(fault_seed)
     logdir = log_dir or tempfile.mkdtemp(prefix="pslaunch_")
     os.makedirs(logdir, exist_ok=True)
 
@@ -1948,13 +2426,12 @@ def run_node(
         raise _not_ported("the profiler ([profile] hz)")
     if cfg.timeseries.metrics_port:
         raise _not_ported("the metrics endpoint ([timeseries] metrics_port)")
-    if cfg.fault.fault_plan:
-        raise _not_ported("chaos ([fault] fault_plan)")
     dev = resolve_device(device)
     if role == "scheduler":
         host, port = scheduler.rsplit(":", 1)
         coord = Coordinator(
             host, int(port), heartbeat_timeout_s=cfg.fault.heartbeat_timeout_s,
+            fault_plan=_plan_from_cfg(cfg),
         )
         return run_scheduler(cfg, coord, num_servers, num_workers, model_out, device=dev)
     if role == "server":

@@ -288,12 +288,16 @@ def push_generator(
 
 
 def int8_scale(grad: torch.Tensor) -> torch.Tensor:
-    """max|g| / 127 + 1e-30, the quotient rounded once on every device. On a
-    CUDA tensor PyTorch divides by a Python scalar as a product with its
-    float32 reciprocal, one ulp away at times, so the divisor is a tensor on
-    the gradient's device."""
+    """max|g| * float32(1/127) + 1e-30, the reference as it runs: the JAX
+    push divides by the constant 127 inside a jitted step, and XLA folds
+    that division into a product with the float32 reciprocal (the
+    compiled HLO is ``multiply(reduce_max, constant)``), which is one ulp
+    from the quotient for some maxima. The reciprocal is a float32 tensor
+    on the gradient's device, so the product rounds once, the same bits on
+    the CPU and on the card."""
     top = grad.abs().max()
-    return top / torch.full((), 127.0, dtype=top.dtype, device=top.device) + 1e-30
+    r = torch.full((), np.float32(1.0 / 127.0), dtype=top.dtype, device=top.device)
+    return top * r + 1e-30
 
 
 def quantize_int8(

@@ -1,9 +1,12 @@
 """The training progress table (the JAX package's ``ProgressReporter``),
 a copy of the wire tier's counters (``CounterSet``, the process-global
-``wire_counters``), and the scheduler's merges: ``merge_progress`` of the
-workers' reports and counters-only ``telemetry_snapshot`` /
-``merge_telemetry`` (the JAX package's latency histograms and named timers
-are not ported, so their blocks come back empty)."""
+``wire_counters``), the log2 latency ``Histogram`` and ``hist_percentile``
+that the adaptive RPC window reads (trimmed to ``observe`` / ``snapshot``:
+no exemplars, no named registry), and the scheduler's merges:
+``merge_progress`` of the workers' reports and counters-only
+``telemetry_snapshot`` / ``merge_telemetry`` (the JAX package's latency
+histogram registry and named timers are not ported, so their blocks come
+back empty)."""
 
 from __future__ import annotations
 
@@ -137,6 +140,61 @@ class CounterSet:
 
 #: process-global wire/recovery counters (see CounterSet docstring)
 wire_counters = CounterSet()
+
+
+#: log2 latency buckets: bucket i covers [2^(i-1), 2^i) microseconds
+#: (bucket 0 is < 1 us); 40 buckets reach ~9 days, nothing clips
+_HIST_BUCKETS = 40
+
+
+class Histogram:
+    """Thread-safe log2-bucketed latency histogram. Observations are
+    seconds; buckets are powers of two of microseconds, so the whole
+    distribution is ~40 ints, exact to subtract and to merge."""
+
+    __slots__ = ("_counts", "_count", "_sum", "_lock")
+
+    def __init__(self) -> None:
+        self._counts = [0] * _HIST_BUCKETS
+        self._count = 0
+        self._sum = 0.0
+        self._lock = threading.Lock()
+
+    def observe(self, seconds: float) -> None:
+        i = int(seconds * 1e6).bit_length()
+        if i >= _HIST_BUCKETS:
+            i = _HIST_BUCKETS - 1
+        with self._lock:
+            self._counts[i] += 1
+            self._count += 1
+            self._sum += seconds
+
+    def snapshot(self) -> dict[str, Any]:
+        """Sparse ``{bucket_index: count}`` (JSON string keys) plus
+        count/sum."""
+        with self._lock:
+            return {
+                "count": self._count,
+                "sum_s": self._sum,
+                "buckets": {
+                    str(i): c for i, c in enumerate(self._counts) if c
+                },
+            }
+
+
+def hist_percentile(snap: dict[str, Any], p: float) -> float:
+    """p-quantile (0..1) in seconds from a Histogram snapshot: the upper
+    edge of the bucket holding the p-th observation."""
+    total = snap.get("count", 0)
+    if not total:
+        return 0.0
+    target = max(1, int(p * total + 0.9999999))
+    cum = 0
+    for i in sorted(int(k) for k in snap.get("buckets", {})):
+        cum += snap["buckets"][str(i)]
+        if cum >= target:
+            return (1 << i) / 1e6  # bucket i upper edge in us
+    return (1 << (_HIST_BUCKETS - 1)) / 1e6
 
 
 def telemetry_snapshot(roll_peaks: bool = True) -> dict[str, Any]:

@@ -212,15 +212,16 @@ def test_quantize_kernel_matches_plain(dev, n, num_bytes):
 
 
 @pytest.mark.cuda
-def test_int8_push_scale_on_card_equals_cpu_quotient(dev):
-    """The quantized push's scale is max|g| / 127 + 1e-30 rounded once on
-    the card as on the CPU, bit for bit, over 4096 maxima (a product with
-    float32(1/127) is one ulp away for some of them)."""
+def test_int8_push_scale_on_card_equals_cpu_product(dev):
+    """The quantized push's scale is max|g| * float32(1/127) + 1e-30, the
+    product the jitted reference computes, rounded once on the card as on
+    the CPU, bit for bit, over 4096 maxima (the quotient max|g| / 127 is
+    one ulp away for some of them)."""
     from parameter_server_tpu_torch.parallel.spmd import int8_scale
 
     rng = np.random.default_rng(5)
     tops = (rng.random(4096) * 1e3).astype(np.float32)
-    want = tops / np.float32(127.0) + np.float32(1e-30)
+    want = tops * np.float32(1 / 127) + np.float32(1e-30)
     got = [int8_scale(torch.tensor([[-t], [t / 2]], device=dev)).item() for t in tops]
     assert np.array_equal(np.asarray(got, dtype=np.float32), want)
 
@@ -712,3 +713,125 @@ def test_launch_local_on_card_matches_cpu(dev, tmp_path):
         assert nodes[s]["device"] == "cuda:0" or nodes[s]["device"].startswith("cuda")
         assert nodes[s]["launches"]["ftrl_push"] == st["apply_batches"] > 0
     assert set(nodes["worker-0"]["launches"].values()) == {0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,vdim", [("ftrl", 1), ("adagrad", 16)])
+def test_card_server_under_a_plan_equals_its_plain_replay(dev, algo, vdim, monkeypatch):
+    """A card server under every fault action applies each push exactly
+    once through its kernel: one launch an apply batch, no repeated row,
+    the push ledger holding each push once, and a table equal to the plain
+    store replayed on the CPU (TOL)."""
+    from parameter_server_tpu_torch.kv.store import KVStore
+    from parameter_server_tpu_torch.kv.updaters import Adagrad, Ftrl
+    from parameter_server_tpu_torch.parallel.chaos import FaultPlan
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle, ShardServer
+    from parameter_server_tpu_torch.utils.config import PSConfig
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange
+
+    size = 1 << 12
+
+    def make():
+        return (Ftrl(alpha=0.3, beta=1.0, lambda_l1=0.5, lambda_l2=0.1) if algo == "ftrl"
+                else Adagrad(eta=0.05))
+
+    counts: dict = {}
+    _unique_index_guard(monkeypatch, counts)
+    pushes = _wire_pushes(np.random.default_rng(13), size, vdim, rounds=12)
+    plan = FaultPlan.parse("drop,prob=0.05;disconnect,cmd=push,every=3;duplicate,prob=0.2;"
+                           "delay,prob=0.1,delay_s=0.002", seed=7)
+    srv = ShardServer(make(), KeyRange(size, 2 * size), vdim=vdim, fault_plan=plan,
+                      device="cuda").start()
+    cfg = PSConfig()
+    cfg.fault.reconnect_timeout_s = 30.0
+    h = ServerHandle(srv.address, 0, 0, cfg, range_size=size, device="cuda")
+    kernel = "ftrl_push" if algo == "ftrl" else "adagrad_push"
+    launches = fk.LAUNCHES if algo == "ftrl" else ak.LAUNCHES
+    try:
+        before = launches[kernel]
+        for keys, g in pushes:
+            h.push(keys, g)
+        got = h.pull(np.arange(size)).reshape(size, vdim)
+        assert launches[kernel] - before == srv.counters["apply_batches"] == len(pushes)
+        assert counts[kernel] == len(pushes) == srv.counters["pushes"]
+        assert len(srv._applied_push[h.client.identity[0]]) == len(pushes)
+        assert srv.server.fault_stats()["disconnect"] >= 1
+    finally:
+        h.shutdown()
+        h.close()
+    store = KVStore(make(), size, vdim=vdim, device="cpu")
+    for keys, g in pushes:
+        store.push(keys, g)
+    np.testing.assert_allclose(got, store.weights().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_serving_pulls_from_a_card_server_equal_the_table_at_their_version(dev):
+    """Serving pulls against a card FTRL server while a writer pushes
+    through K1: every version-stamped reply equals a gather of the table
+    as it stood at the reply's ``ver`` (kept by replaying the pushes on
+    the CPU, one table a version), and a revalidation at the current
+    version moves no rows."""
+    from parameter_server_tpu_torch.kv.store import KVStore
+    from parameter_server_tpu_torch.kv.updaters import Ftrl
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle, ShardServer, _sig
+    from parameter_server_tpu_torch.utils.config import PSConfig, ServeConfig
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange
+
+    size = 1 << 12
+    svc = ServeConfig(cache=True, hot_min_pulls=1)
+    srv = ShardServer(Ftrl(), KeyRange(0, size), serve_cfg=svc, device="cuda").start()
+    writer = ServerHandle(srv.address, 0, 1, PSConfig(), range_size=size, device="cuda")
+    rng = np.random.default_rng(4)
+    keys = np.arange(1, 257)
+    store = KVStore(Ftrl(), size, device="cpu")
+    tables = {srv.version: store.weights().numpy().copy()}
+    try:
+        for i in range(10):
+            k = np.unique(rng.integers(0, size, 300))
+            g = rng.normal(size=len(k)).astype(np.float32)
+            writer.push(k, g)
+            store.push(k, g)
+            tables[srv.version] = store.weights().numpy().copy()
+            for _ in range(2):  # the second pull rides the encode cache
+                rep, out = writer.client.call(
+                    "pull", arrays={"keys": keys.astype(np.uint32)}, worker=1,
+                    sig=_sig(keys), zip=False, sv=1)
+                np.testing.assert_allclose(out["w"], tables[rep["ver"]][keys, 0], **TOL)
+            rep, out = writer.client.call(
+                "pull", arrays={"keys": keys.astype(np.uint32)}, worker=1,
+                sig=_sig(keys), zip=False, if_newer=rep["ver"])
+            assert rep["not_modified"] and not out
+        assert srv.counters["encode_reuse"] >= 10
+    finally:
+        writer.shutdown()
+        writer.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["ftrl", "adagrad"])
+def test_host_weights_is_a_clone_a_later_apply_leaves(dev, algo):
+    """The host snapshot of a version is a copy of the table's weights
+    issued under the publish lock (a clone where the weights are the table
+    itself, as AdaGrad's): an apply after it leaves it as it was."""
+    from parameter_server_tpu_torch.kv.updaters import Adagrad, Ftrl
+    from parameter_server_tpu_torch.parallel.multislice import ShardServer
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange
+
+    size = 1 << 12
+    srv = ShardServer(Ftrl() if algo == "ftrl" else Adagrad(eta=0.1), KeyRange(0, size),
+                      device="cuda")
+    try:
+        keys = np.arange(1, 101)
+        srv._apply(keys, np.ones(100, np.float32))
+        w, ver, _ = srv._gather_weights(keys, snap=True)
+        snap_ver, host = srv._host_w
+        assert snap_ver == ver and host.shape == (size, 1)
+        before = host.copy()
+        srv._apply(keys, np.ones(100, np.float32))
+        torch.cuda.synchronize()
+        np.testing.assert_array_equal(host, before)
+        np.testing.assert_array_equal(w, before[keys])
+        assert srv.weights()[1, 0] != before[1, 0]
+    finally:
+        srv.server.stop()

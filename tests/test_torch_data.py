@@ -279,3 +279,80 @@ def test_wire_counters_match_jax():
         assert c.snapshot(roll_peaks=True)["p"] == 3 and c.snapshot(roll_peaks=True)["p"] == 0
         c.reset()
         assert c.get("a") == 0
+
+
+def test_chaos_copy_matches_jax():
+    """``parallel/chaos.py`` is a copy: its constants are the original's,
+    and one spec and seed decide the same actions over one command
+    sequence, with the same fire counts."""
+    from parameter_server_tpu.parallel import chaos as JCH
+    from parameter_server_tpu_torch.parallel import chaos as TCH
+
+    assert (TCH.ACTIONS, TCH._EXEMPT_CMDS, TCH.PLAN_ENV, TCH.SEED_ENV) == (
+        JCH.ACTIONS, JCH._EXEMPT_CMDS, JCH.PLAN_ENV, JCH.SEED_ENV)
+    spec = ("drop,prob=0.05;disconnect,cmd=push,every=5;duplicate,prob=0.05;"
+            "delay,prob=0.1,delay_s=0.002,max=40")
+    cmds = (["push", "pull", "stats", "shutdown", "workload_fetch"] * 400)
+    seen = {}
+    for mod in (JCH, TCH):
+        plan = mod.FaultPlan.parse(spec, seed=7)
+        seen[mod.__name__] = ([getattr(plan.decide(c), "action", None) for c in cmds],
+                              plan.stats())
+    assert seen[JCH.__name__] == seen[TCH.__name__]
+
+
+def test_keycache_copy_matches_jax():
+    """``filters/keycache.py`` is a copy: one sequence of puts, lookups,
+    revalidations, shed back-offs, refresh claims and invalidations, on
+    explicit clocks, gives the same entries and answers in both."""
+    from parameter_server_tpu.filters.keycache import ClientKeyCache as JKC
+    from parameter_server_tpu_torch.filters.keycache import ClientKeyCache as TKC
+
+    rng = np.random.default_rng(11)
+    key_sets = [np.unique(rng.integers(0, 40, 5)) for _ in range(60)]
+    seen = {}
+    for cls in (JKC, TKC):
+        kc = cls(cap=6, ttl_s=0.05, max_stale_s=0.2)
+        log = []
+        for i, keys in enumerate(key_sets):
+            rank, sig = i % 3, f"s{i % 9}"
+            vals = np.full((len(keys), 1), i, np.float32)
+            now = 100.0 + 0.01 * i
+            gen = kc.gen
+            if i % 7 == 3:
+                log.append(kc.invalidate_keys(keys[:2], rank=rank))
+            ent = kc.put((rank, sig), keys, vals, i, now=now, as_of=gen)
+            log.append(None if ent is None else ent.version)
+            e = kc.lookup((rank, f"s{(i * 5) % 9}"))
+            if e is not None:
+                log.append((e.version, kc.fresh(e, now=now + 0.03),
+                            kc.can_shed(e, now=now + 0.15), float(e.values[0, 0])))
+                if i % 4 == 0:
+                    kc.revalidated((rank, f"s{(i * 5) % 9}"), e.version + 1, now=now,
+                                   age_us=10.0 * i)
+                    log.append((e.version, e.expires_at, e.age0_us))
+                if i % 5 == 0:
+                    claim = kc.begin_refresh((rank, sig))
+                    log.append((claim, kc.begin_refresh((rank, sig))))
+                    kc.end_refresh((rank, sig))
+            log.append(len(kc))
+        seen[cls.__module__] = log
+    assert seen[JKC.__module__] == seen[TKC.__module__]
+
+
+def test_histogram_copy_matches_jax():
+    """The adaptive window's ``Histogram`` and ``hist_percentile`` give the
+    original's buckets and quantiles."""
+    from parameter_server_tpu.utils import metrics as JMT
+    from parameter_server_tpu_torch.utils import metrics as TMT
+
+    lat = np.random.default_rng(2).lognormal(-7, 1.5, 500)
+    snaps = []
+    for mod in (JMT, TMT):
+        h = mod.Histogram()
+        for v in lat:
+            h.observe(float(v))
+        snap = h.snapshot()
+        snaps.append(({k: snap[k] for k in ("count", "buckets")},
+                      [mod.hist_percentile(snap, p) for p in (0.0, 0.5, 0.9, 0.99, 1.0)]))
+    assert snaps[0] == snaps[1]

@@ -53,6 +53,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert {f"{PKG}.parallel.{m}" for m in (
         "control", "multislice", "backend", "meshbackend")} <= set(res["imported"])
     assert f"{PKG}.utils.keyrange" in res["imported"]
+    # chaos and the serving plane's client cache
+    assert {f"{PKG}.parallel.chaos", f"{PKG}.filters.keycache"} <= set(res["imported"])
     # the control plane and the cluster's entry points, and their copies
     assert {f"{PKG}.utils.heartbeat", f"{PKG}.parallel.workload", f"{PKG}.cli"} <= set(
         res["imported"])
@@ -73,6 +75,30 @@ def test_cluster_entry_points_stand_alone():
         "from parameter_server_tpu_torch.utils.heartbeat import HeartbeatMonitor\n"
         "from parameter_server_tpu_torch import cli\n"
         "assert 'node' not in cli.NOT_PORTED_CMDS and 'launch' not in cli.NOT_PORTED_CMDS\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "    ('parameter_server_tpu', 'jax') and sys.modules[m] is not None)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_chaos_and_serving_modules_stand_alone():
+    """``parallel/chaos.py`` and ``filters/keycache.py`` are the port's own
+    copies: with JAX absent they import, a plan decides and a cache
+    serves, and no JAX-package module loads."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    probe = (
+        'import sys, json; sys.modules["jax"] = None\n'
+        "import numpy as np\n"
+        "from parameter_server_tpu_torch.parallel.chaos import FaultPlan, PLAN_ENV\n"
+        "from parameter_server_tpu_torch.filters.keycache import ClientKeyCache\n"
+        "from parameter_server_tpu_torch.parallel.multislice import ServerHandle, ShardServer\n"
+        "assert PLAN_ENV == 'PS_FAULT_PLAN'\n"
+        "assert FaultPlan.parse('drop,every=1').decide('push').action == 'drop'\n"
+        "kc = ClientKeyCache()\n"
+        "kc.put((0, 's'), np.arange(3), np.ones((3, 1), np.float32), 7)\n"
+        "assert kc.lookup((0, 's')).version == 7\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('parameter_server_tpu', 'jax') and sys.modules[m] is not None)))\n"
     )

@@ -288,8 +288,10 @@ def test_resent_push_after_restore_applies_once(tmp_path):
 
 def test_cli_node_and_launch_arguments(tmp_path):
     """The flags of the JAX CLI's ``node`` and ``launch``, plus ``--device``;
-    the chaos, tracing and black-box options are accepted and refused when
-    set, as are the config sections that arm them."""
+    a chaos spec (``--fault_plan``, ``[fault] fault_plan``) is parsed
+    before anything starts, so a bad one fails fast; the tracing and
+    black-box options are accepted and refused when set, as are the
+    config sections that arm them."""
     app = _app(tmp_path, 11, {"max_delay": 0, "epochs": 1})
     node = ["node", "--role", "server", "--rank", "0", "--scheduler", "127.0.0.1:1",
             "--num_servers", "1", "--num_workers", "1", "--app_file", str(app),
@@ -306,12 +308,17 @@ def test_cli_node_and_launch_arguments(tmp_path):
     with pytest.raises(SystemExit):
         cli._build_parser().parse_args(node[:2] + ["boss"] + node[3:])
     launch = ["launch", "--app_file", str(app), "--device", "cpu"]
-    for flag in ("--fault_plan", "--trace_dir", "--blackbox_dir"):
+    for flag in ("--trace_dir", "--blackbox_dir"):
         with pytest.raises(SystemExit, match="not ported yet"):
             cli.main(launch + [flag, "x"])
-    for flag in ("--fault_plan", "--trace_dir"):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli.main(node + [flag, "x"])
+    with pytest.raises(SystemExit, match="not ported yet"):
+        cli.main(node + ["--trace_dir", "x"])
+    for argv in (launch, node):  # the spec is armed, so a typo raises
+        with pytest.raises(ValueError, match="unknown fault action 'x'"):
+            cli.main(argv + ["--fault_plan", "x"])
+    args = cli._build_parser().parse_args(launch + ["--fault_plan", "drop,every=3",
+                                                    "--fault_seed", "4"])
+    assert (args.fault_plan, args.fault_seed) == ("drop,every=3", 4)
     cfg = json.loads(app.read_text())
     for section, value in (("trace", {"trace_dir": "t"}), ("profile", {"hz": 10}),
                            ("timeseries", {"metrics_port": 9000})):
@@ -329,14 +336,15 @@ def test_cli_node_and_launch_arguments(tmp_path):
         TM.run_node(pc, "server", 0, "127.0.0.1:1", 1, 1, device="cpu")
     pc = TCFG.PSConfig()
     pc.fault.fault_plan = "drop=0.1"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TM.run_node(pc, "worker", 0, "127.0.0.1:1", 1, 1, device="cpu")
+    with pytest.raises(ValueError, match="unknown fault action"):
+        TM.run_node(pc, "server", 0, "127.0.0.1:1", 1, 1, device="cpu")
     with pytest.raises(ValueError, match="unknown role"):
         TM.run_node(TCFG.PSConfig(), "boss", 0, "127.0.0.1:1", 1, 1, device="cpu")
-    for kw in ({"fault_plan": "drop=0.1"}, {"trace_dir": "t"}, {"trace_sample": 2},
-               {"blackbox_dir": "b"}):
+    for kw in ({"trace_dir": "t"}, {"trace_sample": 2}, {"blackbox_dir": "b"}):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             TM.launch_local(str(app), 1, 1, device="cpu", **kw)
+    with pytest.raises(ValueError, match="unknown fault action"):
+        TM.launch_local(str(app), 1, 1, device="cpu", fault_plan="drop=0.1")
     assert not any(tmp_path.glob("pslaunch_*"))
 
 

@@ -169,7 +169,7 @@ def test_cli_train_and_evaluate_match_jax(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["node", "--role", "server", "--scheduler", "h:1", "--num_servers", "1",
-      "--num_workers", "1", "--app_file", "CFG", "--device", "cpu", "--fault_plan", "x"],
+      "--num_workers", "1", "--app_file", "CFG", "--device", "cpu", "--trace_dir", "x"],
      "not ported yet"),
     (["lint"], "not ported yet"),
     (["train", "--app_file", "CFG", "--pool_coordinator", "h:1", "--device", "cpu"],

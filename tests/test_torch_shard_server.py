@@ -478,9 +478,10 @@ def test_stats_and_dump():
     srv = _server("torch", _updater("torch", "adagrad"), begin=RANGE, vdim=2)
     h = _handle("torch", srv)
     with _served(srv, h):
+        v0 = srv.version  # an opaque per-life id; within a life it counts
         h.push(np.array([0, 5]), np.ones((2, 2), np.float32))
         st = h.stats()
-        assert st["pushes"] == 1 and st["state_ver"] == 2
+        assert st["pushes"] == 1 and st["state_ver"] == v0 + 1 == srv.version
         assert {"bytes_in", "bytes_out", "frames_in", "cached_sigs",
                 "rpc_dedup_hits", "apply_batches"} <= set(st)
         begin, w = h.dump()
@@ -489,15 +490,27 @@ def test_stats_and_dump():
 
 
 def test_serving_fields_get_an_error_reply_and_serving_handles_raise():
+    """The serving plane's pull fields are served, not refused: ``sv``
+    stamps the reply's version, ``if_newer`` at the current version is
+    answered ``not_modified`` with no rows, ``shed_ok`` on a server that
+    is not overloaded gets the rows; and a serving handle arms its key
+    cache."""
     srv = _server("torch", _updater("torch", "sgd"))
     cli = RpcClient(srv.address)
+    keys = {"keys": np.arange(4, dtype=np.uint32)}
     try:
-        for field in TM.SERVING_FIELDS:
-            with pytest.raises(RuntimeError, match="serving plane"):
-                cli.call("pull", {"keys": np.arange(4, dtype=np.uint32)},
-                         worker=0, sig="s", **{field: 1})
-        with pytest.raises(NotImplementedError, match="serving"):
-            TM.ServerHandle(srv.address, 0, 0, TC.PSConfig(), serving=True, device="cpu")
+        rep, out = cli.call("pull", keys, worker=0, sig="s", sv=1)
+        assert rep["ver"] == srv.version and "w" in out and rep["_age_us"] >= 0
+        rep, out = cli.call("pull", keys, worker=0, sig="s", if_newer=srv.version)
+        assert rep["not_modified"] and not out
+        rep, out = cli.call("pull", keys, worker=0, sig="s", if_newer=1, shed_ok=1)
+        assert "not_modified" not in rep and len(out["w"]) == 4
+        assert (srv.counters["not_modified"], srv.counters["shed"]) == (1, 0)
+        cfg = TC.PSConfig()
+        cfg.serve.cache = True
+        h = TM.ServerHandle(srv.address, 0, 0, cfg, serving=True, device="cpu")
+        assert h._kcache is not None and h._kcache.ttl_s == cfg.serve.ttl_ms / 1e3
+        h.close()
     finally:
         cli.call("shutdown")
         cli.close()
@@ -513,13 +526,69 @@ def test_entry_points_raise_without_a_card():
 
 
 def test_unported_options_are_refused_not_ignored():
-    with pytest.raises(NotImplementedError, match="adaptive_batch"):
-        TM.ShardServer(TU.Sgd(), TK.KeyRange(0, 8), device="cpu",
-                       server_cfg=TC.ServerConfig(adaptive_batch=True))
+    """``[server] adaptive_batch`` and ``[wire] adaptive_window`` are armed,
+    not ignored: the apply thread starts its ramp at 4, the handle's
+    client shapes its window."""
+    srv = TM.ShardServer(TU.Sgd(), TK.KeyRange(0, 8), device="cpu",
+                         server_cfg=TC.ServerConfig(adaptive_batch=True))
+    try:
+        assert srv._adaptive_batch and srv._eff_batch == 4
+    finally:
+        srv.server.stop()
+    srv = _server("torch", _updater("torch", "sgd"))
     cfg = TC.PSConfig()
     cfg.wire.adaptive_window = True
-    with pytest.raises(NotImplementedError, match="adaptive_window"):
-        TM.ServerHandle("127.0.0.1:1", 0, 0, cfg, device="cpu")
+    cfg.wire.hdr_codec = "json"
+    h = _handle("torch", srv, cfg=cfg)
+    with _served(srv, h):
+        assert h.client._adaptive is True and h.client._hdr_bin is False
+
+
+@pytest.mark.parametrize("max_batch", [64, 8])
+def test_adaptive_batch_policy_matches_jax(max_batch):
+    """The drain ceiling's policy against the JAX server's on one drive
+    (the drive of ``tests/test_batched_apply.py``'s ``TestAdaptiveBatch``,
+    then a floor run): the same ceilings, the same adapt counts."""
+    drive = [(4, 3), (8, 1), (16, 9), (32, 2), (64, 5), (3, 0), (40, 0)] + [(1, 0)] * 10
+    seen = {}
+    for pkg, counters in (("torch", t_counters), ("jax", j_counters)):
+        kw = {} if pkg == "jax" else {"device": "cpu"}
+        mod, cfgm, keyr, upd = ((JM, JC, JK, JU) if pkg == "jax" else (TM, TC, TK, TU))
+        srv = mod.ShardServer(upd.Sgd(eta=1.0), keyr.KeyRange(0, 64),
+                              server_cfg=cfgm.ServerConfig(adaptive_batch=True,
+                                                           max_batch=max_batch), **kw)
+        try:
+            log = [srv._eff_batch]
+            for got, backlog in drive:
+                srv._adapt_batch(got=got, backlog=backlog)
+                log.append(srv._eff_batch)
+            seen[pkg] = (log, counters.get("server_batch_adapts"))
+        finally:
+            srv.server.stop()
+    assert seen["torch"] == seen["jax"]
+    assert seen["torch"][0][-1] == 1
+
+
+@pytest.mark.parametrize("max_batch", [32, 4])
+def test_adaptive_engine_still_exactly_once(max_batch):
+    """A pipelined burst through an adaptive engine applies every push
+    exactly once: the SGD table (a sum, whatever the batching) equals the
+    JAX server's fed the same pushes one at a time (rtol 1e-5, atol
+    1e-6)."""
+    keys = np.arange(1, 65)
+    grads = [np.random.default_rng(i).normal(size=64).astype(np.float32) for i in range(30)]
+    srv = _server("torch", _updater("torch", "sgd"),
+                  server_cfg=TC.ServerConfig(adaptive_batch=True, max_batch=max_batch))
+    h = _handle("torch", srv)
+    jsrv = _server("jax", _updater("jax", "sgd"))
+    jh = _handle("jax", jsrv)
+    with _served(srv, h), _served(jsrv, jh):
+        for f in [h.push_async(keys, g) for g in grads]:
+            f.result(timeout=30)
+        for g in grads:
+            jh.push(keys, g)
+        assert srv.counters["pushes"] == 30
+        np.testing.assert_allclose(h.pull(keys), jh.pull(keys), rtol=RTOL, atol=ATOL)
 
 
 def test_handle_follows_a_relaunched_server_through_its_resolver():

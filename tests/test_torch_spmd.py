@@ -11,6 +11,7 @@ tests/test_torch_cuda.py."""
 import json
 from dataclasses import astuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -327,7 +328,10 @@ def test_quantize_int8_matches_jax_scale_and_rounds_both_ways():
     rng = np.random.default_rng(3)
     g = (rng.normal(size=(4096, 1)) * 0.01).astype(np.float32)
     tg = torch.from_numpy(g)
-    want_scale = np.asarray(jnp.max(jnp.abs(jnp.asarray(g))) / 127.0 + 1e-30)
+    # the reference expression jitted, as the JAX push runs it: XLA folds
+    # the division into a product with float32(1/127)
+    want_scale = np.asarray(jax.jit(lambda x: jnp.max(jnp.abs(x)) / 127.0 + 1e-30)(
+        jnp.asarray(g)))
     decodes, residuals = [], []
     for seed in range(256):
         q, scale = TS.quantize_int8(tg, TS.push_generator(seed, 0, 0, tg.device))

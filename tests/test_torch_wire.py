@@ -310,11 +310,100 @@ def test_clients_and_servers_of_both_packages_interoperate(pair, codec):
 
 
 def test_fault_plans_are_refused_not_ignored(monkeypatch):
-    with pytest.raises(NotImplementedError, match="fault injection"):
-        T.RpcServer(lambda h, a: ({"ok": True}, {}), fault_plan=object())
-    monkeypatch.setenv(T.PLAN_ENV, "drop,cmd=push,every=4")
-    with pytest.raises(NotImplementedError, match="PS_FAULT_PLAN"):
-        T.RpcServer(lambda h, a: ({"ok": True}, {}))
+    """A fault plan is armed, never ignored: passed in, or read from
+    ``PS_FAULT_PLAN`` / ``PS_FAULT_SEED`` when a server is built, and it
+    acts on the frames (a dropped echo is resent and applied once)."""
+    from parameter_server_tpu_torch.parallel.chaos import PLAN_ENV, SEED_ENV, FaultPlan
+
+    applies = []
+
+    def handler(h, a):
+        applies.append(h["cmd"])
+        return {"ok": True, "n": len(applies)}, {}
+
+    srv = T.RpcServer(handler, fault_plan=FaultPlan.parse("drop,every=2")).start()
+    cli = T.RpcClient(srv.address, reconnect_timeout_s=20.0)
+    try:
+        assert [cli.call("echo")[0]["n"] for _ in range(4)] == [1, 2, 3, 4]
+        assert srv.fault_stats()["drop"] >= 1 and t_counters.get("rpc_retries") >= 1
+    finally:
+        cli.close()
+        srv.stop()
+    monkeypatch.setenv(PLAN_ENV, "drop,cmd=push,every=4")
+    monkeypatch.setenv(SEED_ENV, "5")
+    srv = T.RpcServer(lambda h, a: ({"ok": True}, {}))
+    try:
+        assert srv.fault_plan is not None and srv.fault_plan.seed == 5
+        assert srv.fault_stats() == {"frames": 0, "drop": 0}
+    finally:
+        srv.stop()
+    monkeypatch.delenv(PLAN_ENV)
+    srv = T.RpcServer(lambda h, a: ({"ok": True}, {}))
+    assert srv.fault_stats() is None
+    srv.stop()
+
+
+def _echo_server():
+    return T.RpcServer(lambda h, a: ({"ok": True, "i": h.get("i")}, {})).start()
+
+
+def test_adaptive_window_off_by_default():
+    srv = _echo_server()
+    cli = T.RpcClient(srv.address, window=6)
+    try:
+        for _ in range(5):
+            cli.call("echo")
+        assert cli.effective_window == 6
+    finally:
+        cli.close()
+        srv.stop()
+
+
+def test_adaptive_window_shrinks_and_grows_as_jax():
+    """The same latency drive as the JAX package's
+    ``TestAdaptiveWindow``, fed to both clients: the same effective
+    windows after each adaptation, the same counters."""
+    seen = {}
+    for name, mod, counters in (("torch", T, t_counters), ("jax", J, j_counters)):
+        srv = mod.RpcServer(lambda h, a: ({"ok": True}, {})).start()
+        cli = mod.RpcClient(srv.address, window=8, adaptive_window=True)
+        log = []
+        try:
+            for lat, saturate in ((0.001, False), (0.001, False), (0.5, False),
+                                  (0.001, True), (0.001, True), (0.2, False)):
+                for _ in range(64):
+                    cli._lat_hist.observe(lat)
+                if saturate:
+                    with cli._cv:
+                        cli._adapt_peak = cli.effective_window
+                cli._maybe_adapt()
+                log.append(cli.effective_window)
+            log.append((counters.get("wire_window_shrinks"), counters.get("wire_window_grows")))
+        finally:
+            cli.close()
+            srv.stop()
+        seen[name] = log
+    assert seen["torch"] == seen["jax"]
+    assert seen["torch"][:5] == [8, 8, 4, 5, 6]
+
+
+def test_adaptive_client_still_correct_end_to_end():
+    applies = []
+
+    def handler(header, arrays):
+        applies.append(header.get("i"))
+        return {"ok": True, "i": header.get("i")}, {}
+
+    srv = T.RpcServer(handler).start()
+    cli = T.RpcClient(srv.address, window=4, adaptive_window=True)
+    try:
+        futs = [cli.call_async("echo", i=i) for i in range(200)]
+        assert [f.result(timeout=30)[0]["i"] for f in futs] == list(range(200))
+        assert sorted(applies) == list(range(200))
+        assert 1 <= cli.effective_window <= 4
+    finally:
+        cli.close()
+        srv.stop()
 
 
 def test_handler_errors_and_shutdown_reach_the_client():
