@@ -220,12 +220,32 @@ the script exits nonzero without printing a result:
              traffic. Then a shed arm: two writers flood async pushes, one
              queued push marks a server overloaded, and revalidations are
              shed and served from the cache.
+15. darlin, graph_partition, sketch — (a) darlin at RCV1's shape
+             (677,399 rows drawn on the card with make_sparse_logistic's
+             law, ~74 distinct of 47,236 features a row, hashed into 2^16
+             keys, 16 column blocks; bench.py's settings), twice: the
+             first 2 passes against the port's CPU run, the objective
+             falling, block passes/s, example-blocks/s, objv, nnz_w, train
+             AUC, peak memory; a profiled pass; each block's g sum by
+             events over its real entries and its padded width; max_delay
+             2. (b) A world of one on NCCL, resident and streamed (4
+             blocks a chunk). (d) The first 2^16 rows as libsvm files:
+             `cli convert`, `cli train` from the cache (no parse) against
+             one that parses. (c) A 2x2 world of `cli train` gloo ranks
+             sharing the card on that cache, beside the same world on the
+             CPU. (e) graph_partition through `cli train` over phase 4's
+             rows, a 2^24 x 8 presence table: presence, sizes,
+             assignments, dump and result equal to the CPU run's; the step
+             alone timed. (f) sketch (host code) through `cli train` on
+             phase 13's files, equal to the CPU run. DARLIN_END_RTOL says
+             which passes of two solves are held to what.
 
 Launch counters are reset just before each of phases 4-7, the round trip
 of phase 8, the training runs of phases 9 and 10, each mode of phase
-11 (a) and each arm of phases 12 and 14, and read just after; phase 11 (b)'s ranks and phase 13's
-nodes start from 0 in their own processes and print their counts: each
-must have launched its kernels (phase 10: none). The line before the last is the kernels' JSON summary;
+11 (a), each arm of phases 12 and 14 and phase 15, and read just after;
+phase 11 (b)'s, 13's and 15 (c)'s ranks and nodes start from 0 in their
+own processes and print their counts: each must have launched its
+kernels (phases 10 and 15: none). The line before the last is the kernels' JSON summary;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -452,6 +472,43 @@ SERVE_SERVERS, SERVE_SETS, SERVE_SET_KEYS, SERVE_ZIPF = 4, 512, 32, 1.1
 SERVE_THREADS, SERVE_CLIENTS = 8, 32
 SERVE_TTL_MS, SERVE_MAX_STALE_MS, SERVE_WRITER_PERIOD_S = 1000, 4000, 0.02
 SERVE_SECONDS, SHED_SECONDS, SHED_QUEUE_DEPTH = 6.0, 3.0, 1
+# phase 15: darlin at RCV1's shape (LIBSVM rcv1.binary as L1-LR solvers
+# train it: 677,399 examples of 47,236 features, ~74 nonzeros an example),
+# rows drawn with make_sparse_logistic's law (Zipf 1.3 ids made distinct in
+# their row, values N(1, 0.3), labels from a sparse true model + noise 0.5):
+# Poisson(RCV1_DRAWS) draws a row keep ~74 distinct ids at Zipf 1.3 over
+# 47,236 features. Hashed into 2^16 keys (the CLI's training builder) in
+# 16 blocks, with bench.py's darlin settings; the port's CPU run holds the
+# first DARLIN_CPU_PASSES passes. (b) a world of one on NCCL, resident and
+# streamed (DARLIN_CHUNK blocks a chunk, DARLIN_STREAM_PASSES passes); (c)
+# a 2x2 world of `cli train` gloo ranks sharing the card and its CPU twin,
+# on the first DARLIN_WORLD_EXAMPLES rows; (d) those rows as libsvm files:
+# `cli convert`, then `cli train` from the cache and from the text
+RCV1_EXAMPLES, RCV1_FEATURES, RCV1_DRAWS, RCV1_ZIPF = 677_399, 47_236, 198, 1.3
+DARLIN_KEYS, DARLIN_BLOCKS, DARLIN_ITERS, DARLIN_BATCH = 1 << 16, 16, 20, 1 << 15
+DARLIN = {"lambda_l1": 1.0, "kkt_filter_threshold": 0.1, "eta": 1.0, "epsilon": 1e-4}
+DARLIN_CPU_PASSES, DARLIN_STREAM_PASSES, DARLIN_CHUNK = 2, 2, 4
+DARLIN_WORLD_EXAMPLES, DARLIN_FILES = 1 << 16, 4
+# darlin's tolerances. The first DARLIN_CPU_PASSES passes of two solves:
+# DARLIN_RTOL for the card against the port's CPU run, the card's streamed
+# against its resident solve, a parse against the cache and the 2x2 card
+# world against its CPU twin (the card's index_add_ sums a hot key's
+# entries in an order that changes from run to run); DARLIN_MESH_RTOL, the
+# JAX package's mesh-vs-single contract, for a world against one device.
+# Past them the solves part: a reordered sum flips a coordinate across the
+# KKT filter's threshold or the soft threshold, or the line search's
+# argmin of 8 sums, and the trajectories continue from different points
+# (two solves of (a) on an NVIDIA H100 80GB HBM3, with every block's pads
+# summed, were ~1% apart by pass 6, 0.2-0.5% at pass 20 without them),
+# so their last objectives are held within DARLIN_END_RTOL (2%:
+# the JAX tests' bound for the solver's variants against the optimum).
+# max_delay 2, given 3x the passes (the JAX tests give it 60), must end
+# within DARLIN_DELAY_BOUND of max_delay 0 (the same 2%)
+DARLIN_RTOL, DARLIN_MESH_RTOL, DARLIN_END_RTOL, DARLIN_DELAY_BOUND = 1e-4, 2e-4, 0.02, 1.02
+# (e) graph_partition on phase 4's rows: a 2^24 x 8 presence table (512
+# MiB); (f) the sketch app on phase 13's files, the [sketch] defaults with
+# a heavy-hitter threshold of SKETCH_MIN_COUNT
+GRAPH_KEYS, GRAPH_PARTITIONS, SKETCH_MIN_COUNT = 1 << 24, 8, 100
 
 
 def log(msg: str) -> None:
@@ -2571,6 +2628,20 @@ def cluster_timing(out: dict, t_result: float) -> dict:
     }
 
 
+def zipf_row_files(tmp: Path, ids: np.ndarray, y: np.ndarray, with_val: bool) -> list:
+    """Phase 13's libsvm files: CLUSTER_FILES of BATCH ``zipf_rows`` each
+    (value 1), and with ``with_val`` a validation file of the next BATCH."""
+    files = []
+    for i in range(CLUSTER_FILES + int(with_val)):
+        rows = slice(i * BATCH, (i + 1) * BATCH)
+        path = tmp / (f"part-{i}.svm" if i < CLUSTER_FILES else "val.svm")
+        path.write_text("".join(
+            f"{int(lab)} " + " ".join(f"{k}:1" for k in row) + "\n"
+            for lab, row in zip(y[rows], ids[rows].tolist())))
+        files.append(path)
+    return files
+
+
 def phase_cluster() -> dict:
     """Phase 13: the cluster as processes (launch_local, cli launch) on
     the card, its servers applying through K1 (FTRL) or K3 (AdaGrad)."""
@@ -2586,14 +2657,7 @@ def phase_cluster() -> dict:
     with tempfile.TemporaryDirectory() as tmp_s:
         tmp = Path(tmp_s)
         t0 = time.perf_counter()
-        files = []
-        for i in range(CLUSTER_FILES + 1):
-            rows = slice(i * BATCH, (i + 1) * BATCH)
-            path = tmp / (f"part-{i}.svm" if i < CLUSTER_FILES else "val.svm")
-            path.write_text("".join(
-                f"{int(lab)} " + " ".join(f"{k}:1" for k in row) + "\n"
-                for lab, row in zip(y[rows], ids[rows].tolist())))
-            files.append(path)
+        files = zipf_row_files(tmp, ids, y, with_val=True)
         files, val = files[:-1], files[-1]
 
         def conf_file(tag: str, **kw) -> Path:
@@ -3191,6 +3255,524 @@ def phase_chaos_serving(rounds, emb_rounds, clean: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the darlin batch solver, graph_partition and sketch (no kernel)
+# ---------------------------------------------------------------------------
+
+
+def rcv1_rows(dev) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """RCV1_EXAMPLES rows of make_sparse_logistic's law at RCV1's shape:
+    labels, row splits, raw ids (uint64) and values. The ids are drawn on
+    the device (its per-row loop would take tens of seconds): each draw an
+    inverse-CDF lookup of the Zipf law capped at the last id as the
+    function's minimum caps it, each row's draws made distinct (and sorted)
+    by one unique over row * F + id; the labels are summed on the host."""
+    from scipy.special import zeta
+
+    rng = np.random.default_rng(SEED + 15)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    F, N = RCV1_FEATURES, RCV1_EXAMPLES
+    true_w = (rng.normal(size=F) * (rng.random(F) < 0.2)).astype(np.float32)
+    pmf = np.arange(1, F, dtype=np.float64) ** -RCV1_ZIPF / zeta(RCV1_ZIPF)
+    cdf = torch.tensor(np.append(np.cumsum(pmf), 1.0), device=dev)
+    draws = torch.poisson(torch.full((N,), float(RCV1_DRAWS), device=dev), generator=gen)
+    draws = draws.clamp_min(1).long()
+    keys, counts = [], []
+    for lo in range(0, N, 1 << 17):
+        d = draws[lo:lo + (1 << 17)]
+        u = torch.rand(int(d.sum()), generator=gen, dtype=torch.float64, device=dev)
+        ids = torch.searchsorted(cdf, u).clamp_max(F - 1)
+        rows = torch.repeat_interleave(torch.arange(len(d), device=dev) * F, d)
+        pairs = torch.unique(rows + ids)  # sorted
+        keys.append((pairs % F).int().cpu())
+        counts.append(torch.bincount(pairs // F, minlength=len(d)).cpu())
+    keys = torch.cat(keys).numpy()
+    splits = np.zeros(N + 1, np.int64)
+    np.cumsum(torch.cat(counts).numpy(), out=splits[1:])
+    vals = (torch.randn(len(keys), generator=gen, device=dev) * 0.3 + 1.0).cpu().numpy()
+    rows = np.repeat(np.arange(N), np.diff(splits))
+    margin = np.bincount(rows, weights=vals * true_w[keys], minlength=N)
+    labels = (margin + 0.5 * rng.normal(size=N) > 0).astype(np.float32)
+    return labels, splits, keys.astype(np.uint64), vals
+
+
+def darlin_batches(rows: tuple, n: int) -> list:
+    """The first ``n`` rows as CSR batches of the CLI's hashed keys."""
+    from parameter_server_tpu_torch.data.batch import BatchBuilder
+
+    labels, splits, keys, vals = rows
+    builder = BatchBuilder(num_keys=DARLIN_KEYS, batch_size=DARLIN_BATCH,
+                           max_nnz_per_example=256)
+    out = []
+    for lo in range(0, n, DARLIN_BATCH):
+        hi = min(lo + DARLIN_BATCH, n)
+        a, b = splits[lo], splits[hi]
+        out.append(builder.build_flat(labels[lo:hi], splits[lo:hi + 1] - a, keys[a:b],
+                                      vals[a:b]))
+    return out
+
+
+def darlin_conf(**kw) -> dict:
+    """The solver's config (bench.py's darlin settings) as a config file's
+    sections; ``kw`` overrides solver fields."""
+    return {"app": "linear_method",
+            "data": {"num_keys": DARLIN_KEYS, "max_nnz_per_example": 256},
+            "solver": {"algo": "darlin", "feature_blocks": DARLIN_BLOCKS,
+                       "block_iters": DARLIN_ITERS, "minibatch": DARLIN_BATCH,
+                       "kkt_filter_threshold": DARLIN["kkt_filter_threshold"],
+                       "epsilon": DARLIN["epsilon"], **kw},
+            "lr": {"eta": DARLIN["eta"]}, "penalty": {"lambda_l1": DARLIN["lambda_l1"]}}
+
+
+def cfg_of(conf: dict):
+    """A PSConfig of a config file's sections."""
+    from parameter_server_tpu_torch.utils.config import PSConfig
+
+    cfg = PSConfig()
+    for section, fields in conf.items():
+        if isinstance(fields, dict):
+            for k, v in fields.items():
+                setattr(getattr(cfg, section), k, v)
+        else:
+            setattr(cfg, section, fields)
+    return cfg
+
+
+def darlin_cfg(**kw):
+    return cfg_of(darlin_conf(**kw))
+
+
+def check_history(name: str, got: list, want: list, rtol: float) -> tuple[float, float]:
+    """Two solves' objective histories: the first DARLIN_CPU_PASSES passes
+    within ``rtol``, and, where both ran more, their last objectives within
+    DARLIN_END_RTOL (see there). Returns both relative differences."""
+    n = min(len(got), len(want), DARLIN_CPU_PASSES)
+    a, b = np.asarray(got[:n]), np.asarray(want[:n])
+    err = float(np.max(np.abs(a - b) / np.abs(b))) if n else float("nan")
+    longer = min(len(got), len(want)) > DARLIN_CPU_PASSES
+    end = abs(got[-1] - want[-1]) / abs(want[-1]) if longer else 0.0
+    if not (np.isfinite(got).all() and err <= rtol and end <= DARLIN_END_RTOL):
+        raise AssertionError(f"{name}: history {list(got)} vs {list(want)} (rtol {rtol} over "
+                             f"{DARLIN_CPU_PASSES} passes, the last within {DARLIN_END_RTOL})")
+    return err, end
+
+
+@contextlib.contextmanager
+def recording(cls, name: str, seen: list):
+    """Record (self, result) of every call of ``cls.name``."""
+    orig = getattr(cls, name)
+
+    def run(self, *a, **kw):
+        res = orig(self, *a, **kw)
+        seen.append((self, res))
+        return res
+
+    setattr(cls, name, run)
+    try:
+        yield seen
+    finally:
+        setattr(cls, name, orig)
+
+
+def cli_quiet(argv: list[str]) -> dict:
+    """The port's ``cli`` in this process, its printing kept off this
+    script's stdout; returns its result JSON."""
+    import io
+
+    from parameter_server_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        if cli.main(argv) != 0:
+            raise AssertionError(f"cli {argv[:1]} failed: {buf.getvalue()[-2000:]}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def errs(e: tuple) -> str:
+    return f"{e[0]:.3g} over the first passes, {e[1]:.3g} at the last"
+
+
+def darlin_single(dev, cb) -> dict:
+    """Phase 15 (a): the solve at RCV1's shape on the card, twice (the
+    second run's time and history beside the first's), its first passes
+    against the CPU, a profiled pass, the g sum a block with and without
+    its pads, and max_delay 2."""
+    from parameter_server_tpu_torch.models import darlin as dm
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    quiet = ProgressReporter(print_fn=lambda s: None)
+    out: dict = {}
+    dm.Darlin(darlin_cfg(block_iters=1), reporter=quiet, device=dev).fit_blocks(cb)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for rep in (ProgressReporter(print_fn=lambda s: log(f"darlin | {s}")), quiet):
+        t0 = time.perf_counter()
+        runs.append((dm.Darlin(darlin_cfg(), reporter=rep, device=dev).fit_blocks(cb),
+                     time.perf_counter() - t0))
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    (res, t_solve), (again, t_again) = runs
+    h, iters = res["history"], res["iters"]
+    if not (np.isfinite(h).all() and h[-1] < h[0]):
+        raise AssertionError(f"darlin (a): the objective must fall: {h}")
+    out["err_repeat"] = check_history("darlin (a) a second card run", again["history"], h,
+                                      DARLIN_RTOL)
+    out.update(history=h, iters=iters, seconds=t_solve, objv=res["objv"], nnz_w=res["nnz_w"],
+               train_auc=res["train_auc"], repeat_seconds=t_again,
+               repeat_history=again["history"],
+               block_passes_per_sec=[DARLIN_BLOCKS * r["iters"] / t for r, t in runs],
+               example_blocks_per_sec=[cb.num_examples * DARLIN_BLOCKS * r["iters"] / t
+                                       for r, t in runs])
+    t0 = time.perf_counter()
+    cpu = dm.Darlin(darlin_cfg(block_iters=DARLIN_CPU_PASSES), reporter=quiet,
+                    device="cpu").fit_blocks(cb)
+    out["cpu_seconds"] = time.perf_counter() - t0
+    out["cpu_history"] = cpu["history"]
+    out["err_cpu"] = check_history("darlin (a) card vs CPU", h, cpu["history"], DARLIN_RTOL)
+    log(f"darlin (a) ok: {iters} / {again['iters']} passes in {t_solve:.3f} / {t_again:.3f} s "
+        f"(upload included): {out['block_passes_per_sec']} block passes/s, "
+        f"{out['example_blocks_per_sec']} example-blocks/s; objv {res['objv']:.6f} / "
+        f"{again['objv']:.6f}, nnz_w {res['nnz_w']}, train_auc {res['train_auc']:.4f}; peak "
+        f"device memory {out['peak_memory_gib']:.3f} GiB; the second run vs the first "
+        f"{errs(out['err_repeat'])}; the first {DARLIN_CPU_PASSES} passes vs the CPU (its "
+        f"{out['cpu_seconds']:.1f} s) {errs(out['err_cpu'])}")
+
+    # one pass profiled, on the blocks already on the card
+    l1, eta = DARLIN["lambda_l1"], DARLIN["eta"]
+    blocks = {k: torch.tensor(np.asarray(getattr(cb, k)), device=dev)
+              for k in ("feat_local", "rows", "values")}
+    blocks["extent"] = dm.block_extents(cb.values)
+    y = torch.tensor(np.asarray(cb.labels), device=dev)
+    order = np.random.default_rng(SEED).permutation(cb.n_blocks)
+
+    def one_pass():
+        w = torch.zeros(cb.num_keys, device=dev)
+        pred = torch.zeros(cb.num_examples, device=dev)
+        act = torch.ones(cb.num_keys, dtype=torch.bool, device=dev)
+        dm.darlin_pass(w, pred, act, blocks, order, y, l1, 0.0, eta, block_size=cb.block_size)
+
+    one_pass()
+    wall, busy, rows = profile(one_pass)
+    out["pass_profile"] = {"wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+                           "top": [(k[:60], round(t, 4), c) for k, t, c in rows[:8]]}
+    log(f"darlin pass profile (zeros start, {cb.n_blocks} blocks): wall {wall:.3f} ms, "
+        f"device busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}); top device time "
+        f"(name, ms, count): {out['pass_profile']['top']}")
+    # the g sum of every block by events (a hot slot's atomic adds land on
+    # one address): over its real entries (the solver's) and over the
+    # padded width (value-0 pads at slot 0), beside its real entries and
+    # its hottest slot's
+    err = torch.rand(cb.num_examples, device=dev)
+    per_block = []
+    for b in range(cb.n_blocks):
+        n = blocks["extent"][b]
+        fl, r, v = (blocks[k][b] for k in ("feat_local", "rows", "values"))
+        hot = int(torch.bincount(fl[:n], minlength=cb.block_size).max())
+        ms = {name: cuda_ms(lambda i: dm._segment_sum(v[:m] * err.index_select(0, r[:m]),
+                                                      fl[:m], cb.block_size), 20)[0]
+              for name, m in (("real", n), ("padded", v.shape[0]))}
+        per_block.append({"block": b, "entries": n, "hot": hot, **ms})
+    out["g_sum"] = per_block
+    cells = [(p["block"], p["entries"], p["hot"], round(p["real"], 4), round(p["padded"], 4))
+             for p in per_block]
+    log(f"darlin g sum a block (block, real entries, the hottest slot's entries, ms by "
+        f"events over the real entries, ms over the padded width): {cells}")
+    del blocks, y, err
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dl = dm.Darlin(darlin_cfg(max_delay=2, block_iters=3 * DARLIN_ITERS), reporter=quiet,
+                   device=dev).fit_blocks(cb)
+    out["delay"] = {"seconds": time.perf_counter() - t0, "history": dl["history"],
+                    "objv": dl["objv"], "nnz_w": dl["nnz_w"], "iters": dl["iters"]}
+    hd = dl["history"]
+    if not (np.isfinite(hd).all() and hd[-1] < hd[0] and hd[-1] <= DARLIN_DELAY_BOUND * h[-1]):
+        raise AssertionError(f"darlin max_delay 2 did not converge: {hd} (delay 0 ends "
+                             f"{h[-1]})")
+    log(f"darlin max_delay 2 ok: {dl['iters']} passes in {out['delay']['seconds']:.3f} s, "
+        f"objv {dl['objv']:.6f} (delay 0: {res['objv']:.6f}), nnz_w {dl['nnz_w']}")
+    return out
+
+
+def darlin_world_of_one(cb, single: dict) -> dict:
+    """Phase 15 (b): a world of one on NCCL, resident against (a), streamed
+    against resident."""
+    from parameter_server_tpu_torch.models.darlin import Darlin
+    from parameter_server_tpu_torch.parallel import runtime
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    quiet = ProgressReporter(print_fn=lambda s: None)
+    out: dict = {}
+    rt = runtime.init(None, kv_shards=1, data_shards=1, device="cuda")
+    try:
+        t0 = time.perf_counter()
+        res = Darlin(darlin_cfg(), reporter=quiet, mesh=rt.mesh).fit_blocks(cb)
+        out["resident"] = {"seconds": time.perf_counter() - t0, "iters": res["iters"],
+                           "objv": res["objv"], "history": res["history"]}
+        out["err_resident"] = check_history("darlin (b) world of one vs (a)", res["history"],
+                                            single["history"], DARLIN_MESH_RTOL)
+        t0 = time.perf_counter()
+        st = Darlin(darlin_cfg(block_iters=DARLIN_STREAM_PASSES, block_chunk=DARLIN_CHUNK),
+                    reporter=quiet, mesh=rt.mesh).fit_blocks(cb)
+        out["streamed"] = {"seconds": time.perf_counter() - t0, "iters": st["iters"],
+                           "history": st["history"]}
+        out["err_streamed"] = check_history("darlin (b) streamed vs resident", st["history"],
+                                            res["history"], DARLIN_RTOL)
+    finally:
+        rt.shutdown()
+    r, s = out["resident"], out["streamed"]
+    log(f"darlin (b) world of one on NCCL ok: resident {r['iters']} passes in "
+        f"{r['seconds']:.3f} s ({DARLIN_BLOCKS * r['iters'] / r['seconds']:.2f} block "
+        f"passes/s; (a) {single['block_passes_per_sec']}), objv {r['objv']:.6f}; vs (a) "
+        f"{errs(out['err_resident'])}; streamed ({DARLIN_CHUNK} blocks a chunk) "
+        f"{s['iters']} passes in {s['seconds']:.3f} s "
+        f"({DARLIN_BLOCKS * s['iters'] / s['seconds']:.2f} block passes/s); vs resident "
+        f"{errs(out['err_streamed'])}")
+    return out
+
+
+def darlin_files(tmp: Path, rows: tuple) -> list:
+    """The first DARLIN_WORLD_EXAMPLES rows as DARLIN_FILES libsvm files."""
+    from parameter_server_tpu_torch.data.synthetic import write_libsvm
+
+    labels, splits, keys, vals = rows
+    per = DARLIN_WORLD_EXAMPLES // DARLIN_FILES
+    files = []
+    for i in range(DARLIN_FILES):
+        lo = i * per
+        write_libsvm(tmp / f"rcv1-{i}.svm", labels[lo:lo + per],
+                     [keys[splits[j]:splits[j + 1]] for j in range(lo, lo + per)],
+                     [vals[splits[j]:splits[j + 1]] for j in range(lo, lo + per)])
+        files.append(str(tmp / f"rcv1-{i}.svm"))
+    return files
+
+
+def darlin_cli(tmp: Path, rows: tuple) -> dict:
+    """Phase 15 (d) `cli convert` then `cli train` from the cache (no parse)
+    against a `cli train` that parses, and (c) a 2x2 world of `cli train`
+    gloo ranks sharing the card beside its CPU twin, on the cache."""
+    from parameter_server_tpu_torch.data import reader
+    from parameter_server_tpu_torch.models import darlin as dm
+
+    root = Path(__file__).resolve().parent
+    out: dict = {}
+    t0 = time.perf_counter()
+    files = darlin_files(tmp, rows)
+    out["write_seconds"] = time.perf_counter() - t0
+    cache = tmp / "cache"
+
+    def conf(tag: str, cached: bool, **par) -> Path:
+        c = darlin_conf()
+        c["data"].update(files=files, cache_dir=str(cache) if cached else "")
+        if par:
+            c["parallel"] = par
+        path = tmp / f"{tag}.json"
+        path.write_text(json.dumps(c))
+        return path
+
+    t0 = time.perf_counter()
+    conv = cli_quiet(["convert", "--app_file", str(conf("convert", True))])
+    out["convert"] = {**conv, "seconds": time.perf_counter() - t0}
+    parses = []
+    with recording(reader.MinibatchReader, "__iter__", parses), \
+            recording(dm.Darlin, "fit_blocks", []) as fits:
+        t0 = time.perf_counter()
+        cached = cli_quiet(["train", "--app_file", str(conf("cached", True)),
+                            "--device", "cuda"])
+        t_cached = time.perf_counter() - t0
+        if parses:
+            raise AssertionError("darlin (d): cli train from the cache parsed the text")
+        t0 = time.perf_counter()
+        parsed = cli_quiet(["train", "--app_file", str(conf("parsed", False)),
+                            "--device", "cuda"])
+        t_parsed = time.perf_counter() - t0
+    (_, r_cached), (_, r_parsed) = fits
+    out["err_cache"] = check_history("darlin (d) train from the cache vs a parse",
+                                     r_cached["history"], r_parsed["history"], DARLIN_RTOL)
+    out.update(cached={**cached, "seconds": t_cached}, parsed={**parsed, "seconds": t_parsed})
+    log(f"darlin (d) ok: {DARLIN_FILES} libsvm files of {DARLIN_WORLD_EXAMPLES} rows written "
+        f"in {out['write_seconds']:.2f} s; cli convert {conv} in "
+        f"{out['convert']['seconds']:.2f} s; cli train from the cache (no parse) "
+        f"{t_cached:.2f} s, from the text {t_parsed:.2f} s; {cached['iters']} passes, objv "
+        f"{cached['objv']:.6f} vs {parsed['objv']:.6f}; {errs(out['err_cache'])}")
+
+    # (c): the same cache, a 2x2 world on the card and one on the CPU, at once
+    logs = tmp / "logs"
+    logs.mkdir()
+    par = {"data_shards": 2, "kv_shards": 2}
+    specs = {f"darlin-{d}": (conf(f"world-{d}", True, **par), d, []) for d in ("cuda", "cpu")}
+    worlds = wait_worlds(start_worlds(root, logs, specs, POD_TIMEOUT_S), POD_TIMEOUT_S)
+    card, cpu = worlds["darlin-cuda"], worlds["darlin-cpu"]
+    for tag, wd in worlds.items():
+        for r in wd["results"]:
+            if any(r["launches"].values()):
+                raise AssertionError(f"darlin (c) {tag} rank {r['process_index']} launched "
+                                     f"{r['launches']}")
+    hist = {t: [row["objv"] for row in worlds[t]["rows"]] for t in worlds}
+    out["err_world_cpu"] = check_history("darlin (c) 2x2 card vs CPU world",
+                                         hist["darlin-cuda"], hist["darlin-cpu"], DARLIN_RTOL)
+    single = [v / DARLIN_WORLD_EXAMPLES for v in r_cached["history"]]
+    out["err_world_single"] = check_history("darlin (c) 2x2 card world vs one device",
+                                            hist["darlin-cuda"], single, DARLIN_MESH_RTOL)
+    res0 = card["results"][0]
+    out["world"] = {"seconds": card["seconds"], "cpu_seconds": cpu["seconds"],
+                    **{k: res0[k] for k in ("objv", "iters", "nnz_w", "train_auc")},
+                    "cpu_objv": cpu["results"][0]["objv"],
+                    "payload_bytes": res0["payload_bytes"]}
+    log(f"darlin (c) 2x2 ok: card world {card['seconds']:.1f} s, CPU world "
+        f"{cpu['seconds']:.1f} s; {res0['iters']} passes, objv {res0['objv']:.6f} (CPU "
+        f"{cpu['results'][0]['objv']:.6f}), nnz_w {res0['nnz_w']}; the printed history vs "
+        f"the CPU world {errs(out['err_world_cpu'])}, vs one device "
+        f"{errs(out['err_world_single'])}; rank 0's collective bytes {res0['payload_bytes']}")
+    return out
+
+
+def graph_partition_runs(tmp: Path, labels, keys, vals) -> dict:
+    """Phase 15 (e): graph_partition through `cli train` on phase 4's rows,
+    the card against the CPU bit for bit; then the partition step alone on
+    the card."""
+    from parameter_server_tpu_torch.data.batch import BatchBuilder
+    from parameter_server_tpu_torch.data.synthetic import write_libsvm
+    from parameter_server_tpu_torch.models import graph_partition as gpm
+
+    t0 = time.perf_counter()
+    files = []
+    for i in range(STEPS):
+        rows = slice(i * BATCH, (i + 1) * BATCH)
+        write_libsvm(tmp / f"g-{i}.svm", labels[rows], keys[rows], vals[rows])
+        files.append(str(tmp / f"g-{i}.svm"))
+    conf = {"app": "graph_partition",
+            "data": {"files": files, "num_keys": GRAPH_KEYS,
+                     "max_nnz_per_example": 4 * NNZ_PER},
+            "solver": {"minibatch": BATCH}, "graph": {"num_partitions": GRAPH_PARTITIONS}}
+    app_file = tmp / "graph.json"
+    app_file.write_text(json.dumps(conf))
+    out: dict = {"write_seconds": time.perf_counter() - t0}
+    res, apps = {}, []
+    with recording(gpm.GraphPartition, "partition_files", apps):
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            res[device] = cli_quiet(["train", "--app_file", str(app_file), "--model_out",
+                                     str(tmp / f"parts-{device}.txt"), "--device", device])
+            res[device]["seconds"] = time.perf_counter() - t0
+    (card, _), (cpu, _) = apps
+    got, want = card.state_dict(), cpu.state_dict()
+    same = {k: bool(np.array_equal(got[k], want[k])) for k in ("presence", "sizes")}
+    same["assignments"] = bool(np.array_equal(card.assignments, cpu.assignments))
+    same["dump"] = (tmp / "parts-cuda.txt").read_text() == (tmp / "parts-cpu.txt").read_text()
+    same["result"] = {k: v for k, v in res["cuda"].items() if k != "seconds"} == {
+        k: v for k, v in res["cpu"].items() if k != "seconds"}
+    if not all(same.values()):
+        raise AssertionError(f"graph_partition (e): the card differs from the CPU: {same}")
+    del card, cpu, apps, got, want
+    torch.cuda.empty_cache()
+    # the partition step alone, on batches put on the card ahead
+    builder = BatchBuilder(num_keys=GRAPH_KEYS, batch_size=BATCH,
+                           max_nnz_per_example=4 * NNZ_PER)
+    batches = [gpm.device_batch(builder.build(labels[i:i + BATCH], keys[i:i + BATCH],
+                                              vals[i:i + BATCH]), "cuda")
+               for i in range(0, BATCH * STEPS, BATCH)]
+    state = gpm.init_state(GRAPH_KEYS, GRAPH_PARTITIONS, "cuda")
+    penalty = cfg_of(conf).graph.balance_penalty
+    gpm.partition_step(state, batches[0], GRAPH_PARTITIONS, penalty)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        gpm.partition_step(state, b, GRAPH_PARTITIONS, penalty)
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    del state, batches
+    torch.cuda.empty_cache()
+    r = res["cuda"]
+    out.update(card=r, cpu_seconds=res["cpu"]["seconds"],
+               step_examples_per_sec=BATCH * STEPS / t_steps)
+    log(f"graph_partition (e) ok: {r['examples']} examples, {GRAPH_PARTITIONS} partitions of "
+        f"a {GRAPH_KEYS}-key presence table; replication {r['replication']:.4f}, balance "
+        f"{r['balance']:.4f}, {r['features']} features, {r['features_dumped']} dumped; "
+        f"presence, sizes, assignments, dump and result equal to the CPU run's; cli train "
+        f"{r['seconds']:.2f} s on the card ({r['examples'] / r['seconds']:.1f} examples/s, "
+        f"parse included), {res['cpu']['seconds']:.2f} s on the CPU; the step alone "
+        f"{out['step_examples_per_sec']:.1f} examples/s on the card")
+    return out
+
+
+def sketch_runs(tmp: Path) -> dict:
+    """Phase 15 (f): the sketch app through `cli train` on phase 13's
+    files, `--device cuda` against `--device cpu` (host code: the device is
+    not used)."""
+    ids, y = zipf_rows()
+    files = [str(f) for f in zipf_row_files(tmp, ids, y, with_val=False)]
+    conf = {"app": "sketch", "data": {"files": files, "num_keys": WORKER_KEYS},
+            "sketch": {"min_count": SKETCH_MIN_COUNT}}
+    app_file = tmp / "sketch.json"
+    app_file.write_text(json.dumps(conf))
+    res = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        res[device] = cli_quiet(["train", "--app_file", str(app_file), "--model_out",
+                                 str(tmp / f"hh-{device}.txt"), "--device", device])
+        res[device]["seconds"] = time.perf_counter() - t0
+    dumps = [(tmp / f"hh-{d}.txt").read_text() for d in ("cuda", "cpu")]
+    strip = [{k: v for k, v in r.items() if k != "seconds"} for r in res.values()]
+    if strip[0] != strip[1] or dumps[0] != dumps[1] or not strip[0]["dumped"]:
+        raise AssertionError(f"sketch (f): card run {strip[0]} vs CPU run {strip[1]}, "
+                             f"dumps equal: {dumps[0] == dumps[1]}")
+    r = res["cuda"]
+    log(f"sketch (f) ok (host code): {r['keys_seen']} keys of {CLUSTER_FILES} files, "
+        f"{r['heavy_hitters']} heavy hitters (min_count {SKETCH_MIN_COUNT}), top count "
+        f"{r['top_count']}; result and dump equal to the CPU run's; "
+        f"{r['keys_seen'] / r['seconds']:.1f} keys/s (parse included)")
+    return {"card": r, "cpu_seconds": res["cpu"]["seconds"]}
+
+
+def phase_darlin_apps(dev, labels, keys, vals) -> dict:
+    """Phase 15: darlin at RCV1's shape on the card (one device, a world of
+    one, a 2x2 world, convert and the cache), graph_partition and sketch
+    through `cli train`; none launches K1-K4."""
+    from parameter_server_tpu_torch.data.blockcache import ColumnBlocks
+    from parameter_server_tpu_torch.ops import adagrad_kernels as ak
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.ops import quantize_kernels as qk
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    for k in (fk, ak, qk):
+        k.reset_launches()
+    t0 = time.perf_counter()
+    rows = rcv1_rows(dev)
+    t_rows = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cb = ColumnBlocks.from_batches(darlin_batches(rows, RCV1_EXAMPLES), DARLIN_KEYS,
+                                   DARLIN_BLOCKS)
+    t_blocks = time.perf_counter() - t0
+    real = int((cb.values != 0).sum())
+    out: dict = {"set_up": {"rows_seconds": t_rows, "blocks_seconds": t_blocks,
+                            "entries": real, "e_max": cb.feat_local.shape[1],
+                            "e_mean": real / cb.n_blocks}}
+    log(f"darlin set-up: {RCV1_EXAMPLES} rows, {len(rows[2])} entries "
+        f"({len(rows[2]) / RCV1_EXAMPLES:.2f} an example) drawn in {t_rows:.2f} s; "
+        f"column blocks {cb.feat_local.shape} ({real} real entries, E_max "
+        f"{cb.feat_local.shape[1]} vs mean {real / cb.n_blocks:.0f} a block) in "
+        f"{t_blocks:.2f} s")
+    out["single"] = darlin_single(dev, cb)
+    out["world_of_one"] = darlin_world_of_one(cb, out["single"])
+    del cb
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp_s:
+        tmp = Path(tmp_s)
+        out["cli"] = darlin_cli(tmp, rows)
+        out["graph"] = graph_partition_runs(tmp, labels, keys, vals)
+        out["sketch"] = sketch_runs(tmp)
+    launches = {**fk.LAUNCHES, **ak.LAUNCHES, **qk.LAUNCHES}
+    if any(launches.values()):
+        raise AssertionError(f"phase 15 launched {launches}, want no kernel")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"darlin, sketch and graph_partition phase ok in {out['seconds']:.1f} s; "
+        f"launches {launches}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3661,6 +4243,9 @@ def main() -> int:
     # 14. chaos on the wire and the serving plane
     chs = phase_chaos_serving(rounds, emb_rounds, wire)
     csl = chs["launches"]
+    torch.cuda.empty_cache()
+    # 15. darlin, graph_partition, sketch: plain ops, no kernel
+    phase_darlin_apps(dev, labels, keys, vals)
 
     kernels["ftrl_push"]["max_abs_err"] = max(kernels["ftrl_push"]["max_abs_err"], err_wd_k1,
                                               pod["err"]["ftrl_push"])

@@ -1,22 +1,32 @@
 """Command-line entry point of the port.
 
-The ``linear_method``, ``matrix_fac``, ``wide_deep`` and ``word2vec``
-apps: a config file picks the app and its solver, flags pick the run mode,
-``--device`` the device (``cuda`` unless ``cpu`` is asked for). Config files
-and flags are those of the JAX package's CLI; every other app, option and
+The six apps: ``linear_method`` (its streaming solvers and the ``darlin``
+batch solver), ``matrix_fac``, ``wide_deep``, ``word2vec``,
+``graph_partition`` and ``sketch``. A config file picks the app and its
+solver, flags pick the run mode, ``--device`` the device (``cuda`` unless
+``cpu`` is asked for; ``sketch`` is host code and ignores it). Config files
+and flags are those of the JAX package's CLI; every other option and
 subcommand exits with "not ported yet".
 
 A mesh larger than 1x1 (``parallel.data_shards`` x ``parallel.kv_shards``)
-runs ``linear_method`` through ``PodTrainer`` and the other three apps
+runs ``linear_method`` through ``PodTrainer`` (or, with ``solver.algo =
+"darlin"``, the distributed darlin solver) and MF, W&D and word2vec
 through their mesh paths, one process per mesh cell: start D x KV
 processes with the same ``--coordinator host:port``, ``--num_processes``
 D x KV and each its own ``--process_id``. ``--dist_backend`` picks the
 collectives (``nccl`` on the card, ``gloo`` on the CPU by default; ranks
-that share one card need ``gloo``). Rank 0 writes ``--model_out``.
+that share one card need ``gloo``). Rank 0 writes ``--model_out`` and
+``--ckpt_dir``. (The JAX package runs mesh darlin on one process's device
+mesh and refuses ``--coordinator``; a mesh here is a world of ranks.)
+
+``convert`` parses the config's files once into the columnar block cache
+(``data/blockcache.py``) that darlin reads instead of the text when
+``data.cache_dir`` names it; either package's cache loads in the other.
 
 Usage:
   python -m parameter_server_tpu_torch.cli train  --app_file cfg.json [--model_out m.txt|m.npz|m.npy] [--device cpu]
       [--coordinator 127.0.0.1:29500 --num_processes 4 --process_id 0 [--dist_backend gloo]]
+  python -m parameter_server_tpu_torch.cli convert --app_file cfg.json [--cache_dir d]
   python -m parameter_server_tpu_torch.cli evaluate --app_file cfg.json --model m.txt|m.npz [--device cpu]
   python -m parameter_server_tpu_torch.cli backend --app_file cfg.json [--examples N --batch B --nnz K --servers S] [--device cpu]
   python -m parameter_server_tpu_torch.cli launch --app_file cfg.json --num_servers 2 --num_workers 2 [--model_out m.txt] [--device cpu]
@@ -48,7 +58,7 @@ from parameter_server_tpu_torch.utils.config import PSConfig, load_config
 
 #: subcommands of the JAX package's CLI that the port does not have yet
 NOT_PORTED_CMDS = (
-    "convert", "stats", "top", "ranges", "audit",
+    "stats", "top", "ranges", "audit",
     "whylate", "postmortem", "lint", "check", "verify", "explore",
 )
 
@@ -92,6 +102,19 @@ def _build_parser() -> argparse.ArgumentParser:
     tr.add_argument("--pool_coordinator", default="")
     tr.add_argument("--pool_serve", action="store_true")
     tr.add_argument("--trace_dir", default="")
+
+    cv = sub.add_parser(
+        "convert",
+        help="offline text -> columnar block cache conversion "
+        "(ref: data/text2proto + SlotReader's parse-once cache)",
+    )
+    cv.add_argument("--app_file", required=True, help="JSON/TOML PSConfig")
+    cv.add_argument(
+        "--cache_dir", default="",
+        help="output cache dir (defaults to the config's data.cache_dir; "
+        "if you override it here, set data.cache_dir to the same path in "
+        "the TRAINING config or the cache will never be read)",
+    )
 
     ev = sub.add_parser("evaluate", help="evaluate a dumped model")
     ev.add_argument("--app_file", required=True)
@@ -173,13 +196,6 @@ def _check_ported(cfg: PSConfig) -> None:
     """Refuse the config settings of paths the port does not have yet."""
     if cfg.app not in _KNOWN_APPS:
         raise SystemExit(f"unknown app {cfg.app!r}; known: {sorted(_KNOWN_APPS)}")
-    if cfg.app not in ("linear_method", "matrix_fac", "wide_deep", "word2vec"):
-        raise _not_ported(f"app {cfg.app!r}")
-    if cfg.app == "linear_method" and cfg.solver.algo == "darlin":
-        raise _not_ported("the darlin batch solver")
-    mesh = cfg.parallel.data_shards * cfg.parallel.kv_shards > 1
-    if cfg.app == "matrix_fac" and not mesh and cfg.parallel.push_mode != "per_worker":
-        raise _not_ported(f"parallel.push_mode {cfg.parallel.push_mode!r} on one device")
     if cfg.trace.trace_dir or cfg.profile.hz > 0 or cfg.timeseries.metrics_port:
         raise _not_ported("tracing, profiling and the metrics endpoint")
 
@@ -192,8 +208,20 @@ def run_train(cfg: PSConfig, args: argparse.Namespace) -> dict:
         raise _not_ported("--trace_dir")
     if not cfg.data.files:
         raise SystemExit("config data.files is empty")
+    # graph_partition and sketch: one process, as the JAX package runs
+    # them (mesh settings and flags unread)
+    if cfg.app == "graph_partition":
+        return _run_train_graph(cfg, args)
+    if cfg.app == "sketch":
+        return _run_train_sketch(cfg, args)
+    darlin = cfg.app == "linear_method" and cfg.solver.algo == "darlin"
+    if darlin and args.resume:
+        raise SystemExit(
+            "--resume is not supported for the darlin batch solver "
+            "(it restarts from its cached column blocks)"
+        )
     sharded = bool(args.coordinator) or cfg.parallel.data_shards * cfg.parallel.kv_shards > 1
-    if sharded:
+    if sharded and not darlin:
         from parameter_server_tpu_torch.parallel.spmd import PUSH_MODES
 
         # the apps' own refusal (the JAX apps raise it building the mesh
@@ -212,6 +240,10 @@ def run_train(cfg: PSConfig, args: argparse.Namespace) -> dict:
         if sharded:
             return _run_sharded(cfg, args, _APP_RUNNERS[cfg.app])
         return _APP_RUNNERS[cfg.app](cfg, args)
+    if darlin and sharded:
+        return _run_sharded(cfg, args, _run_train_darlin)
+    if darlin:
+        return _run_train_darlin(cfg, args)
     if sharded:
         return _run_sharded(cfg, args, _run_train_pod)
 
@@ -290,6 +322,77 @@ def _run_train_pod(cfg: PSConfig, args: argparse.Namespace, rt) -> dict:
     if cfg.data.val_files:
         ev = trainer.evaluate_files(cfg.data.val_files)
         out.update({f"val_{k}": v for k, v in ev.items()})
+    return out
+
+
+def _run_train_graph(cfg: PSConfig, args: argparse.Namespace) -> dict:
+    """The graph_partition app on ``--device``; --model_out is the
+    ``feature\tpartition`` text dump."""
+    from parameter_server_tpu_torch.models.graph_partition import GraphPartition
+
+    app = GraphPartition(cfg, device=args.device)
+    out = app.partition_files(cfg.data.files)
+    if args.model_out:
+        out["features_dumped"] = app.dump_partition(args.model_out)
+    return out
+
+
+def _run_train_sketch(cfg: PSConfig, args: argparse.Namespace) -> dict:
+    """The sketch app (host code); --model_out is the heavy-hitter dump."""
+    from parameter_server_tpu_torch.models.sketch import SketchApp
+
+    app = SketchApp(cfg)
+    app.add_files(cfg.data.files)
+    out = app.result()
+    if args.model_out:
+        out["dumped"] = app.dump_heavy_hitters(args.model_out)
+    return out
+
+
+def _run_train_darlin(cfg: PSConfig, args: argparse.Namespace, runtime=None) -> dict:
+    """The darlin batch solver on one device or, with ``runtime``, on this
+    rank's mesh cell. With ``data.cache_dir`` set the first run parses the
+    text and writes the columnar block cache and later runs map it (on a
+    mesh rank 0 writes it and the other ranks wait, then read it). Rank 0
+    writes the checkpoint (``{"w"}``, the JAX layout) and the text model."""
+    import numpy as np
+
+    from parameter_server_tpu_torch.data.batch import BatchBuilder
+    from parameter_server_tpu_torch.data.blockcache import cached_column_blocks
+    from parameter_server_tpu_torch.data.reader import MinibatchReader
+    from parameter_server_tpu_torch.models import metrics as M
+    from parameter_server_tpu_torch.models.darlin import Darlin
+    from parameter_server_tpu_torch.utils.checkpoint import dump_weights_text, save_checkpoint
+
+    lead = runtime is None or runtime.process_index == 0
+    if runtime is not None and cfg.data.cache_dir:
+        if lead:
+            cb = cached_column_blocks(cfg)
+        runtime.barrier()
+        if not lead:
+            cb = cached_column_blocks(cfg)
+    else:
+        cb = cached_column_blocks(cfg)
+    app = Darlin(cfg, mesh=runtime.mesh if runtime is not None else None,
+                 device=args.device)
+    res = app.fit_blocks(cb)
+    if lead and args.ckpt_dir:
+        save_checkpoint(args.ckpt_dir, {"w": app.w},
+                        meta={"algo": "darlin", "num_keys": cfg.data.num_keys})
+    if lead and args.model_out:
+        dump_weights_text(app.w, args.model_out)
+    out = {k: res[k] for k in ("objv", "iters", "nnz_w", "train_auc")}
+    if cfg.data.val_files:
+        builder = BatchBuilder(
+            num_keys=cfg.data.num_keys,
+            batch_size=cfg.solver.minibatch,
+            max_nnz_per_example=cfg.data.max_nnz_per_example,
+        )
+        val = list(MinibatchReader(cfg.data.val_files, cfg.data.format, builder))
+        p = app.predict(val)
+        y = np.concatenate([b.labels[: b.num_examples] for b in val])
+        out["val_auc"] = M.auc(y, p)
+        out["val_logloss"] = M.logloss(y, p)
     return out
 
 
@@ -396,6 +499,44 @@ def _run_train_wd(cfg: PSConfig, args: argparse.Namespace, runtime=None) -> dict
 _APP_RUNNERS = {
     "matrix_fac": _run_train_mf, "word2vec": _run_train_w2v, "wide_deep": _run_train_wd,
 }
+
+
+def run_convert(cfg: PSConfig, args: argparse.Namespace) -> dict:
+    """Offline conversion (ref: the text2proto tool + SlotReader's
+    parse-once cache): parse the config's text files once and populate the
+    columnar block cache; later solver runs map it instead of re-parsing."""
+    from pathlib import Path
+
+    from parameter_server_tpu_torch.data.blockcache import cached_column_blocks
+
+    override_note = ""
+    if args.cache_dir:
+        if cfg.data.cache_dir != args.cache_dir:
+            # a cache the training config doesn't point at is never read
+            override_note = (
+                "config data.cache_dir is "
+                f"{cfg.data.cache_dir!r}; training will only use this "
+                "cache if you point data.cache_dir at it"
+            )
+        cfg.data.cache_dir = args.cache_dir
+    if not cfg.data.cache_dir:
+        raise SystemExit("convert needs --cache_dir or config data.cache_dir")
+    if not cfg.data.files:
+        raise SystemExit("config data.files is empty")
+    cb = cached_column_blocks(cfg)
+    # the entry count comes from the cache sidecar: recomputing it would
+    # page the whole (mapped) values array in just to rederive a stored stat
+    meta = json.loads((Path(cfg.data.cache_dir) / "meta.json").read_text())
+    out = {
+        "cache_dir": cfg.data.cache_dir,
+        "num_examples": cb.num_examples,
+        "n_blocks": cb.n_blocks,
+        "block_size": cb.block_size,
+        "entries": meta["nnz"],
+    }
+    if override_note:
+        out["warning"] = override_note
+    return out
 
 
 def run_evaluate(cfg: PSConfig, args: argparse.Namespace) -> dict:
@@ -529,8 +670,8 @@ def main(argv: list[str] | None = None) -> int:
         raise _not_ported(f"the {argv[0]!r} subcommand")
     args = _build_parser().parse_args(argv)
     cfg = load_config(args.app_file)
-    run = {"train": run_train, "evaluate": run_evaluate, "backend": run_backend,
-           "node": run_node_cmd, "launch": run_launch}[args.cmd]
+    run = {"train": run_train, "convert": run_convert, "evaluate": run_evaluate,
+           "backend": run_backend, "node": run_node_cmd, "launch": run_launch}[args.cmd]
     out = run(cfg, args)
     print(json.dumps(out, default=float))
     return 0

@@ -1,8 +1,9 @@
-"""Streaming minibatch reader with prefetch.
+"""Streaming minibatch reader with prefetch, and the flat row stream.
 
 A parser thread feeds a bounded queue (the reference's MinibatchReader).
-Only the Python parser backend is ported; the JAX package's native C++
-chunk parser is not ported yet, and asking for it raises."""
+``iter_flat_rows`` yields the raw-key stream of whole files. Only the
+Python parser backend is ported; the JAX package's native C++ chunk
+parser is not ported yet, and asking for it raises."""
 
 from __future__ import annotations
 
@@ -120,3 +121,37 @@ class MinibatchReader:
             # wait for it: it returns at its next queue put
             stop.set()
             t.join()
+
+
+# Formats whose slot id is constant 0: ``iter_flat_rows`` yields None for
+# their slots (the JAX package's ``data/native.py`` SLOTLESS_FORMATS).
+SLOTLESS_FORMATS = frozenset({"libsvm"})
+
+
+def iter_flat_rows(files: list[str | Path], fmt: str):
+    """Yield flat CSR chunks ``(labels, row_splits, keys, vals, slots)``,
+    one a file, from text files: the raw-key stream of ingest-side
+    components that need no batches (the sketch app). ``slots`` is None
+    for slotless formats (SLOTLESS_FORMATS: every slot id is 0 there)."""
+    for f in sorted(map(str, files)):
+        labels, splits, keys, vals, slots = [], [0], [], [], []
+        for label, k, v, s in iter_format(fmt, f):
+            labels.append(label)
+            splits.append(splits[-1] + len(k))
+            keys.append(k)
+            vals.append(v)
+            slots.append(s)
+        if labels:
+            yield (
+                np.asarray(labels, dtype=np.float32),
+                np.asarray(splits, dtype=np.int64),
+                np.concatenate(keys) if keys else np.zeros(0, np.uint64),
+                np.concatenate(vals) if vals else np.zeros(0, np.float32),
+                (
+                    None
+                    if fmt in SLOTLESS_FORMATS
+                    else np.concatenate(slots)
+                    if slots
+                    else np.zeros(0, np.uint64)
+                ),
+            )

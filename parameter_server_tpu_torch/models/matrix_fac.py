@@ -259,10 +259,6 @@ def iter_rating_blocks(
             )
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet to parameter_server_tpu_torch")
-
-
 class MatrixFactorization:
     """The MF app. num_users/num_items rows + 1 pad row each, on one
     device (``cuda`` unless the caller passes ``device="cpu"``), or, with
@@ -288,8 +284,7 @@ class MatrixFactorization:
         steps_per_call: int = 1,
         device: Any = "cuda",
     ):
-        if mesh is None and push_mode != "per_worker":
-            raise _not_ported(f"push_mode {push_mode!r} on one device")
+        # push_mode is read on a mesh only; one device ignores it, as the JAX app does
         if mesh is not None and push_mode not in ("per_worker", "aggregate"):
             raise ValueError(f"unknown push_mode {push_mode!r}")
         self.rank = rank

@@ -19,6 +19,8 @@ plan's cases and writes its results to ``<plan out>/rank<r>.npz``. Modes:
   push are recorded;
 - ``w2v``: ``Word2Vec(mesh=...)`` runs ``train_epoch`` on the plan's
   corpus or ``train_files`` on its files;
+- ``darlin``: ``Darlin(mesh=...)`` fits the plan's cases, each on the
+  column blocks of one of its CSR batch streams (``<stream>/b<i>/<field>``);
 - ``backend``: ``MeshBackend`` on the world's mesh: pushes into a table of
   the plan's awkward size, ``train_linear`` on the plan's workload (f32
   and int8), and the int8 error feedback's telescoping pushes.
@@ -256,6 +258,28 @@ def _w2v(rt, plan: dict, inputs) -> dict:
     return out
 
 
+def _darlin(rt, plan: dict, inputs) -> dict:
+    from parameter_server_tpu_torch.models.darlin import Darlin
+    from parameter_server_tpu_torch.utils.config import PSConfig
+
+    out = {}
+    for case in plan["darlin_cases"]:
+        name = case["name"]
+        cfg = PSConfig()
+        cfg.data.num_keys = case["num_keys"]
+        cfg.solver.algo = "darlin"
+        for section, fields in case["cfg"].items():
+            for k, v in fields.items():
+                setattr(getattr(cfg, section), k, v)
+        app = Darlin(cfg, reporter=_quiet(), mesh=rt.mesh)
+        res = app.fit(_csr_stream(inputs, case["stream"]), shuffle_blocks=case["shuffle"])
+        out[f"{name}/history"] = np.array(res["history"])
+        for k in ("objv", "nnz_w", "train_auc", "iters"):
+            out[f"{name}/{k}"] = np.float64(res[k])
+        out[f"{name}/w"], out[f"{name}/pred"] = app.w, app.pred
+    return out
+
+
 def _backend(rt, plan: dict, inputs) -> dict:
     from parameter_server_tpu_torch.kv.updaters import Ftrl, Sgd
     from parameter_server_tpu_torch.parallel.backend import train_linear
@@ -311,7 +335,7 @@ def main(argv: list[str]) -> int:
                           data_shards=d, device="cpu")
     try:
         modes = {"spmd": _spmd, "mf": _mf, "pod": _pod, "wd": _wd, "w2v": _w2v,
-                 "backend": _backend}
+                 "darlin": _darlin, "backend": _backend}
         out = {}
         for m in mode.split("+"):
             out.update(modes[m](rt, plan, inputs))

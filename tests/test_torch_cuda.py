@@ -835,3 +835,146 @@ def test_host_weights_is_a_clone_a_later_apply_leaves(dev, algo):
         assert srv.weights()[1, 0] != before[1, 0]
     finally:
         srv.server.stop()
+
+
+# --- darlin, graph_partition and sketch: no kernel, plain ops on the card -----
+
+
+def _darlin_batches(n=4096, num_keys=1 << 12, bs=1024):
+    from parameter_server_tpu_torch.data.batch import BatchBuilder
+    from parameter_server_tpu_torch.data.synthetic import make_sparse_logistic
+
+    labels, keys, vals, _ = make_sparse_logistic(n, 3000, nnz_per_example=20, seed=5)
+    builder = BatchBuilder(num_keys=num_keys, batch_size=bs, max_nnz_per_example=64)
+    return [builder.build(labels[i:i + bs], keys[i:i + bs], vals[i:i + bs])
+            for i in range(0, n, bs)]
+
+
+def _darlin_cfg(**kw):
+    from parameter_server_tpu_torch.utils.config import PSConfig
+
+    cfg = PSConfig()
+    cfg.data.num_keys = 1 << 12
+    cfg.solver.algo = "darlin"
+    cfg.solver.feature_blocks = 8
+    cfg.solver.block_iters = kw.get("iters", 6)
+    cfg.solver.kkt_filter_threshold = kw.get("kkt", 0.1)
+    cfg.solver.max_delay = kw.get("max_delay", 0)
+    cfg.solver.block_chunk = kw.get("chunk", 0)
+    cfg.penalty.lambda_l1 = 1.0
+    return cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_delay", [0, 2])
+def test_darlin_on_card_matches_cpu(dev, max_delay):
+    """The darlin solve on the card vs the CPU (objective history rtol
+    1e-4: the card's index_add_ sums a hot key's entries in another order),
+    and one pass's w, pred and violation maximum (rtol 1e-4 / atol 1e-5:
+    a reordered sum of a hot key's ~4k terms, divided by its Hessian, moves
+    a small weight by a few 1e-6); no kernel launches (darlin reaches no
+    TPU kernel)."""
+    from parameter_server_tpu_torch.data.blockcache import ColumnBlocks
+    from parameter_server_tpu_torch.models import darlin as D
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    batches = _darlin_batches()
+    fk.reset_launches()
+    ak.reset_launches()
+    res = {device: D.Darlin(_darlin_cfg(max_delay=max_delay),
+                            reporter=ProgressReporter(print_fn=lambda s: None),
+                            device=device).fit(batches)
+           for device in ("cuda", "cpu")}
+    assert not any({**fk.LAUNCHES, **ak.LAUNCHES}.values())
+    np.testing.assert_allclose(res["cuda"]["history"], res["cpu"]["history"], rtol=1e-4)
+    assert res["cuda"]["history"][-1] < res["cuda"]["history"][0]
+    cb = ColumnBlocks.from_batches(batches, 1 << 12, 8)
+    order = np.random.default_rng(0).permutation(8)
+    out = {}
+    for device in ("cuda", "cpu"):
+        blocks = {k: torch.tensor(getattr(cb, k), device=device)
+                  for k in ("feat_local", "rows", "values")}
+        w = torch.zeros(1 << 12, device=device)
+        out[device] = D.darlin_pass(
+            w, torch.zeros(cb.num_examples, device=device),
+            torch.ones(1 << 12, dtype=torch.bool, device=device), blocks, order,
+            torch.tensor(cb.labels, device=device), 1.0, 0.0, 1.0,
+            block_size=cb.block_size, delay=max_delay)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_darlin_world_of_one_on_nccl_matches_single(dev):
+    """A world of one on NCCL, resident and streamed, against the single
+    device on the card (rtol 1e-4: the card's sums reorder run to run)."""
+    from parameter_server_tpu_torch.models.darlin import Darlin
+    from parameter_server_tpu_torch.parallel import runtime
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    batches = _darlin_batches()
+    quiet = ProgressReporter(print_fn=lambda s: None)
+    ref = Darlin(_darlin_cfg(), reporter=quiet, device="cuda").fit(batches)
+    rt = runtime.init(None, kv_shards=1, data_shards=1, device="cuda")
+    try:
+        for chunk in (0, 4):
+            res = Darlin(_darlin_cfg(chunk=chunk), reporter=quiet, mesh=rt.mesh).fit(batches)
+            np.testing.assert_allclose(res["history"], ref["history"], rtol=1e-4)
+    finally:
+        rt.shutdown()
+
+
+@pytest.mark.cuda
+def test_graph_partition_on_card_equals_cpu_bit_for_bit(dev):
+    """Counts in float32 below 2^24: every sum is exact in any order, so
+    the card's presence, sizes and assignments equal the CPU's."""
+    from parameter_server_tpu_torch.models.graph_partition import GraphPartition
+    from parameter_server_tpu_torch.utils.config import PSConfig
+
+    cfg = PSConfig()
+    cfg.data.num_keys = 1 << 12
+    cfg.graph.num_partitions = 8
+    batches = _darlin_batches()
+    apps = {d: GraphPartition(cfg, device=d) for d in ("cuda", "cpu")}
+    outs = {d: a.partition(batches) for d, a in apps.items()}
+    assert outs["cuda"] == outs["cpu"]
+    np.testing.assert_array_equal(apps["cuda"].assignments, apps["cpu"].assignments)
+    for k in ("presence", "sizes"):
+        np.testing.assert_array_equal(apps["cuda"].state_dict()[k],
+                                      apps["cpu"].state_dict()[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("app", ["darlin", "graph_partition", "sketch"])
+def test_cli_train_new_paths_on_card(dev, app, tmp_path, capsys):
+    """``cli train --device cuda`` of each new path against ``--device
+    cpu``: darlin's result at rtol 1e-4, graph_partition's and sketch's
+    results and dumps equal."""
+    import json
+
+    from parameter_server_tpu_torch import cli
+    from parameter_server_tpu_torch.data.synthetic import make_sparse_logistic, write_libsvm
+
+    labels, keys, vals, _ = make_sparse_logistic(3000, 2000, nnz_per_example=15, seed=2)
+    write_libsvm(tmp_path / "a.svm", labels, keys, vals)
+    cfg = {"app": "linear_method" if app == "darlin" else app,
+           "data": {"files": [str(tmp_path / "a.svm")], "num_keys": 1 << 12,
+                    "max_nnz_per_example": 64},
+           "solver": {"algo": "darlin", "feature_blocks": 8, "block_iters": 6,
+                      "minibatch": 512},
+           "graph": {"num_partitions": 4}, "sketch": {"width": 4096, "min_count": 5}}
+    (tmp_path / "c.json").write_text(json.dumps(cfg))
+    outs = {}
+    for device in ("cuda", "cpu"):
+        model = tmp_path / f"{device}.txt"
+        capsys.readouterr()
+        assert cli.main(["train", "--app_file", str(tmp_path / "c.json"), "--model_out",
+                         str(model), "--device", device]) == 0
+        outs[device] = (json.loads(capsys.readouterr().out.strip().splitlines()[-1]),
+                        model.read_text())
+    if app == "darlin":
+        for k in ("objv", "train_auc"):
+            np.testing.assert_allclose(outs["cuda"][0][k], outs["cpu"][0][k], rtol=1e-4)
+        assert outs["cuda"][0]["iters"] == outs["cpu"][0]["iters"]
+    else:
+        assert outs["cuda"] == outs["cpu"]

@@ -1,6 +1,7 @@
 """Port parity for the copied jax-free modules: config, hashing, batches,
-parsers, reader, frequency filter, metrics, checkpoints, the workload pool
-and the prefetch pipeline. These are copies, so the port must give exactly
+parsers, reader (and its flat row stream), frequency filter, metrics,
+checkpoints, the workload pool, the prefetch pipeline and the column-block
+cache. These are copies, so the port must give exactly
 the JAX package's results."""
 
 import dataclasses
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 
 from parameter_server_tpu.data import batch as JB
+from parameter_server_tpu.data import blockcache as JBC
 from parameter_server_tpu.data import pipeline as JP
 from parameter_server_tpu.data import reader as JR
 from parameter_server_tpu.data import synthetic as JS
@@ -21,6 +23,7 @@ from parameter_server_tpu.utils import checkpoint as JCK
 from parameter_server_tpu.utils import config as JCFG
 from parameter_server_tpu.utils import hashing as JH
 from parameter_server_tpu_torch.data import batch as TB
+from parameter_server_tpu_torch.data import blockcache as TBC
 from parameter_server_tpu_torch.data import pipeline as TP
 from parameter_server_tpu_torch.data import reader as TR
 from parameter_server_tpu_torch.data import synthetic as TS
@@ -356,3 +359,56 @@ def test_histogram_copy_matches_jax():
         snaps.append(({k: snap[k] for k in ("count", "buckets")},
                       [mod.hist_percentile(snap, p) for p in (0.0, 0.5, 0.9, 0.99, 1.0)]))
     assert snaps[0] == snaps[1]
+
+
+def test_blockcache_copy_matches_jax(tmp_path):
+    """Layout, fingerprint and files: the port's from_batches equals the
+    JAX one, either package's save loads in the other (mmap), and the
+    fingerprints of the same sources and parameters are equal."""
+    labels, keys, vals, _ = TS.make_sparse_logistic(300, 200, nnz_per_example=6, seed=8)
+    builder = JB.BatchBuilder(num_keys=256, batch_size=64)
+    batches = [builder.build(labels[i:i + 64], keys[i:i + 64], vals[i:i + 64])
+               for i in range(0, 300, 64)]
+    tcb = TBC.ColumnBlocks.from_batches(batches, 256, 4)
+    jcb = JBC.ColumnBlocks.from_batches(batches, 256, 4)
+    fields = ("feat_local", "rows", "values", "labels")
+    for f in fields:
+        np.testing.assert_array_equal(getattr(tcb, f), getattr(jcb, f))
+    assert (tcb.num_keys, tcb.block_size, tcb.num_examples) == (
+        jcb.num_keys, jcb.block_size, jcb.num_examples)
+    src = tmp_path / "a.svm"
+    TS.write_libsvm(src, labels, keys, vals)
+    fp = TBC.source_fingerprint([str(src)], "libsvm", 256, 4, 512)
+    assert fp == JBC.source_fingerprint([str(src)], "libsvm", 256, 4, 512)
+    TBC.save_column_blocks(tmp_path / "t", tcb, fp)
+    JBC.save_column_blocks(tmp_path / "j", jcb, fp)
+    assert (tmp_path / "t" / "meta.json").read_text() == (tmp_path / "j" / "meta.json").read_text()
+    for load, d in ((JBC.load_column_blocks, "t"), (TBC.load_column_blocks, "j")):
+        got = load(tmp_path / d, fp)
+        for f in fields:
+            np.testing.assert_array_equal(np.asarray(getattr(got, f)), getattr(tcb, f))
+
+
+@pytest.mark.parametrize("fmt", ["libsvm", "adfea"])
+def test_iter_flat_rows_matches_jax_python_backend(tmp_path, fmt, monkeypatch):
+    from parameter_server_tpu.data import native as JN
+
+    monkeypatch.setattr(JN, "native_available", lambda: False)
+    labels, keys, vals, _ = TS.make_sparse_logistic(80, 300, nnz_per_example=5, seed=9)
+    path = tmp_path / "a.txt"
+    if fmt == "libsvm":
+        TS.write_libsvm(path, labels, keys, vals)
+    else:  # adfea: "line_id clicked fid:slot ..."
+        with open(path, "w") as f:
+            for i, (y, k) in enumerate(zip(labels, keys)):
+                f.write(f"{i} {int(y)} " + " ".join(f"{int(x)}:{int(x) % 7}" for x in k) + "\n")
+    got = list(TR.iter_flat_rows([path], fmt))
+    want = list(JR.iter_flat_rows([path], fmt))
+    assert len(got) == len(want) == 1
+    for a, b in zip(got[0], want[0]):
+        if b is None:
+            assert a is None
+        else:
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    assert (got[0][4] is None) == (fmt == "libsvm")

@@ -58,6 +58,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     # the control plane and the cluster's entry points, and their copies
     assert {f"{PKG}.utils.heartbeat", f"{PKG}.parallel.workload", f"{PKG}.cli"} <= set(
         res["imported"])
+    # the batch solver, its block cache, and the sketch and graph apps
+    assert {f"{PKG}.models.{m}" for m in ("darlin", "graph_partition", "sketch")} | {
+        f"{PKG}.data.blockcache"} <= set(res["imported"])
     assert res["leaked"] == []
     assert res["jax"] == []
 
@@ -199,3 +202,11 @@ def test_entry_points_default_to_cuda():
     assert MatrixFactorization(8, 8, rank=4, device="cpu").device == torch.device("cpu")
     assert WideDeep(64, emb_dim=4, device="cpu").device == torch.device("cpu")
     assert Word2Vec(64, dim=4, device="cpu").device == torch.device("cpu")
+    from parameter_server_tpu_torch.models.darlin import Darlin
+    from parameter_server_tpu_torch.models.graph_partition import GraphPartition
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        Darlin(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        GraphPartition(cfg)
+    assert GraphPartition(cfg, device="cpu").state["presence"].device == torch.device("cpu")

@@ -184,8 +184,8 @@ def test_cli_refuses_unported_paths(tmp_path, argv, match):
 
 
 @pytest.mark.parametrize("section", [
-    {"app": "graph_partition"}, {"solver": {"algo": "darlin"}},
-    {"app": "sketch"}, {"trace": {"trace_dir": "t"}},
+    {"profile": {"hz": 10}}, {"timeseries": {"metrics_port": 9100}},
+    {"app": "sketch", "trace": {"trace_dir": "t"}}, {"trace": {"trace_dir": "t"}},
 ])
 def test_cli_refuses_unported_config(tmp_path, section):
     app_file = tmp_path / "cfg.json"

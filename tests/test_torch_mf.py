@@ -119,12 +119,26 @@ def test_state_dict_round_trip_and_checks():
 
 @pytest.mark.parametrize("kw,match", [
     ({"mesh": object(), "push_mode": "quantized"}, "push_mode"),
-    ({"push_mode": "aggregate"}, "not ported yet"),
     ({"steps_per_call": 0}, "steps_per_call"),
 ])
 def test_unported_and_bad_options_raise(kw, match):
     with pytest.raises((NotImplementedError, ValueError), match=match):
         TM.MatrixFactorization(4, 4, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("push_mode", ["aggregate", "quantized"])
+def test_push_mode_is_ignored_on_one_device_like_jax(push_mode):
+    """One device: the JAX app stores push_mode and never reads it; the
+    port accepts it too, and trains as with per_worker (RMSE rtol 1e-4,
+    as test_train_epoch_rmse_matches_jax)."""
+    users, items, r = make_ratings(94, 62, n_obs=2000, seed=6)
+    j, t = _apps(eta=0.1, l2=0.01, push_mode=push_mode)
+    _, ref = _apps(eta=0.1, l2=0.01)
+    for ep in range(2):
+        a = j.train_epoch(users, items, r, batch_size=256, seed=ep)
+        b = t.train_epoch(users, items, r, batch_size=256, seed=ep)
+        np.testing.assert_allclose(b, a, rtol=1e-4)
+        assert ref.train_epoch(users, items, r, batch_size=256, seed=ep) == b
 
 
 @pytest.mark.parametrize("max_delay", [0, 2])
@@ -277,11 +291,28 @@ def test_cli_train_matrix_fac_matches_jax(tmp_path, capsys):
     assert tz["user_factors"].shape == (n_u, 8)
 
 
+def test_cli_train_matrix_fac_aggregate_on_one_device_matches_jax(tmp_path, capsys):
+    """parallel.push_mode = "aggregate" on one device: the JAX CLI runs it
+    (the app ignores the setting), and so does the port's, with the same
+    RMSEs (rtol 1e-4, as test_cli_train_matrix_fac_matches_jax)."""
+    app_file, _ = _cli_data(tmp_path)
+    cfg = json.loads(app_file.read_text())
+    cfg["parallel"] = {"push_mode": "aggregate"}
+    cfg["solver"]["epochs"] = 4
+    app_file.write_text(json.dumps(cfg))
+    assert JC.main(["train", "--app_file", str(app_file)]) == 0
+    jout = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert TC.main(["train", "--app_file", str(app_file), "--device", "cpu"]) == 0
+    tout = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for k in ("train_rmse", "val_rmse"):
+        np.testing.assert_allclose(tout[k], jout[k], rtol=1e-4)
+    assert tout["val_examples"] == jout["val_examples"] == 500
+
+
 @pytest.mark.parametrize("argv,section", [
     (["train", "--ckpt_dir", "ck"], {}),
     (["train", "--ckpt_dir", "ck"], {"parallel": {"data_shards": 2, "kv_shards": 4}}),
     (["evaluate", "--model", "m.npz"], {}),
-    (["train"], {"parallel": {"push_mode": "aggregate"}}),
 ])
 def test_cli_matrix_fac_refuses_unsupported(tmp_path, argv, section):
     app_file = tmp_path / "cfg.json"
