@@ -239,13 +239,44 @@ the script exits nonzero without printing a result:
              alone timed. (f) sketch (host code) through `cli train` on
              phase 13's files, equal to the CPU run. DARLIN_END_RTOL says
              which passes of two solves are held to what.
+16. native parser, dynamic pool, tracing and the black box — (a) the
+             native parser (data/native.py: g++ builds native/parser.cpp
+             into _build/; the phase fails, printing g++'s log, if it does
+             not load) over phase 13's 8 libsvm files and one Criteo-format
+             file of the same rows: keys, slots and splits equal to the
+             port's Python parsers bit for bit, values within NATIVE_RTOL;
+             MB/s of each parser; hash_localize of a file's 8192 x 32 keys
+             into 2^24 equal to the numpy localizer, both timed; then
+             LinearMethod at phase 4's width fed by MinibatchReader(backend=
+             "native") and "python" over the 8 files: the first 3 losses
+             within E2E_RTOL, K2 once a step, each run's time parse
+             included. (b) PodTrainer.train_files_dynamic on a world of one
+             on NCCL against a Coordinator in a thread, per_worker, 2 epochs
+             over the 8 files: every item done once, the weights and epoch
+             rows equal train_files' on the same files (E2E_RTOL), K1 once a
+             step; then a 2x1 world of `cli train --device cuda
+             --dist_backend gloo --pool_coordinator ... --pool_serve` ranks
+             sharing the card, its pool Coordinator under POOL_PLAN: every
+             workload done once pod-wide (each rank counts 2 x 8 x 8192
+             examples), both replicas evaluate alike, the loss falls, both
+             ranks launched K1. (c) Phase 13 (a)'s launch with trace_dir and
+             blackbox_dir: trace and psbb/1 files from all 4 nodes, spans
+             from each, a push's trace id from the worker's rpc.push into a
+             server's rpc.serve.push, the model equal to phase 13 (a)'s
+             untraced card model (E2E_RTOL), K1 once an apply batch; a
+             server process with the recorder armed takes TERM_PUSHES
+             pushes and SIGTERM: its psbb/1 dump names the signal and holds
+             rpc.in, apply.begin and apply.commit events; phase 12 (a)'s 24
+             pushes unarmed and with tracing and the recorder armed in this
+             process, pushes/s and p50/p99 of each logged, not gated.
 
 Launch counters are reset just before each of phases 4-7, the round trip
 of phase 8, the training runs of phases 9 and 10, each mode of phase
-11 (a), each arm of phases 12 and 14 and phase 15, and read just after;
-phase 11 (b)'s, 13's and 15 (c)'s ranks and nodes start from 0 in their
-own processes and print their counts: each must have launched its
-kernels (phases 10 and 15: none). The line before the last is the kernels' JSON summary;
+11 (a), each arm of phases 12 and 14, phase 15, and phase 16's worker
+runs, pool runs and wire arms, and read just after; phase 11 (b)'s, 13's,
+15 (c)'s and 16's ranks and nodes start from 0 in their own processes and
+print their counts: each must have launched its kernels (phases 10 and
+15: none). The line before the last is the kernels' JSON summary;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -509,6 +540,23 @@ DARLIN_RTOL, DARLIN_MESH_RTOL, DARLIN_END_RTOL, DARLIN_DELAY_BOUND = 1e-4, 2e-4,
 # MiB); (f) the sketch app on phase 13's files, the [sketch] defaults with
 # a heavy-hitter threshold of SKETCH_MIN_COUNT
 GRAPH_KEYS, GRAPH_PARTITIONS, SKETCH_MIN_COUNT = 1 << 24, 8, 100
+# phase 16: the native parser, the dynamic pool, tracing and the black box.
+# (a) The native parser against the port's Python parsers over phase 13's 8
+# files and one Criteo-format file of the same rows: keys, slots and splits
+# bit for bit, values within NATIVE_RTOL (the JAX tests/test_native.py
+# tolerance); then LinearMethod at phase 4's width fed by each. (b) The
+# dynamic pool over the same files for POOL_EPOCHS epochs: a world of one on
+# NCCL, then a 2x1 world of `cli train` gloo ranks sharing the card whose
+# pool Coordinator runs under POOL_PLAN from POOL_SEED (the plan and seed
+# JAX tests/test_multihost.py arms its pool Coordinator with), within
+# POOL_TIMEOUT_S. (c) Phase 13 (a)'s launch with tracing and the black box
+# armed on every node; a server process sent SIGTERM after
+# TERM_PUSHES pushes; phase 12 (a)'s pushes with both planes armed in
+# this process, beside the same pushes unarmed (logged, not gated)
+NATIVE_RTOL = 1e-6
+POOL_EPOCHS, POOL_SEED, POOL_TIMEOUT_S = 2, 97, 300
+POOL_PLAN = "disconnect,prob=0.04;duplicate,prob=0.04;delay,prob=0.05,delay_s=0.005"
+TERM_PUSHES = 3
 
 
 def log(msg: str) -> None:
@@ -2701,6 +2749,7 @@ def phase_cluster() -> dict:
                                      f"{r['dead_workers']}")
         out["launches"]["cluster_a_ftrl_push"] = cluster_launches("cluster (a)", a,
                                                                   "ftrl_push", 1)
+        out["model_a"] = w["ftrl", "cuda"]  # phase 16 (c) holds its traced launch to it
         d = res["adagrad", "cuda"]
         moved_d = check_moved("cluster (d) AdaGrad model_out, card vs CPU",
                               w["adagrad", "cuda"], w["adagrad", "cpu"],
@@ -3773,6 +3822,517 @@ def phase_darlin_apps(dev, labels, keys, vals) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the native parser, the dynamic pool, tracing and the black box
+# ---------------------------------------------------------------------------
+
+
+def sync(device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def criteo_file(path: Path, ids: np.ndarray, y: np.ndarray) -> Path:
+    """Phase 13's rows in the Criteo layout: a row's first 13 ids as the
+    integer columns, the other 19 as hex categorical columns, 7 left
+    empty."""
+    with open(path, "w") as f:
+        for lab, row in zip(y, ids.tolist()):
+            cats = [format(k, "x") for k in row[13:]] + [""] * (39 - len(row))
+            f.write("\t".join([str(int(lab))] + [str(k) for k in row[:13]] + cats) + "\n")
+    return path
+
+
+def python_flat(fmt: str, path) -> tuple:
+    """One file's flat rows (labels, splits, keys, vals, slots) from the
+    port's Python row parsers (data/libsvm.py), as the reader's Python path
+    builds them."""
+    from parameter_server_tpu_torch.data.libsvm import iter_format
+    from parameter_server_tpu_torch.data.native import SLOTLESS_FORMATS
+
+    labels, lens, keys, vals, slots = [], [], [], [], []
+    for label, k, v, s in iter_format(fmt, path):
+        labels.append(label)
+        lens.append(len(k))
+        keys.append(k)
+        vals.append(v)
+        slots.append(s)
+    return (np.asarray(labels, np.float32),
+            np.concatenate([[0], np.cumsum(lens)]).astype(np.int64),
+            np.concatenate(keys).astype(np.uint64), np.concatenate(vals).astype(np.float32),
+            None if fmt in SLOTLESS_FORMATS else np.concatenate(slots).astype(np.uint64))
+
+
+def native_flat(native, fmt: str, path) -> tuple:
+    """One file's native chunks joined into one flat tuple."""
+    chunks = list(native.iter_chunks(path, fmt))
+    splits, base = [np.zeros(1, np.int64)], 0
+    for c in chunks:
+        splits.append(c[1][1:] + base)
+        base += int(c[1][-1])
+    return (np.concatenate([c[0] for c in chunks]), np.concatenate(splits),
+            np.concatenate([c[2] for c in chunks]), np.concatenate([c[3] for c in chunks]),
+            None if chunks[0][4] is None else np.concatenate([c[4] for c in chunks]))
+
+
+def check_flat(name: str, got: tuple, want: tuple) -> None:
+    """Labels, splits, keys and slots bit for bit; values within NATIVE_RTOL."""
+    for field, a, b in zip(("labels", "splits", "keys", "vals", "slots"), got, want):
+        if b is None:
+            if a is not None:
+                raise AssertionError(f"{name}: native slots where the Python parser has none")
+        elif a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{name} {field}: {a.dtype}{a.shape} vs {b.dtype}{b.shape}")
+        elif field == "vals":
+            if not np.allclose(a, b, rtol=NATIVE_RTOL, atol=0.0):
+                raise AssertionError(f"{name} values differ beyond rtol {NATIVE_RTOL}")
+        elif not np.array_equal(a, b):
+            raise AssertionError(f"{name} {field} differ")
+
+
+def phase_native(files: list, criteo: Path, device: str) -> dict:
+    """Phase 16 (a): the native parser and localizer against the Python
+    ones, their rates, and the linear worker fed by each."""
+    from parameter_server_tpu_torch.data import native
+    from parameter_server_tpu_torch.data.reader import MinibatchReader
+    from parameter_server_tpu_torch.models.linear import LinearMethod
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.utils.hashing import hash_keys
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("native parser unavailable; g++ said:\n" + native.build_log())
+    log(f"native parser built in {time.perf_counter() - t0:.2f} s: "
+        f"{native.library_path().name} ({' '.join(native.CXX_FLAGS)})")
+    out: dict = {"mb_per_s": {}}
+    for fmt, paths in (("libsvm", files), ("criteo", [criteo])):
+        nbytes = sum(p.stat().st_size for p in paths)
+        t0 = time.perf_counter()
+        nat = [native_flat(native, fmt, p) for p in paths]
+        t_nat = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        py = [python_flat(fmt, p) for p in paths]
+        t_py = time.perf_counter() - t0
+        for p, a, b in zip(paths, nat, py):
+            check_flat(f"native {fmt} {p.name}", a, b)
+        out["mb_per_s"][fmt] = {"native": nbytes / t_nat / 1e6, "python": nbytes / t_py / 1e6,
+                                "bytes": nbytes, "rows": sum(len(a[0]) for a in nat),
+                                "entries": sum(len(a[2]) for a in nat)}
+        log(f"native parse {fmt}: {len(paths)} file(s), {nbytes} bytes, "
+            f"{out['mb_per_s'][fmt]['rows']} rows, equal to the Python parser (values "
+            f"within rtol {NATIVE_RTOL}); native {t_nat:.3f} s "
+            f"({out['mb_per_s'][fmt]['native']:.1f} MB/s), Python {t_py:.3f} s "
+            f"({out['mb_per_s'][fmt]['python']:.1f} MB/s)")
+    # the localizer at the worker's width: one file's BATCH x NNZ_PER keys
+    keys = native_flat(native, "libsvm", files[0])[2]
+    t0 = time.perf_counter()
+    got = native.hash_localize(keys, None, WORKER_KEYS)
+    t_loc = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = np.unique(hash_keys(keys, WORKER_KEYS, slot_ids=0), return_inverse=True)
+    t_np = time.perf_counter() - t0
+    if got is None or not (np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])):
+        raise AssertionError("native hash_localize differs from the numpy localizer")
+    out["localize"] = {"entries": len(keys), "unique": len(got[0]), "native_s": t_loc,
+                       "numpy_s": t_np}
+    log(f"native hash_localize of {len(keys)} keys into {WORKER_KEYS}: {len(got[0])} unique, "
+        f"equal to numpy's; {t_loc * 1e3:.2f} ms native, {t_np * 1e3:.2f} ms numpy")
+    # the linear worker at phase 4's width, fed by each parser
+    cfg = worker_cfg()
+    hist, launches, secs = {}, {}, {}
+    for backend in ("python", "native"):
+        rep = ProgressReporter(print_fn=lambda s: None)
+        app = LinearMethod(cfg, reporter=rep, device=device)
+        reader = MinibatchReader([str(f) for f in files], "libsvm", app.make_builder(),
+                                 backend=backend)
+        sync(device)
+        fk.reset_launches()
+        t0 = time.perf_counter()
+        app.train(reader, report_every=1)
+        sync(device)
+        secs[backend] = time.perf_counter() - t0
+        launches[backend] = fk.LAUNCHES["ftrl_delta"]
+        hist[backend] = rep.history
+        del app
+    steps = len(hist["native"])
+    if steps != len(files) or len(hist["python"]) != steps:
+        raise AssertionError(f"native-fed worker: {steps} steps, Python-fed "
+                             f"{len(hist['python'])}, want {len(files)}")
+    if launches["native"] != steps:
+        raise AssertionError(f"native-fed worker launched ftrl_delta {launches['native']} "
+                             f"times in {steps} steps")
+    for step, (a, b) in enumerate(zip(hist["native"][:E2E_STEPS], hist["python"])):
+        if not np.isclose(a["objv"], b["objv"], rtol=E2E_RTOL, atol=0.0):
+            raise AssertionError(f"native-fed worker step {step}: loss {a['objv']} vs the "
+                                 f"Python-fed {b['objv']}")
+    out["worker"] = {b: {"seconds": secs[b], "step_s": secs[b] / steps,
+                         "ex_per_s": steps * BATCH / secs[b], "launches": launches[b]}
+                     for b in secs}
+    out["launches"] = {"native_worker_ftrl_delta": launches["native"]}
+    log(f"native-fed worker ok: {steps} steps of {BATCH} (parse included) in "
+        f"{secs['native']:.3f} s native vs {secs['python']:.3f} s Python-fed; the first "
+        f"{E2E_STEPS} losses agree within E2E_RTOL; ftrl_delta launched once a step")
+    return out
+
+
+def pool_cli_ranks(root: Path, tmp: Path, files: list, val: Path, device: str) -> list:
+    """A 2x1 world of `cli train --pool_coordinator --pool_serve` ranks on
+    ``device`` (gloo: the ranks share one card); rank 0 hosts the pool,
+    under POOL_PLAN. Returns each rank's (progress rows, result)."""
+    conf = cluster_conf(files, val, max_delay=1, epochs=POOL_EPOCHS)
+    conf["parallel"] = {"data_shards": 2, "kv_shards": 1}
+    app = tmp / "pool2x1.json"
+    app.write_text(json.dumps(conf))
+    store, pool = free_ports(2)
+    env = {**os.environ, "PYTHONPATH": str(root), "OMP_NUM_THREADS": "1",
+           "PS_FAULT_PLAN": POOL_PLAN, "PS_FAULT_SEED": str(POOL_SEED)}
+    procs = []
+    for r in range(2):
+        argv = [sys.executable, "-m", "parameter_server_tpu_torch.cli", "train",
+                "--app_file", str(app), "--device", device,
+                "--coordinator", f"127.0.0.1:{store}", "--num_processes", "2",
+                "--process_id", str(r), "--report_interval", "1",
+                "--pool_coordinator", f"127.0.0.1:{pool}", "--pool_serve"]
+        if device == "cuda":
+            argv += ["--dist_backend", "gloo"]
+        out, err = tmp / f"pool.{r}.out", tmp / f"pool.{r}.err"
+        with open(out, "w") as fo, open(err, "w") as fe:
+            procs.append((subprocess.Popen(argv, cwd=root, env=env, stdout=fo, stderr=fe),
+                          out, err))
+    deadline = time.perf_counter() + POOL_TIMEOUT_S
+    try:
+        while any(p.poll() is None for p, _, _ in procs):
+            if any(p.poll() not in (None, 0) for p, _, _ in procs):
+                break
+            if time.perf_counter() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for p, _, _ in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if any(p.returncode for p, _, _ in procs):
+        raise AssertionError("pool 2x1 world failed:\n" + "\n".join(
+            f"rank {r} (exit {p.returncode}): {err.read_text()[-1500:]}"
+            for r, (p, _, err) in enumerate(procs)))
+    res = []
+    for p, out, _ in procs:
+        lines = out.read_text().rstrip().splitlines()
+        res.append((progress_rows(lines[:-1]), json.loads(lines[-1])))
+    return res
+
+
+def pool_rank_launches(results: list) -> int:
+    """Every rank of the 2x1 pool world launched K1; returns their sum."""
+    got = [r["launches"]["ftrl_push"] for _, r in results]
+    if not all(n > 0 for n in got):
+        raise AssertionError(f"pool 2x1 world: ftrl_push launches {got}")
+    return sum(got)
+
+
+def phase_pool(files: list, val: Path, tmp: Path, device: str) -> dict:
+    """Phase 16 (b): PodTrainer.train_files_dynamic on a world of one
+    against a Coordinator in a thread, beside train_files; then the 2x1
+    `cli train` world under a plan on its pool Coordinator."""
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.parallel import runtime
+    from parameter_server_tpu_torch.parallel.control import Coordinator
+    from parameter_server_tpu_torch.parallel.trainer import PodTrainer
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    cfg = worker_cfg()
+    cfg.solver.epochs = POOL_EPOCHS
+    items = POOL_EPOCHS * len(files)
+    paths = sorted(str(f) for f in files)
+    out: dict = {"launches": {}}
+    rt = runtime.init(None, cfg=cfg, device=device)  # NCCL on the card, a world of one
+    port = free_ports(1)[0]
+    coord = Coordinator("127.0.0.1", port)
+    try:
+        runs = {}
+        for arm in ("dynamic", "static"):
+            rep = ProgressReporter(print_fn=lambda s: None)
+            t = PodTrainer(cfg, runtime=rt, reporter=rep)
+            sync(device)
+            fk.reset_launches()
+            t0 = time.perf_counter()
+            if arm == "dynamic":
+                t.train_files_dynamic(paths, f"127.0.0.1:{port}", report_every=len(files))
+            else:
+                t.train_files(paths, report_every=len(files))
+            sync(device)
+            runs[arm] = {"seconds": time.perf_counter() - t0, "rows": rep.history,
+                         "launches": fk.LAUNCHES["ftrl_push"],
+                         "steps": t.clock.progress()["max_finished"] + 1,
+                         "examples": t.examples_seen,
+                         "weights": torch.from_numpy(t.full_weights().ravel())}
+            del t
+        st = coord._pool.stats()
+    finally:
+        coord.stop()
+        rt.shutdown()
+    dyn, static = runs["dynamic"], runs["static"]
+    if (st["pending"], st["active"], st["done"], st["attempts"]) != (0, 0, items, items):
+        raise AssertionError(f"pool world of one: pool stats {st}")
+    if dyn["examples"] != items * BATCH:
+        raise AssertionError(f"pool world of one: {dyn['examples']} examples, want "
+                             f"{items * BATCH}")
+    if dyn["launches"] != dyn["steps"] or dyn["steps"] < items:
+        raise AssertionError(f"pool world of one: ftrl_push launched {dyn['launches']} "
+                             f"times in {dyn['steps']} steps")
+    err = check_e2e("pool world of one: dynamic vs static weights", dyn["weights"],
+                    static["weights"])
+    if len(dyn["rows"]) != len(static["rows"]):
+        raise AssertionError(f"pool world of one: {len(dyn['rows'])} progress rows vs "
+                             f"{len(static['rows'])}")
+    for a, b in zip(dyn["rows"], static["rows"]):
+        for key in ("objv", "auc"):
+            if not np.isclose(a[key], b[key], rtol=E2E_RTOL, atol=0.0):
+                raise AssertionError(f"pool world of one: {key} {a[key]} vs static {b[key]}")
+    out["launches"]["pool_1x1_dynamic_ftrl_push"] = dyn["launches"]
+    out["world_of_one"] = {
+        "pool": st, "steps": dyn["steps"], "seconds": dyn["seconds"],
+        "static_seconds": static["seconds"], "max_abs_err_over_scale": err,
+        "objv": [r["objv"] for r in dyn["rows"]]}
+    log(f"pool world of one ok: {items} items each done once ({st}); weights and epoch "
+        f"rows equal train_files' within E2E_RTOL (max abs err {err:.3g} of scale); "
+        f"ftrl_push once a step ({dyn['launches']} in {dyn['steps']} steps); "
+        f"{dyn['seconds']:.3f} s dynamic vs {static['seconds']:.3f} s static")
+    # the CLI world: 2 data rows share the pool by demand under the plan
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    ranks = pool_cli_ranks(root, tmp, files, val, device)
+    t_world = time.perf_counter() - t0
+    # rank 0's rows of real steps (a drained pod's inert steps print rows
+    # that add no example)
+    rows0 = [r for i, r in enumerate(ranks[0][0])
+             if r["examples"] > (ranks[0][0][i - 1]["examples"] if i else 0)]
+    for r, (_, res) in enumerate(ranks):
+        if res["examples"] != items * BATCH or res["mesh"] != {"data": 2, "kv": 1}:
+            raise AssertionError(f"pool 2x1 rank {r}: {res['examples']} examples on "
+                                 f"{res['mesh']}, want {items * BATCH}")
+    if ranks[0][1]["val_logloss"] != ranks[1][1]["val_logloss"]:
+        raise AssertionError("pool 2x1: the ranks' replicas evaluate differently")
+    if not rows0 or not rows0[-1]["objv"] < rows0[0]["objv"]:
+        raise AssertionError(f"pool 2x1: loss did not fall: {[r.get('objv') for r in rows0]}")
+    out["launches"]["pool_2x1_cli_ftrl_push"] = pool_rank_launches(ranks)
+    out["cli_2x1"] = {"seconds": t_world, "objv_first": rows0[0]["objv"],
+                      "objv_last": rows0[-1]["objv"], "val_auc": ranks[0][1]["val_auc"],
+                      "rpc_retries": [res["rpc_retries"] for _, res in ranks],
+                      "rpc_reconnects": [res["rpc_reconnects"] for _, res in ranks]}
+    log(f"pool 2x1 cli world ok in {t_world:.1f} s: every workload done once pod-wide "
+        f"({items * BATCH} examples on each rank), the replicas agree, loss "
+        f"{rows0[0]['objv']:.6g} -> {rows0[-1]['objv']:.6g}, val AUC "
+        f"{ranks[0][1]['val_auc']:.6f}; retries {out['cli_2x1']['rpc_retries']}, "
+        f"reconnects {out['cli_2x1']['rpc_reconnects']}; ftrl_push on both ranks")
+    return out
+
+
+TERM_SERVER = """
+import os, sys, time
+sys.path.insert(0, sys.argv[1])
+from parameter_server_tpu_torch.kv.updaters import Ftrl
+from parameter_server_tpu_torch.parallel.multislice import ShardServer
+from parameter_server_tpu_torch.utils import flightrec
+from parameter_server_tpu_torch.utils.keyrange import KeyRange
+flightrec.configure(os.environ[flightrec.BLACKBOX_DIR_ENV], process_name="server-term",
+                    flush_interval_s=0.2)
+srv = ShardServer(Ftrl(), KeyRange(0, int(sys.argv[2])), device=sys.argv[3]).start()
+print("ADDR", srv.address, flush=True)
+while True:
+    time.sleep(1)
+"""
+
+
+def sigterm_server(root: Path, tmp: Path, device: str) -> dict:
+    """A server process over the worker's key space, the flight recorder
+    armed, takes TERM_PUSHES pushes of 4096 drawn keys and then SIGTERM:
+    its dump is a psbb/1 box naming the signal, with the frames it received
+    and its apply batches."""
+    import signal
+
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle
+    from parameter_server_tpu_torch.utils.config import PSConfig
+
+    rng = np.random.default_rng(SEED + 16)
+    pushes = []
+    for _ in range(TERM_PUSHES):
+        k = np.unique(rng.integers(1, WORKER_KEYS, 4096))
+        pushes.append((k, rng.normal(size=len(k)).astype(np.float32)))
+    box = tmp / "bb-term"
+    box.mkdir()
+    env = {**os.environ, "PS_BLACKBOX_DIR": str(box)}
+    p = subprocess.Popen([sys.executable, "-c", TERM_SERVER, str(root), str(WORKER_KEYS),
+                          device], cwd=root, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.PIPE, text=True)
+    try:
+        line = p.stdout.readline()
+        if not line.startswith("ADDR "):
+            raise AssertionError(f"SIGTERM server did not start: {p.stderr.read()[-1500:]}")
+        h = ServerHandle(line.split()[1], 0, 0, PSConfig(), range_size=WORKER_KEYS,
+                         device=device)
+        try:
+            for k, g in pushes:
+                h.push(k, g)
+        finally:
+            h.close()
+        p.send_signal(signal.SIGTERM)
+        code = p.wait(timeout=60)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        p.stdout.close()
+        p.stderr.close()
+    if code != -signal.SIGTERM:
+        raise AssertionError(f"SIGTERM server exited {code}")
+    dumps = list(box.glob("blackbox-server-term-*.json"))
+    if len(dumps) != 1:
+        raise AssertionError(f"SIGTERM server left {dumps}")
+    doc = json.loads(dumps[0].read_text())
+    etypes = [e[2] for e in doc["events"]]
+    need = {"rpc.in", "apply.begin", "apply.commit", "rcu.publish", "signal"}
+    if doc["schema"] != "psbb/1" or f"signal:{int(signal.SIGTERM)}" not in doc[
+            "trigger_reasons"] or not need <= set(etypes):
+        raise AssertionError(f"SIGTERM dump: schema {doc['schema']}, reasons "
+                             f"{doc['trigger_reasons']}, events {sorted(set(etypes))}")
+    commits = etypes.count("apply.commit")
+    if commits < len(pushes):
+        raise AssertionError(f"SIGTERM dump: {commits} apply commits for {len(pushes)} pushes")
+    log(f"SIGTERM server ok: {len(pushes)} pushes, then SIGTERM: a psbb/1 dump "
+        f"({dumps[0].stat().st_size} bytes) naming signal {int(signal.SIGTERM)}, with "
+        f"{etypes.count('rpc.in')} rpc.in, {etypes.count('apply.begin')} apply.begin and "
+        f"{commits} apply.commit events")
+    return {"events": len(etypes), "apply_commits": commits}
+
+
+def phase_traced(files: list, val: Path, tmp: Path, rounds: list, model_a, device: str) -> dict:
+    """Phase 16 (c): phase 13 (a)'s launch with tracing and the black box
+    armed on every node; a SIGTERM'd server's box; phase 12 (a)'s pushes
+    with both planes armed in this process beside the same unarmed."""
+    from parameter_server_tpu_torch.kv.updaters import Ftrl
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.parallel.backend import local_socket_backend
+    from parameter_server_tpu_torch.parallel.multislice import launch_local
+    from parameter_server_tpu_torch.utils import flightrec, trace
+    from parameter_server_tpu_torch.utils.checkpoint import load_weights_text
+    from parameter_server_tpu_torch.utils.config import PSConfig
+
+    root = Path(__file__).resolve().parent
+    out: dict = {"launches": {}}
+    app = tmp / "traced.json"
+    app.write_text(json.dumps(cluster_conf(files, val)))
+    tdir, bdir = tmp / "trace", tmp / "bb"
+    t0 = time.perf_counter()
+    c = launch_local(str(app), CLUSTER_SERVERS, 1, model_out=str(tmp / "traced.txt"),
+                     timeout=CLUSTER_TIMEOUT_S, device=device, trace_dir=str(tdir),
+                     blackbox_dir=str(bdir))
+    t_launch = time.perf_counter() - t0
+    w = torch.from_numpy(load_weights_text(tmp / "traced.txt", WORKER_KEYS))
+    err = check_e2e("traced cluster model vs phase 13 (a)'s untraced card model", w, model_a)
+    out["launches"]["cluster_traced_ftrl_push"] = cluster_launches("traced cluster", c,
+                                                                   "ftrl_push", 1)
+    nodes = ["scheduler-0", "server-0", "server-1", "worker-0"]
+    files_t = {n: list(tdir.glob(f"trace-{n}-*.json")) for n in nodes}
+    boxes = {n: list(bdir.glob(f"blackbox-{n}-*.json")) for n in nodes}
+    if not all(len(v) == 1 for v in (*files_t.values(), *boxes.values())):
+        raise AssertionError(f"traced cluster: trace files {files_t}, boxes {boxes}")
+    merged = json.loads(Path(trace.merge_trace_dir(str(tdir))).read_text())["traceEvents"]
+    spans = [e for e in merged if e["ph"] == "X"]
+    pids = {n: json.loads(files_t[n][0].read_text())["traceEvents"][0]["pid"] for n in nodes}
+    by_pid = {pid: {e["name"] for e in spans if e["pid"] == pid} for pid in pids.values()}
+    if not all(by_pid[pid] for pid in pids.values()):
+        raise AssertionError(f"traced cluster: a node recorded no span: {by_pid}")
+    client = {e["args"]["trace_id"]: e["args"]["span_id"] for e in spans
+              if e["name"] == "rpc.push" and e["pid"] == pids["worker-0"]}
+    joined = [e for e in spans if e["name"] == "rpc.serve.push"
+              and e["pid"] in (pids["server-0"], pids["server-1"])
+              and client.get(e["args"]["trace_id"]) == e["args"].get("parent_id")]
+    if not joined:
+        raise AssertionError("traced cluster: no server rpc.serve.push joined a worker "
+                             "rpc.push's trace")
+    for n in nodes:
+        doc = json.loads(boxes[n][0].read_text())
+        if doc["schema"] != "psbb/1" or not doc["events"]:
+            raise AssertionError(f"traced cluster: {n}'s box {doc['schema']}, "
+                                 f"{len(doc['events'])} events")
+    out["cluster"] = {"seconds": t_launch, "max_abs_err_over_scale": err, "spans": len(spans),
+                      "joined_pushes": len(joined), "span_names": sorted(
+                          {e["name"] for e in spans}),
+                      "apply_batches": [st["apply_batches"] for st in c["server_stats"]]}
+    log(f"traced cluster ok in {t_launch:.1f} s: {len(spans)} spans from all 4 nodes; "
+        f"{len(joined)} pushes carry one trace id from the worker's rpc.push into a "
+        f"server's rpc.serve.push; 4 psbb/1 boxes; the model equals phase 13 (a)'s "
+        f"untraced card model (max abs err {err:.3g} of scale); K1 = apply batches "
+        f"{out['cluster']['apply_batches']}")
+    out["sigterm"] = sigterm_server(root, tmp, device)
+    pushes = [(k, g) for idx_list, grad_list in rounds for k, g in zip(idx_list, grad_list)]
+
+    # phase 12 (a)'s pushes, unarmed and then with both planes armed here
+    def ftrl():
+        return Ftrl(alpha=HYPER["alpha"], beta=HYPER["beta"], lambda_l1=HYPER["l1"],
+                    lambda_l2=HYPER["l2"])
+
+    out["wire"] = {}
+    for arm in ("unarmed", "armed"):
+        if arm == "armed":
+            trace.configure(str(tmp / "trace-wire"), process_name="wire")
+            flightrec.configure(str(tmp / "bb-wire"), process_name="wire",
+                                watchdog_interval_s=60)
+        be = local_socket_backend(ftrl, SERVER_KEYS, WIRE_SERVERS, cfg=PSConfig(),
+                                  device=device)
+        try:
+            res = wire_deterministic(f"FTRL server {arm}", be, pushes, ftrl, 1, "ftrl_push",
+                                     fk.LAUNCHES, IndexAudit())
+        finally:
+            be.close()
+            if arm == "armed":
+                res["spans"] = len(trace.tracer.events())
+                res["events"] = len(flightrec.events())
+                trace.configure(None)
+                flightrec.configure(None)
+        out["wire"][arm] = res
+        out["launches"][f"wire_{arm}_ftrl_push"] = res["launches"]
+        del be
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    wu, wa = out["wire"]["unarmed"], out["wire"]["armed"]
+    log(f"wire pushes, tracing and the recorder armed: {wa['pushes_per_s']:.1f} pushes/s "
+        f"(p50 {wa['latency']['p50_ms']:.3f} / p99 {wa['latency']['p99_ms']:.3f} ms; "
+        f"{wa['spans']} trace events, {wa['events']} recorder events) beside "
+        f"{wu['pushes_per_s']:.1f} pushes/s unarmed (p50 {wu['latency']['p50_ms']:.3f} / "
+        f"p99 {wu['latency']['p99_ms']:.3f} ms), {len(pushes)} pushes each (logged, not "
+        f"gated)")
+    return out
+
+
+def phase_native_pool_traced(rounds: list, model_a, device: str = "cuda") -> dict:
+    """Phase 16: (a) the native parser, (b) the dynamic pool, (c) tracing
+    and the black box, over phase 13's files."""
+    t_phase = time.perf_counter()
+    ids, y = zipf_rows()
+    with tempfile.TemporaryDirectory() as tmp_s:
+        tmp = Path(tmp_s)
+        files = zipf_row_files(tmp, ids, y, with_val=True)
+        files, val = files[:-1], files[-1]
+        criteo = criteo_file(tmp / "rows.criteo", ids[:len(files) * BATCH],
+                             y[:len(files) * BATCH])
+        out = {"native": phase_native(files, criteo, device)}
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        out["pool"] = phase_pool(files, val, tmp, device)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        out["traced"] = phase_traced(files, val, tmp, rounds, model_a, device)
+    out["launches"] = {**out["native"]["launches"], **out["pool"]["launches"],
+                       **out["traced"]["launches"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 16 ok in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4246,6 +4806,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     # 15. darlin, graph_partition, sketch: plain ops, no kernel
     phase_darlin_apps(dev, labels, keys, vals)
+    torch.cuda.empty_cache()
+    # 16. the native parser, the dynamic pool, tracing and the black box
+    p16 = phase_native_pool_traced(rounds, cluster.pop("model_a"))
+    p16l = p16["launches"]
 
     kernels["ftrl_push"]["max_abs_err"] = max(kernels["ftrl_push"]["max_abs_err"], err_wd_k1,
                                               pod["err"]["ftrl_push"])
@@ -4268,7 +4832,12 @@ def main() -> int:
         "cluster_recovery": cl["cluster_c_ftrl_push"],
         "cluster_chaos": cl["cluster_e_ftrl_push"],
         "chaos_ftrl_server": csl["chaos_ftrl_server"],
-        "serving_writer": csl["serving_writer"]}
+        "serving_writer": csl["serving_writer"],
+        "pool_1x1_dynamic": p16l["pool_1x1_dynamic_ftrl_push"],
+        "pool_2x1_cli": p16l["pool_2x1_cli_ftrl_push"],
+        "cluster_traced": p16l["cluster_traced_ftrl_push"],
+        "wire_unarmed": p16l["wire_unarmed_ftrl_push"],
+        "wire_armed": p16l["wire_armed_ftrl_push"]}
     kernels["ftrl_push"]["wire"] = {"server": wire["ftrl"], "concurrent_sgd": wire["concurrent"],
                                     "train_linear": wire["train_linear"],
                                     "train_linear_checks": wire["train_linear_checks"]}
@@ -4284,7 +4853,8 @@ def main() -> int:
         "pod_1x1_aggregate": pl["pod_1x1_aggregate"]["ftrl_delta"],
         "pod_2x2_aggregate": pl["pod_2x2_linear_method-aggregate"]["ftrl_delta"],
         "pod_1x1_wd_aggregate": pl["pod_1x1_wd_aggregate"]["ftrl_delta"],
-        "pod_2x2_wd_aggregate": pl["pod_2x2_wide_deep-aggregate"]["ftrl_delta"]}
+        "pod_2x2_wd_aggregate": pl["pod_2x2_wide_deep-aggregate"]["ftrl_delta"],
+        "native_worker": p16l["native_worker_ftrl_delta"]}
     kernels["ftrl_delta"]["launches"] = sum(kernels["ftrl_delta"]["launches_by_path"].values())
     kernels["ftrl_delta"]["shard"] = pod["times"]["k2_shard"]
     wd_agg = pod["times"]["pod_1x1_wd_aggregate"]

@@ -19,6 +19,14 @@ that share one card need ``gloo``). Rank 0 writes ``--model_out`` and
 ``--ckpt_dir``. (The JAX package runs mesh darlin on one process's device
 mesh and refuses ``--coordinator``; a mesh here is a world of ranks.)
 
+``--pool_coordinator host:port`` (a mesh run only) takes the files from
+the wire tier's dynamic workload pool instead of the static split;
+``--pool_serve`` has rank 0 host that Coordinator. ``--trace_dir`` (or
+``[trace] trace_dir``) arms tracing and ``[blackbox] dir`` the flight
+recorder in ``train``; ``node`` arms both from the config or the
+inherited ``PS_TRACE_DIR`` / ``PS_BLACKBOX_DIR``, which ``launch
+--trace_dir/--blackbox_dir`` set for every node it spawns.
+
 ``convert`` parses the config's files once into the columnar block cache
 (``data/blockcache.py``) that darlin reads instead of the text when
 ``data.cache_dir`` names it; either package's cache loads in the other.
@@ -97,11 +105,23 @@ def _build_parser() -> argparse.ArgumentParser:
         "--audit_quantized", action="store_true",
         help="hold every quantized push to its rounding bounds; counts in the result",
     )
-    # options of the JAX CLI's pool and tracing paths: accepted so command
-    # lines stay interchangeable, refused when set
-    tr.add_argument("--pool_coordinator", default="")
-    tr.add_argument("--pool_serve", action="store_true")
-    tr.add_argument("--trace_dir", default="")
+    # tier composition: dynamic file assignment from the wire tier's
+    # Coordinator instead of the static per-row split
+    tr.add_argument(
+        "--pool_coordinator", default="",
+        help="host:port of a wire-tier Coordinator assigning files "
+        "dynamically across the pod's data rows (PodTrainer.train_files_dynamic)",
+    )
+    tr.add_argument(
+        "--pool_serve", action="store_true",
+        help="rank 0 hosts the pool Coordinator at --pool_coordinator itself",
+    )
+    tr.add_argument(
+        "--trace_dir", default="",
+        help="arm distributed tracing (utils/trace.py): spans exported as "
+        "Chrome trace-event JSON into this dir; overrides config [trace] "
+        "trace_dir and PS_TRACE_DIR",
+    )
 
     cv = sub.add_parser(
         "convert",
@@ -172,9 +192,11 @@ def _build_parser() -> argparse.ArgumentParser:
         "wins over [fault] fault_plan and PS_FAULT_PLAN",
     )
     nd.add_argument("--fault_seed", type=int, default=0)
-    # the JAX CLI's tracing option: accepted so command lines stay
-    # interchangeable, refused when set
-    nd.add_argument("--trace_dir", default="")
+    nd.add_argument(
+        "--trace_dir", default="",
+        help="arm distributed tracing on this node (overrides config "
+        "[trace] trace_dir and PS_TRACE_DIR)",
+    )
 
     la = sub.add_parser("launch", help="spawn a local multi-process run (ref: script/local.sh)")
     la.add_argument("--app_file", required=True)
@@ -187,8 +209,18 @@ def _build_parser() -> argparse.ArgumentParser:
         help="chaos spec armed on every spawned node (PS_FAULT_PLAN)",
     )
     la.add_argument("--fault_seed", type=int, default=0)
-    la.add_argument("--trace_dir", default="")
-    la.add_argument("--blackbox_dir", default="")
+    la.add_argument(
+        "--trace_dir", default="",
+        help="arm distributed tracing on every spawned node (PS_TRACE_DIR): "
+        "each exports a Chrome trace-event JSON into this dir; merge with "
+        "utils/trace.py merge_trace_dir",
+    )
+    la.add_argument(
+        "--blackbox_dir", default="",
+        help="arm the flight recorder + stall watchdog on every spawned node "
+        "(PS_BLACKBOX_DIR): each leaves a psbb/1 dump for the JAX package's "
+        "`cli postmortem` to merge",
+    )
     return p
 
 
@@ -196,18 +228,52 @@ def _check_ported(cfg: PSConfig) -> None:
     """Refuse the config settings of paths the port does not have yet."""
     if cfg.app not in _KNOWN_APPS:
         raise SystemExit(f"unknown app {cfg.app!r}; known: {sorted(_KNOWN_APPS)}")
-    if cfg.trace.trace_dir or cfg.profile.hz > 0 or cfg.timeseries.metrics_port:
-        raise _not_ported("tracing, profiling and the metrics endpoint")
+    if cfg.profile.hz > 0 or cfg.timeseries.metrics_port:
+        raise _not_ported("profiling and the metrics endpoint")
+
+
+def _arm_train(cfg: PSConfig) -> None:
+    """Arm this ``cli train`` process's planes: tracing from ``[trace]``
+    (``--trace_dir`` already folded in) as the JAX CLI arms it, and the
+    black box from ``[blackbox] dir``. A pod run's ranks share the dirs:
+    each file carries its pid."""
+    if cfg.trace.trace_dir:
+        from parameter_server_tpu_torch.utils import trace
+
+        trace.configure(
+            cfg.trace.trace_dir, capacity=cfg.trace.capacity,
+            process_name="train", sample=cfg.trace.sample,
+            tail=cfg.trace.tail, tail_k=cfg.trace.tail_k,
+            tail_limbo=cfg.trace.tail_limbo,
+        )
+    if cfg.blackbox.dir:
+        from parameter_server_tpu_torch.utils import flightrec
+
+        flightrec.configure(
+            cfg.blackbox.dir, capacity=cfg.blackbox.capacity,
+            process_name="train",
+            flush_interval_s=cfg.blackbox.flush_interval_s,
+            watchdog_interval_s=cfg.blackbox.watchdog_interval_s,
+            stall_timeout_s=cfg.blackbox.stall_timeout_s,
+        )
 
 
 def run_train(cfg: PSConfig, args: argparse.Namespace) -> dict:
     _check_ported(cfg)
-    if args.pool_coordinator or args.pool_serve:
-        raise _not_ported("the dynamic workload pool (--pool_*)")
-    if args.trace_dir:
-        raise _not_ported("--trace_dir")
     if not cfg.data.files:
         raise SystemExit("config data.files is empty")
+    if args.pool_coordinator and not (
+        cfg.app == "linear_method"
+        and cfg.solver.algo != "darlin"
+        and (args.coordinator or cfg.parallel.data_shards * cfg.parallel.kv_shards > 1)
+    ):
+        # silently ignoring the flag would leave other pod ranks parked on
+        # a coordinator this process never starts or contacts
+        raise SystemExit(
+            "--pool_coordinator requires the pod training path "
+            "(linear_method with a >1x1 parallel mesh or --coordinator)"
+        )
+    _arm_train(cfg)
     # graph_partition and sketch: one process, as the JAX package runs
     # them (mesh settings and flags unread)
     if cfg.app == "graph_partition":
@@ -303,7 +369,9 @@ def _run_sharded(cfg: PSConfig, args: argparse.Namespace, run) -> dict:
 
 def _run_train_pod(cfg: PSConfig, args: argparse.Namespace, rt) -> dict:
     """linear_method on a mesh: PodTrainer over this rank's cell. Every rank
-    gathers the weights for ``--model_out``; rank 0 writes them."""
+    gathers the weights for ``--model_out``; rank 0 writes them. With
+    ``--pool_coordinator`` the files come from the wire tier's dynamic
+    pool (``--pool_serve``: rank 0 hosts its Coordinator)."""
     from parameter_server_tpu_torch.parallel.trainer import PodTrainer
     from parameter_server_tpu_torch.utils.checkpoint import dump_weights_text
 
@@ -312,7 +380,29 @@ def _run_train_pod(cfg: PSConfig, args: argparse.Namespace, rt) -> dict:
         if not args.ckpt_dir:
             raise SystemExit("--resume requires --ckpt_dir")
         trainer.load(args.ckpt_dir)
-    out = dict(trainer.train_files(cfg.data.files, report_every=args.report_interval) or {})
+    if args.pool_coordinator:
+        pool_coord = None
+        try:
+            if args.pool_serve and rt.process_index == 0:
+                from parameter_server_tpu_torch.parallel.control import Coordinator
+
+                host, port = args.pool_coordinator.rsplit(":", 1)
+                pool_coord = Coordinator(host, int(port))
+            out = dict(trainer.train_files_dynamic(
+                cfg.data.files, args.pool_coordinator,
+                report_every=args.report_interval,
+            ) or {})
+        finally:
+            # reached on errors too: a rank that skipped the barrier would
+            # park every other rank in it, and an unstopped Coordinator
+            # would leak its thread (a failing rank's world teardown in
+            # _run_sharded releases the others)
+            rt.barrier()  # pool_shutdown: every rank finished fetching
+            if pool_coord is not None:
+                pool_coord.stop()
+    else:
+        out = dict(trainer.train_files(cfg.data.files, report_every=args.report_interval)
+                   or {})
     if args.ckpt_dir:
         trainer.save(args.ckpt_dir)
     if args.model_out:
@@ -625,14 +715,10 @@ def run_backend(cfg: PSConfig, args: argparse.Namespace) -> dict:
 
 def _check_cluster(cfg: PSConfig, args: argparse.Namespace) -> None:
     """Refuse what the cluster path (``node``, ``launch``) has not ported:
-    other apps, tracing and the black box."""
+    other apps, the profiler and the metrics endpoint."""
     _check_ported(cfg)
     if cfg.app != "linear_method":
         raise _not_ported(f"the cluster path for app {cfg.app!r}")
-    if args.trace_dir:
-        raise _not_ported("--trace_dir")
-    if getattr(args, "blackbox_dir", ""):
-        raise _not_ported("--blackbox_dir")
 
 
 def run_node_cmd(cfg: PSConfig, args: argparse.Namespace) -> dict:
@@ -661,6 +747,7 @@ def run_launch(cfg: PSConfig, args: argparse.Namespace) -> dict:
     return launch_local(
         args.app_file, args.num_servers, args.num_workers, args.model_out,
         device=args.device, fault_plan=args.fault_plan, fault_seed=args.fault_seed,
+        trace_dir=args.trace_dir, blackbox_dir=args.blackbox_dir,
     )
 
 
@@ -670,6 +757,10 @@ def main(argv: list[str] | None = None) -> int:
         raise _not_ported(f"the {argv[0]!r} subcommand")
     args = _build_parser().parse_args(argv)
     cfg = load_config(args.app_file)
+    if getattr(args, "trace_dir", ""):
+        # the flag wins over the config and the ambient env; run_node and
+        # cli train arm from cfg (launch passes it to every node's env)
+        cfg.trace.trace_dir = args.trace_dir
     run = {"train": run_train, "convert": run_convert, "evaluate": run_evaluate,
            "backend": run_backend, "node": run_node_cmd, "launch": run_launch}[args.cmd]
     out = run(cfg, args)

@@ -10,8 +10,9 @@ kv.store):
   - padded CSR entries have ``value == 0`` and point at unique slot 0, row 0.
   - padded example rows have ``label == 0`` and ``example_mask == False``.
 
-The localizer here is the numpy one; the JAX package's native C++
-localizer produces the same arrays bit for bit and is not ported yet.
+The localizer is the native C++ kernel (``data/native.py``
+``hash_localize``, hash + sort-unique with the GIL released) when its
+library loads, else numpy; both give the same arrays bit for bit.
 """
 
 from __future__ import annotations
@@ -232,18 +233,33 @@ class BatchBuilder:
             nnz = int(keep.sum())
             splits_src = None  # row structure changed; rederive below
 
-        # Localizer: unique + inverse, with the pad key forced into slot 0
-        if self.key_mode == "hash":
-            salts = flat_slots if flat_slots is not None else 0
-            gids = hash_keys(flat_keys, self.num_keys, slot_ids=salts)
+        # Localizer: unique + inverse, with the pad key forced into slot 0.
+        # The native kernel fuses hash + sort-unique with the GIL released;
+        # the numpy path below is the exact-parity fallback.
+        from parameter_server_tpu_torch.data import native as _native
+
+        nat = (
+            _native.hash_localize(
+                flat_keys, flat_slots, self.num_keys,
+                identity=self.key_mode != "hash",
+            )
+            if nnz
+            else None
+        )
+        if nat is not None:
+            uniq, inverse = nat
         else:
-            gids = np.asarray(flat_keys, dtype=np.int64) + 1
-            if nnz and gids.max() >= self.num_keys:
-                raise ValueError(
-                    f"identity key {gids.max() - 1} >= num_keys-1; "
-                    "grow num_keys or use key_mode='hash'"
-                )
-        uniq, inverse = np.unique(gids, return_inverse=True)
+            if self.key_mode == "hash":
+                salts = flat_slots if flat_slots is not None else 0
+                gids = hash_keys(flat_keys, self.num_keys, slot_ids=salts)
+            else:
+                gids = np.asarray(flat_keys, dtype=np.int64) + 1
+                if nnz and gids.max() >= self.num_keys:
+                    raise ValueError(
+                        f"identity key {gids.max() - 1} >= num_keys-1; "
+                        "grow num_keys or use key_mode='hash'"
+                    )
+            uniq, inverse = np.unique(gids, return_inverse=True)
 
         key_dtype = (
             np.int32 if self.num_keys <= np.iinfo(np.int32).max else np.int64

@@ -45,8 +45,12 @@ current coalesced-reply backlog that the shard servers shed on. A client
 with ``adaptive_window`` shapes its in-flight window from its own
 completion-latency histogram.
 
-Trimmed from the JAX module: the flight recorder, tracing, the watchdog
-and the latency histograms' export; the coordinator's time series, SLO
+The flight recorder (``rpc.in``/``rpc.out`` a frame on the server,
+``rpc.issue``/``rpc.reply`` and the heal transitions on the client),
+tracing (the client's ``rpc.<cmd>`` span sends its ``_trace`` context in
+the header; the server's ``rpc.serve.<cmd>`` span joins it, a JAX
+client's too) and the watchdog probes are the JAX module's. Trimmed from
+it: the latency histograms' export; the coordinator's time series, SLO
 engine and audit plane (its ``telemetry`` reply carries ``nodes``,
 ``coordinator`` and a counters-only ``merged`` view; ``audit`` answers
 "not ported yet"). The process-global ``wire_counters``
@@ -72,6 +76,8 @@ import numpy as np
 from parameter_server_tpu_torch.parallel.chaos import FaultPlan
 from parameter_server_tpu_torch.parallel.ssp import SSPClock
 from parameter_server_tpu_torch.parallel.workload import WorkloadPool
+from parameter_server_tpu_torch.utils import flightrec, trace
+from parameter_server_tpu_torch.utils.flightrec import watchdog
 from parameter_server_tpu_torch.utils.heartbeat import HeartbeatMonitor
 from parameter_server_tpu_torch.utils.metrics import (
     Histogram,
@@ -847,6 +853,13 @@ class RpcServer:
         ) -> None:
             nonlocal hi_n, lo_n, hi_frames, lo_frames
             fb, n = build_frame(rep, rep_arrays, bin_hdr=bin_hdr)
+            # flight recorder: the reply side of the frame ledger (the
+            # request side records at dispatch) — rseq is the caller's
+            # seq echo, the postmortem's stitch key
+            flightrec.record(
+                "rpc.out", rseq=rep.get("_rseq"),
+                ok=rep.get("ok", True), n=n,
+            )
             if hi:
                 hi_bufs.extend(fb)
                 hi_n += n
@@ -978,8 +991,7 @@ class RpcServer:
                     time.sleep(fault.delay_s)
                 cid = header.pop("_cid", None)
                 seq = header.pop("_seq", None)
-                # a JAX client's span identity: tracing is not ported
-                header.pop("_trace", None)
+                tctx = header.pop("_trace", None)  # caller's span identity
                 # codec negotiation: the reply rides the request's codec
                 # (echo — a binary request proves the peer decodes binary);
                 # a JSON request advertising _bh gets _bh acked back so the
@@ -997,6 +1009,11 @@ class RpcServer:
                     else None
                 )
                 cmd_name = header.get("cmd", "?")
+                # flight recorder: every received frame with its dedup
+                # identity — what the postmortem stitches across processes
+                flightrec.record(
+                    "rpc.in", cmd=cmd_name, cid=cid, seq=seq, n=nbytes,
+                )
                 # copy BEFORE dispatch: handlers mutate the header (pop cmd)
                 dup_header = (
                     dict(header)
@@ -1010,11 +1027,18 @@ class RpcServer:
                     flush_replies()  # see blocking_cmds in __init__
                 t_svc = time.perf_counter()
                 try:
-                    rep, rep_arrays = self._dispatch(cid, seq, header, arrays)
-                    if dup_header is not None:
-                        # the same frame delivered twice: without dedup
-                        # this double-applies (the copy's reply discarded)
-                        self._dispatch(cid, seq, dup_header, arrays)
+                    # activate() binds the wire-borne trace context so the
+                    # dispatch span (and any handler spans under it) joins
+                    # the client's trace — one logical push is one trace id
+                    # across processes, a JAX client's included
+                    with trace.activate(tctx), trace.span(
+                        f"rpc.serve.{cmd_name}", cat="rpc", bytes_in=nbytes
+                    ):
+                        rep, rep_arrays = self._dispatch(cid, seq, header, arrays)
+                        if dup_header is not None:
+                            # the same frame delivered twice: without dedup
+                            # this double-applies (the copy's reply discarded)
+                            self._dispatch(cid, seq, dup_header, arrays)
                 except RpcServer.Shutdown:
                     try:
                         settle_deferred()
@@ -1292,6 +1316,7 @@ class RpcClient:
         self._adapt_last: dict[str, Any] | None = None
         self._adapt_n = 0
         self._adapt_peak = 0
+        self._completed_n = 0  # watchdog probe: replies matched to futures
         self._ema_p50 = 0.0
         self._hdr_bin = hdr_codec == "bin"
         self._bin_gen_ok = False  # this connection negotiated binary
@@ -1403,6 +1428,11 @@ class RpcClient:
         self._conn_died(sock, gen)
 
     def _complete(self, p: _PendingCall, rep: dict[str, Any], arrays: Arrays) -> None:
+        self._completed_n += 1  # GIL-atomic; feeds the stall probe
+        flightrec.record(
+            "rpc.reply", cmd=p.cmd, cid=self._cid, seq=p.seq,
+            ok=rep.get("ok", True),
+        )
         if self._adaptive:
             # client-observed latency: queueing + wire + service + any
             # transparent retries/reconnects this call absorbed
@@ -1475,6 +1505,9 @@ class RpcClient:
     def _conn_died(self, sock: socket.socket, gen: int) -> None:
         """A connection failed under its reader (or a sender): tear it
         down and, when requests are stranded in flight, run the heal."""
+        flightrec.record(
+            "rpc.conn_died", addr=self._address, cid=self._cid, gen=gen,
+        )
         heal = False
         with self._cv:
             if self._closed or self._gen != gen:
@@ -1501,6 +1534,25 @@ class RpcClient:
         owns ``self._healing``. On an exhausted window every pending
         future fails with ConnectionError."""
         wire_counters.inc("rpc_retries")
+        trace.instant("rpc.retry", cat="rpc", addr=self._address)
+        if trace.enabled():
+            # the heal usually runs on a reader/writer thread with no
+            # live span: mark the retry on EVERY stranded call's OWN
+            # trace (explicit ctx), so tail capture's anomaly gate
+            # promotes the traces that actually absorbed this reconnect
+            with self._cv:
+                tctxs = [
+                    p.header.get("_trace") for p in self._pending.values()
+                ]
+            for tctx in tctxs:
+                if tctx:
+                    trace.instant(
+                        "rpc.retry", cat="rpc", ctx=tctx,
+                        addr=self._address,
+                    )
+        flightrec.record(
+            "rpc.heal.begin", addr=self._address, cid=self._cid,
+        )
         deadline = time.monotonic() + self._reconnect_timeout_s
         attempt = 0
         while True:
@@ -1554,6 +1606,7 @@ class RpcClient:
                 )
                 return
             wire_counters.inc("rpc_reconnects")
+            trace.instant("rpc.reconnect", cat="rpc", addr=self._address)
             try:
                 # one coalesced gather: the whole stranded window resends
                 # in a single write, same seqs (dedup makes it exactly-once)
@@ -1609,12 +1662,19 @@ class RpcClient:
                     ))
                     return
                 continue
+            flightrec.record(
+                "rpc.healed", addr=self._address, cid=self._cid,
+                resent=len(pend),
+            )
             return
 
     def _abort_heal(self, exc: Exception) -> None:
         """Fail every pending future and release the heal. Futures complete
         OUTSIDE the lock: a done-callback may issue a follow-up call on
         this client, and ``_cv`` is not reentrant."""
+        flightrec.record(
+            "rpc.heal.failed", addr=self._address, cid=self._cid,
+        )
         with self._cv:
             failed = list(self._pending.values())
             self._pending.clear()
@@ -1650,70 +1710,79 @@ class RpcClient:
         already-admitted logical call (the need_keys bounce), which may
         run on the reader thread and must never block on window space
         that same thread is responsible for freeing."""
-        with self._cv:
-            if not _urgent:
-                self._cv.wait_for(
-                    lambda: self._closed
-                    or len(self._pending) < self._eff_window
+        with trace.span(f"rpc.{cmd}", cat="rpc", addr=self._address):
+            # propagate this span's identity in the header so the server's
+            # dispatch span joins the same trace
+            ctx = trace.wire_context()
+            with self._cv:
+                if not _urgent:
+                    self._cv.wait_for(
+                        lambda: self._closed
+                        or len(self._pending) < self._eff_window
+                    )
+                if self._closed:
+                    raise ConnectionError(
+                        f"client to {self._address} is closed"
+                    )
+                if _seq is None:
+                    _seq = self._next_seq
+                    self._next_seq += 1
+                header = {"cmd": cmd, "_cid": self._cid, "_seq": _seq, **fields}
+                if self._hdr_bin and not self._bin_gen_ok:
+                    # codec advert: ask the peer to confirm binary headers
+                    # (ignored by old servers, acked by new ones)
+                    header["_bh"] = 1
+                if self._features and not self._feat_gen_ok:
+                    # feature advert (see __init__): repeats until the
+                    # first ack; old servers leave it in the header,
+                    # where every handler ignores it
+                    header["_feat"] = sorted(self._features)
+                if ctx is not None:
+                    header["_trace"] = ctx
+                p = _PendingCall(_seq, cmd, header, arrays, _retry)
+                self._pending[_seq] = p
+                flightrec.record(
+                    "rpc.issue", cmd=cmd, cid=self._cid, seq=_seq,
                 )
-            if self._closed:
-                raise ConnectionError(
-                    f"client to {self._address} is closed"
+                if len(self._pending) > self._adapt_peak:
+                    self._adapt_peak = len(self._pending)
+                wire_counters.observe_max(
+                    "rpc_inflight_peak", len(self._pending)
                 )
-            if _seq is None:
-                _seq = self._next_seq
-                self._next_seq += 1
-            header = {"cmd": cmd, "_cid": self._cid, "_seq": _seq, **fields}
-            if self._hdr_bin and not self._bin_gen_ok:
-                # codec advert: ask the peer to confirm binary headers
-                # (ignored by old servers, acked by new ones)
-                header["_bh"] = 1
-            if self._features and not self._feat_gen_ok:
-                # feature advert (see __init__): repeats until the
-                # first ack; old servers leave it in the header,
-                # where every handler ignores it
-                header["_feat"] = sorted(self._features)
-            p = _PendingCall(_seq, cmd, header, arrays, _retry)
-            self._pending[_seq] = p
-            if len(self._pending) > self._adapt_peak:
-                self._adapt_peak = len(self._pending)
-            wire_counters.observe_max(
-                "rpc_inflight_peak", len(self._pending)
-            )
-            sock, gen = self._sock, self._gen
-            # fast path for LATENCY-bound callers (sync `call`): no
-            # unsent backlog and a live conn — claim and send inline,
-            # skipping the writer-thread handoff a lockstep caller
-            # would only pay latency for. THROUGHPUT-bound async
-            # callers skip it: their frames queue for the writer,
-            # whose batches coalesce into single gather writes (and
-            # arrive at the server as bursts its reply coalescing
-            # batches right back).
-            inline = (
-                _inline
-                and sock is not None
-                and not self._healing
-                and not any(
-                    q is not p and not q.sent and not q.future.done()
-                    for q in self._pending.values()
+                sock, gen = self._sock, self._gen
+                # fast path for LATENCY-bound callers (sync `call`): no
+                # unsent backlog and a live conn — claim and send inline,
+                # skipping the writer-thread handoff a lockstep caller
+                # would only pay latency for. THROUGHPUT-bound async
+                # callers skip it: their frames queue for the writer,
+                # whose batches coalesce into single gather writes (and
+                # arrive at the server as bursts its reply coalescing
+                # batches right back).
+                inline = (
+                    _inline
+                    and sock is not None
+                    and not self._healing
+                    and not any(
+                        q is not p and not q.sent and not q.future.done()
+                        for q in self._pending.values()
+                    )
                 )
-            )
-            use_bin = self._hdr_bin and self._bin_gen_ok
+                use_bin = self._hdr_bin and self._bin_gen_ok
+                if inline:
+                    p.sent = True
+                else:
+                    self._cv.notify_all()  # wake the connection's writer
             if inline:
-                p.sent = True
+                bufs, n = build_frame(p.header, p.arrays, bin_hdr=use_bin)
+                try:
+                    with self._send_lock:
+                        _send_gather(sock, bufs)
+                    with self._cv:
+                        self.bytes_out += n
+                except (ConnectionError, OSError):
+                    self._conn_died(sock, gen)  # heal resends the claim
             else:
-                self._cv.notify_all()  # wake the connection's writer
-        if inline:
-            bufs, n = build_frame(p.header, p.arrays, bin_hdr=use_bin)
-            try:
-                with self._send_lock:
-                    _send_gather(sock, bufs)
-                with self._cv:
-                    self.bytes_out += n
-            except (ConnectionError, OSError):
-                self._conn_died(sock, gen)  # heal resends the claim
-        else:
-            self._pump(p)
+                self._pump(p)
         return p.future
 
     def _pump(self, p: _PendingCall) -> None:
@@ -1803,6 +1872,18 @@ class RpcClient:
             cmd, arrays, _retry=_retry, _seq=_seq, _inline=True, **fields
         )
         return fut.result()
+
+    def stall_probe(self) -> tuple[bool, int]:
+        """Watchdog probe for data-plane clients (pull/push pipelines,
+        where no command legitimately parks): busy while requests are in
+        flight and no heal owns them; progress is matched completions.
+        Control clients (barrier/ssp_wait park by design) must NOT be
+        registered on this."""
+        with self._cv:
+            return (
+                bool(self._pending) and not self._healing and not self._closed,
+                self._completed_n,
+            )
 
     @property
     def identity(self) -> tuple[str, int]:
@@ -1939,6 +2020,10 @@ class Coordinator:
                 self._cv.notify_all()
             self._monitor.forget(nid)
             wire_counters.inc("workers_recovered")
+            flightrec.record(
+                "coord.dead_worker", rank=rank, node=nid,
+                requeued=len(requeued),
+            )
 
     # -- dispatch --------------------------------------------------------
 
@@ -2150,6 +2235,12 @@ class Coordinator:
         with self._cv:
             if self._clock is None:
                 self._clock = SSPClock(int(h["num_workers"]), int(h["max_delay"]))
+                # a wedged clock (workers parked, nothing finishing) is
+                # one of the stalls the watchdog exists to catch
+                watchdog.register(
+                    f"ssp-clock:{id(self._clock)}",
+                    self._clock.stall_probe,
+                )
         return {"ok": True}, {}
 
     def _cmd_ssp_wait(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
@@ -2176,6 +2267,9 @@ class Coordinator:
         if self._sweep_thread is not None:
             self._sweep_thread.join(timeout=5)
             self._sweep_thread = None
+        with self._cv:
+            if self._clock is not None:
+                watchdog.unregister(f"ssp-clock:{id(self._clock)}")
         self.server.stop()
 
 

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from parameter_server_tpu_torch.parallel.backend import PSBackend
+from parameter_server_tpu_torch.utils import flightrec
 from parameter_server_tpu_torch.utils.metrics import wire_counters
 
 #: rows of one kv shard: the push's local row indices are int32
@@ -139,6 +140,8 @@ class MeshBackend(PSBackend):
     def pull(self, keys: np.ndarray) -> np.ndarray:
         if len(keys) == 0:
             return np.zeros((0, self.vdim), np.float32)
+        # no pow-2 key bucket here: the bucket is the pull's own key count
+        flightrec.record("mesh.pull", keys=len(keys), bucket=len(keys))
         return self._finish_pull(self._issue_pull(keys))
 
     @staticmethod
@@ -153,6 +156,7 @@ class MeshBackend(PSBackend):
         if len(keys) == 0:
             f.set_result(np.zeros((0, self.vdim), np.float32))
             return f
+        flightrec.record("mesh.pull", keys=len(keys), bucket=len(keys))
         try:
             dev = self._issue_pull(keys)
         except BaseException as e:  # noqa: BLE001 — future boundary
@@ -179,6 +183,8 @@ class MeshBackend(PSBackend):
         lo, hi = int(bounds[self.mesh.k]), int(bounds[self.mesh.k + 1])
         if self._quant_bytes:
             q, qs, seg_q = self._encode_push(keys, g, bounds)
+            flightrec.record("mesh.push", keys=u, bytes=int(q.nbytes + qs.nbytes))
+            flightrec.record("mesh.apply", bucket=hi - lo, quant=self._quant_bytes)
             from parameter_server_tpu_torch.filters.quant import dequantize_flat
 
             row = self._to_device(q[self.mesh.k])
@@ -187,6 +193,8 @@ class MeshBackend(PSBackend):
             g_seg = g_seg.reshape(hi - lo, self.vdim)
         else:
             wire_counters.inc("mesh_push_payload_bytes", int(g.nbytes))
+            flightrec.record("mesh.push", keys=u, bytes=int(g.nbytes))
+            flightrec.record("mesh.apply", bucket=hi - lo, quant=0)
             g_seg = self._to_device(g[lo:hi])
         if hi > lo:
             idx = self._to_device(keys[lo:hi])

@@ -68,11 +68,19 @@ loop: segment sums on its device, pulls and pushes through a
 kills and restarts one). Every node runs on ``cuda`` unless asked for
 ``cpu``.
 
-Not ported yet: tracing, the black box, the profiler, the metrics
-endpoint and the audit spool. The JAX serving plane's observability
-(the per-range traffic and age matrix ``RangeScope``, ``key_heat``, the
-flight recorder, the serve-age histograms) is left out with them: a
-served row's realized age feeds one peak gauge, ``serve_age_us_peak``.
+Tracing and the black box are the JAX module's, at the same call sites
+with the same span names and recorder events: ``ps.pull``/``ps.push``
+(with their in-flight flows) on a handle, ``rpc.serve.<cmd>`` joined to
+the caller's trace and ``server.updater`` re-joined across the apply
+thread's hop on a server, ``step.*`` spans on a worker; ``rcu.publish``,
+``apply.begin``/``apply.commit``/``apply.replay`` and ``serve.shed`` on a
+server. ``launch_local(trace_dir=, blackbox_dir=)`` and ``run_node`` arm
+them. Not ported yet: the profiler, the metrics endpoint and the audit
+spool's consumer. The JAX serving plane's other observability (the
+per-range traffic and age matrix ``RangeScope``, ``key_heat``, the
+serve-age histograms) is left out with them: a served row's realized age
+feeds one peak gauge, ``serve_age_us_peak``, and the recorder's
+``freshness.serve`` event.
 """
 
 from __future__ import annotations
@@ -103,7 +111,14 @@ from parameter_server_tpu_torch.parallel.control import (
     RpcClient,
     RpcServer,
 )
-from parameter_server_tpu_torch.utils.config import PSConfig, ServeConfig, ServerConfig
+from parameter_server_tpu_torch.utils import flightrec, trace
+from parameter_server_tpu_torch.utils.config import (
+    PSConfig,
+    ServeConfig,
+    ServerConfig,
+    load_config,
+)
+from parameter_server_tpu_torch.utils.flightrec import watchdog
 from parameter_server_tpu_torch.utils.heartbeat import HeartbeatReporter, host_stats
 from parameter_server_tpu_torch.utils.keyrange import KeyRange
 from parameter_server_tpu_torch.utils.metrics import telemetry_snapshot, wire_counters
@@ -199,16 +214,20 @@ class _QueuedPush:
     its durable dedup identity, and the Future the deferred RPC reply
     resolves from."""
 
-    __slots__ = ("keys", "grad", "cid", "seq", "future", "t_enq")
+    __slots__ = ("keys", "grad", "cid", "seq", "future", "t_enq", "tctx")
 
     def __init__(
         self, keys: np.ndarray, grad: np.ndarray,
         cid: str | None, seq: str | None,
+        tctx: dict[str, str] | None = None,
     ):
         self.keys = keys
         self.grad = grad
         self.cid = cid
         self.seq = seq
+        # the dispatch span's wire identity (None untraced): the apply
+        # thread's server.updater span re-joins this push's trace
+        self.tctx = tctx
         self.future: Future = Future()
         # enqueue mark: the reply carries the queue wait (_apw_us)
         self.t_enq = time.perf_counter()
@@ -373,6 +392,9 @@ class ShardServer:
         ``_pub_lock``, in the same hold that issued the change."""
         self._version += 1
         self._pts = _now_us()
+        # flight recorder: every publish, whatever the writer — the
+        # postmortem's version-regression detector reads this stream
+        flightrec.record("rcu.publish", ver=self._version)
 
     # -- serving plane: overload signal + single-flight encode cache ------
 
@@ -485,23 +507,27 @@ class ShardServer:
         current stream before any later apply, so an apply issued after
         the locks are released is not in them. The device-to-host copy
         and the write run outside the locks."""
-        with self._lock, self._pub_lock:
-            state = {k: v.clone() for k, v in self.state.items()}
-            ledger = json.dumps(
-                {cid: list(per) for cid, per in self._applied_push.items()}
-            )
-        host = {k: v.cpu().numpy() for k, v in state.items()}
-        del state
-        with self._ckpt_write_lock:
-            os.makedirs(ckpt_dir, exist_ok=True)
-            path = self._ckpt_path(ckpt_dir)
-            tmp = path + ".tmp.npz"  # .npz: savez must not append one
-            np.savez(
-                tmp,
-                __push_ledger__=np.frombuffer(ledger.encode(), dtype=np.uint8),
-                **host,
-            )
-            os.replace(tmp, path)
+        with trace.span(
+            "server.checkpoint.save", cat="ckpt",
+            range=f"{self.range.begin}-{self.range.end}",
+        ):
+            with self._lock, self._pub_lock:
+                state = {k: v.clone() for k, v in self.state.items()}
+                ledger = json.dumps(
+                    {cid: list(per) for cid, per in self._applied_push.items()}
+                )
+            host = {k: v.cpu().numpy() for k, v in state.items()}
+            del state
+            with self._ckpt_write_lock:
+                os.makedirs(ckpt_dir, exist_ok=True)
+                path = self._ckpt_path(ckpt_dir)
+                tmp = path + ".tmp.npz"  # .npz: savez must not append one
+                np.savez(
+                    tmp,
+                    __push_ledger__=np.frombuffer(ledger.encode(), dtype=np.uint8),
+                    **host,
+                )
+                os.replace(tmp, path)
 
     def load_state(self, ckpt_dir: str) -> bool:
         """Load this range's dump if one exists; False when absent. The
@@ -510,7 +536,7 @@ class ShardServer:
         path = self._ckpt_path(ckpt_dir)
         if not os.path.exists(path):
             return False
-        with np.load(path) as z:
+        with trace.span("server.checkpoint.load", cat="ckpt"), np.load(path) as z:
             host = {k: z[k] for k in z.files}
         ledger_raw = host.pop("__push_ledger__", None)
         if set(host) != set(self.state) or any(
@@ -644,6 +670,21 @@ class ShardServer:
     def _start_apply_thread(self) -> None:
         if self._apply_q is None or self._apply_thread is not None:
             return
+        # watchdog: a non-advancing apply engine is THE server stall the
+        # flight recorder exists to catch — busy means work queued or a
+        # batch mid-apply; progress is the completed-batch counter. The
+        # id suffix keeps the name unique per server instance.
+        self._applying = False
+        self._wd_name = (
+            f"apply:{self.range.begin}-{self.range.end}:{id(self):x}"
+        )
+
+        def probe() -> tuple[bool, int]:
+            q = self._apply_q
+            busy = (q is not None and not q.empty()) or self._applying
+            return busy, self.counters["apply_batches"]
+
+        watchdog.register(self._wd_name, probe, thread_name="ps-apply")
         self._apply_thread = threading.Thread(
             target=self._apply_loop, daemon=True, name="ps-apply"
         )
@@ -670,6 +711,7 @@ class ShardServer:
         ConnectionError instead (see _fail_stopping)."""
         q = self._apply_q
         assert q is not None
+        trace.counter("server.apply_queue_depth", q.qsize() + 1)
         while True:
             if not self._apply_open:
                 self._fail_stopping(item)
@@ -693,37 +735,47 @@ class ShardServer:
         q = self._apply_q
         assert q is not None
         stop = self.server._stop
-        while not stop.is_set():
-            try:
-                first = q.get(timeout=0.2)
-            except queue_mod.Empty:
-                continue
-            batch = [first]
-            limit = self._eff_batch if self._adaptive_batch else self._max_batch
-            while len(batch) < limit:
+        try:
+            while not stop.is_set():
                 try:
-                    batch.append(q.get_nowait())
+                    first = q.get(timeout=0.2)
                 except queue_mod.Empty:
-                    break
-            if self._adaptive_batch:
-                self._adapt_batch(len(batch), q.qsize())
-            try:
-                self._apply_batch(batch)
-            except Exception:  # noqa: BLE001 — isolate the offender
-                # one malformed push (bad grad shape, poison payload) must
-                # not fail the innocent pushes it happened to coalesce
-                # with: each item re-runs as its own batch and only the
-                # offender's future fails (a failing batch raises before
-                # it mutates a table: coalescing and the device copies
-                # come first)
-                for p in batch:
-                    if p.future.done():
-                        continue
+                    continue
+                self._applying = True
+                try:
+                    batch = [first]
+                    limit = self._eff_batch if self._adaptive_batch else self._max_batch
+                    while len(batch) < limit:
+                        try:
+                            batch.append(q.get_nowait())
+                        except queue_mod.Empty:
+                            break
+                    if self._adaptive_batch:
+                        self._adapt_batch(len(batch), q.qsize())
                     try:
-                        self._apply_batch([p])
-                    except Exception as e1:  # noqa: BLE001
-                        if not p.future.done():
-                            p.future.set_exception(e1)
+                        self._apply_batch(batch)
+                    except Exception:  # noqa: BLE001 — isolate the offender
+                        # one malformed push (bad grad shape, poison
+                        # payload) must not fail the innocent pushes it
+                        # happened to coalesce with: each item re-runs as
+                        # its own batch and only the offender's future
+                        # fails (a failing batch raises before it mutates
+                        # a table: coalescing and the device copies come
+                        # first)
+                        for p in batch:
+                            if p.future.done():
+                                continue
+                            try:
+                                self._apply_batch([p])
+                            except Exception as e1:  # noqa: BLE001
+                                if not p.future.done():
+                                    p.future.set_exception(e1)
+                finally:
+                    self._applying = False
+        finally:
+            # the watchdog must stop probing a dead engine (and a
+            # re-start() after stop re-registers a fresh probe)
+            watchdog.unregister(self._wd_name)
         self._apply_open = False
         deadline = time.monotonic() + 0.5  # grace: racing enqueuers land
         while time.monotonic() < deadline:
@@ -756,8 +808,10 @@ class ShardServer:
         the batch's pushes, ONE updater apply over the union of touched
         rows, the whole batch recorded in the ledger in the same critical
         section."""
+        flightrec.record("apply.begin", pushes=len(batch))
         todo: list[_QueuedPush] = []
         dups: list[_QueuedPush] = []
+        commit_ver = 0
         t_apply0 = t_apply1 = 0.0
         with self._lock:
             seen: set[tuple[str | None, str | None]] = set()
@@ -768,6 +822,9 @@ class ShardServer:
                         # already applied (and ledgered): ack immediately
                         self._bump("push_replays")
                         wire_counters.inc("rpc_dedup_hits")
+                        flightrec.record(
+                            "apply.replay", cid=p.cid, seq=p.seq,
+                        )
                         if not p.future.done():
                             p.future.set_result(({"ok": True}, {}))
                         continue
@@ -787,12 +844,27 @@ class ShardServer:
                 idx, grad = kv_store.coalesce_pushes(
                     [p.keys for p in todo], [p.grad for p in todo]
                 )
-                self._apply(idx, grad)
-                for p in todo:
-                    if p.cid is not None:
-                        self._record_push(p.cid, p.seq)
+                with trace.span(
+                    "server.apply_batch", cat="ps",
+                    pushes=len(todo), keys=len(idx),
+                ):
+                    self._apply(idx, grad)
+                    for p in todo:
+                        if p.cid is not None:
+                            self._record_push(p.cid, p.seq)
+                    commit_ver = self._version  # the apply thread's own bump
         t_apply1 = time.perf_counter()
         apl_us = int(max(t_apply1 - t_apply0, 0.0) * 1e6) if todo else 0
+        if todo:
+            # the postmortem's acked-vs-applied ledger: every (cid, seq)
+            # this commit applied, against the version it produced (the
+            # full batch, never a slice)
+            flightrec.record(
+                "apply.commit", ver=commit_ver, pushes=len(todo),
+                pairs=[
+                    [p.cid, p.seq] for p in todo if p.cid is not None
+                ],
+            )
         with self._ctr_lock:
             self.counters["pushes"] += len(todo)
             self.counters["apply_batches"] += 1
@@ -800,6 +872,21 @@ class ShardServer:
             self.counters["push_coalesced"] += max(len(todo) - 1, 0)
         if len(todo) > 1:
             wire_counters.inc("push_coalesced", len(todo) - 1)
+        trace.counter("server.apply_batch_size", len(batch))
+        if trace.enabled():
+            # per-push updater spans re-join each caller's trace across
+            # the thread hop (one logical push is one trace id: client
+            # span -> dispatch span -> updater span). The marker fires
+            # after the batch applied, with the measured queue-wait and
+            # apply split as args
+            for p in todo:
+                with trace.activate(p.tctx), trace.span(
+                    "server.updater", cat="ps",
+                    keys=len(p.keys), batched=len(todo),
+                    apw_us=int(max(t_apply0 - p.t_enq, 0.0) * 1e6),
+                    apl_us=apl_us,
+                ):
+                    pass
         # dups resolve here too: the apply they waited on has happened.
         # The reply carries the queue wait (_apw_us) and the apply's host
         # time (_apl_us), as the JAX server's does.
@@ -853,6 +940,7 @@ class ShardServer:
                         # lost and the resend must not re-apply
                         self._bump("push_replays")
                         wire_counters.inc("rpc_dedup_hits")
+                        flightrec.record("apply.replay", cid=cid, seq=seq)
                         return {"ok": True}, {}
             keys = self._resolve_keys(h, arrays)
             if keys is None:
@@ -874,16 +962,25 @@ class ShardServer:
                 item = _QueuedPush(
                     _host_array(keys, np.int64), _host_array(g, np.float32),
                     cid, seq,
+                    # the dispatch span's identity: the apply thread's
+                    # server.updater span re-joins this push's trace
+                    tctx=trace.wire_context() if trace.enabled() else None,
                 )
                 self._enqueue_push(item)
                 return DeferredReply(item.future), {}
             # serial path ([server] apply_queue = 0): apply inline under
             # the apply lock
-            with self._lock:
-                self._apply(keys, g)
-                if cid is not None:
-                    self._record_push(cid, seq)
+            with trace.span("server.updater", cat="ps", keys=len(keys)):
+                with self._lock:
+                    self._apply(keys, g)
+                    if cid is not None:
+                        self._record_push(cid, seq)
+                    serial_ver = self._version
             self._bump("pushes")
+            flightrec.record(
+                "apply.commit", ver=serial_ver, pushes=1,
+                pairs=[[cid, seq]] if cid is not None else [],
+            )
             return {"ok": True}, {}
         if cmd == "dump":
             return {"ok": True, "begin": self.range.begin, "end": self.range.end}, {
@@ -953,6 +1050,7 @@ class ShardServer:
             self._bump("pulls")
             self._bump("shed")
             wire_counters.inc("serve_shed")
+            flightrec.record("serve.shed", sig=h.get("sig"))
             return {"ok": True, "not_modified": True, "shed": True,
                     "retry_after_ms": self._serve_cfg.retry_after_ms}, {}
         qn = int(h.get("quant", 0))
@@ -1178,6 +1276,16 @@ class ServerHandle:
         # calls: a reader thread completing a failed future must never run
         # the blocking reconnect loop itself
         self._recovery_pool: ThreadPoolExecutor | None = None
+        # watchdog: this handle's client carries only pull/push/dump/stats
+        # (nothing that legitimately parks), so in-flight requests whose
+        # completions stop moving mean a reader parked past every
+        # deadline. ``self.client`` is re-read per poll, so the probe
+        # follows recovery rebuilds.
+        self._wd_name = f"handle:{rank}:w{worker}:{id(self):x}"
+        watchdog.register(
+            self._wd_name, lambda: self.client.stall_probe(),
+            thread_name="ps-rpc-reader",
+        )
         if self._codec_bytes:
             from parameter_server_tpu_torch.filters.fixed_point import FixedPointCodec
 
@@ -1392,9 +1500,14 @@ class ServerHandle:
                 out_f.set_result(vals)
                 return out_f
         try:
-            inner = self._keyed_call_async(
-                "pull", local_keys, {}, **self._pull_fields(), **extra
-            )
+            with trace.span(
+                "ps.pull", cat="ps", rank=self.rank, keys=len(local_keys)
+            ):
+                flow = trace.flow_start("ps.pull.inflight", cat="ps")
+                ctx = trace.wire_context()
+                inner = self._keyed_call_async(
+                    "pull", local_keys, {}, **self._pull_fields(), **extra
+                )
         except BaseException:
             if own:
                 self._kcache.end_refresh(sig)
@@ -1403,6 +1516,8 @@ class ServerHandle:
         def done(f) -> None:
             # nothing may escape (see _keyed_call_async.on_reply)
             try:
+                with trace.activate(ctx):
+                    trace.flow_end("ps.pull.inflight", cat="ps", flow_id=flow)
                 rep, out = f.result()
                 if self._kcache is not None:
                     out_f.set_result(
@@ -1421,17 +1536,26 @@ class ServerHandle:
 
     def push_async(self, local_keys: np.ndarray, grads: np.ndarray):
         """Issue a push without blocking; the Future resolves (to None)
-        once the server acked the apply."""
+        once the server acked the apply. A flow event pair links the issue
+        span to the completion event (the in-flight arrow in Perfetto)."""
         done_f: Future = Future()
         if len(local_keys) == 0:
             done_f.set_result(None)
             return done_f
         fields, arrays = self._encode_push(local_keys, grads)
-        inner = self._keyed_call_async("push", local_keys, arrays, **fields)
+        with trace.span(
+            "ps.push", cat="ps", rank=self.rank, keys=len(local_keys),
+            bytes=int(sum(a.nbytes for a in arrays.values())),
+        ):
+            flow = trace.flow_start("ps.push.inflight", cat="ps")
+            ctx = trace.wire_context()
+            inner = self._keyed_call_async("push", local_keys, arrays, **fields)
 
         def done(f) -> None:
             # nothing may escape (see _keyed_call_async.on_reply)
             try:
+                with trace.activate(ctx):
+                    trace.flow_end("ps.push.inflight", cat="ps", flow_id=flow)
                 f.result()
                 if self._kcache is not None:
                     # second, ack-time invalidation: the server defers the
@@ -1614,12 +1738,17 @@ class ServerHandle:
 
     # -- client-side versioned key cache (serving handles only) -----------
 
-    @staticmethod
-    def _book_serve_age(age_us: float) -> None:
-        """Book the realized data age one serve handed its consumer. The
-        JAX handle feeds its serve-age histogram and range matrix (not
-        ported); here it feeds the peak gauge ``serve_age_us_peak``."""
+    def _book_serve_age(self, age_us: float, src: str) -> None:
+        """Book the realized data age one serve handed its consumer
+        (``src``: cache, stale, shed, revalidate, pull). The JAX handle
+        feeds its serve-age histogram and range matrix (not ported); here
+        it feeds the peak gauge ``serve_age_us_peak`` and, as in JAX, the
+        flight recorder."""
         wire_counters.observe_max("serve_age_us_peak", int(max(float(age_us), 0.0)))
+        flightrec.record(
+            "freshness.serve", rank=self.rank, src=src,
+            age_us=int(age_us),
+        )
 
     def _cache_try(
         self, local_keys: np.ndarray
@@ -1644,7 +1773,7 @@ class ServerHandle:
             return None, {"sv": 1}, sig, None, False, gen
         if self._kcache.fresh(ent):
             wire_counters.inc("serve_cache_hits")
-            self._book_serve_age(ent.age_us())
+            self._book_serve_age(ent.age_us(), "cache")
             # a copy: callers own their rows, the cache stays pristine
             return ent.values.copy(), {}, sig, ent, False, gen
         if not self._kcache.begin_refresh(sig):
@@ -1652,7 +1781,7 @@ class ServerHandle:
                 # another thread's refresh is in flight: serve the
                 # bounded-stale rows rather than duplicate its round trip
                 wire_counters.inc("serve_cache_stale_hits")
-                self._book_serve_age(ent.age_us())
+                self._book_serve_age(ent.age_us(), "stale")
                 return ent.values.copy(), {}, sig, ent, False, gen
             # past the staleness ceiling: correctness wins
             return None, {"if_newer": ent.version}, sig, ent, False, gen
@@ -1680,10 +1809,12 @@ class ServerHandle:
                     self._kcache.shed_backoff(
                         sig, float(rep.get("retry_after_ms", 20)) / 1e3
                     )
-                    self._book_serve_age(ent.age_us())
+                    self._book_serve_age(ent.age_us(), "shed")
                 else:
                     self._kcache.revalidated(sig, int(rep["ver"]), age_us=age)
-                    self._book_serve_age(age if age is not None else ent.age_us())
+                    self._book_serve_age(
+                        age if age is not None else ent.age_us(), "revalidate"
+                    )
                 return ent.values.copy()
             vals = self._decode_pull(out)
             ver = rep.get("ver")
@@ -1693,7 +1824,7 @@ class ServerHandle:
                     rank=self.rank, age_us=age,
                 )
                 if age is not None:
-                    self._book_serve_age(age)
+                    self._book_serve_age(age, "pull")
             return vals
         finally:
             if own:
@@ -1710,9 +1841,13 @@ class ServerHandle:
             if vals is not None:
                 return vals  # served locally: zero wire traffic
         try:
-            rep, out = self._keyed_call(
-                "pull", local_keys, {}, **self._pull_fields(), **extra
-            )
+            with trace.span(
+                "ps.pull", cat="ps", rank=self.rank, keys=len(local_keys)
+            ) as sp:
+                rep, out = self._keyed_call(
+                    "pull", local_keys, {}, **self._pull_fields(), **extra
+                )
+                sp.set(bytes=int(sum(a.nbytes for a in out.values())))
         except BaseException:
             if own:
                 self._kcache.end_refresh(sig)
@@ -1725,7 +1860,11 @@ class ServerHandle:
         if len(local_keys) == 0:
             return
         fields, arrays = self._encode_push(local_keys, grads)
-        self._keyed_call("push", local_keys, arrays, **fields)
+        with trace.span(
+            "ps.push", cat="ps", rank=self.rank, keys=len(local_keys),
+            bytes=int(sum(a.nbytes for a in arrays.values())),
+        ):
+            self._keyed_call("push", local_keys, arrays, **fields)
         if self._kcache is not None:
             # ack-time invalidation (see push_async.done): a pull that
             # raced the deferred apply may have re-cached pre-push rows
@@ -1743,6 +1882,7 @@ class ServerHandle:
         self.client.call("shutdown")
 
     def close(self) -> None:
+        watchdog.unregister(self._wd_name)
         self.client.close()
         if self._recovery_pool is not None:
             self._recovery_pool.shutdown(wait=False)
@@ -1815,8 +1955,17 @@ class _Beats:
             stats_fn=lambda: {**host_stats(), "telemetry": telemetry_snapshot()},
         )
         self._rep.start()
+        # watchdog: heartbeat silence, seen from INSIDE the silent node —
+        # the beat thread is always "busy" (liveness is its whole job),
+        # so a beats counter that stops advancing is a wedged reporter
+        self._wd_name = f"heartbeat:{node_id}"
+        watchdog.register(
+            self._wd_name, lambda: (True, self._rep.beats),
+            thread_name="ps-heartbeat",
+        )
 
     def stop(self) -> None:
+        watchdog.unregister(self._wd_name)
         self._rep.stop()
         self._sink.close()
 
@@ -1863,12 +2012,19 @@ def run_server(
     # the state load and pull pre-resume zeros
     ctl.kv_set(f"server_addr/{rank}", addr=srv.address)
     beats = _Beats(scheduler, node_id, cfg.fault.heartbeat_interval_s)
-    srv.serve_forever()  # until the scheduler's shutdown
+    srv.start()
+    srv.server._stop.wait()  # until the scheduler's shutdown
+    # the scheduler and its coordinator are going away: stop beating into
+    # them before the apply thread's exit grace (a beat into the stopped
+    # coordinator would fail its heal, which a postmortem reads as an
+    # anomaly)
+    beats.stop()
+    srv.join()
     if ckpt_dir:
         srv.stop_checkpointing()  # no periodic writer behind the final dump
         srv.save_state(ckpt_dir)
-    beats.stop()
     ctl.close()
+    trace.tracer.flush()  # export this process's spans (no-op if disabled)
     return {"t_register": t_register, "resumed": resumed, "counters": dict(srv.counters)}
 
 
@@ -1991,7 +2147,8 @@ def run_worker(
         t0 = time.perf_counter()
 
     while True:
-        workload = ctl.workload_fetch(rank)
+        with trace.span("step.workload_fetch", cat="step"):
+            workload = ctl.workload_fetch(rank)
         if workload is None:
             if ctl.workload_all_done():
                 break
@@ -2008,15 +2165,23 @@ def run_worker(
             pushes.gate()
             if t_first_step is None:
                 t_first_step = time.time()
-            ctl.ssp_wait(rank, step)
-            # the batch's (sorted) unique global keys, pad slot 0 left out
-            real = b.unique_keys[1 : b.num_unique]
-            pulled = backend.pull(real)
-            w_u = np.zeros(len(b.unique_keys), dtype=np.float32)
-            w_u[1 : b.num_unique] = pulled.ravel()
-            loss, probs, g = grad_step(w_u, b)
-            g_real = g[1 : b.num_unique]
-            pushes.add(step, [backend.push_async(real, g_real)])
+            # step anatomy: one enclosing step span; ssp_wait / pull /
+            # compute are its children, and flow events tie each push's
+            # issue span to its completion (ps.push.inflight)
+            with trace.span("step", cat="step", step=step):
+                with trace.span("step.ssp_wait", cat="step"):
+                    ctl.ssp_wait(rank, step)
+                # the batch's (sorted) unique global keys, pad slot 0 left out
+                real = b.unique_keys[1 : b.num_unique]
+                with trace.span("step.pull", cat="step"):
+                    pulled = backend.pull(real)
+                with trace.span("step.compute", cat="step"):
+                    w_u = np.zeros(len(b.unique_keys), dtype=np.float32)
+                    w_u[1 : b.num_unique] = pulled.ravel()
+                    loss, probs, g = grad_step(w_u, b)
+                    g_real = g[1 : b.num_unique]
+                futs = [backend.push_async(real, g_real)]
+            pushes.add(step, futs)
             ex_seen += b.num_examples
             window.append(
                 (loss, probs[: b.num_examples], b.labels[: b.num_examples])
@@ -2036,6 +2201,7 @@ def run_worker(
     for sh in servers:
         sh.close()
     ctl.close()
+    trace.tracer.flush()  # export this process's spans (no-op if disabled)
     return {"t_register": t_register, "t_first_step": t_first_step, "t_done": t_done,
             "steps": step, "examples": ex_seen,
             "max_inflight_seen": pushes.max_inflight_seen}
@@ -2183,6 +2349,7 @@ def run_scheduler(
         sh.close()
     ctl.close()
     coordinator.stop()
+    trace.tracer.flush()  # export this process's spans (no-op if disabled)
     return out
 
 
@@ -2216,7 +2383,9 @@ def launch_local(
     registers with the coordinator (dead-node detection + workload
     requeue); ``fault_restart_after >= 0`` respawns it that many seconds
     after the kill, which with ``ckpt_dir`` (server checkpoints, see
-    ``run_server``) exercises checkpoint-backed server recovery.
+    ``run_server``) exercises checkpoint-backed server recovery: such a
+    server is killed no earlier than its first range dump is on disk,
+    however long the dump takes at its table's size.
 
     The nodes' output lands in ``log_dir`` (a fresh temporary directory
     by default) as ``<role>-<rank>.out`` / ``.err``. Returns the
@@ -2228,17 +2397,23 @@ def launch_local(
     on every spawned node's RpcServers through the ``PS_FAULT_PLAN`` /
     ``PS_FAULT_SEED`` environment variables: frame-level drop, delay,
     disconnect and duplicate chaos on top of (or instead of) the
-    process-kill fault. Tracing and the black box are not ported."""
+    process-kill fault.
+
+    ``trace_dir`` arms tracing on every spawned node through
+    ``PS_TRACE_DIR`` (``trace_sample`` > 1 rides along as
+    ``PS_TRACE_SAMPLE``): each exports ``trace-<role>-<rank>-<pid>.json``
+    there at exit; ``utils/trace.py`` ``merge_trace_dir`` merges them.
+    ``blackbox_dir`` arms the flight recorder and watchdog on every
+    spawned node through ``PS_BLACKBOX_DIR``: each leaves a
+    ``blackbox-<role>-<rank>-<pid>.json`` dump behind, flushed
+    periodically, so even a SIGKILL'd node's box survives for the JAX
+    package's ``cli postmortem`` to merge."""
     import socket as socket_mod
     import subprocess
     import sys
     import tempfile
 
     resolve_device(device)  # no card: raise here, before spawning anything
-    if trace_dir or trace_sample > 1:
-        raise _not_ported("tracing (trace_dir, trace_sample)")
-    if blackbox_dir:
-        raise _not_ported("the black box (blackbox_dir)")
 
     with socket_mod.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -2254,6 +2429,19 @@ def launch_local(
         FaultPlan.parse(fault_plan, seed=fault_seed)  # fail fast on a typo
         child_env[PLAN_ENV] = fault_plan
         child_env[SEED_ENV] = str(fault_seed)
+    if trace_dir:
+        # arm tracing on EVERY spawned node (the PS_FAULT_PLAN pattern)
+        os.makedirs(trace_dir, exist_ok=True)
+        child_env[trace.TRACE_DIR_ENV] = trace_dir
+        if trace_sample > 1:
+            # head sampling rides along: children keep whole traces or
+            # drop them, consistently with every other node (the
+            # decision is keyed off the trace id, not the process)
+            child_env[trace.TRACE_SAMPLE_ENV] = str(int(trace_sample))
+    if blackbox_dir:
+        # arm the flight recorder on EVERY spawned node (same pattern)
+        os.makedirs(blackbox_dir, exist_ok=True)
+        child_env[flightrec.BLACKBOX_DIR_ENV] = blackbox_dir
     logdir = log_dir or tempfile.mkdtemp(prefix="pslaunch_")
     os.makedirs(logdir, exist_ok=True)
 
@@ -2301,6 +2489,11 @@ def launch_local(
         killed_tag = f"{kill_role}:{int(kill_rank)}"
         victim = next(p for p in procs if p._ps_tag == killed_tag)  # type: ignore[attr-defined]
         victims.append(victim)
+        dump_path = ""  # the victim's range dump (ShardServer._ckpt_path)
+        if kill_role == "server" and ckpt_dir and fault_restart_after >= 0:
+            r = KeyRange(0, load_config(app_file).data.num_keys).even_divide(
+                num_servers)[int(kill_rank)]
+            dump_path = os.path.join(ckpt_dir, f"server-{r.begin}-{r.end}.npz")
 
         def assassin() -> None:
             # wait for the victim to REGISTER first: killing a process that
@@ -2322,6 +2515,12 @@ def launch_local(
                 ctl.close()
             if harness_done.wait(float(delay_s)):
                 return
+            if dump_path:
+                # a server killed before its first range dump would restart
+                # empty: the kill would test nothing of checkpoint recovery
+                while not os.path.exists(dump_path):
+                    if harness_done.wait(0.05):
+                        return
             victim.kill()
             if fault_restart_after >= 0:
                 if harness_done.wait(fault_restart_after):
@@ -2418,15 +2617,43 @@ def run_node(
     with its kernel launches, its register time and its counters."""
     if role not in ("scheduler", "server", "worker"):
         raise ValueError(f"unknown role {role!r}")
-    if cfg.trace.trace_dir:
-        raise _not_ported("tracing ([trace] trace_dir)")
-    if cfg.blackbox.dir:
-        raise _not_ported("the black box ([blackbox] dir)")
     if cfg.profile.hz > 0:
         raise _not_ported("the profiler ([profile] hz)")
     if cfg.timeseries.metrics_port:
         raise _not_ported("the metrics endpoint ([timeseries] metrics_port)")
     dev = resolve_device(device)
+    # arm tracing for this node: config [trace] trace_dir wins, then the
+    # inherited PS_TRACE_DIR env (launch_local's arming path); the process
+    # name makes each node's export file self-describing
+    tdir = cfg.trace.trace_dir or os.environ.get(trace.TRACE_DIR_ENV, "")
+    if tdir:
+        # head-sampling rate: an explicit [trace] sample wins, else the
+        # inherited PS_TRACE_SAMPLE (launch_local's arming path)
+        sample = cfg.trace.sample
+        if sample <= 1:
+            sample = trace._env_sample()
+        trace.configure(
+            tdir, capacity=cfg.trace.capacity,
+            process_name=f"{role}-{rank}",
+            sample=sample,
+            # tail-biased capture: on by default, promotion rescues the
+            # slow traces head sampling would drop
+            tail=cfg.trace.tail,
+            tail_k=cfg.trace.tail_k,
+            tail_limbo=cfg.trace.tail_limbo,
+        )
+    # arm the black box: config [blackbox] dir wins, then the inherited
+    # PS_BLACKBOX_DIR (launch_local's arming path) — re-configured even
+    # when env-armed at import so the dump carries a role-rank name
+    bdir = cfg.blackbox.dir or os.environ.get(flightrec.BLACKBOX_DIR_ENV, "")
+    if bdir:
+        flightrec.configure(
+            bdir, capacity=cfg.blackbox.capacity,
+            process_name=f"{role}-{rank}",
+            flush_interval_s=cfg.blackbox.flush_interval_s,
+            watchdog_interval_s=cfg.blackbox.watchdog_interval_s,
+            stall_timeout_s=cfg.blackbox.stall_timeout_s,
+        )
     if role == "scheduler":
         host, port = scheduler.rsplit(":", 1)
         coord = Coordinator(

@@ -3,10 +3,9 @@ steps, and the SSP clock.
 
 Copies of the JAX package's ``DispatchWindow``, ``PushWindow`` (the wire
 tier's window of in-flight push futures) and ``SSPClock``
-(``parallel/ssp.py``), the clock without its flight-recorder,
-wire-counter and watchdog hooks. PyTorch
-queues CUDA work
-asynchronously as JAX dispatches jitted steps, so the same window bounds
+(``parallel/ssp.py``); the clock keeps its flight-recorder events and
+watchdog probe, not its wire counters or lag gauge. PyTorch queues CUDA
+work asynchronously as JAX dispatches jitted steps, so the same window bounds
 how far the host runs ahead of the device: an entry (a step's device loss)
 is read back only when it retires."""
 
@@ -17,6 +16,8 @@ import time
 from collections import deque
 from collections.abc import Callable
 from typing import Any
+
+from parameter_server_tpu_torch.utils import flightrec
 
 
 class DispatchWindow:
@@ -128,6 +129,11 @@ class SSPClock:
         # per-worker time parked on the gate, and the number of waits
         self._blocked_s = [0.0] * num_workers
         self._blocked_n = [0] * num_workers
+        # watchdog feed: workers currently parked on the gate, and a
+        # movement counter every finish/retire advances — "busy with no
+        # progress" is exactly a wedged clock
+        self._waiters = 0
+        self._moves = 0
         self._cv = threading.Condition()
 
     def _min_finished(self) -> int:
@@ -150,18 +156,39 @@ class SSPClock:
             if self._min_finished() >= target:
                 return True
             t0 = time.perf_counter()
-            ok = self._cv.wait_for(
-                lambda: self._min_finished() >= target, timeout=timeout
-            )
-            self._blocked_s[worker] += time.perf_counter() - t0
+            self._waiters += 1
+            try:
+                ok = self._cv.wait_for(
+                    lambda: self._min_finished() >= target, timeout=timeout
+                )
+            finally:
+                self._waiters -= 1
+            blocked = time.perf_counter() - t0
+            self._blocked_s[worker] += blocked
             self._blocked_n[worker] += 1
+        flightrec.record(
+            "ssp.wait", worker=worker, step=step,
+            blocked_ms=round(blocked * 1e3, 3), granted=ok,
+        )
         return ok
 
     def finish(self, worker: int, step: int) -> None:
         with self._cv:
             if step > self._finished[worker]:
                 self._finished[worker] = step
+                self._moves += 1
                 self._cv.notify_all()
+        flightrec.record(
+            "ssp.finish" if step < self.RETIRED else "ssp.retire",
+            worker=worker, step=min(step, self.RETIRED),
+        )
+
+    def stall_probe(self) -> tuple[bool, int]:
+        """Watchdog probe: busy while any worker is parked on the gate;
+        progress is the clock's movement counter — a wedged clock is
+        parked workers with no movement."""
+        with self._cv:
+            return self._waiters > 0, self._moves
 
     def retire(self, worker: int) -> None:
         """Mark ``worker`` done forever: it no longer gates the others.

@@ -17,9 +17,11 @@ issuing inert all-padding steps, and every rank stops after retiring the
 first step whose pod-wide example count is 0. The retirement schedule is
 the same on every rank, so all stop at the same step.
 
-Not ported here: tracing, the flight recorder, ``profile_dir``,
-``train_files_dynamic`` and its remote workload pool (they need the wire
-tier).
+The dynamic workload pool (``train_files_dynamic``): the wire tier's
+``Coordinator`` hands files to data rows as they ask for them, instead of
+the static split. Tracing (``step.fetch``/``step.dispatch``/``step.retire``
+spans) and the flight recorder (``step.dispatch``/``step.retire`` events)
+are the JAX trainer's. Not ported here: ``profile_dir``.
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from parameter_server_tpu_torch.parallel.spmd import (
 from parameter_server_tpu_torch.parallel.ssp import DispatchWindow, SSPClock
 from parameter_server_tpu_torch.parallel.traffic import linear_step_traffic
 from parameter_server_tpu_torch.parallel.workload import WorkloadPool
+from parameter_server_tpu_torch.utils import flightrec, trace
 from parameter_server_tpu_torch.utils.config import PSConfig
 from parameter_server_tpu_torch.utils.metrics import ProgressReporter
 
@@ -76,12 +79,65 @@ class _WorkerStream:
             if w is None:
                 return None
             self._current = w
-            self._iter = iter(MinibatchReader([w], self.fmt, self.builder))
+            self._iter = iter(
+                MinibatchReader([self._reader_path(w)], self.fmt, self.builder)
+            )
+
+    def _reader_path(self, workload: str) -> str:
+        """The file a pool item names (the item itself here; the dynamic
+        pool's items carry an epoch prefix)."""
+        return workload
 
     def _empty(self) -> CSRBatch:
         """Inert batch (all padding) for a drained worker: no loss, no
         gradient."""
         return _pad_like(self.builder)
+
+
+class _RemotePool:
+    """WorkloadPool facade over the wire tier's Coordinator: it hands
+    files to the pod's data rows as they ask (tier composition).
+
+    One process a mesh cell: every rank of a data row must feed the same
+    batches, so only the rank of kv column 0 talks to the pool, and it
+    relays each item it fetched to the row's other ranks through the
+    Coordinator's blob KV (``pod_row/<d>/<n>``, the n-th fetch of data
+    row d; an empty value is "drained"). The others wait on that key.
+    Finishing is column 0's alone."""
+
+    def __init__(self, ctl, mesh, timeout_s: float = 120.0):
+        self._ctl = ctl
+        self._mesh = mesh
+        self._n = 0  # fetches this rank made (same sequence across the row)
+        self._timeout_s = timeout_s
+
+    def fetch(self, worker: int) -> str | None:
+        key = f"pod_row/{self._mesh.d}/{self._n}"
+        self._n += 1
+        if self._mesh.k == 0:
+            w = self._ctl.workload_fetch(worker)
+            if self._mesh.kv > 1:
+                self._ctl.kv_set(key, item=w or "")
+            return w
+        got = self._ctl.kv_get(key, block=True, timeout=self._timeout_s)
+        if got is None:
+            raise TimeoutError(
+                f"data row {self._mesh.d}: no pool item {key!r} from kv "
+                f"column 0 within {self._timeout_s}s"
+            )
+        return got[0]["item"] or None
+
+    def finish(self, workload: str) -> None:
+        if self._mesh.k == 0:
+            self._ctl.workload_finish(workload)
+
+
+class _EpochStream(_WorkerStream):
+    """_WorkerStream whose pool items are ``"<epoch>:<path>"`` (epochs
+    ride the dynamic pool as distinct workloads)."""
+
+    def _reader_path(self, workload: str) -> str:
+        return workload.split(":", 1)[1]
 
 
 class PodTrainer:
@@ -96,6 +152,13 @@ class PodTrainer:
         reporter: ProgressReporter | None = None,
     ):
         self.cfg = cfg
+        if cfg.trace.trace_dir and not trace.tracer.enabled:
+            # config-armed tracing for the in-process pod path (spawned
+            # nodes arm through run_node / PS_TRACE_DIR instead)
+            trace.configure(
+                cfg.trace.trace_dir, capacity=cfg.trace.capacity,
+                process_name="pod-trainer",
+            )
         self.runtime = runtime
         self.mesh = runtime.mesh
         # one source of truth: a cfg whose parallel section disagrees with
@@ -160,6 +223,69 @@ class PodTrainer:
             last = self._train_epoch(stream, report_every) or last
         return last
 
+    def train_files_dynamic(
+        self,
+        files: list[str],
+        coordinator: str,
+        key_mode: str = "hash",
+        report_every: int = 20,
+    ) -> dict:
+        """Compose the two multi-process tiers: the wire tier's Coordinator
+        at ``coordinator`` hands files to the pod's data rows as they ask
+        for them (the reference scheduler's WorkloadPool) instead of the
+        static split, while the data plane stays the mesh collectives.
+        Epochs ride the pool as distinct ``"<epoch>:<path>"`` items.
+
+        Collective: EVERY rank calls it with the same file list. Rank 0
+        initializes the pool (a pool someone else already initialized
+        raises) and sets ``pod_pool_ready``, which the other ranks wait
+        on. The JAX trainer runs one stream a local data shard, each
+        fetching under its global data index; here a rank is one mesh
+        cell, so the worker id is the rank's data row ``mesh.d`` and only
+        the rank of kv column 0 fetches, relaying each item to the rest
+        of its row (``_RemotePool``), so every rank of a row consumes the
+        same workloads. The JAX termination contract holds unchanged: a
+        drained rank feeds inert steps until a retired step counts 0
+        examples pod-wide. With one data row the items come in the static
+        order, and the run equals ``train_files``."""
+        from parameter_server_tpu_torch.parallel.control import ControlClient
+        from parameter_server_tpu_torch.utils.metrics import wire_counters
+
+        cfg = self.cfg
+        # self-healing client: a coordinator restart or an injected
+        # control-plane fault mid-run is absorbed by reconnect + resend
+        # (the server's reply cache keeps workload_fetch exactly-once)
+        ctl = ControlClient(coordinator, reconnect_timeout_s=cfg.fault.reconnect_timeout_s)
+        try:
+            items = [f"{e}:{f}" for e in range(max(1, cfg.solver.epochs))
+                     for f in sorted(files)]
+            if self.runtime.process_index == 0:
+                ctl.workload_init(items)
+                # workload_init is first-wins on the Coordinator: a pool
+                # someone else already initialized would be silently
+                # reused and this pod would train on nothing — fail loudly
+                st = ctl.workload_stats()
+                total = st["pending"] + st["active"] + st["done"]
+                if total != len(items) or st["done"] or st["active"]:
+                    raise RuntimeError(
+                        f"coordinator at {coordinator} already holds a "
+                        f"workload pool ({st}); train_files_dynamic needs "
+                        "a fresh Coordinator per run"
+                    )
+                ctl.kv_set("pod_pool_ready")
+            else:
+                ctl.kv_get("pod_pool_ready", block=True, timeout=120)
+            stream = _EpochStream(self.mesh.d, _RemotePool(ctl, self.mesh),
+                                  cfg.data.format, self._builder(key_mode))
+            out = dict(self._train_epoch(stream, report_every) or {})
+            # recovery observability for the pod path (cumulative for this
+            # process; mostly zero on a healthy wire)
+            out["rpc_retries"] = wire_counters.get("rpc_retries")
+            out["rpc_reconnects"] = wire_counters.get("rpc_reconnects")
+            return out
+        finally:
+            ctl.close()
+
     @staticmethod
     def _assemble_group(items: list[tuple]) -> tuple:
         """K prepared step items as one multistep dispatch item: the
@@ -204,8 +330,15 @@ class PodTrainer:
             nonlocal drained, n_since
             loss_arr, examples_arr, probs, labels = entry
             # reading the results waits for the step: the SSP bound
-            losses = np.atleast_1d(loss_arr.cpu().numpy())
-            exs = np.atleast_1d(examples_arr.cpu().numpy())
+            with trace.span("step.retire", cat="step", step=step):
+                losses = np.atleast_1d(loss_arr.cpu().numpy())
+                exs = np.atleast_1d(examples_arr.cpu().numpy())
+            # flight recorder: the trainer's dispatch/retire cadence —
+            # "which step was in flight when the pod wedged" (this rank's
+            # real examples, as the JAX host's)
+            flightrec.record(
+                "step.retire", step=step, examples=sum(len(y) for y in labels)
+            )
             self.clock.finish(0, step)
             n = int(exs.sum())
             self.examples_seen += n
@@ -269,15 +402,24 @@ class PodTrainer:
                 gate.gate(step_idx)
                 if drained:
                     break
-                stacked_np, labels = _next_item()
+                # step anatomy: fetch (host pipeline pop) vs dispatch
+                # (bucket agreement, H2D copies, device work issued)
+                with trace.span("step.fetch", cat="step", step=step_idx):
+                    stacked_np, labels = _next_item()
                 if K == 1:
                     labels = [labels]
-                if self._bucket_sync:
-                    stacked_np = self._agree_bucket(stacked_np)
-                stacked = self.runtime.globalize_batch(stacked_np)
-                # push_seed varies per microstep (the quantized push never
-                # reuses its uniforms); step_idx * K is this call's first
-                self.state, out = self.step_fn(self.state, stacked, step_idx * K)
+                with trace.span("step.dispatch", cat="step", step=step_idx):
+                    if self._bucket_sync:
+                        stacked_np = self._agree_bucket(stacked_np)
+                    stacked = self.runtime.globalize_batch(stacked_np)
+                    # push_seed varies per microstep (the quantized push
+                    # never reuses its uniforms); step_idx * K is this
+                    # call's first
+                    self.state, out = self.step_fn(self.state, stacked, step_idx * K)
+                flightrec.record(
+                    "step.dispatch", step=step_idx,
+                    examples=sum(len(y) for y in labels),
+                )
                 gate.add(step_idx, (out["loss_sum"], out["examples"], out["probs"], labels))
                 step_idx += 1
                 if step_idx % report_every == 0:

@@ -13,6 +13,8 @@ import os
 import threading
 import time
 
+from parameter_server_tpu_torch.utils import flightrec
+
 
 def host_stats() -> dict:
     """CPU/mem snapshot for this process (ref: heartbeat_info fields)."""
@@ -102,7 +104,9 @@ class HeartbeatReporter:
         self._stats_fn = stats_fn
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
-        self.beats = 0  # completed beats
+        #: completed beats — the watchdog's heartbeat-silence progress
+        #: probe (a beat thread wedged in a dead sink stops advancing it)
+        self.beats = 0
 
     def start(self) -> "HeartbeatReporter":
         self._beat_once()  # immediate first beat
@@ -115,6 +119,7 @@ class HeartbeatReporter:
     def _beat_once(self) -> None:
         self.monitor.beat(self.node_id, self._stats_fn())
         self.beats += 1
+        flightrec.record("heartbeat.beat", node=self.node_id, n=self.beats)
 
     def _run(self) -> None:
         while not self._stop.wait(self.interval_s):

@@ -23,7 +23,11 @@ plan's cases and writes its results to ``<plan out>/rank<r>.npz``. Modes:
   column blocks of one of its CSR batch streams (``<stream>/b<i>/<field>``);
 - ``backend``: ``MeshBackend`` on the world's mesh: pushes into a table of
   the plan's awkward size, ``train_linear`` on the plan's workload (f32
-  and int8), and the int8 error feedback's telescoping pushes.
+  and int8), and the int8 error feedback's telescoping pushes;
+- ``pool``: ``PodTrainer.train_files_dynamic`` on the plan's files against
+  a ``Coordinator`` that rank 0 hosts at the plan's ``pool`` address,
+  under the plan's seeded fault plan; every rank writes its full weights,
+  rank 0 the pool's final stats and the plan's firings.
 
 ``<mode>`` may name several modes, joined by "+", run in one world.
 
@@ -312,6 +316,35 @@ def _backend(rt, plan: dict, inputs) -> dict:
     return out
 
 
+def _pool(rt, plan: dict, inputs) -> dict:
+    from parameter_server_tpu_torch.parallel.chaos import FaultPlan
+    from parameter_server_tpu_torch.parallel.control import Coordinator
+    from parameter_server_tpu_torch.parallel.trainer import PodTrainer
+    from parameter_server_tpu_torch.utils.config import load_config
+
+    coord = None
+    if rt.process_index == 0:
+        host, port = plan["pool"].rsplit(":", 1)
+        coord = Coordinator(host, int(port), fault_plan=FaultPlan.parse(
+            plan["fault_plan"], seed=plan["fault_seed"]))
+    try:
+        t = PodTrainer(load_config(plan["cfg"]), runtime=rt, reporter=_quiet())
+        last = t.train_files_dynamic(plan["files"], plan["pool"], report_every=10**6)
+        out = {"weights": t.full_weights(), "examples_seen": np.int64(t.examples_seen),
+               "objv": np.float64(last["objv"])}
+        rt.barrier()  # every rank finished with the pool
+        if coord is not None:
+            st = coord._pool.stats()
+            out["pool"] = np.array([st[k] for k in ("pending", "active", "done", "attempts")])
+            out["faults_fired"] = np.int64(sum(
+                v for k, v in (coord.server.fault_stats() or {}).items()
+                if k != "frames"))
+    finally:
+        if coord is not None:
+            coord.stop()
+    return out
+
+
 def main(argv: list[str]) -> int:
     if argv[0] == "cli":  # python tests/_torch_rank.py cli <cli train arguments>
         from parameter_server_tpu_torch import cli
@@ -335,7 +368,7 @@ def main(argv: list[str]) -> int:
                           data_shards=d, device="cpu")
     try:
         modes = {"spmd": _spmd, "mf": _mf, "pod": _pod, "wd": _wd, "w2v": _w2v,
-                 "darlin": _darlin, "backend": _backend}
+                 "darlin": _darlin, "backend": _backend, "pool": _pool}
         out = {}
         for m in mode.split("+"):
             out.update(modes[m](rt, plan, inputs))

@@ -978,3 +978,68 @@ def test_cli_train_new_paths_on_card(dev, app, tmp_path, capsys):
         assert outs["cuda"][0]["iters"] == outs["cpu"][0]["iters"]
     else:
         assert outs["cuda"] == outs["cpu"]
+
+
+@pytest.mark.cuda
+def test_native_fed_worker_steps_on_card_like_the_python_fed(dev, tmp_path):
+    """``LinearMethod`` on the card fed by ``MinibatchReader(backend=
+    "native")`` (the C++ parser and localizer) takes the steps the
+    Python-fed run takes: the same losses at 1e-5, K2 once a step."""
+    from parameter_server_tpu_torch.data import native
+    from parameter_server_tpu_torch.data.reader import MinibatchReader
+    from parameter_server_tpu_torch.data.synthetic import make_sparse_logistic, write_libsvm
+    from parameter_server_tpu_torch.models.linear import LinearMethod
+    from parameter_server_tpu_torch.utils.config import PSConfig
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    assert native.native_available(), native.build_log()
+    labels, keys, vals, _ = make_sparse_logistic(2048, 5000, nnz_per_example=12, seed=3)
+    path = tmp_path / "a.svm"
+    write_libsvm(path, labels, keys, vals)
+    cfg = PSConfig()
+    cfg.data.num_keys = 1 << 16
+    cfg.solver.minibatch = 256
+    losses = {}
+    for backend in ("native", "python"):
+        rep = ProgressReporter(print_fn=lambda *_: None)
+        app = LinearMethod(cfg, reporter=rep, device="cuda")
+        before = fk.LAUNCHES["ftrl_delta"]
+        app.train(MinibatchReader([path], "libsvm", app.make_builder(), backend=backend),
+                  report_every=1)
+        assert fk.LAUNCHES["ftrl_delta"] - before == len(rep.history) == 8
+        losses[backend] = [r["objv"] for r in rep.history]
+    np.testing.assert_allclose(losses["native"], losses["python"], **TOL)
+
+
+@pytest.mark.cuda
+def test_traced_card_server_push_launches_k1_and_exports_its_spans(dev, tmp_path):
+    """A traced push into a card ``ShardServer``: K1 applies it, and the
+    export holds the client's ``rpc.push`` and the server's
+    ``rpc.serve.push`` / ``server.updater`` spans under one trace id."""
+    import json
+
+    from parameter_server_tpu_torch.kv.updaters import Ftrl
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle, ShardServer
+    from parameter_server_tpu_torch.utils import trace
+    from parameter_server_tpu_torch.utils.config import PSConfig
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange
+
+    trace.configure(str(tmp_path), process_name="card")
+    try:
+        srv = ShardServer(Ftrl(), KeyRange(0, 1 << 16), device="cuda").start()
+        h = ServerHandle(srv.address, 0, 0, PSConfig(), range_size=1 << 16, device="cuda")
+        before = fk.LAUNCHES["ftrl_push"]
+        keys = np.arange(1, 4097, dtype=np.int64)
+        h.push(keys, np.ones(len(keys), np.float32))
+        h.pull(keys)
+        h.shutdown()
+        h.close()
+        srv.join(timeout=30)
+        assert fk.LAUNCHES["ftrl_push"] - before == srv.counters["apply_batches"] == 1
+        path = trace.tracer.flush()
+    finally:
+        trace.configure(None)
+    evs = json.loads(open(path).read())["traceEvents"]
+    spans = {e["name"]: e["args"]["trace_id"] for e in evs if e["ph"] == "X"}
+    push_tid = spans["ps.push"]
+    assert spans["rpc.push"] == spans["rpc.serve.push"] == spans["server.updater"] == push_tid

@@ -126,11 +126,18 @@ def test_reader_matches_jax_python_backend(tmp_path, fmt):
 
 
 def test_reader_refuses_native_and_joins_its_thread(tmp_path):
+    """The native backend, which the port once refused, reads the JAX
+    Python reader's batches; and the prefetch thread joins when the
+    consumer breaks out early."""
     path = tmp_path / "a.libsvm"
     TS.write_libsvm(path, *TS.make_sparse_logistic(500, 100, nnz_per_example=3, seed=6)[:3])
     builder = TB.BatchBuilder(num_keys=1024, batch_size=10, max_nnz_per_example=20)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TR.MinibatchReader([path], "libsvm", builder, backend="native")
+    got = list(TR.MinibatchReader([path], "libsvm", builder, backend="native"))
+    want = list(JR.MinibatchReader([path], "libsvm", JB.BatchBuilder(
+        num_keys=1024, batch_size=10, max_nnz_per_example=20), backend="python"))
+    assert len(got) == len(want) == 50
+    for a, b in zip(got, want):
+        _same_batch(a, b)
     before = threading.active_count()
     it = iter(TR.MinibatchReader([path], "libsvm", builder, prefetch=2))
     next(it)

@@ -61,6 +61,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     # the batch solver, its block cache, and the sketch and graph apps
     assert {f"{PKG}.models.{m}" for m in ("darlin", "graph_partition", "sketch")} | {
         f"{PKG}.data.blockcache"} <= set(res["imported"])
+    # the native parser's bindings and the tracing and black-box planes
+    assert {f"{PKG}.data.native", f"{PKG}.utils.trace", f"{PKG}.utils.flightrec"} <= set(
+        res["imported"])
     assert res["leaked"] == []
     assert res["jax"] == []
 
@@ -156,11 +159,14 @@ def test_chip_smoke_imports_nothing_of_jax():
 
 def test_spmd_tier_has_the_ssp_clock_without_jax():
     """``SSPClock`` sits in the port's ``parallel/ssp.py`` beside the
-    dispatch window, a copy with no hook into the JAX package."""
+    dispatch window, a copy with no hook into the JAX package: its
+    flight-recorder events go to the port's own recorder."""
     import parameter_server_tpu_torch.parallel.ssp as ssp
 
     src = Path(ssp.__file__).read_text()
-    assert "class SSPClock" in src and "flightrec" not in src and "wire_counters" not in src
+    assert "class SSPClock" in src and "parameter_server_tpu." not in src
+    assert "from parameter_server_tpu_torch.utils import flightrec" in src
+    assert "wire_counters" not in src
 
 
 def test_port_sources_never_import_the_jax_package():

@@ -286,12 +286,16 @@ def test_resent_push_after_restore_applies_once(tmp_path):
     srv.server.stop()
 
 
-def test_cli_node_and_launch_arguments(tmp_path):
+def test_cli_node_and_launch_arguments(tmp_path, monkeypatch):
     """The flags of the JAX CLI's ``node`` and ``launch``, plus ``--device``;
     a chaos spec (``--fault_plan``, ``[fault] fault_plan``) is parsed
     before anything starts, so a bad one fails fast; the tracing and
-    black-box options are accepted and refused when set, as are the
-    config sections that arm them."""
+    black-box options arm those planes (``launch`` hands them to every
+    node's environment, ``node`` and ``run_node`` arm from the flag or
+    the config), while the profiler and the metrics endpoint are still
+    refused."""
+    from parameter_server_tpu_torch.utils import flightrec, trace
+
     app = _app(tmp_path, 11, {"max_delay": 0, "epochs": 1})
     node = ["node", "--role", "server", "--rank", "0", "--scheduler", "127.0.0.1:1",
             "--num_servers", "1", "--num_workers", "1", "--app_file", str(app),
@@ -308,11 +312,23 @@ def test_cli_node_and_launch_arguments(tmp_path):
     with pytest.raises(SystemExit):
         cli._build_parser().parse_args(node[:2] + ["boss"] + node[3:])
     launch = ["launch", "--app_file", str(app), "--device", "cpu"]
-    for flag in ("--trace_dir", "--blackbox_dir"):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli.main(launch + [flag, "x"])
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(node + ["--trace_dir", "x"])
+    seen = {}
+
+    def fake_launch(*a, **kw):
+        seen["launch"] = kw
+        return {"ok": True}
+
+    def fake_node(cfg, *a, **kw):
+        seen["node"] = cfg
+        return {"ok": True}
+
+    with monkeypatch.context() as m:
+        m.setattr(TM, "launch_local", fake_launch)
+        m.setattr(TM, "run_node", fake_node)
+        cli.main(launch + ["--trace_dir", "tx", "--blackbox_dir", "bx"])
+        assert (seen["launch"]["trace_dir"], seen["launch"]["blackbox_dir"]) == ("tx", "bx")
+        cli.main(node + ["--trace_dir", "tn"])
+        assert seen["node"].trace.trace_dir == "tn"
     for argv in (launch, node):  # the spec is armed, so a typo raises
         with pytest.raises(ValueError, match="unknown fault action 'x'"):
             cli.main(argv + ["--fault_plan", "x"])
@@ -320,7 +336,7 @@ def test_cli_node_and_launch_arguments(tmp_path):
                                                     "--fault_seed", "4"])
     assert (args.fault_plan, args.fault_seed) == ("drop,every=3", 4)
     cfg = json.loads(app.read_text())
-    for section, value in (("trace", {"trace_dir": "t"}), ("profile", {"hz": 10}),
+    for section, value in (("profile", {"hz": 10}),
                            ("timeseries", {"metrics_port": 9000})):
         bad = tmp_path / f"bad-{section}.json"
         bad.write_text(json.dumps({**cfg, section: value}))
@@ -330,19 +346,48 @@ def test_cli_node_and_launch_arguments(tmp_path):
     mf.write_text(json.dumps({**cfg, "app": "matrix_fac"}))
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(["launch", "--app_file", str(mf), "--device", "cpu"])
+    # run_node arms [trace] and [blackbox] before it builds its node (the
+    # typo'd chaos spec then stops the node before it connects anywhere)
     pc = TCFG.PSConfig()
-    pc.blackbox.dir = "b"
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TM.run_node(pc, "server", 0, "127.0.0.1:1", 1, 1, device="cpu")
+    pc.trace.trace_dir = str(tmp_path / "tr")
+    pc.blackbox.dir = str(tmp_path / "bb")
+    pc.fault.fault_plan = "drop=0.1"
+    try:
+        with pytest.raises(ValueError, match="unknown fault action"):
+            TM.run_node(pc, "server", 0, "127.0.0.1:1", 1, 1, device="cpu")
+        assert trace.tracer.trace_dir == pc.trace.trace_dir
+        assert trace.tracer.process_name == "server-0"
+        assert flightrec.blackbox_dir() == pc.blackbox.dir
+        assert flightrec.record is flightrec._live_record
+    finally:
+        trace.configure(None)
+        flightrec.configure(None)
+    assert flightrec.record is flightrec._noop_record
     pc = TCFG.PSConfig()
     pc.fault.fault_plan = "drop=0.1"
     with pytest.raises(ValueError, match="unknown fault action"):
         TM.run_node(pc, "server", 0, "127.0.0.1:1", 1, 1, device="cpu")
     with pytest.raises(ValueError, match="unknown role"):
         TM.run_node(TCFG.PSConfig(), "boss", 0, "127.0.0.1:1", 1, 1, device="cpu")
-    for kw in ({"trace_dir": "t"}, {"trace_sample": 2}, {"blackbox_dir": "b"}):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            TM.launch_local(str(app), 1, 1, device="cpu", **kw)
+    # launch_local hands the planes to every node it spawns through the
+    # environment (the first spawn is stopped here to read it)
+    class _Spawned(Exception):
+        pass
+
+    def fake_popen(cmd, env=None, **kw):
+        raise _Spawned(env)
+
+    with monkeypatch.context() as m:
+        m.setattr(subprocess, "Popen", fake_popen)
+        with pytest.raises(_Spawned) as got:
+            TM.launch_local(str(app), 1, 1, device="cpu", trace_dir=str(tmp_path / "t"),
+                            trace_sample=2, blackbox_dir=str(tmp_path / "b"),
+                            log_dir=str(tmp_path / "logs"))
+    env = got.value.args[0]
+    assert env[trace.TRACE_DIR_ENV] == str(tmp_path / "t")
+    assert env[trace.TRACE_SAMPLE_ENV] == "2"
+    assert env[flightrec.BLACKBOX_DIR_ENV] == str(tmp_path / "b")
+    assert (tmp_path / "t").is_dir() and (tmp_path / "b").is_dir()
     with pytest.raises(ValueError, match="unknown fault action"):
         TM.launch_local(str(app), 1, 1, device="cpu", fault_plan="drop=0.1")
     assert not any(tmp_path.glob("pslaunch_*"))

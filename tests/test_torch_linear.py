@@ -7,6 +7,7 @@ different orders, and the difference compounds over steps); final AUC
 within 1e-3."""
 
 import json
+import os
 
 import numpy as np
 import pytest
@@ -168,12 +169,11 @@ def test_cli_train_and_evaluate_match_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["node", "--role", "server", "--scheduler", "h:1", "--num_servers", "1",
-      "--num_workers", "1", "--app_file", "CFG", "--device", "cpu", "--trace_dir", "x"],
-     "not ported yet"),
+    (["stats", "--scheduler", "h:1"], "not ported yet"),
     (["lint"], "not ported yet"),
+    # the JAX CLI's own refusal: the pool needs the pod path
     (["train", "--app_file", "CFG", "--pool_coordinator", "h:1", "--device", "cpu"],
-     "not ported yet"),
+     "requires the pod training path"),
 ])
 def test_cli_refuses_unported_paths(tmp_path, argv, match):
     app_file = tmp_path / "cfg.json"
@@ -187,9 +187,36 @@ def test_cli_refuses_unported_paths(tmp_path, argv, match):
     {"profile": {"hz": 10}}, {"timeseries": {"metrics_port": 9100}},
     {"app": "sketch", "trace": {"trace_dir": "t"}}, {"trace": {"trace_dir": "t"}},
 ])
-def test_cli_refuses_unported_config(tmp_path, section):
+def test_cli_refuses_unported_config(tmp_path, section, capsys):
+    """[profile] and [timeseries] are refused; a [trace] section arms
+    tracing for the run as the JAX CLI does (the one-process apps record
+    no spans of their own, in either package, so a span recorded after the
+    run is what lands in the dir)."""
+    from parameter_server_tpu_torch.utils import trace
+
+    data = tmp_path / "a.svm"
+    write_libsvm(data, *make_sparse_logistic(64, 50, nnz_per_example=3, seed=2)[:3])
+    if "trace" in section:
+        section = {**section, "trace": {"trace_dir": str(tmp_path / "t")}}
     app_file = tmp_path / "cfg.json"
-    app_file.write_text(json.dumps({"data": {"files": ["x"]}, **section}))
-    with pytest.raises(SystemExit, match="not ported yet"):
-        TC.main(["train", "--app_file", str(app_file), "--device", "cpu"])
+    app_file.write_text(json.dumps({"data": {"files": [str(data)], "num_keys": 256},
+                                    **section}))
+    argv = ["train", "--app_file", str(app_file), "--device", "cpu"]
+    if "trace" not in section:
+        with pytest.raises(SystemExit, match="not ported yet"):
+            TC.main(argv)
+        return
+    try:
+        assert TC.main(argv) == 0
+        assert trace.enabled() and trace.tracer.trace_dir == str(tmp_path / "t")
+        assert trace.tracer.process_name == "train"
+        with trace.span("after.run"):
+            pass
+        path = trace.tracer.flush()
+    finally:
+        trace.configure(None)
+    doc = json.loads(open(path).read())
+    assert os.path.dirname(path) == str(tmp_path / "t")
+    assert [e["name"] for e in doc["traceEvents"] if e["ph"] == "X"] == ["after.run"]
+    capsys.readouterr()
 
