@@ -269,14 +269,44 @@ the script exits nonzero without printing a result:
              rpc.in, apply.begin and apply.commit events; phase 12 (a)'s 24
              pushes unarmed and with tracing and the recorder armed in this
              process, pushes/s and p50/p99 of each logged, not gated.
+17. live ops, audit, forensics — (a) phase 13 (a)'s cluster (2 card
+             servers, 1 worker, max_delay 0, phase 13's files) for
+             LIVE_EPOCHS epochs, each node a `cli node` process spawned
+             against a scheduler address this script picks, with every
+             plane armed: [timeseries] metrics_port (each node's
+             OpenMetrics endpoint), [profile] hz 29, [audit], the default
+             [slo] rules, tracing, the black box, beats every 0.2 s; the
+             same launch unarmed (launch_local) at once beside it. Once
+             each node's ring holds 3 beats and its pushes, against the
+             live scheduler: `cli stats` (3 heartbeating nodes, the merged
+             client and server push histograms counted), `cli top --json`
+             (each server and the worker pushing, health 100, no alert),
+             `cli ranges --json` (the servers' ranges tile [0, 2^24), each
+             pushed with an apply p99 > 0), `cli audit --once --json` (exit
+             0, no violation, audit batches from every node), `cli whylate
+             --scheduler` (push records with their segments), a scrape of
+             server 0's /metrics (ps_build_info naming the port's package,
+             its range push counter); each server's top profiler stacks
+             logged. (b) After the run: `cli whylate` over the trace dir
+             (every traced worker push reaches a server's rpc.serve.push;
+             the step ops' segments are JAX's SEGMENTS) and over the boxes
+             (push ops from the cid/seq chains), `cli postmortem` over the
+             boxes exits 0 with no anomaly, the model equals the unarmed
+             launch's (E2E_RTOL), each card server launched K1 once an
+             apply batch. (c) Phase 12 (a)'s pushes (LIVE_ARM_PUSHES an
+             arm) through 2 card servers in this process, unarmed and with
+             the metrics endpoint, profiler, audit spool, tracing and the
+             recorder armed, in turn LIVE_ARM_REPEATS times: pushes/s and
+             p50/p99 logged with the card's name and power limit, not
+             gated.
 
 Launch counters are reset just before each of phases 4-7, the round trip
 of phase 8, the training runs of phases 9 and 10, each mode of phase
-11 (a), each arm of phases 12 and 14, phase 15, and phase 16's worker
-runs, pool runs and wire arms, and read just after; phase 11 (b)'s, 13's,
-15 (c)'s and 16's ranks and nodes start from 0 in their own processes and
-print their counts: each must have launched its kernels (phases 10 and
-15: none). The line before the last is the kernels' JSON summary;
+11 (a), each arm of phases 12 and 14, phase 15, phase 16's worker runs,
+pool runs and wire arms, and phase 17's arms, and read just after; phase
+11 (b)'s, 13's, 15 (c)'s, 16's and 17's ranks and nodes start from 0 in
+their own processes and print their counts: each must have launched its
+kernels (phases 10 and 15: none). The line before the last is the kernels' JSON summary;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -557,6 +587,22 @@ NATIVE_RTOL = 1e-6
 POOL_EPOCHS, POOL_SEED, POOL_TIMEOUT_S = 2, 97, 300
 POOL_PLAN = "disconnect,prob=0.04;duplicate,prob=0.04;delay,prob=0.05,delay_s=0.005"
 TERM_PUSHES = 3
+
+# phase 17: the live operations plane, the audit plane and the forensics
+# tools. (a) Phase 13 (a)'s cluster (CLUSTER_SERVERS card servers, one
+# worker, max_delay 0) over phase 13's files for LIVE_EPOCHS epochs, so the
+# run outlives the live checks, each node a `cli node` process this script
+# spawns against a scheduler address it picks, every plane armed: the
+# OpenMetrics endpoints from a base port, the profiler at LIVE_PROFILE_HZ,
+# the audit spool, the default [slo] rules, tracing and the black box,
+# beats every LIVE_BEAT_S; the checks start once each node's ring holds
+# LIVE_MIN_BEATS beats and its pushes. The same launch unarmed runs beside
+# it, for the model (a launch of one epoch, phase 13 (a)'s, ends before
+# the checks could). (c) Phase 12 (a)'s pushes, LIVE_ARM_PUSHES an arm
+# (its 24 twice), unarmed and armed in turn LIVE_ARM_REPEATS times
+LIVE_EPOCHS, LIVE_BEAT_S, LIVE_PROFILE_HZ, LIVE_MIN_BEATS = 10, 0.2, 29.0, 3
+LIVE_WAIT_S = 120
+LIVE_ARM_PUSHES, LIVE_ARM_REPEATS = 48, 3
 
 
 def log(msg: str) -> None:
@@ -1394,6 +1440,24 @@ def free_ports(count: int) -> list[int]:
         for sock in socks:
             sock.bind(("127.0.0.1", 0))
         return [sock.getsockname()[1] for sock in socks]
+
+
+def free_port_block(count: int) -> int:
+    """The first of ``count`` consecutive free ports (all bound at once
+    while chosen): a cluster's metrics endpoints take base + offset, and a
+    taken offset walks a node's endpoint up onto a neighbour's."""
+    import socket
+
+    for _ in range(64):
+        base = free_ports(1)[0]
+        with contextlib.ExitStack() as stack:
+            try:
+                for i in range(count):
+                    stack.enter_context(socket.socket()).bind(("127.0.0.1", base + i))
+            except OSError:
+                continue
+        return base
+    raise AssertionError(f"no {count} consecutive free ports")
 
 
 def start_rank(root: Path, logs: Path, tag: str, app_file: Path, device: str,
@@ -3003,7 +3067,7 @@ def serving_arm(name: str, servers, ranges, svcfg, keysets, pz, seconds: float, 
     from parameter_server_tpu_torch.kv.store import KVStore
     from parameter_server_tpu_torch.kv.updaters import Ftrl
     from parameter_server_tpu_torch.ops import ftrl_kernels as fk
-    from parameter_server_tpu_torch.parallel.multislice import _sig
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle, _sig
     from parameter_server_tpu_torch.utils.metrics import wire_counters
 
     cache, fronts, writers = serving_stack(servers, ranges, svcfg, flood)
@@ -3103,13 +3167,27 @@ def serving_arm(name: str, servers, ranges, svcfg, keysets, pz, seconds: float, 
             for i in range(len(writers))]
            + [threading.Thread(target=front, args=(t,), name=f"serve-front-{t}")
               for t in range(SERVE_THREADS)])
+    # the realized age of every serve a handle hands out, as it books it
+    # into its serve.age_s histogram (whose log2 buckets are too coarse
+    # to hold the ceiling to)
+    ages: list = [0.0]
+    book = ServerHandle._book_serve_age
+
+    def booked(h, age_us, src):
+        ages.append(float(age_us))
+        return book(h, age_us, src)
+
+    ServerHandle._book_serve_age = booked
     t0 = time.perf_counter()
-    for th in ths:
-        th.start()
-    stop.wait(seconds)
-    stop.set()
-    for th in ths:
-        th.join(timeout=120)
+    try:
+        for th in ths:
+            th.start()
+        stop.wait(seconds)
+        stop.set()
+        for th in ths:
+            th.join(timeout=120)
+    finally:
+        ServerHandle._book_serve_age = book
     dt = time.perf_counter() - t0
     for be in writers:
         be.flush()
@@ -3125,7 +3203,7 @@ def serving_arm(name: str, servers, ranges, svcfg, keysets, pz, seconds: float, 
                              f"applied {d['apply_batches']} batches of {d['pushes']} pushes")
     wc = wire_counters.snapshot()
     bound_us = max(svcfg.ttl_ms, svcfg.max_stale_ms) * 1e3
-    age_peak = wc.get("serve_age_us_peak", 0)
+    age_peak = max(ages)
     if not age_peak <= bound_us:
         raise AssertionError(f"{name}: a served row was {age_peak} us old, past "
                              f"max(ttl, max_stale) = {bound_us} us")
@@ -4333,6 +4411,339 @@ def phase_native_pool_traced(rounds: list, model_a, device: str = "cuda") -> dic
     return out
 
 
+def spawn_node(root: Path, logs: Path, role: str, rank: int, sched: str, app: Path,
+               servers: int, workers: int, model_out: str = "") -> subprocess.Popen:
+    """One `cli node` process on the card, its output in ``logs``."""
+    cmd = [sys.executable, "-m", "parameter_server_tpu_torch.cli", "node", "--role", role,
+           "--rank", str(rank), "--scheduler", sched, "--num_servers", str(servers),
+           "--num_workers", str(workers), "--app_file", str(app), "--device", "cuda"]
+    if model_out:
+        cmd += ["--model_out", model_out]
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    out = open(logs / f"{role}-{rank}.out", "w")
+    err = open(logs / f"{role}-{rank}.err", "w")
+    p = subprocess.Popen(cmd, stdout=out, stderr=err, text=True, env=env, cwd=str(root))
+    out.close()
+    err.close()
+    return p
+
+
+def cli_run(argv: list[str]) -> tuple[int, str]:
+    """One port CLI command in this process: its exit code and stdout."""
+    import io
+
+    from parameter_server_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    return rc, buf.getvalue()
+
+
+def live_checks(sched: str, mport: int, servers: int) -> dict:
+    """Phase 17 (a)'s checks against the live scheduler, once every node's
+    ring holds LIVE_MIN_BEATS beats and its pushes."""
+    import urllib.request
+
+    from parameter_server_tpu_torch.parallel.control import ControlClient
+
+    ctl = ControlClient(sched, retries=60, retry_delay=0.5, reconnect_timeout_s=30.0)
+    t0 = time.perf_counter()
+    try:
+        while True:
+            rep = ctl.telemetry(window_s=60.0)
+            nodes = rep.get("nodes") or {}
+            ready = len(nodes) == servers + 1 and all(
+                (rep["series"].get(nid) or {}).get("samples", 0) >= LIVE_MIN_BEATS
+                and ((rep["series"][nid].get("hist_rates") or {}).get(
+                    "server.push" if n["role"] == "server" else "client.push", 0) > 0)
+                for nid, n in nodes.items())
+            if ready:
+                break
+            if time.perf_counter() - t0 > LIVE_WAIT_S:
+                raise AssertionError(f"live: nodes not ready after {LIVE_WAIT_S} s: "
+                                     f"{ {k: v.get('samples') for k, v in rep['series'].items()} }")
+            time.sleep(0.1)
+        t_ready = time.perf_counter() - t0
+        stacks = {n["rank"]: (n.get("telemetry") or {}).get("prof") or []
+                  for n in nodes.values() if n["role"] == "server"}
+    finally:
+        ctl.close()
+    out: dict = {"ready_s": t_ready}
+    t1 = time.perf_counter()
+    rc, text = cli_run(["stats", "--scheduler", sched])
+    st = json.loads(text.strip().splitlines()[-1])
+    lat = st["latency_ms"]
+    if not (rc == 0 and st["nodes"] == servers + 1
+            and lat.get("client.push", {}).get("count", 0) > 0
+            and lat.get("server.push", {}).get("count", 0) > 0):
+        raise AssertionError(f"live cli stats: rc {rc}, {st['nodes']} nodes, latency {lat}")
+    out["stats"] = {"nodes": st["nodes"], "client_push": lat["client.push"],
+                    "server_push": lat["server.push"]}
+    rc, text = cli_run(["top", "--scheduler", sched, "--json"])
+    top = json.loads(text)
+    rows = {}
+    for nid, n in top["nodes"].items():
+        s = top["series"][nid]
+        verb = "server.push" if n["role"] == "server" else "client.push"
+        rows[f"{n['role']}-{n['rank']}"] = {
+            "push_per_s": s["hist_rates"].get(verb, 0.0),
+            "p99_push_ms": s["p99"].get(verb, 0.0),
+            "health": top["health"][nid]["score"]}
+    if not (rc == 0 and top["alerts"] == [] and len(rows) == servers + 1 and all(
+            r["push_per_s"] > 0 and r["health"] == 100 for r in rows.values())):
+        raise AssertionError(f"live cli top: rc {rc}, rows {rows}, alerts {top['alerts']}")
+    out["top"] = rows
+    rc, text = cli_run(["ranges", "--scheduler", sched, "--json"])
+    rng = json.loads(text)["ranges"]
+    tiles = sorted((int(b), int(e)) for b, e in (k.split("-") for k in rng if k != "other"))
+    if not (rc == 0 and tiles[0][0] == 0 and tiles[-1][1] == WORKER_KEYS
+            and len(tiles) == servers
+            and all(a[1] == b[0] for a, b in zip(tiles, tiles[1:]))
+            and all(rng[f"{b}-{e}"].get("push_rate", 0) > 0
+                    and rng[f"{b}-{e}"].get("apply_p99_ms", 0) > 0 for b, e in tiles)):
+        raise AssertionError(f"live cli ranges: rc {rc}, {rng}")
+    out["ranges"] = rng
+    rc, text = cli_run(["audit", "--scheduler", sched, "--once", "--json"])
+    aud = json.loads(text)
+    streams = {k: v.get("batches", 0) for k, v in aud["nodes"].items()}
+    if not (rc == 0 and aud["total"] == 0 and all(
+            streams.get(nid, 0) > 0 for nid in top["nodes"])):
+        raise AssertionError(f"live cli audit: rc {rc}, total {aud['total']}, batches "
+                             f"{streams}, nodes {sorted(top['nodes'])}")
+    out["audit"] = {"total": aud["total"], "batches": streams}
+    rc, text = cli_run(["whylate", "--scheduler", sched, "--json"])
+    why = json.loads(text)
+    slow = why["cmds"].get("push", {}).get("slowest") or []
+    if not (rc == 0 and slow and all(op.get("segments") for op in slow)):
+        raise AssertionError(f"live cli whylate: rc {rc}, push records {slow}")
+    out["whylate"] = slow[0]
+    # server 0's endpoint: base + 1 unless that port was taken, when it
+    # walked up; its /healthz names the process and the port it bound
+    for port in range(mport + 1, mport + 1 + 8):
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as r:
+                if json.loads(r.read().decode()).get("proc") == "server-0":
+                    break
+        except OSError:
+            pass
+    else:
+        raise AssertionError(f"live: no /healthz of server-0 at ports {mport + 1}..")
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=10) as r:
+        scrape = r.read().decode()
+    info = 'ps_build_info{proc="server-0",package="parameter_server_tpu_torch"'
+    pushes = [ln for ln in scrape.splitlines() if ln.startswith("ps_range_push_total{")]
+    if info not in scrape or not pushes or float(pushes[0].rsplit(" ", 1)[1]) <= 0:
+        raise AssertionError(f"live scrape of server-0: build info {info in scrape}, "
+                             f"push counters {pushes}")
+    out["scrape"] = {"bytes": len(scrape), "push_counter": pushes[0]}
+    out["checks_s"] = time.perf_counter() - t1
+    for rank, st_ in sorted(stacks.items()):
+        log(f"live: server-{rank}'s top profiler stacks (not gated): "
+            f"{[(p['n'], p['s'][-100:]) for p in st_[:3]]}")
+    log(f"live checks ok {out['checks_s']:.2f} s after the nodes were ready "
+        f"({t_ready:.1f} s): stats {servers + 1} nodes, client.push "
+        f"{lat['client.push']}, server.push {lat['server.push']}; top {rows}; ranges tile "
+        f"[0, {WORKER_KEYS}) in {tiles}; audit total 0, batches {streams}; whylate slowest "
+        f"push {slow[0]['dur_ms']} ms {slow[0]['segments']}; scrape {pushes[0]}")
+    return out
+
+
+def live_cluster(root: Path, tmp: Path, files: list, val: Path) -> dict:
+    """Phase 17 (a) and (b): the armed cluster, its live checks, and after
+    it the offline tools and the model against the unarmed launch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from parameter_server_tpu_torch.analysis.critpath import SEGMENTS, load_trace_dir
+    from parameter_server_tpu_torch.parallel.multislice import launch_local
+    from parameter_server_tpu_torch.utils.checkpoint import load_weights_text
+
+    # the scheduler's endpoint at mport, server r's at mport + 1 + r, the
+    # worker's after them
+    mport = free_port_block(CLUSTER_SERVERS + 2)
+    sched_port = next(p for p in iter(lambda: free_ports(1)[0], None)
+                      if not mport <= p < mport + CLUSTER_SERVERS + 2)
+    sched = f"127.0.0.1:{sched_port}"
+    tdir, bdir, logs = tmp / "live-trace", tmp / "live-bb", tmp / "live-logs"
+    logs.mkdir()
+    conf = cluster_conf(files, val, epochs=LIVE_EPOCHS,
+                        fault={"heartbeat_interval_s": LIVE_BEAT_S})
+    plain = tmp / "live-unarmed.json"
+    plain.write_text(json.dumps(conf))
+    armed = tmp / "live-armed.json"
+    armed.write_text(json.dumps({
+        **conf, "timeseries": {"metrics_port": mport},
+        "profile": {"hz": LIVE_PROFILE_HZ}, "audit": {"enabled": True},
+        "trace": {"trace_dir": str(tdir)}, "blackbox": {"dir": str(bdir)}}))
+    out: dict = {"launches": {}}
+    t0 = time.perf_counter()
+    pool = ThreadPoolExecutor(1)
+    unarmed = pool.submit(launch_local, str(plain), CLUSTER_SERVERS, 1,
+                          model_out=str(tmp / "live-unarmed.txt"),
+                          timeout=CLUSTER_TIMEOUT_S, device="cuda")
+    procs = {"scheduler-0": spawn_node(root, logs, "scheduler", 0, sched, armed,
+                                       CLUSTER_SERVERS, 1, str(tmp / "live-armed.txt"))}
+    for r in range(CLUSTER_SERVERS):
+        procs[f"server-{r}"] = spawn_node(root, logs, "server", r, sched, armed,
+                                          CLUSTER_SERVERS, 1)
+    procs["worker-0"] = spawn_node(root, logs, "worker", 0, sched, armed, CLUSTER_SERVERS, 1)
+    try:
+        out["live"] = live_checks(sched, mport, CLUSTER_SERVERS)
+        for tag, p in procs.items():
+            rc = p.wait(timeout=max(CLUSTER_TIMEOUT_S - (time.perf_counter() - t0), 1))
+            if rc != 0:
+                raise AssertionError(f"live cluster: {tag} exited {rc}:\n"
+                                     f"{(logs / (tag + '.err')).read_text()[-2000:]}")
+        ref = unarmed.result(timeout=CLUSTER_TIMEOUT_S)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        pool.shutdown(wait=True)
+    t_run = time.perf_counter() - t0
+    reports = {tag: json.loads((logs / f"{tag}.out").read_text().strip().splitlines()[-1])
+               for tag in procs}
+    res = {**reports.pop("scheduler-0"), "nodes": reports}
+    out["launches"]["live_cluster_ftrl_push"] = cluster_launches("live cluster", res,
+                                                                 "ftrl_push", 1)
+    out["launches"]["live_unarmed_ftrl_push"] = cluster_launches("live unarmed", ref,
+                                                                 "ftrl_push", 1)
+    w = torch.from_numpy(load_weights_text(tmp / "live-armed.txt", WORKER_KEYS))
+    w_ref = torch.from_numpy(load_weights_text(tmp / "live-unarmed.txt", WORKER_KEYS))
+    err = check_e2e("live armed cluster model vs the same launch unarmed", w, w_ref)
+    # (b) after the run: whylate over the trace dir (a worker step is one
+    # trace, its pull the op's root, its pushes inside it, as in the JAX
+    # package) and over the boxes (one op a push, from the cid/seq chain),
+    # postmortem over the boxes
+    rc, text = cli_run(["whylate", str(tdir), "--json"])
+    why = json.loads(text)
+    steps = (why["cmds"].get("pull") or {}).get("slowest") or []
+    evs = load_trace_dir(str(tdir))
+    pid = {tag: json.loads(next(tdir.glob(f"trace-{tag}-*.json")).read_text())[
+        "traceEvents"][0]["pid"] for tag in procs}
+    server_pids = {pid[f"server-{r}"] for r in range(CLUSTER_SERVERS)}
+    pushed = {e["args"]["trace_id"] for e in evs if e.get("ph") == "X"
+              and e["name"] == "ps.push" and e["pid"] == pid["worker-0"]}
+    stitched = {e["args"]["trace_id"] for e in evs if e.get("ph") == "X"
+                and e["name"] == "rpc.serve.push" and e["pid"] in server_pids} & pushed
+    if not (rc == 0 and why["mode"] == "trace" and steps and pushed and stitched == pushed
+            and all("server" in op["segments"] and set(op["segments"]) <= set(SEGMENTS)
+                    for op in steps)):
+        raise AssertionError(f"live whylate {tdir}: rc {rc}, mode {why.get('mode')}, "
+                             f"{len(stitched)} of {len(pushed)} pushing traces reach a "
+                             f"server, step ops {steps}")
+    rc, text = cli_run(["whylate", str(bdir), "--json"])
+    whyb = json.loads(text)
+    push = whyb["cmds"].get("push") or {}
+    slow = push.get("slowest") or []
+    if not (rc == 0 and whyb["mode"] == "blackbox" and slow
+            and all(set(op["segments"]) <= set(SEGMENTS) and "server" in op["segments"]
+                    for op in slow)):
+        raise AssertionError(f"live whylate {bdir}: rc {rc}, mode {whyb.get('mode')}, "
+                             f"push {push}")
+    rc, text = cli_run(["postmortem", str(bdir)])
+    pm = json.loads(text.strip().splitlines()[-1])
+    if rc != 0 or pm["anomalies"] or pm["processes"] != CLUSTER_SERVERS + 2:
+        raise AssertionError(f"live postmortem {bdir}: rc {rc}, {pm['processes']} boxes, "
+                             f"anomalies {pm['anomalies']}")
+    out["offline"] = {"whylate_traced_steps": why["cmds"]["pull"]["n"],
+                      "whylate_stitched_push_traces": len(stitched),
+                      "whylate_slowest_step": steps[0],
+                      "whylate_pushes": push["n"], "whylate_attribution_pct":
+                      push.get("attribution_pct"), "whylate_slowest": slow[0],
+                      "postmortem_boxes": pm["processes"], "postmortem_events": pm["events"],
+                      "cross_process_calls": pm["cross_process_calls"]}
+    out["cluster"] = {"seconds": t_run, "max_abs_err_over_scale": err,
+                      "apply_batches": [st["apply_batches"] for st in res["server_stats"]],
+                      "unarmed_apply_batches": [st["apply_batches"]
+                                                for st in ref["server_stats"]]}
+    log(f"live cluster ok in {t_run:.1f} s ({LIVE_EPOCHS} epochs, armed and unarmed at "
+        f"once): the model equals the unarmed launch's (max abs err {err:.3g} of scale); "
+        f"K1 = apply batches {out['cluster']['apply_batches']} (unarmed "
+        f"{out['cluster']['unarmed_apply_batches']}); whylate over the trace dir: "
+        f"{len(stitched)} of {len(pushed)} traces with a worker push reach a server's "
+        f"rpc.serve.push, slowest step {steps[0]['dur_ms']} ms {steps[0]['segments']}; "
+        f"over the boxes {push['n']} pushes, slowest {slow[0]['dur_ms']} ms "
+        f"{slow[0]['segments']}; postmortem of {pm['processes']} boxes ({pm['events']} "
+        f"events, {pm['cross_process_calls']} cross-process calls): no anomaly")
+    return out
+
+
+def arming_cost(rounds: list, tmp: Path, smi: str) -> dict:
+    """Phase 17 (c): phase 12 (a)'s pushes through 2 card servers in this
+    process, unarmed and with every plane armed (the metrics endpoint, the
+    profiler, the audit spool, tracing, the recorder), in turn."""
+    from parameter_server_tpu_torch.kv.updaters import Ftrl
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.parallel.backend import local_socket_backend
+    from parameter_server_tpu_torch.utils import flightrec, profiler, timeseries, trace
+    from parameter_server_tpu_torch.utils.config import AuditConfig, PSConfig
+
+    def ftrl():
+        return Ftrl(alpha=HYPER["alpha"], beta=HYPER["beta"], lambda_l1=HYPER["l1"],
+                    lambda_l2=HYPER["l2"])
+
+    pushes = [(k, g) for idx_list, grad_list in rounds for k, g in zip(idx_list, grad_list)]
+    pushes = (pushes * -(-LIVE_ARM_PUSHES // len(pushes)))[:LIVE_ARM_PUSHES]
+    acfg = AuditConfig()
+    runs: dict = {"unarmed": [], "armed": []}
+    launches = {"unarmed": 0, "armed": 0}
+    for rep in range(LIVE_ARM_REPEATS):
+        for arm in ("unarmed", "armed"):
+            msrv = None
+            if arm == "armed":
+                trace.configure(str(tmp / f"arm-trace-{rep}"), process_name="wire")
+                flightrec.configure(str(tmp / f"arm-bb-{rep}"), process_name="wire",
+                                    watchdog_interval_s=60)
+                flightrec.configure_spool(acfg.spool_capacity, acfg.batch_events)
+                profiler.configure(LIVE_PROFILE_HZ, process_name="wire")
+                msrv = timeseries.start_metrics_server(0, process_name="wire")
+            be = local_socket_backend(ftrl, SERVER_KEYS, WIRE_SERVERS, cfg=PSConfig(),
+                                      device="cuda")
+            try:
+                res = wire_deterministic(f"FTRL server {arm} ({rep + 1})", be, pushes, ftrl,
+                                         1, "ftrl_push", fk.LAUNCHES, IndexAudit())
+            finally:
+                be.close()
+                if arm == "armed":
+                    msrv.close()
+                    profiler.configure(0)
+                    flightrec.configure_spool(None)
+                    trace.configure(None)
+                    flightrec.configure(None)
+            runs[arm].append({"pushes_per_s": res["pushes_per_s"], **res["latency"]})
+            launches[arm] += res["launches"]
+            del be
+            torch.cuda.empty_cache()
+    for arm, rs in runs.items():
+        log(f"arming cost ({smi}): {arm}: " + "; ".join(
+            f"{r['pushes_per_s']:.1f} pushes/s, p50 {r['p50_ms']:.3f} / p99 "
+            f"{r['p99_ms']:.3f} ms" for r in rs) + f" ({LIVE_ARM_PUSHES} pushes a run; "
+            f"logged, not gated)")
+    return {"runs": runs, "launches": {f"arming_{k}_ftrl_push": v
+                                       for k, v in launches.items()}}
+
+
+def phase_live(rounds: list, smi: str) -> dict:
+    """Phase 17: the live operations plane, the audit plane and the
+    forensics tools on a card cluster, and what arming them costs."""
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    ids, y = zipf_rows()
+    with tempfile.TemporaryDirectory() as tmp_s:
+        tmp = Path(tmp_s)
+        files = zipf_row_files(tmp, ids, y, with_val=True)
+        files, val = files[:-1], files[-1]
+        out = live_cluster(root, tmp, files, val)
+        torch.cuda.empty_cache()
+        out["arming"] = arming_cost(rounds, tmp, smi)
+    out["launches"].update(out["arming"].pop("launches"))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 17 ok in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4810,6 +5221,10 @@ def main() -> int:
     # 16. the native parser, the dynamic pool, tracing and the black box
     p16 = phase_native_pool_traced(rounds, cluster.pop("model_a"))
     p16l = p16["launches"]
+    torch.cuda.empty_cache()
+    # 17. live ops, the audit plane and the forensics tools on a cluster
+    p17 = phase_live(rounds, smi)
+    p17l = p17["launches"]
 
     kernels["ftrl_push"]["max_abs_err"] = max(kernels["ftrl_push"]["max_abs_err"], err_wd_k1,
                                               pod["err"]["ftrl_push"])
@@ -4837,7 +5252,11 @@ def main() -> int:
         "pool_2x1_cli": p16l["pool_2x1_cli_ftrl_push"],
         "cluster_traced": p16l["cluster_traced_ftrl_push"],
         "wire_unarmed": p16l["wire_unarmed_ftrl_push"],
-        "wire_armed": p16l["wire_armed_ftrl_push"]}
+        "wire_armed": p16l["wire_armed_ftrl_push"],
+        "live_cluster": p17l["live_cluster_ftrl_push"],
+        "live_unarmed": p17l["live_unarmed_ftrl_push"],
+        "arming_unarmed": p17l["arming_unarmed_ftrl_push"],
+        "arming_armed": p17l["arming_armed_ftrl_push"]}
     kernels["ftrl_push"]["wire"] = {"server": wire["ftrl"], "concurrent_sgd": wire["concurrent"],
                                     "train_linear": wire["train_linear"],
                                     "train_linear_checks": wire["train_linear_checks"]}
@@ -4880,6 +5299,8 @@ def main() -> int:
     kernels["ftrl_push"]["chaos"] = chs["ftrl"]
     kernels["adagrad_push"]["chaos"] = chs["embedding"]
     kernels["ftrl_push"]["serving"] = {k: chs[k] for k in ("serving", "shed")}
+    kernels["ftrl_push"]["live"] = {k: p17[k] for k in ("cluster", "live", "offline",
+                                                       "arming")}
     kernels["quantize_stochastic"]["launches_by_path"] = {
         "codec_round_trip": codec_launches["quantize_stochastic"],
         "wire_fixed_point_handles": wl["wire_fixed_point_handles"]}

@@ -5,8 +5,9 @@ batch solver), ``matrix_fac``, ``wide_deep``, ``word2vec``,
 ``graph_partition`` and ``sketch``. A config file picks the app and its
 solver, flags pick the run mode, ``--device`` the device (``cuda`` unless
 ``cpu`` is asked for; ``sketch`` is host code and ignores it). Config files
-and flags are those of the JAX package's CLI; every other option and
-subcommand exits with "not ported yet".
+and flags are those of the JAX package's CLI; the JAX CLI's static
+analysis subcommands (``lint``, ``check``, ``verify``, ``explore``) exit
+with "not ported yet".
 
 A mesh larger than 1x1 (``parallel.data_shards`` x ``parallel.kv_shards``)
 runs ``linear_method`` through ``PodTrainer`` (or, with ``solver.algo =
@@ -25,7 +26,20 @@ the wire tier's dynamic workload pool instead of the static split;
 ``[trace] trace_dir``) arms tracing and ``[blackbox] dir`` the flight
 recorder in ``train``; ``node`` arms both from the config or the
 inherited ``PS_TRACE_DIR`` / ``PS_BLACKBOX_DIR``, which ``launch
---trace_dir/--blackbox_dir`` set for every node it spawns.
+--trace_dir/--blackbox_dir`` set for every node it spawns. ``train`` and
+every node also arm the sampling profiler from ``[profile] hz`` (or
+``PS_PROFILE``) and the OpenMetrics endpoint from ``[timeseries]
+metrics_port`` (or ``PS_METRICS_PORT``).
+
+The operations commands read a live cluster or what it left behind, with
+no config file, as the JAX CLI's do: ``stats`` (the telemetry table),
+``top`` (windowed per-node rates, SLO health and alerts), ``ranges`` (the
+per-key-range traffic and data-age matrix) and ``audit`` (the streaming
+protocol monitors' verdicts; exit 1 on a violation) against
+``--scheduler host:port``; ``whylate`` (critical-path segments of the
+slowest pushes and pulls) over a trace or black-box dir or a live
+``--scheduler``, with ``--baseline`` budgets; ``postmortem`` over a
+black-box dir (exit 1 on an anomaly).
 
 ``convert`` parses the config's files once into the columnar block cache
 (``data/blockcache.py``) that darlin reads instead of the text when
@@ -40,6 +54,9 @@ Usage:
   python -m parameter_server_tpu_torch.cli launch --app_file cfg.json --num_servers 2 --num_workers 2 [--model_out m.txt] [--device cpu]
   python -m parameter_server_tpu_torch.cli node --role scheduler|server|worker --rank R --scheduler host:port
       --num_servers S --num_workers W --app_file cfg.json [--model_out m.txt] [--ckpt_dir d] [--device cpu]
+  python -m parameter_server_tpu_torch.cli stats|top|ranges|audit --scheduler host:port [--once] [--json]
+  python -m parameter_server_tpu_torch.cli whylate DIR | --scheduler host:port [--baseline f.json [--update-baseline]]
+  python -m parameter_server_tpu_torch.cli postmortem DIR [--trace_out t.json]
 
 ``backend`` drives the canonical linear trainer loop (``parallel/backend.py``
 ``train_linear``) through the transport the ``[mesh] backend`` setting names:
@@ -64,11 +81,10 @@ import sys
 
 from parameter_server_tpu_torch.utils.config import PSConfig, load_config
 
-#: subcommands of the JAX package's CLI that the port does not have yet
-NOT_PORTED_CMDS = (
-    "stats", "top", "ranges", "audit",
-    "whylate", "postmortem", "lint", "check", "verify", "explore",
-)
+#: subcommands of the JAX package's CLI that the port does not carry: its
+#: static analysis tools read the JAX package's own source, so they stay
+#: with that package's CLI
+NOT_PORTED_CMDS = ("lint", "check", "verify", "explore")
 
 _KNOWN_APPS = (
     "linear_method", "graph_partition", "sketch", "matrix_fac", "word2vec",
@@ -221,15 +237,165 @@ def _build_parser() -> argparse.ArgumentParser:
         "(PS_BLACKBOX_DIR): each leaves a psbb/1 dump for the JAX package's "
         "`cli postmortem` to merge",
     )
+
+    st = sub.add_parser(
+        "stats",
+        help="print the cluster telemetry table from a live coordinator "
+        "(the reference scheduler's dashboard): per-node counters + "
+        "merged per-command latency histograms (count/p50/p99)",
+    )
+    st.add_argument(
+        "--scheduler", required=True, help="coordinator host:port"
+    )
+
+    tp = sub.add_parser(
+        "top",
+        help="live cluster dashboard (the operations plane's `top`): "
+        "auto-refreshing per-node windowed rates + p99 latencies from "
+        "the coordinator's retained heartbeat time series, SLO "
+        "burn-rate health per node, active alerts and hot keys",
+    )
+    tp.add_argument("--scheduler", required=True, help="coordinator host:port")
+    tp.add_argument(
+        "--interval", type=float, default=2.0,
+        help="refresh cadence in seconds",
+    )
+    tp.add_argument(
+        "--window", type=float, default=0.0,
+        help="rate/percentile window in seconds (0 = the coordinator's "
+        "[timeseries] window_s default)",
+    )
+    tp.add_argument(
+        "--once", action="store_true",
+        help="print one frame and exit (scripts / tests)",
+    )
+    tp.add_argument(
+        "--json", action="store_true",
+        help="one-shot machine-readable output (implies --once): the "
+        "same blocks the dashboard renders — nodes, windowed series, "
+        "health, active alerts, audit — as one JSON document for CI "
+        "and scripts",
+    )
+
+    rg = sub.add_parser(
+        "ranges",
+        help="the freshness plane's dashboard (`top` over key ranges): "
+        "per-range push/pull rates, bytes moved, apply cost and the "
+        "REALIZED data-age distribution of serves (server-measured "
+        "publish-to-serve age + cache dwell), aggregated cluster-wide "
+        "from the coordinator's retained heartbeat time series, with "
+        "hot-key heat folded onto the owning range",
+    )
+    rg.add_argument("--scheduler", required=True, help="coordinator host:port")
+    rg.add_argument(
+        "--interval", type=float, default=2.0,
+        help="refresh cadence in seconds",
+    )
+    rg.add_argument(
+        "--window", type=float, default=0.0,
+        help="rate/percentile window in seconds (0 = the coordinator's "
+        "[timeseries] window_s default)",
+    )
+    rg.add_argument(
+        "--once", action="store_true",
+        help="print one frame and exit (scripts / tests)",
+    )
+    rg.add_argument(
+        "--json", action="store_true",
+        help="one-shot machine-readable per-range matrix (implies "
+        "--once)",
+    )
+
+    au = sub.add_parser(
+        "audit",
+        help="the live audit plane (streaming protocol sentinel): "
+        "violations of the wire protocol's invariants — "
+        "acked-but-unapplied pushes, double applies, RCU version "
+        "regressions, SSP staleness overruns, reconnects without "
+        "heals, shed storms — detected by the coordinator's streaming "
+        "monitors over the heartbeat event bus; one-shot summary or "
+        "live follow",
+    )
+    au.add_argument("--scheduler", required=True, help="coordinator host:port")
+    au.add_argument(
+        "--interval", type=float, default=2.0,
+        help="follow-mode poll cadence in seconds",
+    )
+    au.add_argument(
+        "--once", action="store_true",
+        help="print one summary and exit (nonzero when violations "
+        "exist — CI drills gate on it)",
+    )
+    au.add_argument("--json", action="store_true")
+    au.add_argument(
+        "--recent", type=int, default=20,
+        help="recent violations to include in the panel",
+    )
+
+    wl = sub.add_parser(
+        "whylate",
+        help="tail-latency forensics (analysis/critpath.py): stitch "
+        "logical push/pull ops across processes and attribute their "
+        "wall time to named pipeline segments (client_queue, wire, "
+        "server, apply_wait, apply, reply_lane, ssp_wait). Feed it a "
+        "PS_TRACE_DIR capture (tail-capture sidecars rescued), a "
+        "PS_BLACKBOX_DIR postmortem, or a live cluster via "
+        "--scheduler; --baseline gates per-segment p99 budgets with "
+        "tiered exit codes (1 = hard regression, 2 = over budget)",
+    )
+    wl.add_argument(
+        "dir", nargs="?", default="",
+        help="trace or blackbox capture dir (omit with --scheduler)",
+    )
+    wl.add_argument(
+        "--scheduler", default="",
+        help="live mode: read the heartbeat-piggybacked slowest-op "
+        "records from this coordinator instead of a capture dir",
+    )
+    wl.add_argument(
+        "--top", type=int, default=5,
+        help="slowest ops to list per command",
+    )
+    wl.add_argument("--json", action="store_true")
+    wl.add_argument(
+        "--baseline", default="", metavar="FILE",
+        help="per-segment latency budgets (JSON: budgets_ms[cmd][seg] "
+        "+ hard_factor); exit 1 when a segment p99 exceeds "
+        "hard_factor x budget, 2 when it merely exceeds budget",
+    )
+    wl.add_argument(
+        "--update-baseline", action="store_true",
+        help="rewrite --baseline from this capture's per-segment p99s "
+        "(x2 slack)",
+    )
+
+    pm = sub.add_parser(
+        "postmortem",
+        help="merge the black-box dumps of a crashed/stalled cluster "
+        "(PS_BLACKBOX_DIR, utils/flightrec.py) into one causal "
+        "timeline: cross-process (cid, seq) stitching, anomaly flags "
+        "(stalls, acked-but-unapplied pushes, version regressions, "
+        "reconnects without heals, shed storms), per-key heat, and an "
+        "optional Perfetto-loadable rendering",
+    )
+    pm.add_argument("dir", help="the blackbox dump directory")
+    pm.add_argument(
+        "--trace_out", default="",
+        help="also write the merged timeline as Chrome trace-event JSON "
+        "(open in Perfetto next to a PS_TRACE_DIR trace of the run)",
+    )
+    pm.add_argument(
+        "--tail", type=int, default=40,
+        help="merged-timeline events to print in the human report",
+    )
+
     return p
 
 
 def _check_ported(cfg: PSConfig) -> None:
-    """Refuse the config settings of paths the port does not have yet."""
+    """Refuse an app the port does not know."""
     if cfg.app not in _KNOWN_APPS:
         raise SystemExit(f"unknown app {cfg.app!r}; known: {sorted(_KNOWN_APPS)}")
-    if cfg.profile.hz > 0 or cfg.timeseries.metrics_port:
-        raise _not_ported("profiling and the metrics endpoint")
 
 
 def _arm_train(cfg: PSConfig) -> None:
@@ -714,11 +880,237 @@ def run_backend(cfg: PSConfig, args: argparse.Namespace) -> dict:
 
 
 def _check_cluster(cfg: PSConfig, args: argparse.Namespace) -> None:
-    """Refuse what the cluster path (``node``, ``launch``) has not ported:
-    other apps, the profiler and the metrics endpoint."""
+    """Refuse the apps the cluster path (``node``, ``launch``) does not
+    run: as in the JAX package, it runs ``linear_method`` only."""
     _check_ported(cfg)
     if cfg.app != "linear_method":
         raise _not_ported(f"the cluster path for app {cfg.app!r}")
+
+
+def run_stats(args: argparse.Namespace) -> dict:
+    """The cluster dashboard (ref: the reference scheduler's printed
+    table): query a live coordinator's ``telemetry`` command and print
+    per-node rows + the merged per-command latency histograms."""
+    from parameter_server_tpu_torch.parallel.control import ControlClient
+    from parameter_server_tpu_torch.utils.metrics import (
+        format_cluster_stats,
+        hist_percentile,
+    )
+
+    ctl = ControlClient(args.scheduler, retries=5, reconnect_timeout_s=5.0)
+    try:
+        rep = ctl.telemetry()
+    finally:
+        ctl.close()
+    print(format_cluster_stats(rep))
+    merged = rep["merged"]
+    return {
+        "nodes": len(rep["nodes"]),
+        "counters": merged["counters"],
+        "latency_ms": {
+            name: {
+                "count": s.get("count", 0),
+                "p50": round(hist_percentile(s, 0.5) * 1e3, 3),
+                "p99": round(hist_percentile(s, 0.99) * 1e3, 3),
+            }
+            for name, s in merged["hists"].items()
+        },
+    }
+
+
+def run_top(args: argparse.Namespace) -> int:
+    """The auto-refreshing live dashboard (``cli top``): query the
+    coordinator's ``telemetry`` command (windowed per-node series + SLO
+    verdict) and render a frame every ``--interval``; ``--once`` prints
+    a single frame for scripts and tests."""
+    import time as time_mod
+
+    from parameter_server_tpu_torch.parallel.control import ControlClient
+    from parameter_server_tpu_torch.utils.slo import format_top
+
+    ctl = ControlClient(args.scheduler, retries=5, reconnect_timeout_s=5.0)
+    window = args.window or None
+    try:
+        while True:
+            rep = ctl.telemetry(window_s=window)
+            shown_window = (
+                args.window
+                or next(iter(rep.get("series", {}).values()), {}).get(
+                    "window_s", 0.0
+                )
+            )
+            if getattr(args, "json", False):
+                # one-shot machine-readable frame: the same blocks the
+                # dashboard renders, schema contract-tested in tier-1
+                slo_rep = rep.get("slo") or {}
+                print(json.dumps({
+                    "window_s": float(shown_window or 0.0),
+                    "nodes": rep.get("nodes") or {},
+                    "series": rep.get("series") or {},
+                    "health": slo_rep.get("health") or {},
+                    "alerts": slo_rep.get("alerts") or [],
+                    "audit": rep.get("audit") or {},
+                }, default=float))
+                return 0
+            frame = format_top(rep, float(shown_window or 0.0))
+            if args.once:
+                print(frame)
+                return 0
+            # ANSI home+clear: the `top` idiom — repaint in place
+            print("\x1b[2J\x1b[H" + frame, flush=True)
+            time_mod.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        ctl.close()
+
+
+def run_audit(args: argparse.Namespace) -> int:
+    """The live audit plane's viewer (``cli audit``): one-shot summary
+    (exit 1 when violations exist, so drills and CI gate on it) or a
+    follow loop printing each NEW violation as the coordinator's
+    streaming monitors raise it."""
+    import time as time_mod
+
+    from parameter_server_tpu_torch.parallel.control import ControlClient
+    from parameter_server_tpu_torch.utils.slo import format_audit, format_violation
+
+    ctl = ControlClient(args.scheduler, retries=5, reconnect_timeout_s=5.0)
+    try:
+        rep = ctl.audit(recent=args.recent)
+        if args.json:
+            print(json.dumps(rep, default=float))
+            return 1 if rep.get("total") else 0
+        if args.once:
+            print(format_audit(rep))
+            return 1 if rep.get("total") else 0
+        # follow mode: poll, print only what is new since the last frame
+        print(format_audit(rep))
+        seen = int(rep.get("total") or 0)
+        while True:
+            time_mod.sleep(args.interval)
+            rep = ctl.audit(recent=args.recent)
+            total = int(rep.get("total") or 0)
+            if total > seen:
+                fresh = (rep.get("recent") or [])[-(total - seen):]
+                for v in fresh:
+                    print(format_violation(v).strip(), flush=True)
+                seen = total
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        ctl.close()
+
+
+def run_whylate(args: argparse.Namespace) -> int:
+    """Tail-latency forensics (``cli whylate``): critical-path
+    attribution over a trace/blackbox capture dir or a live cluster,
+    with optional per-segment budget gating (tiered exits: 0 within
+    budget, 2 over budget, 1 past the hard factor, so CI fails on
+    which segment regressed)."""
+    from parameter_server_tpu_torch.analysis import critpath
+
+    if bool(args.dir) == bool(args.scheduler):
+        raise SystemExit(
+            "whylate needs exactly one input: a capture dir or "
+            "--scheduler host:port"
+        )
+    if args.scheduler and (args.baseline or args.update_baseline):
+        # live records carry only the slowest-K segment splits, not the
+        # per-segment p99 population a budget gates on: silently passing
+        # every budget (or rewriting the committed baseline to empty)
+        # would be a CI gate that never fires
+        raise SystemExit(
+            "whylate --baseline/--update-baseline gate offline captures; "
+            "point them at a trace/blackbox dir, not --scheduler"
+        )
+    if args.update_baseline and not args.baseline:
+        raise SystemExit(
+            "whylate --update-baseline needs --baseline FILE (the file "
+            "to rewrite) — without it nothing would be written"
+        )
+    if args.scheduler:
+        from parameter_server_tpu_torch.parallel.control import ControlClient
+
+        ctl = ControlClient(
+            args.scheduler, retries=5, reconnect_timeout_s=5.0
+        )
+        try:
+            summary = critpath.analyze_live(ctl.telemetry(), top=args.top)
+        finally:
+            ctl.close()
+    else:
+        summary = critpath.analyze_dir(args.dir, top=args.top)
+    findings: list[dict] = []
+    rc = 0
+    if args.baseline and args.update_baseline:
+        critpath.update_baseline(summary, args.baseline)
+    elif args.baseline:
+        if not summary.get("ops"):
+            # an empty capture cannot PASS a budget gate: zero stitched
+            # ops means the export (or the dir argument) broke, and
+            # exiting 0 here would silently disarm the CI contract
+            raise SystemExit(
+                f"whylate --baseline: no stitchable ops found in "
+                f"{args.dir!r} — cannot gate an empty capture"
+            )
+        findings = critpath.check_baseline(
+            summary, critpath.load_baseline(args.baseline)
+        )
+        rc = critpath.baseline_exit_code(findings)
+    if args.json:
+        print(json.dumps(
+            {**summary, "baseline_findings": findings}, default=float
+        ))
+        return rc
+    print(critpath.render_report(summary, top=args.top))
+    for f in findings:
+        print(
+            f"BUDGET {f['tier'].upper()}: {f['cmd']}.{f['segment']} "
+            f"p99 {f['p99_ms']}ms > budget {f['budget_ms']}ms"
+        )
+    if args.baseline and not args.update_baseline and not findings:
+        print("all segment budgets met")
+    return rc
+
+
+def run_ranges(args: argparse.Namespace) -> int:
+    """The freshness dashboard (``cli ranges``): per-range traffic and
+    realized data-age matrix from the coordinator's ``telemetry``
+    command, auto-refreshing like ``cli top``; ``--once``/``--json``
+    print a single frame for scripts and tests."""
+    import time as time_mod
+
+    from parameter_server_tpu_torch.parallel.control import ControlClient
+    from parameter_server_tpu_torch.utils.slo import format_ranges, ranges_view
+
+    ctl = ControlClient(args.scheduler, retries=5, reconnect_timeout_s=5.0)
+    window = args.window or None
+    try:
+        while True:
+            rep = ctl.telemetry(window_s=window)
+            shown_window = (
+                args.window
+                or next(iter(rep.get("series", {}).values()), {}).get(
+                    "window_s", 0.0
+                )
+            )
+            if args.json:
+                print(json.dumps(
+                    ranges_view(rep, float(shown_window or 0.0)),
+                    default=float,
+                ))
+                return 0
+            frame = format_ranges(rep, float(shown_window or 0.0))
+            if args.once:
+                print(frame)
+                return 0
+            print("\x1b[2J\x1b[H" + frame, flush=True)
+            time_mod.sleep(args.interval)
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        ctl.close()
 
 
 def run_node_cmd(cfg: PSConfig, args: argparse.Namespace) -> dict:
@@ -756,6 +1148,33 @@ def main(argv: list[str] | None = None) -> int:
     if argv and argv[0] in NOT_PORTED_CMDS:
         raise _not_ported(f"the {argv[0]!r} subcommand")
     args = _build_parser().parse_args(argv)
+    if args.cmd == "stats":
+        # no config file: stats only needs a live coordinator address
+        print(json.dumps(run_stats(args), default=float))
+        return 0
+    if args.cmd == "top":
+        # no config file: the dashboard reads the live coordinator
+        return run_top(args)
+    if args.cmd == "ranges":
+        # no config file: the freshness dashboard reads the live
+        # coordinator (range boundaries ride the series names)
+        return run_ranges(args)
+    if args.cmd == "audit":
+        # no config file: the sentinel reads the live coordinator
+        return run_audit(args)
+    if args.cmd == "whylate":
+        # no config file: forensics read a capture dir or the live
+        # coordinator's piggybacked slow-op records
+        return run_whylate(args)
+    if args.cmd == "postmortem":
+        # no config file: a postmortem works from the dumps alone
+        from parameter_server_tpu_torch.utils.postmortem import postmortem
+
+        out = postmortem(args.dir, trace_out=args.trace_out, tail=args.tail)
+        print(out.pop("report"))
+        print(json.dumps(out, default=float))
+        # anomalies => nonzero, so a soak harness can gate on the exit
+        return 1 if out["anomalies"] else 0
     cfg = load_config(args.app_file)
     if getattr(args, "trace_dir", ""):
         # the flag wins over the config and the ambient env; run_node and
@@ -763,7 +1182,52 @@ def main(argv: list[str] | None = None) -> int:
         cfg.trace.trace_dir = args.trace_dir
     run = {"train": run_train, "convert": run_convert, "evaluate": run_evaluate,
            "backend": run_backend, "node": run_node_cmd, "launch": run_launch}[args.cmd]
-    out = run(cfg, args)
+    msrv = roller = None
+    armed_prof = False
+    if args.cmd == "train":
+        # live-ops arming for the train path (spawned node roles arm in
+        # run_node with role-rank names): the continuous profiler from
+        # [profile] / PS_PROFILE; the OpenMetrics endpoint from
+        # [timeseries] / PS_METRICS_PORT, with a Roller thread feeding
+        # the local ring at heartbeat cadence (no beats feed it here) so
+        # /healthz serves a live windowed summary
+        import os
+
+        from parameter_server_tpu_torch.utils import profiler, timeseries
+
+        hz = cfg.profile.hz if cfg.profile.hz > 0 else profiler.env_hz()
+        if hz > 0:
+            profiler.configure(
+                hz, top_n=cfg.profile.top_n,
+                max_depth=cfg.profile.max_depth,
+                dump_dir=cfg.profile.dump_dir, process_name="train",
+            )
+            armed_prof = True
+        mport = cfg.timeseries.metrics_port or int(
+            os.environ.get(timeseries.METRICS_PORT_ENV, "0") or 0
+        )
+        if mport > 0:
+            timeseries.reset_local_ring(cfg.timeseries.capacity)
+            msrv = timeseries.start_metrics_server(
+                mport, process_name="train",
+                host=cfg.timeseries.metrics_host,
+                window_s=cfg.timeseries.window_s,
+            )
+            roller = timeseries.Roller(cfg.fault.heartbeat_interval_s)
+    try:
+        out = run(cfg, args)
+    finally:
+        # an in-process caller (tests) must not leak the HTTP server, the
+        # roll thread or a still-sampling profiler past main() (disarming
+        # the profiler also writes its configured dumps)
+        if roller is not None:
+            roller.close()
+        if msrv is not None:
+            msrv.close()
+        if armed_prof:
+            from parameter_server_tpu_torch.utils import profiler
+
+            profiler.configure(0)
     print(json.dumps(out, default=float))
     return 0
 

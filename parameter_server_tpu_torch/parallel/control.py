@@ -49,12 +49,14 @@ The flight recorder (``rpc.in``/``rpc.out`` a frame on the server,
 ``rpc.issue``/``rpc.reply`` and the heal transitions on the client),
 tracing (the client's ``rpc.<cmd>`` span sends its ``_trace`` context in
 the header; the server's ``rpc.serve.<cmd>`` span joins it, a JAX
-client's too) and the watchdog probes are the JAX module's. Trimmed from
-it: the latency histograms' export; the coordinator's time series, SLO
-engine and audit plane (its ``telemetry`` reply carries ``nodes``,
-``coordinator`` and a counters-only ``merged`` view; ``audit`` answers
-"not ported yet"). The process-global ``wire_counters``
-(``utils/metrics.py``) keep the counts that ``stats`` replies carry.
+client's too) and the watchdog probes are the JAX module's, and so is
+the live operations plane: the per-command latency histograms
+(``client.<cmd>``, ``server.<cmd>``) and slowest-op records, the
+coordinator's per-node time series, SLO engine and audit plane (its
+``telemetry`` reply carries ``nodes``, ``coordinator``, ``merged``,
+``series``, ``slo`` and ``audit``; ``audit`` answers ``cli audit``). The
+process-global ``wire_counters`` (``utils/metrics.py``) keep the counts
+that ``stats`` replies carry.
 """
 
 from __future__ import annotations
@@ -83,7 +85,9 @@ from parameter_server_tpu_torch.utils.metrics import (
     Histogram,
     hist_percentile,
     merge_progress,
+    latency_histograms,
     merge_telemetry,
+    slow_ops,
     telemetry_snapshot,
     wire_counters,
 )
@@ -842,9 +846,13 @@ class RpcServer:
         hi_frames = lo_frames = 0
         # deferred replies (batched apply): settled before this thread
         # blocks on the socket, so an acked push is always applied;
-        # entries are (seq, deferred, cmd, t_svc, bin_hdr, advert, feats)
+        # entries are (seq, deferred, cmd, t_svc, bin_hdr, advert,
+        # feats, trace_ctx)
         deferred: list[
-            tuple[Any, DeferredReply, str, float, bool, bool, list | None]
+            tuple[
+                Any, DeferredReply, str, float, bool, bool,
+                list | None, dict | None,
+            ]
         ] = []
 
         def queue_reply(
@@ -929,7 +937,9 @@ class RpcServer:
             drain sees exactly the entries whose replies were never
             queued — none stranded, none double-counted."""
             while deferred:
-                seq_d, d, cmd_d, t_d, bin_d, adv_d, feat_d = deferred[0]
+                seq_d, d, cmd_d, t_d, bin_d, adv_d, feat_d, tctx_d = (
+                    deferred[0]
+                )
                 try:
                     rep_d, arrays_d = d.future.result()
                 except ConnectionError:
@@ -947,6 +957,10 @@ class RpcServer:
                     rep_d, arrays_d = {"ok": False, "error": repr(e)}, {}
                 deferred.pop(0)
                 svc_d = time.perf_counter() - t_d
+                latency_histograms.observe(
+                    f"server.{cmd_d}", svc_d,
+                    exemplar=(tctx_d or {}).get("tid"),
+                )
                 queue_reply(
                     decorated(
                         rep_d, seq_d, adv_d, feat_d,
@@ -1039,6 +1053,11 @@ class RpcServer:
                             # the same frame delivered twice: without dedup
                             # this double-applies (the copy's reply discarded)
                             self._dispatch(cid, seq, dup_header, arrays)
+                    if not isinstance(rep, DeferredReply):
+                        latency_histograms.observe(
+                            f"server.{cmd_name}", time.perf_counter() - t_svc,
+                            exemplar=(tctx or {}).get("tid"),
+                        )
                 except RpcServer.Shutdown:
                     try:
                         settle_deferred()
@@ -1070,7 +1089,8 @@ class RpcServer:
                     return  # applied, but the reply is lost; conn closed below
                 if isinstance(rep, DeferredReply):
                     deferred.append((
-                        seq, rep, cmd_name, t_svc, was_bin, advert, feat_ack,
+                        seq, rep, cmd_name, t_svc, was_bin, advert,
+                        feat_ack, tctx,
                     ))
                     if len(deferred) >= 64:  # bound parked futures
                         settle_deferred()
@@ -1428,15 +1448,29 @@ class RpcClient:
         self._conn_died(sock, gen)
 
     def _complete(self, p: _PendingCall, rep: dict[str, Any], arrays: Arrays) -> None:
+        # client-observed latency: queueing + wire + service + any
+        # transparent retries/reconnects this call absorbed
+        dt = time.perf_counter() - p.t0
+        tid = (p.header.get("_trace") or {}).get("tid")
+        latency_histograms.observe(f"client.{p.cmd}", dt, exemplar=tid)
+        # latency forensics: the reply's server-timing echo splits this
+        # call's wall time into wire vs server vs apply segments; the
+        # slowest-K records ride the heartbeat piggyback for
+        # `cli whylate --scheduler` and the `cli top` breakdown line
+        slow_ops.observe(
+            p.cmd, dt,
+            svc_us=rep.get("_svc_us"),
+            apw_us=rep.get("_apw_us"),
+            apl_us=rep.get("_apl_us"),
+            tid=tid,
+        )
         self._completed_n += 1  # GIL-atomic; feeds the stall probe
         flightrec.record(
             "rpc.reply", cmd=p.cmd, cid=self._cid, seq=p.seq,
             ok=rep.get("ok", True),
         )
         if self._adaptive:
-            # client-observed latency: queueing + wire + service + any
-            # transparent retries/reconnects this call absorbed
-            self._lat_hist.observe(time.perf_counter() - p.t0)
+            self._lat_hist.observe(dt)
             self._adapt_n += 1
             if self._adapt_n >= self._ADAPT_EVERY:
                 self._adapt_n = 0
@@ -1933,14 +1967,48 @@ class Coordinator:
         heartbeat_timeout_s: float = 30.0,
         recovery_interval_s: float = 0.0,
         fault_plan: FaultPlan | None = None,
+        slo_cfg: "SloConfig | None" = None,
+        series_capacity: int = 360,
+        series_window_s: float = 60.0,
+        audit_cfg: "AuditConfig | None" = None,
     ):
+        from parameter_server_tpu_torch.utils.auditor import Auditor
+        from parameter_server_tpu_torch.utils.config import SloConfig
+        from parameter_server_tpu_torch.utils.slo import SloEngine, parse_rules
+        from parameter_server_tpu_torch.utils.timeseries import TimeSeriesRing
+
         self._nodes: dict[int, dict[str, Any]] = {}
         self._next_id = 0
         self._barriers: dict[str, list[int]] = {}  # name -> [arrived, generation]
         self._kv: dict[str, tuple[dict, Arrays]] = {}
         self._pool: WorkloadPool | None = None
         self._progress: dict[int, dict[str, Any]] = {}
-        self._monitor = HeartbeatMonitor(heartbeat_timeout_s)
+        self._monitor = HeartbeatMonitor(
+            heartbeat_timeout_s, series_capacity=series_capacity
+        )
+        # the live-ops plane: per-node telemetry history is retained by
+        # the monitor; this engine turns it into multi-window burn-rate
+        # alerts, evaluated on every recovery sweep (alerts fire with no
+        # viewer attached) and on every telemetry query
+        scfg = slo_cfg or SloConfig()
+        self._slo = SloEngine(
+            parse_rules(scfg.rules),
+            short_window_s=scfg.short_window_s,
+            long_window_s=scfg.long_window_s,
+        )
+        self._series_window_s = series_window_s
+        # the scheduler process never heartbeats to itself, but it owns
+        # cluster-level signals (the SSP clock's ssp_blocked_ms, control
+        # dedup/recovery counters): its own ring, fed by _observe_self()
+        # on every sweep/telemetry pass, rate-limited so a polling
+        # dashboard can't flood it with sub-second entries
+        self._self_ring = TimeSeriesRing(series_capacity)
+        self._self_last = 0.0
+        # the live audit plane: heartbeat-piggybacked event batches from
+        # every node stream through the shared protocol monitors here;
+        # the coordinator's own spooled events are drained inline each
+        # sweep as the "coord" stream
+        self._auditor = Auditor(audit_cfg)
         self._clock: SSPClock | None = None
         self._cv = threading.Condition()
         # batched beat/progress ingestion: these commands arrive from
@@ -1992,8 +2060,43 @@ class Coordinator:
         )
         self._sweep_thread.start()
 
+    def _observe_self(self) -> None:
+        """Roll the coordinator's own telemetry into its ring (at most
+        ~4x/second however often sweeps and dashboards ask)."""
+        now = time.time()
+        if now - self._self_last < 0.25:
+            return
+        self._self_last = now
+        self._self_ring.observe(
+            telemetry_snapshot(roll_peaks=False), ts=now
+        )
+
+    def _slo_rings(self) -> dict[Any, Any]:
+        return {**self._monitor.node_series(), "coord": self._self_ring}
+
+    def _audit_pass(self) -> None:
+        """One audit-plane pass: drain this process's own event spool
+        (when armed) into the auditor as the "coord" stream, then run
+        the watermark flush so unpaired facts past their window become
+        violations. Rides the sweep and every audit/telemetry query:
+        violations must fire with no viewer attached."""
+        sp = flightrec.audit_spool()
+        if sp is not None:
+            batches = sp.drain(max_batches=16)
+            if batches:
+                self._auditor.ingest("coord", batches, role="coordinator")
+                sp.ack()  # no wire between drain and ingest: always lands
+        self._auditor.flush()
+
     def _sweep_once(self) -> None:
         self._drain_ingest(wait=True)  # a queued beat must not read dead
+        # SLO pass rides the sweep cadence: alerts must fire (and land in
+        # the flight recorder) even when nobody is watching `cli top`.
+        # Audit first: a violation bumped now is in the snapshot the
+        # self-ring roll below hands the burn-rate engine.
+        self._audit_pass()
+        self._observe_self()
+        self._slo.evaluate(self._slo_rings())
         for nid in self._monitor.dead():
             with self._cv:
                 info = dict(self._nodes.get(nid, {}))
@@ -2170,8 +2273,30 @@ class Coordinator:
                         for worker, record in prog:
                             self._progress[worker] = record
                         self._cv.notify_all()
+                # audit plane: peel each beat's piggybacked event batches
+                # before the monitor retains the stats (latest_stats is a
+                # telemetry view, not an event bus), then feed them after
+                # the monitor lock is released — the auditor locks itself
+                audit_feed: list[tuple[int, list]] = []
+                for node_id, stats in beats:
+                    if isinstance(stats, dict):
+                        batches = stats.pop("audit", None)
+                        if batches:
+                            audit_feed.append((node_id, batches))
                 if beats:
                     self._monitor.beat_many(beats)
+                if audit_feed:
+                    # role hints tighten hole-suppression targeting (a
+                    # holed worker stream cannot hide a missing commit)
+                    with self._cv:
+                        roles = {
+                            nid: self._nodes.get(nid, {}).get("role")
+                            for nid, _ in audit_feed
+                        }
+                    for node_id, batches in audit_feed:
+                        self._auditor.ingest(
+                            node_id, batches, role=roles.get(node_id)
+                        )
                 if len(batch) > 1:
                     wire_counters.inc("coord_ingest_coalesced", len(batch) - 1)
                 # loop: frames appended while we applied are ours too
@@ -2180,10 +2305,10 @@ class Coordinator:
 
     def _cmd_telemetry(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
         """Cluster telemetry: every node's last heartbeat piggybacked a
-        counters snapshot; this merges them, plus the coordinator's own
-        process, into one cluster view, and returns the per-node detail.
-        The JAX coordinator's ``series``, ``slo`` and ``audit`` blocks are
-        not ported."""
+        counters+histograms snapshot; this merges them, plus the
+        coordinator's own process, into one cluster view, and returns the
+        per-node detail, each node's windowed ``series`` summary, the SLO
+        engine's verdict and the audit plane's summary."""
         self._drain_ingest(wait=True)  # acked beats are in latest_stats
         with self._cv:
             registry = {int(k): dict(v) for k, v in self._nodes.items()}
@@ -2202,17 +2327,39 @@ class Coordinator:
             if tel:
                 node_snaps.append(tel)
         local = telemetry_snapshot()  # the coordinator's own process
+        # the live-ops view: per-node windowed rates/p50/p99 from the
+        # retained beat history + the SLO engine's verdict ("coord" is
+        # the scheduler process itself: SSP blocked time and
+        # control-plane counters live only there)
+        self._observe_self()
+        window_s = float(h.get("window_s") or self._series_window_s)
+        rings = self._slo_rings()
+        series = {
+            str(nid): ring.summary(window_s)
+            for nid, ring in rings.items()
+        }
+        self._audit_pass()
         return {
             "ok": True,
             "nodes": per_node,
             "coordinator": local,
             "merged": merge_telemetry(node_snaps + [local]),
+            "series": series,
+            "slo": self._slo.evaluate(rings),
+            "audit": self._auditor.summary(),
         }, {}
 
     def _cmd_audit(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
+        """The audit plane's read endpoint (``cli audit``): violation
+        totals/panel + per-node stream accounting, after draining any
+        queued beats (an acked batch is visible) and a watermark pass."""
+        self._drain_ingest(wait=True)
+        self._audit_pass()
         return {
-            "ok": False,
-            "error": "the audit plane is not ported yet to parameter_server_tpu_torch",
+            "ok": True,
+            "audit": self._auditor.summary(
+                recent=int(h.get("recent") or 20)
+            ),
         }, {}
 
     def _cmd_dead(self, h: dict, _: Arrays) -> tuple[dict, Arrays]:
@@ -2240,6 +2387,11 @@ class Coordinator:
                 watchdog.register(
                     f"ssp-clock:{id(self._clock)}",
                     self._clock.stall_probe,
+                )
+                # the audit plane's SSP monitor checks granted gate
+                # passes against exactly this bound (dormant until told)
+                self._auditor.set_ssp(
+                    int(h["num_workers"]), int(h["max_delay"])
                 )
         return {"ok": True}, {}
 
@@ -2347,9 +2499,11 @@ class ControlClient(RpcClient):
         self.call("beat", node_id=node_id, stats=stats)
 
     def telemetry(self, window_s: float | None = None) -> dict[str, Any]:
-        """Cluster telemetry: per-node snapshots and the merged view (and,
-        from a JAX coordinator, its ``series``, ``slo`` and ``audit``
-        blocks)."""
+        """Cluster telemetry: per-node snapshots + the merged view
+        (counters summed, latency histograms merged bucket-wise), plus
+        the live-ops blocks — per-node windowed ``series`` summaries
+        over ``window_s`` (the coordinator's default when None), the
+        ``slo`` engine's health/alert verdict and the ``audit`` summary."""
         rep, _ = self.call("telemetry", window_s=window_s)
         return {
             k: rep[k]
@@ -2360,8 +2514,8 @@ class ControlClient(RpcClient):
         }
 
     def audit(self, recent: int = 20) -> dict[str, Any]:
-        """The audit plane's summary (a JAX coordinator's; a port
-        coordinator answers that it is not ported)."""
+        """The audit plane's summary: violation totals, recent panel,
+        per-node stream accounting (``cli audit``'s feed)."""
         rep, _ = self.call("audit", recent=recent)
         return rep["audit"]
 

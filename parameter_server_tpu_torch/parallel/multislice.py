@@ -75,12 +75,13 @@ the caller's trace and ``server.updater`` re-joined across the apply
 thread's hop on a server, ``step.*`` spans on a worker; ``rcu.publish``,
 ``apply.begin``/``apply.commit``/``apply.replay`` and ``serve.shed`` on a
 server. ``launch_local(trace_dir=, blackbox_dir=)`` and ``run_node`` arm
-them. Not ported yet: the profiler, the metrics endpoint and the audit
-spool's consumer. The JAX serving plane's other observability (the
-per-range traffic and age matrix ``RangeScope``, ``key_heat``, the
-serve-age histograms) is left out with them: a served row's realized age
-feeds one peak gauge, ``serve_age_us_peak``, and the recorder's
-``freshness.serve`` event.
+them. The live operations plane is the JAX module's too: each beat
+carries the node's telemetry (``beat_telemetry``) and audit spool;
+``run_node`` arms the sampling profiler, the OpenMetrics endpoint and the
+scheduler's SLO engine and auditor; a server books its range's traffic,
+apply cost and data age (``RangeScope``) and its keys' heat
+(``key_heat``); a handle books each serve's realized age into the
+``serve.age_s`` histogram and the recorder's ``freshness.serve`` event.
 """
 
 from __future__ import annotations
@@ -121,7 +122,14 @@ from parameter_server_tpu_torch.utils.config import (
 from parameter_server_tpu_torch.utils.flightrec import watchdog
 from parameter_server_tpu_torch.utils.heartbeat import HeartbeatReporter, host_stats
 from parameter_server_tpu_torch.utils.keyrange import KeyRange
-from parameter_server_tpu_torch.utils.metrics import telemetry_snapshot, wire_counters
+from parameter_server_tpu_torch.utils.clock import now_wall_us, skew_clamped_age_s
+from parameter_server_tpu_torch.utils.metrics import (
+    RangeScope,
+    key_heat,
+    latency_histograms,
+    observe_scalar,
+    wire_counters,
+)
 
 
 def _plan_from_cfg(cfg: PSConfig) -> FaultPlan | None:
@@ -130,12 +138,6 @@ def _plan_from_cfg(cfg: PSConfig) -> FaultPlan | None:
     if not cfg.fault.fault_plan:
         return None
     return FaultPlan.parse(cfg.fault.fault_plan, seed=cfg.fault.fault_seed)
-
-
-def _now_us() -> int:
-    """Wall-clock µs since the epoch: the publish timestamp a pull's
-    ``_age_us`` is measured against."""
-    return int(time.time() * 1e6)
 
 
 def _ver_base() -> int:
@@ -281,8 +283,11 @@ class ShardServer:
         # version and its publish timestamp (µs epoch) change only under it
         self._pub_lock = threading.Lock()
         self._version = _ver_base() + 1
-        self._pts = _now_us()
+        self._pts = now_wall_us()
         self._serve_cfg = svcfg
+        # freshness plane: this range's traffic/age matrix (per-range
+        # counters+hists riding the ordinary telemetry namespaces)
+        self._range_scope = RangeScope(key_range.begin, key_range.end)
         # single-flight encoded-pull cache: (sig, version, codec) -> entry
         self._enc_lock = threading.Lock()
         self._enc_cache: OrderedDict[tuple, _EncodeEntry] = OrderedDict()
@@ -391,7 +396,7 @@ class ShardServer:
         """Move the version and its publish timestamp. Caller holds
         ``_pub_lock``, in the same hold that issued the change."""
         self._version += 1
-        self._pts = _now_us()
+        self._pts = now_wall_us()
         # flight recorder: every publish, whatever the writer — the
         # postmortem's version-regression detector reads this stream
         flightrec.record("rcu.publish", ver=self._version)
@@ -711,6 +716,7 @@ class ShardServer:
         ConnectionError instead (see _fail_stopping)."""
         q = self._apply_q
         assert q is not None
+        observe_scalar("server.apply_queue.n", q.qsize() + 1)
         trace.counter("server.apply_queue_depth", q.qsize() + 1)
         while True:
             if not self._apply_open:
@@ -865,6 +871,15 @@ class ShardServer:
                     [p.cid, p.seq] for p in todo if p.cid is not None
                 ],
             )
+            # per-range matrix: applied pushes, their payload bytes and
+            # the apply's cost (the batch's, once: the coalesced apply is
+            # this range's cost, not per push). On the card this is the
+            # host time that issues the apply, as the JAX server's is its
+            # dispatch time: nothing here waits for the device
+            self._range_scope.push(
+                len(todo), sum(int(p.grad.nbytes) for p in todo)
+            )
+            self._range_scope.apply(max(t_apply1 - t_apply0, 0.0))
         with self._ctr_lock:
             self.counters["pushes"] += len(todo)
             self.counters["apply_batches"] += 1
@@ -872,6 +887,7 @@ class ShardServer:
             self.counters["push_coalesced"] += max(len(todo) - 1, 0)
         if len(todo) > 1:
             wire_counters.inc("push_coalesced", len(todo) - 1)
+        observe_scalar("server.apply_batch.n", len(batch))
         trace.counter("server.apply_batch_size", len(batch))
         if trace.enabled():
             # per-push updater spans re-join each caller's trace across
@@ -905,6 +921,13 @@ class ShardServer:
                     ))
                 except Exception:  # noqa: BLE001 — lost the race benignly
                     pass
+        # per-key heat of every push the batch took, once its replies are
+        # out. The JAX server counts a push's keys as its serving thread
+        # decodes it; a serving thread that spent ~1 ms a push on the
+        # sketch handed the engine one push at a time, and concurrent
+        # pushes to a card server stopped coalescing
+        for p in batch:
+            key_heat.add(p.keys + self.range.begin)
 
     # -- request handling ---------------------------------------------------
 
@@ -969,7 +992,8 @@ class ShardServer:
                 self._enqueue_push(item)
                 return DeferredReply(item.future), {}
             # serial path ([server] apply_queue = 0): apply inline under
-            # the apply lock
+            # the apply lock; pushed global keys feed the heat sketch
+            key_heat.add(np.asarray(keys, np.int64) + self.range.begin)
             with trace.span("server.updater", cat="ps", keys=len(keys)):
                 with self._lock:
                     self._apply(keys, g)
@@ -977,6 +1001,7 @@ class ShardServer:
                         self._record_push(cid, seq)
                     serial_ver = self._version
             self._bump("pushes")
+            self._range_scope.push(1, int(g.nbytes))
             flightrec.record(
                 "apply.commit", ver=serial_ver, pushes=1,
                 pairs=[[cid, seq]] if cid is not None else [],
@@ -1043,6 +1068,7 @@ class ShardServer:
             self._bump("pulls")
             self._bump("not_modified")
             wire_counters.inc("serve_not_modified")
+            self._range_scope.pull(0)
             return {"ok": True, "not_modified": True, "ver": ver, "pts": pts}, {}
         if ifn is not None and h.get("shed_ok") and self.overloaded():
             # shed: the client holds a cached fallback within its
@@ -1068,6 +1094,10 @@ class ShardServer:
                     self._bump("pulls")
                     self._bump("encode_reuse")
                     wire_counters.inc("serve_encode_reuse")
+                    self._range_scope.pull(
+                        sum(a.nbytes for a in ent.arrays.values())
+                    )
+                    self._range_scope.age(skew_clamped_age_s(pts))
                     return ent.rep, ent.arrays
                 ent = None  # owner failed or timed out: encode ourselves
         try:
@@ -1075,7 +1105,7 @@ class ShardServer:
             # (``if_newer`` proves a caching serving client): a training
             # tier with per-step version churn must never pay a whole-
             # table copy a step because its key sets went hot
-            rep, out, ver_g = self._encode_pull(
+            rep, out, ver_g, pts_g = self._encode_pull(
                 keys, h, qn, hot and ifn is not None, with_ver=sv,
             )
         except BaseException:
@@ -1084,6 +1114,9 @@ class ShardServer:
             raise
         self._bump("pulls")
         self._bump("pull_encodes")
+        # per-range matrix: rows left this range at their table's age
+        self._range_scope.pull(sum(a.nbytes for a in out.values()))
+        self._range_scope.age(skew_clamped_age_s(pts_g))
         if ent is not None:
             if ver_g == ver:
                 self._enc_fill(ck, ent, rep, out)
@@ -1096,13 +1129,16 @@ class ShardServer:
     def _encode_pull(
         self, keys: np.ndarray, h: dict[str, Any], qn: int, snap: bool = False,
         with_ver: bool = False,
-    ) -> tuple[dict[str, Any], Arrays, int]:
+    ) -> tuple[dict[str, Any], Arrays, int, int]:
         """Gather and encode one pull reply (shared verbatim across
         clients by the single-flight cache: nothing here may depend on
         the requesting connection): float32 rows or, for a
         quant-negotiated ``quant`` request, round-to-nearest per-segment
-        integers. Returns the reply, its arrays and the version the rows
-        were gathered at."""
+        integers. Returns the reply, its arrays and the version and
+        publish ts of the table the rows were gathered from."""
+        # per-key heat, read side: only real row encodes count (a
+        # not_modified / shed / single-flight-reused reply moves no rows)
+        key_heat.add(np.asarray(keys, np.int64) + self.range.begin)
         w, ver, pts = self._gather_weights(keys, snap)
         if qn:
             # quantized pull (read-mostly traffic): round-to-NEAREST, not
@@ -1123,7 +1159,7 @@ class ShardServer:
         if with_ver:  # only version-aware clients (see _handle_pull)
             rep["ver"] = ver
             rep["pts"] = pts  # the wire layer derives each serve's _age_us
-        return rep, out, ver
+        return rep, out, ver, pts
 
     def _decode_grad(self, h: dict[str, Any], arrays: Arrays) -> np.ndarray:
         """The push's float32 gradient on the host: as sent, the
@@ -1169,6 +1205,7 @@ class ServerHandle:
         serving: bool = False,
         key_cache=None,
         device: Any = "cuda",
+        key_range: KeyRange | None = None,
     ):
         """``serving=True`` marks this handle as part of the read-mostly
         serving tier: with ``[serve] cache`` on, it arms the client-side
@@ -1179,10 +1216,20 @@ class ServerHandle:
         one shard or many: entries and the inverted invalidation index
         are namespaced by this handle's ``rank``. The training tier never
         passes serving=True: its staleness contract is the SSP clock, not
-        a TTL (see ``_connect_servers``)."""
+        a TTL (see ``_connect_servers``).
+
+        ``key_range`` (optional) names the server range this handle
+        proxies: with it, every serve this client answers (cached,
+        bounded-stale, shed-fallback or fresh off the wire) books its
+        realized data age into that range's matrix beside the server's
+        own bookings."""
         self.device = resolve_device(device)
         self.rank = rank
         self.worker = worker
+        self._range_scope = (
+            RangeScope(key_range.begin, key_range.end)
+            if key_range is not None else None
+        )
         self._kcache = None
         if serving and cfg.serve.cache:
             from parameter_server_tpu_torch.filters.keycache import ClientKeyCache
@@ -1740,11 +1787,14 @@ class ServerHandle:
 
     def _book_serve_age(self, age_us: float, src: str) -> None:
         """Book the realized data age one serve handed its consumer
-        (``src``: cache, stale, shed, revalidate, pull). The JAX handle
-        feeds its serve-age histogram and range matrix (not ported); here
-        it feeds the peak gauge ``serve_age_us_peak`` and, as in JAX, the
-        flight recorder."""
-        wire_counters.observe_max("serve_age_us_peak", int(max(float(age_us), 0.0)))
+        (``src``: cache, stale, shed, revalidate, pull): the global
+        ``serve.age_s`` histogram (what `cli top`'s age column and the
+        ``pull_age_ms`` SLO read), this handle's per-range matrix when it
+        knows its range, and the flight recorder."""
+        age_s = max(float(age_us), 0.0) / 1e6
+        latency_histograms.observe("serve.age_s", age_s)
+        if self._range_scope is not None:
+            self._range_scope.age(age_s)
         flightrec.record(
             "freshness.serve", rank=self.rank, src=src,
             age_us=int(age_us),
@@ -1946,13 +1996,39 @@ class _Beats:
     """A node's liveness heartbeat: HeartbeatReporter over a dedicated
     coordinator connection (liveness must not depend on training
     cadence). Each beat piggybacks the host stats and this process's
-    counters snapshot, which the coordinator's ``telemetry`` merges."""
+    telemetry snapshot (counters + latency histograms + named timers),
+    which the coordinator's ``telemetry`` merges into the cluster view,
+    and, with ``audit_cfg`` enabled, the audit event spool's batches."""
 
-    def __init__(self, scheduler: str, node_id: int, interval_s: float):
+    def __init__(
+        self,
+        scheduler: str,
+        node_id: int,
+        interval_s: float,
+        audit_cfg: "AuditConfig | None" = None,
+    ):
         self._sink = _RemoteBeatSink(scheduler)
+        # audit plane: heartbeating nodes arm the flightrec event spool
+        # so their protocol-invariant events (push acks, apply commits,
+        # publishes, heals, sheds) ride every beat to the coordinator's
+        # streaming auditor; the reporter drains and acks it
+        self._armed_spool = False
+        if audit_cfg is not None and audit_cfg.enabled:
+            flightrec.configure_spool(
+                audit_cfg.spool_capacity, audit_cfg.batch_events
+            )
+            self._armed_spool = True
+
+        def beat_stats() -> dict:
+            # one snapshot serves three planes: the beat piggyback, this
+            # node's local time-series ring roll, and the heartbeat
+            # payload guard's saturation caps
+            from parameter_server_tpu_torch.utils.timeseries import beat_telemetry
+
+            return {**host_stats(), "telemetry": beat_telemetry()}
+
         self._rep = HeartbeatReporter(
-            self._sink, node_id, interval_s,
-            stats_fn=lambda: {**host_stats(), "telemetry": telemetry_snapshot()},
+            self._sink, node_id, interval_s, stats_fn=beat_stats
         )
         self._rep.start()
         # watchdog: heartbeat silence, seen from INSIDE the silent node —
@@ -1968,6 +2044,8 @@ class _Beats:
         watchdog.unregister(self._wd_name)
         self._rep.stop()
         self._sink.close()
+        if self._armed_spool:
+            flightrec.configure_spool(None)
 
 
 def run_server(
@@ -2011,7 +2089,10 @@ def run_server(
     # set AFTER any resume: workers re-resolving this key must never beat
     # the state load and pull pre-resume zeros
     ctl.kv_set(f"server_addr/{rank}", addr=srv.address)
-    beats = _Beats(scheduler, node_id, cfg.fault.heartbeat_interval_s)
+    beats = _Beats(
+        scheduler, node_id, cfg.fault.heartbeat_interval_s,
+        audit_cfg=cfg.audit,
+    )
     srv.start()
     srv.server._stop.wait()  # until the scheduler's shutdown
     # the scheduler and its coordinator are going away: stop beating into
@@ -2046,7 +2127,8 @@ def _connect_servers(
         handles.append(
             ServerHandle(
                 fields["addr"], s, worker_rank, cfg,
-                range_size=ranges[s].size, resolve_addr=resolve,
+                range_size=ranges[s].size, key_range=ranges[s],
+                resolve_addr=resolve,
                 # the training tier is never a serving handle: its
                 # staleness contract is the SSP clock
                 serving=False, device=device,
@@ -2078,7 +2160,10 @@ def run_worker(
     ctl = ControlClient(scheduler, reconnect_timeout_s=cfg.fault.reconnect_timeout_s)
     node_id = ctl.register("worker", rank=rank)
     t_register = time.time()
-    beats = _Beats(scheduler, node_id, cfg.fault.heartbeat_interval_s)
+    beats = _Beats(
+        scheduler, node_id, cfg.fault.heartbeat_interval_s,
+        audit_cfg=cfg.audit,
+    )
     # the scheduler's ssp_init/workload_init must land before our first
     # fetch; registration order doesn't guarantee it, this kv flag does
     ctl.kv_get("scheduler_init_done", block=True, timeout=120)
@@ -2326,7 +2411,9 @@ def run_scheduler(
         # scheduler-process wire/recovery counters (the coordinator runs
         # in-process)
         "wire": wire_counters.snapshot(),
-        # cluster counters merged from every node's heartbeat snapshot
+        # cluster telemetry merged from every node's heartbeat snapshot
+        # (+ this process): counters, per-command latency histograms,
+        # named timers: the `cli stats` view, embedded in the run result
         "telemetry": ctl.telemetry()["merged"],
     }
     if model_out:
@@ -2351,10 +2438,6 @@ def run_scheduler(
     coordinator.stop()
     trace.tracer.flush()  # export this process's spans (no-op if disabled)
     return out
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet to parameter_server_tpu_torch")
 
 
 def launch_local(
@@ -2615,12 +2698,15 @@ def run_node(
     The scheduler returns the run's result; a server or a worker its
     report: ``{"node": "server-0", "device": ..., "launches": {...}}``
     with its kernel launches, its register time and its counters."""
-    if role not in ("scheduler", "server", "worker"):
+    # the one unknown-role gate, before any arming side effects; the
+    # table doubles as the metrics-endpoint port layout below
+    metrics_offset = {
+        "scheduler": 0,
+        "server": 1 + rank,
+        "worker": 1 + num_servers + rank,
+    }.get(role)
+    if metrics_offset is None:
         raise ValueError(f"unknown role {role!r}")
-    if cfg.profile.hz > 0:
-        raise _not_ported("the profiler ([profile] hz)")
-    if cfg.timeseries.metrics_port:
-        raise _not_ported("the metrics endpoint ([timeseries] metrics_port)")
     dev = resolve_device(device)
     # arm tracing for this node: config [trace] trace_dir wins, then the
     # inherited PS_TRACE_DIR env (launch_local's arming path); the process
@@ -2654,19 +2740,79 @@ def run_node(
             watchdog_interval_s=cfg.blackbox.watchdog_interval_s,
             stall_timeout_s=cfg.blackbox.stall_timeout_s,
         )
-    if role == "scheduler":
-        host, port = scheduler.rsplit(":", 1)
-        coord = Coordinator(
-            host, int(port), heartbeat_timeout_s=cfg.fault.heartbeat_timeout_s,
-            fault_plan=_plan_from_cfg(cfg),
+    # arm the continuous profiler: config [profile] hz wins, then the
+    # inherited PS_PROFILE (env-armed at import; re-configured here so
+    # the dump carries a role-rank name)
+    from parameter_server_tpu_torch.utils import profiler, timeseries
+
+    prof_hz = cfg.profile.hz if cfg.profile.hz > 0 else profiler.env_hz()
+    if prof_hz > 0:
+        profiler.configure(
+            prof_hz, top_n=cfg.profile.top_n,
+            max_depth=cfg.profile.max_depth,
+            dump_dir=cfg.profile.dump_dir
+            or os.environ.get(profiler.PROFILE_DIR_ENV, ""),
+            process_name=f"{role}-{rank}",
         )
-        return run_scheduler(cfg, coord, num_servers, num_workers, model_out, device=dev)
-    if role == "server":
-        report = run_server(
-            cfg, scheduler, rank, num_servers, bind_host=bind_host,
-            advertise_host=advertise_host, ckpt_dir=ckpt_dir, device=dev,
+    # OpenMetrics scrape endpoint: [timeseries] metrics_port (or the
+    # inherited PS_METRICS_PORT) is the base port; each role-rank binds
+    # a deterministic offset so one host's processes never collide
+    mbase = cfg.timeseries.metrics_port or int(
+        os.environ.get(timeseries.METRICS_PORT_ENV, "0") or 0
+    )
+    # size this node's local delta ring (fed by each beat's
+    # beat_telemetry roll; served windowed by /healthz)
+    timeseries.reset_local_ring(cfg.timeseries.capacity)
+    msrv = roller = None
+    if mbase > 0:
+        msrv = timeseries.start_metrics_server(
+            mbase + metrics_offset, process_name=f"{role}-{rank}",
+            host=cfg.timeseries.metrics_host,
+            window_s=cfg.timeseries.window_s,
         )
-    else:
-        report = run_worker(cfg, scheduler, rank, num_servers, device=dev)
-    return {"node": f"{role}-{rank}", "device": str(dev),
-            "launches": _launch_counts(), **report}
+        if role == "scheduler":
+            # servers/workers roll the local ring on every beat; the
+            # scheduler never beats, so without this its /healthz
+            # window would stay empty and read as a wedged node
+            roller = timeseries.Roller(cfg.fault.heartbeat_interval_s)
+    # audit plane: the scheduler has no heartbeat reporter, so its own
+    # spool (SSP clock movements, control rpc.reply acks) is drained
+    # inline by the coordinator's audit pass; armed here, with the same
+    # role gate the _Beats path applies on servers/workers
+    armed_spool = False
+    if role == "scheduler" and cfg.audit.enabled:
+        flightrec.configure_spool(
+            cfg.audit.spool_capacity, cfg.audit.batch_events
+        )
+        armed_spool = True
+    try:
+        if role == "scheduler":
+            host, port = scheduler.rsplit(":", 1)
+            coord = Coordinator(
+                host, int(port),
+                heartbeat_timeout_s=cfg.fault.heartbeat_timeout_s,
+                fault_plan=_plan_from_cfg(cfg),
+                slo_cfg=cfg.slo,
+                series_capacity=cfg.timeseries.capacity,
+                series_window_s=cfg.timeseries.window_s,
+                audit_cfg=cfg.audit,
+            )
+            return run_scheduler(
+                cfg, coord, num_servers, num_workers, model_out, device=dev
+            )
+        if role == "server":
+            report = run_server(
+                cfg, scheduler, rank, num_servers, bind_host=bind_host,
+                advertise_host=advertise_host, ckpt_dir=ckpt_dir, device=dev,
+            )
+        else:
+            report = run_worker(cfg, scheduler, rank, num_servers, device=dev)
+        return {"node": f"{role}-{rank}", "device": str(dev),
+                "launches": _launch_counts(), **report}
+    finally:
+        if roller is not None:
+            roller.close()
+        if msrv is not None:
+            msrv.close()
+        if armed_spool:
+            flightrec.configure_spool(None)

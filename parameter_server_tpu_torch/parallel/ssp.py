@@ -3,8 +3,9 @@ steps, and the SSP clock.
 
 Copies of the JAX package's ``DispatchWindow``, ``PushWindow`` (the wire
 tier's window of in-flight push futures) and ``SSPClock``
-(``parallel/ssp.py``); the clock keeps its flight-recorder events and
-watchdog probe, not its wire counters or lag gauge. PyTorch queues CUDA
+(``parallel/ssp.py``); the clock keeps its flight-recorder events, its
+watchdog probe, its ``ssp_blocked_ms`` counter and its realized-lag
+series ``ssp.lag_clocks.n``. PyTorch queues CUDA
 work asynchronously as JAX dispatches jitted steps, so the same window bounds
 how far the host runs ahead of the device: an entry (a step's device loss)
 is read back only when it retires."""
@@ -18,6 +19,7 @@ from collections.abc import Callable
 from typing import Any
 
 from parameter_server_tpu_torch.utils import flightrec
+from parameter_server_tpu_torch.utils.metrics import observe_scalar, wire_counters
 
 
 class DispatchWindow:
@@ -129,6 +131,10 @@ class SSPClock:
         # per-worker time parked on the gate, and the number of waits
         self._blocked_s = [0.0] * num_workers
         self._blocked_n = [0] * num_workers
+        # ssp_blocked_ms is an int counter but single waits are often
+        # sub-millisecond: book the whole-ms difference against the
+        # running float total (cumulative error < 1 ms)
+        self._blocked_ms_booked = 0
         # watchdog feed: workers currently parked on the gate, and a
         # movement counter every finish/retire advances — "busy with no
         # progress" is exactly a wedged clock
@@ -153,7 +159,11 @@ class SSPClock:
             return True
         target = step - self.max_delay - 1
         with self._cv:
-            if self._min_finished() >= target:
+            mf = self._min_finished()
+            if mf >= target:
+                # gate already open: no blocked time to book, but the
+                # realized staleness of this pass is still recorded
+                self._observe_lag(step, mf)
                 return True
             t0 = time.perf_counter()
             self._waiters += 1
@@ -163,14 +173,35 @@ class SSPClock:
                 )
             finally:
                 self._waiters -= 1
+            mf = self._min_finished()
             blocked = time.perf_counter() - t0
             self._blocked_s[worker] += blocked
             self._blocked_n[worker] += 1
+            whole_ms = (
+                int(sum(self._blocked_s) * 1e3) - self._blocked_ms_booked
+            )
+            self._blocked_ms_booked += whole_ms
+        if ok:
+            self._observe_lag(step, mf)
+        # live-ops signal: blocked time as a counter, so the coordinator's
+        # time-series ring exposes an "ms blocked per second" rate the
+        # [slo] engine alerts on
+        if whole_ms > 0:
+            wire_counters.inc("ssp_blocked_ms", whole_ms)
         flightrec.record(
             "ssp.wait", worker=worker, step=step,
             blocked_ms=round(blocked * 1e3, 3), granted=ok,
         )
         return ok
+
+    def _observe_lag(self, step: int, min_finished: int) -> None:
+        """Record the realized clock lag of one granted gate pass: how
+        many steps ahead of the slowest finished worker this step runs
+        (0 = lockstep; ``max_delay`` = the whole allowance consumed), as
+        the count-valued series ``ssp.lag_clocks.n``."""
+        observe_scalar(
+            "ssp.lag_clocks.n", max(step - 1 - min_finished, 0)
+        )
 
     def finish(self, worker: int, step: int) -> None:
         with self._cv:
@@ -221,4 +252,5 @@ class SSPClock:
             self.max_delay = d["max_delay"]
             self._blocked_s = [0.0] * len(self._finished)
             self._blocked_n = [0] * len(self._finished)
+            self._blocked_ms_booked = 0
             self._cv.notify_all()

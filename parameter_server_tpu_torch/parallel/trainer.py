@@ -20,8 +20,9 @@ the same on every rank, so all stop at the same step.
 The dynamic workload pool (``train_files_dynamic``): the wire tier's
 ``Coordinator`` hands files to data rows as they ask for them, instead of
 the static split. Tracing (``step.fetch``/``step.dispatch``/``step.retire``
-spans) and the flight recorder (``step.dispatch``/``step.retire`` events)
-are the JAX trainer's. Not ported here: ``profile_dir``.
+spans), the named timers of the same names (``trainer.fetch`` and so on,
+riding the telemetry snapshot) and the flight recorder
+(``step.dispatch``/``step.retire`` events) are the JAX trainer's. Not ported here: ``profile_dir``.
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ from parameter_server_tpu_torch.parallel.traffic import linear_step_traffic
 from parameter_server_tpu_torch.parallel.workload import WorkloadPool
 from parameter_server_tpu_torch.utils import flightrec, trace
 from parameter_server_tpu_torch.utils.config import PSConfig
-from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+from parameter_server_tpu_torch.utils.metrics import ProgressReporter, timers
 
 
 class _WorkerStream:
@@ -330,7 +331,8 @@ class PodTrainer:
             nonlocal drained, n_since
             loss_arr, examples_arr, probs, labels = entry
             # reading the results waits for the step: the SSP bound
-            with trace.span("step.retire", cat="step", step=step):
+            with trace.span("step.retire", cat="step", step=step), \
+                    timers.timer("trainer.retire"):
                 losses = np.atleast_1d(loss_arr.cpu().numpy())
                 exs = np.atleast_1d(examples_arr.cpu().numpy())
             # flight recorder: the trainer's dispatch/retire cadence —
@@ -403,12 +405,16 @@ class PodTrainer:
                 if drained:
                     break
                 # step anatomy: fetch (host pipeline pop) vs dispatch
-                # (bucket agreement, H2D copies, device work issued)
-                with trace.span("step.fetch", cat="step", step=step_idx):
+                # (bucket agreement, H2D copies, device work issued);
+                # named timers feed the telemetry snapshot, spans the
+                # timeline
+                with trace.span("step.fetch", cat="step", step=step_idx), \
+                        timers.timer("trainer.fetch"):
                     stacked_np, labels = _next_item()
                 if K == 1:
                     labels = [labels]
-                with trace.span("step.dispatch", cat="step", step=step_idx):
+                with trace.span("step.dispatch", cat="step", step=step_idx), \
+                        timers.timer("trainer.dispatch"):
                     if self._bucket_sync:
                         stacked_np = self._agree_bucket(stacked_np)
                     stacked = self.runtime.globalize_batch(stacked_np)

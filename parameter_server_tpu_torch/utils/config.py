@@ -2,9 +2,9 @@
 
 A copy of the JAX package's config tree: the same sections, fields and
 defaults, so one config file drives either package, and an unknown field
-still raises. The port reads only the sections of the single-host
-``linear_method`` path (``data``, ``lr``, ``penalty``, ``solver``,
-``sketch``); its CLI refuses the settings of paths it has not ported yet.
+still raises. The port reads the sections the JAX runtime reads; its CLI
+refuses an unknown app, and on the cluster path (``node``, ``launch``)
+every app but ``linear_method``, as the JAX cluster runs only that one.
 Field meanings are documented on the JAX package's dataclasses.
 """
 

@@ -52,8 +52,9 @@ armed (``configure_spool``), every recorded event whose etype is
 audit-relevant (:data:`AUDIT_EVENTS`) also lands in a bounded
 :class:`EventSpool`, drained into sequence-numbered batches with explicit
 saturation accounting (a full spool drops new events and counts them).
-The port has the spool's buffer; the streaming auditor that consumes it
-is not ported yet.
+The heartbeat reporter ships the batches on each beat and acks them after
+delivery, and the coordinator's streaming auditor (``utils/auditor.py``)
+consumes them.
 """
 
 from __future__ import annotations
@@ -322,6 +323,8 @@ def dump(reason: str, extra: dict[str, Any] | None = None) -> str | None:
         path = os.path.join(d, f"blackbox-{_name}-{os.getpid()}.json")
         tmp = path + f".tmp.{threading.get_native_id()}"
         with _dump_lock:
+            if _dir != d:
+                return None  # disarmed or re-armed while the box was built
             with open(tmp, "w") as f:
                 json.dump(doc, f, default=str)
             os.replace(tmp, path)
@@ -564,6 +567,11 @@ def configure(
         _dir = None
         _buf = None
         _rebind_record()
+        # a dump already writing finishes before disarm returns, and one
+        # still building its box finds _dir moved and writes nothing: the
+        # caller may delete the dir once this returns
+        with _dump_lock:
+            pass
         return
     os.makedirs(blackbox_dir, exist_ok=True)
     _dir = blackbox_dir

@@ -96,6 +96,32 @@ class TestRecorder:
         # the JAX postmortem loads it like one of its own
         assert pm.load_dumps(str(tmp_path))[0]["process"] == "t-0"
 
+    def test_disarm_stops_a_dump_under_way(self, tmp_path, monkeypatch):
+        """A dump that began before ``configure(None)`` writes nothing once
+        it returns, so the caller may delete the dir at once."""
+        from parameter_server_tpu_torch.utils import metrics
+
+        flightrec.configure(str(tmp_path), process_name="t-0",
+                            flush_interval_s=0, watchdog_interval_s=60)
+        flightrec.record("x", i=1)
+        building, release = threading.Event(), threading.Event()
+        snap = metrics.telemetry_snapshot
+
+        def slow_snapshot(**kw):
+            building.set()
+            release.wait(10)
+            return snap(**kw)
+
+        monkeypatch.setattr(metrics, "telemetry_snapshot", slow_snapshot)
+        out = []
+        t = threading.Thread(target=lambda: out.append(flightrec.dump("late")))
+        t.start()
+        assert building.wait(10)
+        flightrec.configure(None)
+        release.set()
+        t.join(10)
+        assert out == [None] and list(tmp_path.iterdir()) == []
+
     def test_periodic_flusher_persists_without_triggers(self, tmp_path):
         flightrec.configure(str(tmp_path), process_name="t-0",
                             flush_interval_s=0.05, watchdog_interval_s=60)

@@ -1043,3 +1043,74 @@ def test_traced_card_server_push_launches_k1_and_exports_its_spans(dev, tmp_path
     spans = {e["name"]: e["args"]["trace_id"] for e in evs if e["ph"] == "X"}
     push_tid = spans["ps.push"]
     assert spans["rpc.push"] == spans["rpc.serve.push"] == spans["server.updater"] == push_tid
+
+
+@pytest.mark.cuda
+def test_card_server_books_its_range_apply_cost_without_a_device_read(dev):
+    """A card FTRL server's ``RangeScope``: every applied push and its
+    payload bytes land in the range's counters and each apply batch's
+    host time in its ``apply`` histogram, one observation a K1 launch."""
+    from parameter_server_tpu_torch.kv.updaters import Ftrl
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle, ShardServer
+    from parameter_server_tpu_torch.utils import metrics
+    from parameter_server_tpu_torch.utils.config import PSConfig
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange
+
+    size = 1 << 16
+    metrics.wire_counters.reset()
+    metrics.latency_histograms.reset()
+    srv = ShardServer(Ftrl(), KeyRange(size, 2 * size), device="cuda").start()
+    h = ServerHandle(srv.address, 0, 0, PSConfig(), range_size=size, device="cuda")
+    rng = np.random.default_rng(2)
+    try:
+        before = fk.LAUNCHES["ftrl_push"]
+        nbytes = 0
+        for _ in range(5):
+            keys = np.unique(rng.integers(0, size, 3000))
+            nbytes += 4 * len(keys)
+            h.push(keys, rng.normal(size=len(keys)).astype(np.float32))
+        launches = fk.LAUNCHES["ftrl_push"] - before
+    finally:
+        h.shutdown()
+        h.close()
+    rid = f"range.{size}-{2 * size}"
+    c = metrics.wire_counters.snapshot()
+    assert c[f"{rid}.push"] == 5 and c[f"{rid}.push_bytes"] == nbytes
+    apply = metrics.latency_histograms.snapshot()[f"{rid}.apply"]
+    assert apply["count"] == srv.counters["apply_batches"] == launches
+    assert apply["sum_s"] > 0
+
+
+@pytest.mark.cuda
+def test_card_server_telemetry_snapshot_after_k1_pushes(dev):
+    """After K1 pushes into a card server, the process's telemetry
+    snapshot has the JAX package's blocks: the server and client push
+    histograms, the range series, the apply-batch sizes and key heat."""
+    from parameter_server_tpu_torch.kv.updaters import Ftrl
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle, ShardServer
+    from parameter_server_tpu_torch.utils import metrics
+    from parameter_server_tpu_torch.utils.config import PSConfig
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange
+
+    for reg in (metrics.wire_counters, metrics.latency_histograms, metrics.key_heat):
+        reg.reset()
+    srv = ShardServer(Ftrl(), KeyRange(0, 1 << 16), device="cuda").start()
+    h = ServerHandle(srv.address, 0, 0, PSConfig(), range_size=1 << 16, device="cuda")
+    try:
+        before = fk.LAUNCHES["ftrl_push"]
+        keys = np.arange(1, 4097, dtype=np.int64)
+        for _ in range(3):
+            h.push(keys, np.ones(len(keys), np.float32))
+        h.pull(keys)
+        assert fk.LAUNCHES["ftrl_push"] - before == srv.counters["apply_batches"]
+    finally:
+        h.shutdown()
+        h.close()
+    srv.join(timeout=30)  # the apply thread books a batch's heat after its replies
+    snap = metrics.telemetry_snapshot()
+    assert {"counters", "hists", "timers", "key_heat"} <= set(snap)
+    hists = snap["hists"]
+    assert hists["server.push"]["count"] == 3 and hists["client.push"]["count"] == 3
+    assert hists["server.apply_batch.n"]["count"] == srv.counters["apply_batches"]
+    assert snap["counters"]["range.0-65536.pull"] == 1
+    assert snap["key_heat"]["n"] == 4 * 4096

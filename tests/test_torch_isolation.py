@@ -53,6 +53,11 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert {f"{PKG}.parallel.{m}" for m in (
         "control", "multislice", "backend", "meshbackend")} <= set(res["imported"])
     assert f"{PKG}.utils.keyrange" in res["imported"]
+    # the live operations plane, the audit plane and the forensics tools
+    assert {f"{PKG}.utils.{m}" for m in (
+        "clock", "timeseries", "profiler", "slo", "auditor", "postmortem")} <= set(
+        res["imported"])
+    assert {f"{PKG}.analysis.monitors", f"{PKG}.analysis.critpath"} <= set(res["imported"])
     # chaos and the serving plane's client cache
     assert {f"{PKG}.parallel.chaos", f"{PKG}.filters.keycache"} <= set(res["imported"])
     # the control plane and the cluster's entry points, and their copies
@@ -160,13 +165,15 @@ def test_chip_smoke_imports_nothing_of_jax():
 def test_spmd_tier_has_the_ssp_clock_without_jax():
     """``SSPClock`` sits in the port's ``parallel/ssp.py`` beside the
     dispatch window, a copy with no hook into the JAX package: its
-    flight-recorder events go to the port's own recorder."""
+    flight-recorder events go to the port's own recorder, its blocked
+    time and realized lag to the port's own telemetry."""
     import parameter_server_tpu_torch.parallel.ssp as ssp
 
     src = Path(ssp.__file__).read_text()
     assert "class SSPClock" in src and "parameter_server_tpu." not in src
     assert "from parameter_server_tpu_torch.utils import flightrec" in src
-    assert "wire_counters" not in src
+    assert ("from parameter_server_tpu_torch.utils.metrics import observe_scalar, "
+            "wire_counters") in src
 
 
 def test_port_sources_never_import_the_jax_package():
@@ -177,6 +184,24 @@ def test_port_sources_never_import_the_jax_package():
                 mod = words[1]
                 assert mod != "jax" and not mod.startswith("jax."), (path, line)
                 assert mod.split(".")[0] != "parameter_server_tpu", (path, line)
+
+
+def test_port_sources_name_no_jax_package_module():
+    """Not even as a string: a ``sys.modules`` lookup of a JAX package
+    module (the profiler hook of the telemetry snapshot, the race
+    witness) would read the JAX package's state, never the port's."""
+    import re
+
+    pat = re.compile(r"""parameter_server_tpu(\.|["'])""")
+    for path in [*(ROOT / PKG).rglob("*.py"), ROOT / "chip_smoke.py"]:
+        for n, line in enumerate(path.read_text().splitlines(), 1):
+            assert not pat.search(line), (path, n, line)
+    import parameter_server_tpu_torch.utils.metrics as metrics
+
+    assert "parameter_server_tpu_torch.utils.profiler" in Path(metrics.__file__).read_text()
+    # the analysis subpackage holds only the two monitors the runtime reads
+    assert sorted(p.name for p in (ROOT / PKG / "analysis").glob("*.py")) == [
+        "__init__.py", "critpath.py", "monitors.py"]
 
 
 def test_entry_points_default_to_cuda():

@@ -137,8 +137,16 @@ def test_cli_launch_end_to_end(tmp_path):
     assert out["workloads"] == {
         "pending": 0, "active": 0, "done": 12, "attempts": 12, "reassigned": 0}
     assert out["dead_workers"] == []
-    assert set(out["telemetry"]) == {"counters", "hists", "timers"}
-    assert out["telemetry"]["counters"]["wire_bytes_out"] > 0
+    # the merged telemetry of the JAX run result: counters, the latency
+    # histograms (here at least the scheduler's own: every node's
+    # registration it served, the servers' stats it read), named timers,
+    # and the optional heat / slow-op / profiler blocks
+    tel = out["telemetry"]
+    assert {"counters", "hists", "timers"} <= set(tel) <= {
+        "counters", "hists", "timers", "key_heat", "slow", "prof"}
+    assert tel["counters"]["wire_bytes_out"] > 0
+    assert tel["hists"]["server.register"]["count"] >= 4
+    assert tel["hists"]["client.stats"]["count"] >= 2
     assert sum(out["nodes"][f"worker-{r}"]["steps"] for r in (0, 1)) == 36
 
 
@@ -292,8 +300,9 @@ def test_cli_node_and_launch_arguments(tmp_path, monkeypatch):
     before anything starts, so a bad one fails fast; the tracing and
     black-box options arm those planes (``launch`` hands them to every
     node's environment, ``node`` and ``run_node`` arm from the flag or
-    the config), while the profiler and the metrics endpoint are still
-    refused."""
+    the config), and so do the profiler and the metrics endpoint; other
+    apps than ``linear_method`` are refused, as the JAX cluster runs
+    only that one."""
     from parameter_server_tpu_torch.utils import flightrec, trace
 
     app = _app(tmp_path, 11, {"max_delay": 0, "epochs": 1})
@@ -338,10 +347,14 @@ def test_cli_node_and_launch_arguments(tmp_path, monkeypatch):
     cfg = json.loads(app.read_text())
     for section, value in (("profile", {"hz": 10}),
                            ("timeseries", {"metrics_port": 9000})):
-        bad = tmp_path / f"bad-{section}.json"
-        bad.write_text(json.dumps({**cfg, section: value}))
-        with pytest.raises(SystemExit, match="not ported yet"):
-            cli.main(["node", *node[1:-4], "--app_file", str(bad), "--device", "cpu"])
+        armed = tmp_path / f"armed-{section}.json"
+        armed.write_text(json.dumps({**cfg, section: value}))
+        with monkeypatch.context() as m:
+            m.setattr(TM, "run_node", fake_node)
+            assert cli.main(["node", *node[1:-4], "--app_file", str(armed),
+                             "--device", "cpu"]) == 0
+        (field, want), = value.items()
+        assert getattr(getattr(seen["node"], section), field) == want
     mf = tmp_path / "mf.json"
     mf.write_text(json.dumps({**cfg, "app": "matrix_fac"}))
     with pytest.raises(SystemExit, match="not ported yet"):
@@ -407,3 +420,20 @@ def test_cluster_entry_points_default_to_cuda(tmp_path):
         cli.main(["launch", "--app_file", str(app)])
     with pytest.raises(RuntimeError, match="cuda"):
         TM.ShardServer(TU.Sgd(eta=1.0), TK.KeyRange(0, 8))
+
+
+@pytest.mark.parametrize("app", ["matrix_fac", "wide_deep", "word2vec", "sketch"])
+@pytest.mark.parametrize("cmd", ["launch", "node"])
+def test_cluster_path_refuses_other_apps(tmp_path, app, cmd):
+    """The JAX cluster path reads no ``cfg.app``: it runs ``linear_method``
+    whatever the config says. The port refuses the other apps, by name."""
+    app_file = _app(tmp_path, 3, {"epochs": 1})
+    cfg = json.loads(app_file.read_text())
+    app_file.write_text(json.dumps({**cfg, "app": app}))
+    argv = {"launch": ["launch"],
+            "node": ["node", "--role", "server", "--rank", "0", "--scheduler",
+                     "127.0.0.1:1", "--num_servers", "1", "--num_workers", "1"]}[cmd]
+    with pytest.raises(SystemExit) as exc:
+        cli.main(argv + ["--app_file", str(app_file), "--device", "cpu"])
+    assert str(exc.value) == (
+        f"the cluster path for app {app!r} is not ported yet to parameter_server_tpu_torch")

@@ -8,6 +8,7 @@ within 1e-3."""
 
 import json
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -169,7 +170,7 @@ def test_cli_train_and_evaluate_match_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["stats", "--scheduler", "h:1"], "not ported yet"),
+    (["verify"], "not ported yet"),
     (["lint"], "not ported yet"),
     # the JAX CLI's own refusal: the pool needs the pod path
     (["train", "--app_file", "CFG", "--pool_coordinator", "h:1", "--device", "cpu"],
@@ -188,11 +189,12 @@ def test_cli_refuses_unported_paths(tmp_path, argv, match):
     {"app": "sketch", "trace": {"trace_dir": "t"}}, {"trace": {"trace_dir": "t"}},
 ])
 def test_cli_refuses_unported_config(tmp_path, section, capsys):
-    """[profile] and [timeseries] are refused; a [trace] section arms
-    tracing for the run as the JAX CLI does (the one-process apps record
-    no spans of their own, in either package, so a span recorded after the
-    run is what lands in the dir)."""
-    from parameter_server_tpu_torch.utils import trace
+    """[profile] and [timeseries] arm the profiler and the metrics
+    endpoint for the run and tear them down after it, as the JAX CLI
+    does; a [trace] section arms tracing for the run (the one-process
+    apps record no spans of their own, in either package, so a span
+    recorded after the run is what lands in the dir)."""
+    from parameter_server_tpu_torch.utils import profiler, timeseries, trace
 
     data = tmp_path / "a.svm"
     write_libsvm(data, *make_sparse_logistic(64, 50, nnz_per_example=3, seed=2)[:3])
@@ -203,8 +205,29 @@ def test_cli_refuses_unported_config(tmp_path, section, capsys):
                                     **section}))
     argv = ["train", "--app_file", str(app_file), "--device", "cpu"]
     if "trace" not in section:
-        with pytest.raises(SystemExit, match="not ported yet"):
-            TC.main(argv)
+        armed = {}
+        real_configure, real_start = profiler.configure, timeseries.start_metrics_server
+
+        def configure(hz, **kw):
+            armed.setdefault("hz", hz)
+            return real_configure(hz, **kw)
+
+        def start(port, **kw):
+            # the configured port, bound through the fallback to a free one
+            srv = real_start(0, **kw)
+            armed["port"] = port
+            return srv
+
+        with pytest.MonkeyPatch.context() as m:
+            m.setattr(profiler, "configure", configure)
+            m.setattr(timeseries, "start_metrics_server", start)
+            assert TC.main(argv) == 0
+        want = {"hz": 10} if "profile" in section else {"port": 9100}
+        assert armed == want
+        assert not profiler.enabled()
+        assert not [t.name for t in threading.enumerate()
+                    if t.name.startswith(("ps-ts-roller", "ps-metrics", "ps-profiler"))]
+        capsys.readouterr()
         return
     try:
         assert TC.main(argv) == 0
