@@ -299,14 +299,33 @@ the script exits nonzero without printing a result:
              recorder armed, in turn LIVE_ARM_REPEATS times: pushes/s and
              p50/p99 logged with the card's name and power limit, not
              gated.
+18. the analysis plane — (a) `cli lint --json` over the checkout in
+             its own process (pslint's 15 checkers over
+             parameter_server_tpu_torch/): exit 0 and no finding, its
+             wall time logged. (b) Phase 13 (a)'s launch (2 card servers,
+             1 worker, `cli node` processes, phase 13's files) with the
+             runtime lock-order witness armed in this process, which
+             launch_local exports to every node (PS_LOCK_WITNESS), then
+             the same launch unarmed: no inversion in any node (each
+             node's witness report, no LockOrderViolation in any log),
+             the armed model equal to phase 13 (a)'s (E2E_RTOL), K1 once
+             an apply batch on each card server; each node's witnessed
+             edges and how many the static graph lacks, each node's
+             start-up and each server's kernel library load (at start,
+             outside every lock) and first apply, armed and unarmed,
+             logged. (c) Phase 12 (a)'s pushes (LIVE_ARM_PUSHES an arm)
+             through 2 card servers in this process, unarmed and with the
+             witness armed, in turn LIVE_ARM_REPEATS times: pushes/s and
+             p50/p99 logged, not gated.
 
 Launch counters are reset just before each of phases 4-7, the round trip
 of phase 8, the training runs of phases 9 and 10, each mode of phase
 11 (a), each arm of phases 12 and 14, phase 15, phase 16's worker runs,
-pool runs and wire arms, and phase 17's arms, and read just after; phase
-11 (b)'s, 13's, 15 (c)'s, 16's and 17's ranks and nodes start from 0 in
-their own processes and print their counts: each must have launched its
-kernels (phases 10 and 15: none). The line before the last is the kernels' JSON summary;
+pool runs and wire arms, and phase 17's and 18's arms, and read just
+after; phase 11 (b)'s, 13's, 15 (c)'s, 16's, 17's and 18's ranks and nodes
+start from 0 in their own processes and print their counts: each must
+have launched its kernels (phases 10 and 15: none). The line before the
+last is the kernels' JSON summary;
 the last line is {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 
@@ -603,6 +622,13 @@ TERM_PUSHES = 3
 LIVE_EPOCHS, LIVE_BEAT_S, LIVE_PROFILE_HZ, LIVE_MIN_BEATS = 10, 0.2, 29.0, 3
 LIVE_WAIT_S = 120
 LIVE_ARM_PUSHES, LIVE_ARM_REPEATS = 48, 3
+
+# phase 18: the analysis plane. (a) `cli lint --json` over the checkout
+# (exit 0, no finding) within LINT_TIMEOUT_S. (b) Phase 13 (a)'s launch with
+# the lock-order witness armed on every node, then unarmed. (c) Phase 12
+# (a)'s pushes, LIVE_ARM_PUSHES an arm, unarmed and with the witness armed
+# in this process, in turn LIVE_ARM_REPEATS times
+LINT_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -4744,6 +4770,180 @@ def phase_live(rounds: list, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the analysis plane (pslint, the runtime lock-order witness)
+# ---------------------------------------------------------------------------
+
+
+def witnessed_cluster(files: list, val: Path, tmp: Path, model_a, device: str) -> dict:
+    """Phase 18 (b): phase 13 (a)'s launch with the lock-order witness
+    armed in this process (launch_local exports it to every node it
+    spawns), then the same launch unarmed. Gates: no inversion in any node
+    (each node's witness report, and no LockOrderViolation in any log),
+    the armed model equal to phase 13 (a)'s (E2E_RTOL), K1 once an apply
+    batch on each card server. Logged: each node's witnessed edges and how
+    many the static graph lacks, each node's start-up and each server's
+    kernel library load and first apply, armed and unarmed."""
+    from parameter_server_tpu_torch.analysis import witness
+    from parameter_server_tpu_torch.parallel.multislice import launch_local
+    from parameter_server_tpu_torch.utils.checkpoint import load_weights_text
+
+    app = tmp / "witness.json"
+    app.write_text(json.dumps(cluster_conf(files, val)))
+    out: dict = {"launches": {}}
+    for arm in ("armed", "unarmed"):
+        logs = tmp / f"witness-logs-{arm}"
+        if arm == "armed":
+            witness.install()
+        t0 = time.perf_counter()
+        try:
+            c = launch_local(str(app), CLUSTER_SERVERS, 1, model_out=str(tmp / f"{arm}.txt"),
+                             timeout=CLUSTER_TIMEOUT_S, device=device, log_dir=str(logs))
+        finally:
+            if arm == "armed":
+                witness.uninstall()
+        seconds = time.perf_counter() - t0
+        w = torch.from_numpy(load_weights_text(tmp / f"{arm}.txt", WORKER_KEYS))
+        err = check_e2e(f"witness cluster ({arm}) model vs phase 13 (a)'s card model", w,
+                        model_a)
+        out["launches"][f"witness_{arm}_ftrl_push"] = cluster_launches(
+            f"witness cluster ({arm})", c, "ftrl_push", 1)
+        reps = {tag: n.get("witness") for tag, n in c["nodes"].items() if tag != "scheduler-0"}
+        reps["scheduler-0"] = c.get("witness")
+        if arm == "armed":
+            if not all(reps.values()):
+                raise AssertionError(f"witness cluster: a node ran unarmed: {reps}")
+            bad = {t: r["violations"] for t, r in reps.items() if r["violations"]}
+            if bad:
+                raise AssertionError(f"witness cluster: lock-order inversions {bad}")
+        elif any(reps.values()):
+            raise AssertionError(f"witness cluster: an unarmed node armed: {reps}")
+        hits = [f.name for f in logs.iterdir() if "LockOrderViolation" in f.read_text()]
+        if hits:
+            raise AssertionError(f"witness cluster ({arm}): LockOrderViolation in {hits}")
+        servers = {tag: n for tag, n in c["nodes"].items() if tag.startswith("server")}
+        out[arm] = {
+            "seconds": seconds, "max_abs_err_over_scale": err,
+            "startup_s": {tag: n["t_register"] - n["spawn_time"]
+                          for tag, n in c["nodes"].items() if "t_register" in n},
+            "kernel_load_s": {tag: n["kernel_load_s"] for tag, n in servers.items()},
+            "first_apply_s": {tag: n["first_apply_s"] for tag, n in servers.items()},
+            "apply_batches": [st["apply_batches"] for st in c["server_stats"]],
+            "witness": {t: r and {k: r[k] for k in ("edges", "not_static", "violations",
+                                                    "static_edges", "seed_s",
+                                                    "not_static_edges")}
+                        for t, r in reps.items()}}
+        o = out[arm]
+        log(f"witness cluster {arm} ok in {seconds:.1f} s: model equals phase 13 (a)'s "
+            f"(max abs err {err:.3g} of scale); K1 = apply batches {o['apply_batches']}; "
+            f"start-up {json.dumps({k: round(v, 3) for k, v in o['startup_s'].items()})} s; "
+            f"servers' kernel library load {o['kernel_load_s']} s, first apply "
+            f"{o['first_apply_s']} s")
+        if arm == "armed":
+            for t, r in sorted(reps.items()):
+                log(f"witness {t}: {r['edges']} edges witnessed, {r['not_static']} not in "
+                    f"the static graph {r['not_static_edges']}, {r['violations']} "
+                    f"inversions; seeded {r['static_edges']} static edges in "
+                    f"{r['seed_s']:.2f} s")
+    return out
+
+
+def witness_arming_cost(rounds: list, smi: str, device: str) -> dict:
+    """Phase 18 (c): phase 12 (a)'s pushes through 2 card servers in this
+    process, unarmed and with the lock-order witness armed (the servers'
+    locks constructed under it), in turn."""
+    from parameter_server_tpu_torch.analysis import witness
+    from parameter_server_tpu_torch.kv.updaters import Ftrl
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.parallel.backend import local_socket_backend
+    from parameter_server_tpu_torch.utils.config import PSConfig
+
+    def ftrl():
+        return Ftrl(alpha=HYPER["alpha"], beta=HYPER["beta"], lambda_l1=HYPER["l1"],
+                    lambda_l2=HYPER["l2"])
+
+    pushes = [(k, g) for idx_list, grad_list in rounds for k, g in zip(idx_list, grad_list)]
+    pushes = (pushes * -(-LIVE_ARM_PUSHES // len(pushes)))[:LIVE_ARM_PUSHES]
+    runs: dict = {"unarmed": [], "armed": []}
+    launches = {"unarmed": 0, "armed": 0}
+    for rep in range(LIVE_ARM_REPEATS):
+        for arm in ("unarmed", "armed"):
+            if arm == "armed":
+                witness.install()
+            try:
+                be = local_socket_backend(ftrl, SERVER_KEYS, WIRE_SERVERS, cfg=PSConfig(),
+                                          device=device)
+                try:
+                    res = wire_deterministic(f"FTRL server witness {arm} ({rep + 1})", be,
+                                             pushes, ftrl, 1, "ftrl_push", fk.LAUNCHES,
+                                             IndexAudit())
+                finally:
+                    be.close()
+                if arm == "armed":
+                    wr = witness.report()
+                    if wr["violations"]:
+                        raise AssertionError(f"witness arm: {wr['violations']} inversions")
+                    res["witness_edges"] = wr["edges"]
+            finally:
+                if arm == "armed":
+                    witness.uninstall()
+            runs[arm].append({"pushes_per_s": res["pushes_per_s"], **res["latency"],
+                              **({"witness_edges": res["witness_edges"]}
+                                 if arm == "armed" else {})})
+            launches[arm] += res["launches"]
+            del be
+            if device == "cuda":
+                torch.cuda.empty_cache()
+    for arm, rs in runs.items():
+        log(f"witness arming cost ({smi}): {arm}: " + "; ".join(
+            f"{r['pushes_per_s']:.1f} pushes/s, p50 {r['p50_ms']:.3f} / p99 "
+            f"{r['p99_ms']:.3f} ms" for r in rs) + f" ({LIVE_ARM_PUSHES} pushes a run; "
+            f"logged, not gated)")
+    return {"runs": runs, "launches": {f"witness_arming_{k}_ftrl_push": v
+                                       for k, v in launches.items()}}
+
+
+def phase_analysis(rounds: list, model_a, smi: str, device: str = "cuda") -> dict:
+    """Phase 18: (a) `cli lint` over the checkout, (b) phase 13 (a)'s
+    launch under the lock-order witness beside it unarmed, (c) what arming
+    the witness costs phase 12 (a)'s pushes."""
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    ids, y = zipf_rows()
+    # (a) runs in its own process beside (b): it is host work on one core
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    t_lint = time.perf_counter()
+    lint = subprocess.Popen(
+        [sys.executable, "-m", "parameter_server_tpu_torch.cli", "lint", "--json"],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp_s:
+            tmp = Path(tmp_s)
+            files = zipf_row_files(tmp, ids, y, with_val=True)
+            files, val = files[:-1], files[-1]
+            out = {"cluster": witnessed_cluster(files, val, tmp, model_a, device)}
+        stdout, stderr = lint.communicate(timeout=LINT_TIMEOUT_S)
+    finally:
+        if lint.poll() is None:
+            lint.kill()
+            lint.wait()
+    lint_s = time.perf_counter() - t_lint
+    lines = stdout.strip().splitlines()
+    if lint.returncode != 0 or not lines or json.loads(lines[-1]) != []:
+        raise AssertionError(f"cli lint --json: exit {lint.returncode}\n{stdout[-3000:]}\n"
+                             f"{stderr[-2000:]}")
+    out["lint"] = {"seconds": lint_s, "findings": 0}
+    log(f"cli lint --json ok: exit 0, no finding over parameter_server_tpu_torch "
+        f"({lint_s:.1f} s wall, beside (b))")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["arming"] = witness_arming_cost(rounds, smi, device)
+    out["launches"] = {**out["cluster"].pop("launches"), **out["arming"].pop("launches")}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 18 ok in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5219,12 +5419,18 @@ def main() -> int:
     phase_darlin_apps(dev, labels, keys, vals)
     torch.cuda.empty_cache()
     # 16. the native parser, the dynamic pool, tracing and the black box
-    p16 = phase_native_pool_traced(rounds, cluster.pop("model_a"))
+    model_a = cluster.pop("model_a")
+    p16 = phase_native_pool_traced(rounds, model_a)
     p16l = p16["launches"]
     torch.cuda.empty_cache()
     # 17. live ops, the audit plane and the forensics tools on a cluster
     p17 = phase_live(rounds, smi)
     p17l = p17["launches"]
+    torch.cuda.empty_cache()
+    # 18. the analysis plane: cli lint, the lock-order witness on a cluster
+    p18 = phase_analysis(rounds, model_a, smi)
+    p18l = p18["launches"]
+    del model_a
 
     kernels["ftrl_push"]["max_abs_err"] = max(kernels["ftrl_push"]["max_abs_err"], err_wd_k1,
                                               pod["err"]["ftrl_push"])
@@ -5256,7 +5462,11 @@ def main() -> int:
         "live_cluster": p17l["live_cluster_ftrl_push"],
         "live_unarmed": p17l["live_unarmed_ftrl_push"],
         "arming_unarmed": p17l["arming_unarmed_ftrl_push"],
-        "arming_armed": p17l["arming_armed_ftrl_push"]}
+        "arming_armed": p17l["arming_armed_ftrl_push"],
+        "witness_cluster": p18l["witness_armed_ftrl_push"],
+        "witness_unarmed": p18l["witness_unarmed_ftrl_push"],
+        "witness_arming_unarmed": p18l["witness_arming_unarmed_ftrl_push"],
+        "witness_arming_armed": p18l["witness_arming_armed_ftrl_push"]}
     kernels["ftrl_push"]["wire"] = {"server": wire["ftrl"], "concurrent_sgd": wire["concurrent"],
                                     "train_linear": wire["train_linear"],
                                     "train_linear_checks": wire["train_linear_checks"]}
@@ -5301,6 +5511,7 @@ def main() -> int:
     kernels["ftrl_push"]["serving"] = {k: chs[k] for k in ("serving", "shed")}
     kernels["ftrl_push"]["live"] = {k: p17[k] for k in ("cluster", "live", "offline",
                                                        "arming")}
+    kernels["ftrl_push"]["analysis"] = {k: p18[k] for k in ("lint", "cluster", "arming")}
     kernels["quantize_stochastic"]["launches_by_path"] = {
         "codec_round_trip": codec_launches["quantize_stochastic"],
         "wire_fixed_point_handles": wl["wire_fixed_point_handles"]}

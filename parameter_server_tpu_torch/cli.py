@@ -5,9 +5,10 @@ batch solver), ``matrix_fac``, ``wide_deep``, ``word2vec``,
 ``graph_partition`` and ``sketch``. A config file picks the app and its
 solver, flags pick the run mode, ``--device`` the device (``cuda`` unless
 ``cpu`` is asked for; ``sketch`` is host code and ignores it). Config files
-and flags are those of the JAX package's CLI; the JAX CLI's static
-analysis subcommands (``lint``, ``check``, ``verify``, ``explore``) exit
-with "not ported yet".
+and flags are those of the JAX package's CLI. ``lint`` runs pslint over
+the port's own source (``analysis/``); the JAX CLI's other analysis
+subcommands (``check``, ``verify``, ``explore``) exit with "not ported
+yet".
 
 A mesh larger than 1x1 (``parallel.data_shards`` x ``parallel.kv_shards``)
 runs ``linear_method`` through ``PodTrainer`` (or, with ``solver.algo =
@@ -81,10 +82,10 @@ import sys
 
 from parameter_server_tpu_torch.utils.config import PSConfig, load_config
 
-#: subcommands of the JAX package's CLI that the port does not carry: its
-#: static analysis tools read the JAX package's own source, so they stay
-#: with that package's CLI
-NOT_PORTED_CMDS = ("lint", "check", "verify", "explore")
+#: subcommands of the JAX package's CLI that the port does not carry yet:
+#: the protocol model checker (``check``), the gate that runs it with the
+#: linter (``verify``) and the schedule explorer (``explore``)
+NOT_PORTED_CMDS = ("check", "verify", "explore")
 
 _KNOWN_APPS = (
     "linear_method", "graph_partition", "sketch", "matrix_fac", "word2vec",
@@ -387,6 +388,39 @@ def _build_parser() -> argparse.ArgumentParser:
     pm.add_argument(
         "--tail", type=int, default=40,
         help="merged-timeline events to print in the human report",
+    )
+
+    li = sub.add_parser(
+        "lint",
+        help="run pslint — the project-native static analyzer "
+        "(python -m parameter_server_tpu_torch.analysis) over the port's "
+        "source: lock-order, blocking-under-lock, settle-exactly-once, "
+        "counter/config contracts, trace hygiene, rcu (the in-place "
+        "publish lock included), and the quantity-flow triple (units / "
+        "clockdomain / idtype); exits nonzero on findings",
+    )
+    li.add_argument(
+        "--checker", action="append", default=None,
+        help="run only this checker (repeatable)",
+    )
+    li.add_argument("--json", action="store_true")
+    li.add_argument(
+        "--baseline", default=None, metavar="FILE",
+        help="gate on no NEW findings vs this JSON baseline (CI mode: "
+        "pre-existing debt stays visible but frozen). Matching is "
+        "LINE-INSENSITIVE — entries match on (checker, file, message) "
+        "as a multiset, so edits above a finding never churn the gate "
+        "but a second instance of a baselined finding still fails",
+    )
+    li.add_argument(
+        "--update-baseline", action="store_true",
+        help="rewrite --baseline from the current findings",
+    )
+    li.add_argument(
+        "--changed-only", default=None, metavar="REF",
+        help="report only findings in files changed vs this git ref "
+        "(the analysis still covers the whole package — fast pre-push "
+        "iteration, not the gate of record)",
     )
 
     return p
@@ -1148,6 +1182,22 @@ def main(argv: list[str] | None = None) -> int:
     if argv and argv[0] in NOT_PORTED_CMDS:
         raise _not_ported(f"the {argv[0]!r} subcommand")
     args = _build_parser().parse_args(argv)
+    if args.cmd == "lint":
+        # no config file: lint analyzes the installed package source
+        from parameter_server_tpu_torch.analysis.__main__ import main as lint_main
+
+        lint_argv: list[str] = []
+        for c in args.checker or ():
+            lint_argv += ["--checker", c]
+        if args.json:
+            lint_argv.append("--json")
+        if args.baseline:
+            lint_argv += ["--baseline", args.baseline]
+        if args.update_baseline:
+            lint_argv.append("--update-baseline")
+        if args.changed_only:
+            lint_argv += ["--changed-only", args.changed_only]
+        return lint_main(lint_argv)
     if args.cmd == "stats":
         # no config file: stats only needs a live coordinator address
         print(json.dumps(run_stats(args), default=float))

@@ -91,6 +91,7 @@ def _build() -> Path | None:
         tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp.so"
         cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)]
         try:
+            # psl: ignore[blocking-under-lock]: _build_lock exists solely to serialize this process's one g++ build of the parser library: a thread racing the build must wait for the library it is about to load, and nothing else is under the lock
             res = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
         except (subprocess.SubprocessError, OSError) as e:
             out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + repr(e) + "\n")

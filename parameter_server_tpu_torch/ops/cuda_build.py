@@ -106,8 +106,11 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The kernels' library, built if need be, loaded once per process."""
     global _lib
+    if _lib is not None:
+        return _lib  # loaded: no lock taken (a launch may hold the caller's)
     with _lock:
         if _lib is None:
+            # psl: ignore[blocking-under-lock]: _lock exists solely to serialize the process's one build and load of the kernel library: a racing first launch must wait for the library it is about to call, and nothing else is under the lock
             lib = ctypes.CDLL(str(build()))
             lib.ps_cuda_error_string.argtypes = [ctypes.c_int]
             lib.ps_cuda_error_string.restype = ctypes.c_char_p

@@ -58,10 +58,22 @@ The design mapping from the JAX package (``parameter_server_tpu/parallel``):
   publish-lock hold as the apply.
 """
 
-from parameter_server_tpu_torch.parallel import runtime  # noqa: F401
-from parameter_server_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: F401
-from parameter_server_tpu_torch.parallel.runtime import Runtime  # noqa: F401
-from parameter_server_tpu_torch.parallel.spmd import (  # noqa: F401
+# the runtime lock-order witness (analysis/witness.py), opt-in:
+# PS_LOCK_WITNESS=1 wraps threading.Lock/RLock/Condition construction in
+# this package's modules and raises on any inversion of the statically
+# derived acquisition order. Armed BEFORE the submodule imports below so
+# even import-time singletons in this subpackage are instrumented.
+import os as _os  # noqa: E402
+
+if _os.environ.get("PS_LOCK_WITNESS", "") not in ("", "0"):
+    from parameter_server_tpu_torch.analysis import witness as _witness
+
+    _witness.maybe_install_from_env()
+
+from parameter_server_tpu_torch.parallel import runtime  # noqa: E402, F401
+from parameter_server_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: E402, F401
+from parameter_server_tpu_torch.parallel.runtime import Runtime  # noqa: E402, F401
+from parameter_server_tpu_torch.parallel.spmd import (  # noqa: E402, F401
     batch_arrays,
     make_spmd_predict_step,
     make_spmd_train_multistep,
@@ -69,5 +81,5 @@ from parameter_server_tpu_torch.parallel.spmd import (  # noqa: F401
     shard_state,
     stack_step_groups,
 )
-from parameter_server_tpu_torch.parallel.ssp import DispatchWindow, SSPClock  # noqa: F401
-from parameter_server_tpu_torch.parallel.workload import WorkloadPool  # noqa: F401
+from parameter_server_tpu_torch.parallel.ssp import DispatchWindow, SSPClock  # noqa: E402, F401
+from parameter_server_tpu_torch.parallel.workload import WorkloadPool  # noqa: E402, F401

@@ -1810,6 +1810,7 @@ class RpcClient:
                 bufs, n = build_frame(p.header, p.arrays, bin_hdr=use_bin)
                 try:
                     with self._send_lock:
+                        # psl: ignore[blocking-under-lock]: _send_lock exists solely to serialize writes to one socket between this inline fast path and the writer thread; it guards no other state and the reader thread never takes it
                         _send_gather(sock, bufs)
                     with self._cv:
                         self.bytes_out += n
@@ -1888,6 +1889,7 @@ class RpcClient:
                 wire_counters.inc("wire_frames_coalesced", len(batch) - 1)
             try:
                 with self._send_lock:
+                    # psl: ignore[blocking-under-lock]: _send_lock exists solely to serialize socket writes between the writer thread and the inline fast path; a send parked on backpressure is the socket's own flow control, not contended state
                     _send_gather(sock, bufs)
             except (ConnectionError, OSError):
                 self._conn_died(sock, gen)  # heal resends the claimed batch

@@ -103,6 +103,7 @@ import torch
 from parameter_server_tpu_torch.device import resolve_device
 from parameter_server_tpu_torch.kv import store as kv_store
 from parameter_server_tpu_torch.kv.updaters import Updater
+from parameter_server_tpu_torch.ops import cuda_build
 from parameter_server_tpu_torch.parallel.chaos import PLAN_ENV, SEED_ENV, FaultPlan
 from parameter_server_tpu_torch.parallel.control import (
     Arrays,
@@ -274,6 +275,17 @@ class ShardServer:
         scfg = server_cfg or ServerConfig()
         svcfg = serve_cfg or ServeConfig()
         self.device = resolve_device(device)
+        #: host seconds of the kernel library's load at start (None on the
+        #: CPU) and of the first apply (None until one ran)
+        self.kernel_load_s: float | None = None
+        self.first_apply_s: float | None = None
+        if self.device.type == "cuda":
+            # the kernel library (K1, K3) is built and loaded here, outside
+            # every lock: left to the first apply, that would run under
+            # _pub_lock and park every pull for the load (or a cold build)
+            t0 = time.perf_counter()
+            cuda_build.load()
+            self.kernel_load_s = time.perf_counter() - t0
         self.updater = updater
         self.range = key_range
         self.vdim = int(vdim)
@@ -591,8 +603,9 @@ class ShardServer:
 
     # -- the state, in place under the publish lock -------------------------
 
-    def _apply(self, idx: np.ndarray, grad: np.ndarray) -> None:
-        """Apply one coalesced push in place and bump the version.
+    def _apply(self, idx: np.ndarray, grad: np.ndarray) -> int:
+        """Apply one coalesced push in place and bump the version; returns
+        the version it published, read in the same publish-lock hold.
 
         ``idx`` holds the union's unique keys only. The JAX engine pads
         the union to a power of two with PAD_KEY 0 and zero gradients
@@ -605,12 +618,14 @@ class ShardServer:
         (``csrc/adagrad.cu:60-63``). A single push whose keys repeat (the
         JAX ``.at[].add`` of its rows) goes the repeated-ids way:
         gather, a delta an occurrence, ``index_add_``, no kernel."""
+        t0 = time.perf_counter() if self.first_apply_s is None else 0.0
         idx_t = torch.from_numpy(_host_array(idx, np.int64)).to(self.device)
         g_t = torch.from_numpy(_host_array(grad, np.float32)).to(self.device)
         g_t = g_t.reshape(len(idx), -1)
         unique = _strictly_unique(idx)
         with self._pub_lock:
             if unique:
+                # psl: ignore[blocking-under-lock]: the K1/K3 launch under the publish lock is the counterpart of the JAX server's jitted apply under its apply lock (rows and version move in one hold); on the card it only enqueues on the current stream: idx_t and g_t are on the device already (the store's host asarray and .to() do nothing to them), and a card server loaded the kernel library at start, so no build or load runs in this hold
                 kv_store.push(self.updater, self.state, idx_t, g_t)
             else:
                 rows = {k: v.index_select(0, idx_t) for k, v in self.state.items()}
@@ -618,6 +633,10 @@ class ShardServer:
                 for k, v in self.state.items():
                     v.index_add_(0, idx_t, deltas[k])
             self._publish()
+            ver = self._version
+        if t0:
+            self.first_apply_s = time.perf_counter() - t0
+        return ver
 
     def _table_weights(self) -> torch.Tensor:
         """The weights of the whole table as a tensor of its own. Caller
@@ -847,6 +866,7 @@ class ShardServer:
                 todo.append(p)
             if todo:
                 t_apply0 = time.perf_counter()
+                # psl: ignore[blocking-under-lock]: the apply lock must span the ledger check, the coalesce + in-place K1/K3 apply and the publish — the serial raw-frame path mutates state under this same lock, so an unlocked compute window would lose any raw push that interleaved
                 idx, grad = kv_store.coalesce_pushes(
                     [p.keys for p in todo], [p.grad for p in todo]
                 )
@@ -854,11 +874,11 @@ class ShardServer:
                     "server.apply_batch", cat="ps",
                     pushes=len(todo), keys=len(idx),
                 ):
-                    self._apply(idx, grad)
+                    # psl: ignore[blocking-under-lock]: same unit as the coalesce above — ledger check, in-place apply and publish are one atomic section vs the serial raw-frame path
+                    commit_ver = self._apply(idx, grad)
                     for p in todo:
                         if p.cid is not None:
                             self._record_push(p.cid, p.seq)
-                    commit_ver = self._version  # the apply thread's own bump
         t_apply1 = time.perf_counter()
         apl_us = int(max(t_apply1 - t_apply0, 0.0) * 1e6) if todo else 0
         if todo:
@@ -996,10 +1016,10 @@ class ShardServer:
             key_heat.add(np.asarray(keys, np.int64) + self.range.begin)
             with trace.span("server.updater", cat="ps", keys=len(keys)):
                 with self._lock:
-                    self._apply(keys, g)
+                    # psl: ignore[blocking-under-lock]: the serial path ([server] apply_queue = 0) applies INLINE under the write lock by definition — that serialization is the pre-engine baseline discipline the engine is benchmarked against
+                    serial_ver = self._apply(keys, g)
                     if cid is not None:
                         self._record_push(cid, seq)
-                    serial_ver = self._version
             self._bump("pushes")
             self._range_scope.push(1, int(g.nbytes))
             flightrec.record(
@@ -1150,6 +1170,7 @@ class ShardServer:
             q, qs = qz.encode_nearest(w.ravel())
             wire_counters.inc(
                 "wire_quant_bytes_saved",
+                # psl: ignore[idtype]: w holds float32 rows, not a version: it carries id:ver only because _gather_weights returns (w, ver, pts) as one tuple, whose elements the dataflow joins
                 max(w.nbytes - q.nbytes - qs.nbytes, 0),
             )
             rep: dict[str, Any] = {"ok": True, "codec": qn, "qseg": qz.seg}
@@ -1396,6 +1417,7 @@ class ServerHandle:
             while time.monotonic() < deadline:
                 try:
                     addr = self._resolve_addr()
+                    # psl: ignore[blocking-under-lock]: _reconnect_lock IS the serialization of connection rebuilds — concurrent failing threads must park until exactly one rebuild completes; no completion/reader thread takes it (the recovery pool moved to _pool_lock)
                     self.client = RpcClient(
                         addr, retries=1,
                         reconnect_timeout_s=self._client_window_s,
@@ -1410,6 +1432,7 @@ class ServerHandle:
                     return
                 except (ConnectionError, OSError) as e:
                     last = e
+                    # psl: ignore[blocking-under-lock]: rebuild-retry backoff under the rebuild serialization lock — waiters WANT to park until the one rebuild lands (see the pragma above)
                     time.sleep(0.3)
         raise ConnectionError(
             f"server rank {self.rank} unreachable for "
@@ -2106,7 +2129,8 @@ def run_server(
         srv.save_state(ckpt_dir)
     ctl.close()
     trace.tracer.flush()  # export this process's spans (no-op if disabled)
-    return {"t_register": t_register, "resumed": resumed, "counters": dict(srv.counters)}
+    return {"t_register": t_register, "resumed": resumed, "counters": dict(srv.counters),
+            "kernel_load_s": srv.kernel_load_s, "first_apply_s": srv.first_apply_s}
 
 
 def _connect_servers(
@@ -2440,6 +2464,20 @@ def run_scheduler(
     return out
 
 
+def _export_witness_env(child_env: dict) -> None:
+    """Arm the runtime lock-order witness in spawned children whenever
+    THIS process runs under it — whether it was armed by the
+    ``PS_LOCK_WITNESS`` env var (already inherited via the env copy) or
+    by an explicit ``witness.install()``, which an env copy alone would
+    silently fail to propagate. Children arm at package import
+    (parallel/__init__), so every lock a spawned node constructs is
+    order-checked too."""
+    from parameter_server_tpu_torch.analysis import witness
+
+    if witness.installed():
+        child_env[witness.ENV_VAR] = "1"
+
+
 def launch_local(
     app_file: str,
     num_servers: int,
@@ -2525,6 +2563,7 @@ def launch_local(
         # arm the flight recorder on EVERY spawned node (same pattern)
         os.makedirs(blackbox_dir, exist_ok=True)
         child_env[flightrec.BLACKBOX_DIR_ENV] = blackbox_dir
+    _export_witness_env(child_env)
     logdir = log_dir or tempfile.mkdtemp(prefix="pslaunch_")
     os.makedirs(logdir, exist_ok=True)
 
@@ -2785,6 +2824,8 @@ def run_node(
             cfg.audit.spool_capacity, cfg.audit.batch_events
         )
         armed_spool = True
+    from parameter_server_tpu_torch.analysis import witness
+
     try:
         if role == "scheduler":
             host, port = scheduler.rsplit(":", 1)
@@ -2797,9 +2838,12 @@ def run_node(
                 series_window_s=cfg.timeseries.window_s,
                 audit_cfg=cfg.audit,
             )
-            return run_scheduler(
+            res = run_scheduler(
                 cfg, coord, num_servers, num_workers, model_out, device=dev
             )
+            if witness.installed():
+                res["witness"] = witness.report()
+            return res
         if role == "server":
             report = run_server(
                 cfg, scheduler, rank, num_servers, bind_host=bind_host,
@@ -2807,6 +2851,9 @@ def run_node(
             )
         else:
             report = run_worker(cfg, scheduler, rank, num_servers, device=dev)
+        if witness.installed():
+            # the lock-order witness (PS_LOCK_WITNESS): what this node took
+            report["witness"] = witness.report()
         return {"node": f"{role}-{rank}", "device": str(dev),
                 "launches": _launch_counts(), **report}
     finally:

@@ -605,8 +605,7 @@ class Tracer:
         if self._sample <= 1:
             return True
         try:
-            # head sampling hashes the id's hex prefix: the one place a
-            # trace id acts numeric
+            # psl: ignore[idtype]: head-sampling hashes the id's hex prefix by design — the one sanctioned place a trace id acts numeric
             return int(trace_id[:8], 16) % self._sample == 0
         except (ValueError, TypeError):
             return True

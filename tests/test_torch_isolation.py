@@ -13,6 +13,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = "parameter_server_tpu_torch"
+#: pslint's modules and the lock-order witness, beside the monitors
+ANALYSIS_MODULES = (
+    "core.py", "callgraph.py", "dataflow.py", "flowrun.py", "lockgraph.py",
+    "blocking.py", "settle.py", "contracts.py", "replycache.py", "tracehygiene.py",
+    "rcu.py", "wireproto.py", "quantity.py", "flightreccontract.py", "witness.py",
+)
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -58,6 +64,9 @@ def test_port_imports_without_jax_or_the_jax_package():
         "clock", "timeseries", "profiler", "slo", "auditor", "postmortem")} <= set(
         res["imported"])
     assert {f"{PKG}.analysis.monitors", f"{PKG}.analysis.critpath"} <= set(res["imported"])
+    # pslint, its module entry and the lock-order witness
+    assert {f"{PKG}.analysis.{m.removesuffix('.py')}" for m in ANALYSIS_MODULES} | {
+        f"{PKG}.analysis.__main__"} <= set(res["imported"])
     # chaos and the serving plane's client cache
     assert {f"{PKG}.parallel.chaos", f"{PKG}.filters.keycache"} <= set(res["imported"])
     # the control plane and the cluster's entry points, and their copies
@@ -199,9 +208,11 @@ def test_port_sources_name_no_jax_package_module():
     import parameter_server_tpu_torch.utils.metrics as metrics
 
     assert "parameter_server_tpu_torch.utils.profiler" in Path(metrics.__file__).read_text()
-    # the analysis subpackage holds only the two monitors the runtime reads
-    assert sorted(p.name for p in (ROOT / PKG / "analysis").glob("*.py")) == [
-        "__init__.py", "critpath.py", "monitors.py"]
+    # the analysis subpackage: the two monitors the runtime reads, pslint
+    # and the lock-order witness (the JAX subpackage without psmc, the
+    # explorer and the race witness)
+    assert sorted(p.name for p in (ROOT / PKG / "analysis").glob("*.py")) == sorted([
+        "__init__.py", "__main__.py", "critpath.py", "monitors.py", *ANALYSIS_MODULES])
 
 
 def test_entry_points_default_to_cuda():

@@ -171,7 +171,7 @@ def test_cli_train_and_evaluate_match_jax(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["verify"], "not ported yet"),
-    (["lint"], "not ported yet"),
+    (["check"], "not ported yet"),
     # the JAX CLI's own refusal: the pool needs the pod path
     (["train", "--app_file", "CFG", "--pool_coordinator", "h:1", "--device", "cpu"],
      "requires the pod training path"),
