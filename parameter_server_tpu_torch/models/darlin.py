@@ -11,8 +11,9 @@ reference's batch solver:
                                              width, stacked (n_blocks, E)
   worker keeps prediction vector Xw        pred (N,) on the device, updated
                                              incrementally per block
-  per-block grad + diag-Hessian push       segment sums (index_add_) over
-                                             the block's entries
+  per-block grad + diag-Hessian push       segment sums (sorted, in one
+                                             order every run) over the
+                                             block's entries
   server proximal (soft-threshold) step    _prox_newton_direction
   KKT filter active-set bitmap             active (K,) bool; inactive
                                              zero coordinates get d == 0
@@ -81,8 +82,36 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+# _segment_sum's lanes an id on the card, and the most partial sums it keeps
+SEGMENT_LANES, SEGMENT_PARTIALS = 1024, 1 << 22
+
+
 def _segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Sum ``x`` by ``ids`` into ``n`` slots, in one order every run: on
+    the CPU ``index_add_`` (one pass in entry order), on the card
+    :func:`_lane_segment_sum`."""
+    if x.is_cuda:
+        return _lane_segment_sum(x, ids, n)
     return torch.zeros(n, dtype=x.dtype, device=x.device).index_add_(0, ids, x)
+
+
+def _lane_segment_sum(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """The card's segment sum, without atomics.
+
+    The atomic adds of ``index_add_`` on the card sum a hot key's entries
+    in another order each run, and a reordered sum can flip a coordinate
+    across the KKT filter, so two solves on the same data would part.
+    ``index_put_`` with ``accumulate`` sorts its indices and sums each
+    index's entries in their order, but in sequence, so an id's entries
+    are first dealt by position over ``lanes`` partials (SEGMENT_LANES,
+    fewer where n x lanes would pass SEGMENT_PARTIALS), whose (n, lanes)
+    sum is one fixed reduction. The lanes depend on n alone, so entries
+    past the last real one (zeros) leave the sums exactly as they were."""
+    lanes = max(1, min(SEGMENT_LANES, SEGMENT_PARTIALS // max(n, 1)))
+    key = ids.long() * lanes + torch.arange(x.shape[0], device=x.device) % lanes
+    part = torch.zeros(n * lanes, dtype=x.dtype, device=x.device)
+    part.index_put_((key,), x, accumulate=True)
+    return part.view(n, lanes).sum(1)
 
 
 def _alphas(device) -> torch.Tensor:

@@ -1844,22 +1844,25 @@ class ServerHandle:
         if ent is None:
             wire_counters.inc("serve_cache_misses")
             return None, {"sv": 1}, sig, None, False, gen
-        if self._kcache.fresh(ent):
+        # one clock reading decides the serve and dates it: the age booked
+        # is the age the freshness and ceiling checks passed
+        now = time.monotonic()
+        if self._kcache.fresh(ent, now):
             wire_counters.inc("serve_cache_hits")
-            self._book_serve_age(ent.age_us(), "cache")
+            self._book_serve_age(ent.age_us(now), "cache")
             # a copy: callers own their rows, the cache stays pristine
             return ent.values.copy(), {}, sig, ent, False, gen
         if not self._kcache.begin_refresh(sig):
-            if self._kcache.can_shed(ent):
+            if self._kcache.can_shed(ent, now):
                 # another thread's refresh is in flight: serve the
                 # bounded-stale rows rather than duplicate its round trip
                 wire_counters.inc("serve_cache_stale_hits")
-                self._book_serve_age(ent.age_us(), "stale")
+                self._book_serve_age(ent.age_us(now), "stale")
                 return ent.values.copy(), {}, sig, ent, False, gen
             # past the staleness ceiling: correctness wins
             return None, {"if_newer": ent.version}, sig, ent, False, gen
         fields: dict[str, Any] = {"if_newer": ent.version}
-        if self._kcache.can_shed(ent):
+        if self._kcache.can_shed(ent, now):
             fields["shed_ok"] = 1
         return None, fields, sig, ent, True, gen
 

@@ -250,13 +250,21 @@ class TestSelfHealingRpc:
         cli = TC.RpcClient(srv.address, reconnect_timeout_s=20.0)
         real = control_mod._send_gather
         fired = []
+        killed = threading.Event()
 
         def racy_send(sock, bufs):
+            healer = threading.current_thread().name == "ps-rpc-reader"
+            if not healer and cli._healing:
+                # the in-process server's reply to the resend waits until
+                # the replacement is dead: sent at once, it could complete
+                # the call before the heal's resend returns, and the
+                # interleaving would go unexercised
+                killed.wait(10.0)
             real(sock, bufs)
-            if (not fired and cli._healing
-                    and threading.current_thread().name == "ps-rpc-reader"):
+            if not fired and cli._healing and healer:
                 fired.append(1)
                 cli._conn_died(sock, cli._gen)
+                killed.set()
 
         monkeypatch.setattr(control_mod, "_send_gather", racy_send)
         try:

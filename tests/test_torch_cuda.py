@@ -1114,3 +1114,24 @@ def test_card_server_telemetry_snapshot_after_k1_pushes(dev):
     assert hists["server.apply_batch.n"]["count"] == srv.counters["apply_batches"]
     assert snap["counters"]["range.0-65536.pull"] == 1
     assert snap["key_heat"]["n"] == 4 * 4096
+
+
+@pytest.mark.cuda
+def test_darlin_segment_sum_repeats_on_card(dev):
+    """Darlin's segment sum on the card: one hot id of 600k entries, the
+    same bits in every call (``index_add_``'s atomics need not give them)
+    and the float64 sums within rtol 1e-5 / atol 1e-3 (float32 over 1.2M
+    entries)."""
+    from parameter_server_tpu_torch.models import darlin
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    ids = torch.randint(0, 4096, (1_200_000,), device=dev, generator=gen, dtype=torch.int32)
+    ids[:600_000] = 7
+    ids = ids[torch.randperm(ids.numel(), device=dev, generator=gen)]
+    x = torch.randn(ids.numel(), device=dev, generator=gen)
+    sums = [darlin._segment_sum(x, ids, 4096) for _ in range(4)]
+    for s in sums[1:]:
+        assert torch.equal(s, sums[0])
+    want = torch.zeros(4096, dtype=torch.float64).index_add_(0, ids.long().cpu(),
+                                                             x.double().cpu())
+    np.testing.assert_allclose(sums[0].cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-3)

@@ -246,6 +246,30 @@ def test_block_extents_leave_the_pass_unchanged(data):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
+@pytest.mark.parametrize("n,partials", [(64, 1 << 22), (64, 64 * 5), (3000, 3000)])
+def test_lane_segment_sum(n, partials, monkeypatch):
+    """The card's segment sum (lanes over a hot id, then one fixed
+    reduction), run here on CPU tensors: the float64 sums within rtol 1e-5
+    / atol 1e-5 (float32 over ~40k entries), the same bits on a second
+    call, and trailing zero entries leave every sum exactly as it was.
+    ``partials`` below n x SEGMENT_LANES takes fewer lanes (5, then 1:
+    ``index_put_`` alone)."""
+    monkeypatch.setattr(TD, "SEGMENT_PARTIALS", partials)
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, n, 40_000)
+    ids[rng.random(40_000) < 0.5] = 7  # one hot id, as darlin's hashed blocks have
+    x = rng.normal(size=40_000).astype(np.float32)
+    got = TD._lane_segment_sum(_t(x), _t(ids.astype(np.int32)), n)
+    want = np.zeros(n)
+    np.add.at(want, ids, x.astype(np.float64))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    again = TD._lane_segment_sum(_t(x), _t(ids.astype(np.int32)), n)
+    np.testing.assert_array_equal(again.numpy(), got.numpy())
+    padded = TD._lane_segment_sum(_t(np.append(x, np.zeros(5000, np.float32))),
+                                  _t(np.append(ids, np.zeros(5000, int)).astype(np.int32)), n)
+    np.testing.assert_array_equal(padded.numpy(), got.numpy())
+
+
 # --- convergence: the port against the JAX solver and liblinear ----------------
 
 
