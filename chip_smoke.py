@@ -299,30 +299,50 @@ the script exits nonzero without printing a result:
              recorder armed, in turn LIVE_ARM_REPEATS times: pushes/s and
              p50/p99 logged with the card's name and power limit, not
              gated.
-18. the analysis plane — (a) `cli lint --json` over the checkout in
-             its own process (pslint's 15 checkers over
-             parameter_server_tpu_torch/): exit 0 and no finding, its
-             wall time logged. (b) Phase 13 (a)'s launch (2 card servers,
-             1 worker, `cli node` processes, phase 13's files) with the
-             runtime lock-order witness armed in this process, which
-             launch_local exports to every node (PS_LOCK_WITNESS), then
-             the same launch unarmed: no inversion in any node (each
-             node's witness report, no LockOrderViolation in any log),
-             the armed model equal to phase 13 (a)'s (E2E_RTOL), K1 once
-             an apply batch on each card server; each node's witnessed
-             edges and how many the static graph lacks, each node's
-             start-up and each server's kernel library load (at start,
-             outside every lock) and first apply, armed and unarmed,
-             logged. (c) Phase 12 (a)'s pushes (LIVE_ARM_PUSHES an arm)
-             through 2 card servers in this process, unarmed and with the
-             witness armed, in turn LIVE_ARM_REPEATS times: pushes/s and
-             p50/p99 logged, not gated.
+18. the analysis plane — (a) lint runs inside phase 19 (a)'s `cli
+             verify`, started here beside (b) and (c). (b) Phase 13 (a)'s
+             launch (2 card servers, 1 worker, `cli node` processes,
+             phase 13's files) with the runtime lock-order witness and
+             the lockset race witness armed in this process, which
+             launch_local exports to every node (PS_LOCK_WITNESS,
+             PS_RACE_WITNESS), then the same launch unarmed: no inversion
+             and no race in any node (each node's witness and race
+             witness reports, no LockOrderViolation or [racewitness] line
+             in any log; the servers and the worker tracked fields), the
+             armed model equal to phase 13 (a)'s (E2E_RTOL), K1 once an
+             apply batch on each card server; each node's witnessed edges
+             and how many the static graph lacks, its tracked fields,
+             each node's start-up and each server's kernel library load
+             (at start, outside every lock) and first apply, armed and
+             unarmed, logged. (c) Phase 12 (a)'s pushes (LIVE_ARM_PUSHES
+             an arm) through 2 card servers in this process, unarmed and
+             with the witness armed, in turn LIVE_ARM_REPEATS times:
+             pushes/s and p50/p99 logged, not gated.
+19. psmc, the explorer and the race witness — (a) `cli verify --json`
+             (pslint's 17 checkers, then psmc's four specs with the
+             spec<->code conformance diff) and `cli check --json` over
+             the checkout, each in its own process beside phases 18 (b),
+             (c) and 19 (b): verify exits 0 with lint 0 and check 0,
+             every spec complete and ok, conformance []; their wall
+             times logged. (b) A card FTRL ShardServer of 2^24 rows and a
+             serving handle under the serving chaos-coherence test's
+             plan (PSMC_PLAN, seed 3, caching on), 12 push/pull rounds of
+             4096 keys, for explorer seed 8 and every seed
+             tests/torch_sched_corpus.json records, the explorer armed
+             before the server is built: each pull equal to its round's
+             CPU replay (read-your-writes, PSMC_TOL), 12 pushes, K1 once
+             an apply batch, more than 50 decisions with the publish
+             boundary (rcu-publish:) and queue sites among them, the
+             table equal to the CPU replay's; then the same under the
+             race witness: fields tracked, no report. (c) Phase 13 (a)'s
+             launch with PS_RACE_WITNESS on every node is phase 18 (b)'s
+             armed launch.
 
 Launch counters are reset just before each of phases 4-7, the round trip
 of phase 8, the training runs of phases 9 and 10, each mode of phase
 11 (a), each arm of phases 12 and 14, phase 15, phase 16's worker runs,
-pool runs and wire arms, and phase 17's and 18's arms, and read just
-after; phase 11 (b)'s, 13's, 15 (c)'s, 16's, 17's and 18's ranks and nodes
+pool runs and wire arms, phase 17's and 18's arms and each of phase 19
+(b)'s runs, and read just after; phase 11 (b)'s, 13's, 15 (c)'s, 16's, 17's and 18's ranks and nodes
 start from 0 in their own processes and print their counts: each must
 have launched its kernels (phases 10 and 15: none). The line before the
 last is the kernels' JSON summary;
@@ -625,12 +645,26 @@ LIVE_EPOCHS, LIVE_BEAT_S, LIVE_PROFILE_HZ, LIVE_MIN_BEATS = 10, 0.2, 29.0, 3
 LIVE_WAIT_S = 120
 LIVE_ARM_PUSHES, LIVE_ARM_REPEATS = 48, 3
 
-# phase 18: the analysis plane. (a) `cli lint --json` over the checkout
-# (exit 0, no finding) within LINT_TIMEOUT_S. (b) Phase 13 (a)'s launch with
-# the lock-order witness armed on every node, then unarmed. (c) Phase 12
-# (a)'s pushes, LIVE_ARM_PUSHES an arm, unarmed and with the witness armed
-# in this process, in turn LIVE_ARM_REPEATS times
-LINT_TIMEOUT_S = 300
+# phase 18: the analysis plane. (a) Lint runs inside phase 19 (a)'s `cli
+# verify`, started at phase 18's start beside (b) and read at phase 19's
+# end, within VERIFY_TIMEOUT_S. (b) Phase 13 (a)'s launch with the
+# lock-order witness and the race witness armed on every node (phase 19
+# (c)), then unarmed. (c) Phase 12 (a)'s pushes, LIVE_ARM_PUSHES an arm,
+# unarmed and with the witness armed in this process, in turn
+# LIVE_ARM_REPEATS times
+VERIFY_TIMEOUT_S = 300
+
+# phase 19: psmc, the explorer and the race witness. (b) A card FTRL
+# ShardServer of WORKER_KEYS rows (phase 13's width) and a serving handle
+# under the serving chaos-coherence test's plan (PSMC_PLAN, seed
+# PSMC_PLAN_SEED, caching on): PSMC_ROUNDS push/pull rounds of PSMC_KEYS
+# keys, for explorer seed PSMC_SEED and every seed the port's corpus
+# records for PSMC_NODE, then once under the race witness; every pull and
+# the table within PSMC_TOL (relative and absolute) of a CPU replay
+PSMC_PLAN = "drop,cmd=pull,every=7;disconnect,cmd=push,every=5;duplicate,every=6"
+PSMC_PLAN_SEED, PSMC_SEED, PSMC_ROUNDS, PSMC_KEYS, PSMC_TOL = 3, 8, 12, 4096, 1e-6
+PSMC_NODE = ("tests/test_torch_serving.py::TestServingChaosCoherence::"
+             "test_read_your_writes_and_exactly_once_under_chaos[torch-torch]")
 
 
 def log(msg: str) -> None:
@@ -4797,15 +4831,18 @@ def phase_live(rounds: list, smi: str) -> dict:
 
 
 def witnessed_cluster(files: list, val: Path, tmp: Path, model_a, device: str) -> dict:
-    """Phase 18 (b): phase 13 (a)'s launch with the lock-order witness
-    armed in this process (launch_local exports it to every node it
-    spawns), then the same launch unarmed. Gates: no inversion in any node
-    (each node's witness report, and no LockOrderViolation in any log),
-    the armed model equal to phase 13 (a)'s (E2E_RTOL), K1 once an apply
-    batch on each card server. Logged: each node's witnessed edges and how
-    many the static graph lacks, each node's start-up and each server's
-    kernel library load and first apply, armed and unarmed."""
-    from parameter_server_tpu_torch.analysis import witness
+    """Phase 18 (b), with phase 19 (c): phase 13 (a)'s launch with the
+    lock-order witness and the race witness armed in this process
+    (launch_local exports both to every node it spawns), then the same
+    launch unarmed. Gates: no inversion in any node (each node's witness
+    report, and no LockOrderViolation in any log), no race in any node
+    (each node's race witness report, and no [racewitness] line in any
+    log; the servers and the worker tracked their shared objects), the
+    armed model equal to phase 13 (a)'s (E2E_RTOL), K1 once an apply batch
+    on each card server. Logged: each node's witnessed edges and how many
+    the static graph lacks, each node's start-up and each server's kernel
+    library load and first apply, armed and unarmed."""
+    from parameter_server_tpu_torch.analysis import racewitness, witness
     from parameter_server_tpu_torch.parallel.multislice import launch_local
     from parameter_server_tpu_torch.utils.checkpoint import load_weights_text
 
@@ -4816,12 +4853,14 @@ def witnessed_cluster(files: list, val: Path, tmp: Path, model_a, device: str) -
         logs = tmp / f"witness-logs-{arm}"
         if arm == "armed":
             witness.install()
+            racewitness.install()
         t0 = time.perf_counter()
         try:
             c = launch_local(str(app), CLUSTER_SERVERS, 1, model_out=str(tmp / f"{arm}.txt"),
                              timeout=CLUSTER_TIMEOUT_S, device=device, log_dir=str(logs))
         finally:
             if arm == "armed":
+                racewitness.uninstall()
                 witness.uninstall()
         seconds = time.perf_counter() - t0
         w = torch.from_numpy(load_weights_text(tmp / f"{arm}.txt", WORKER_KEYS))
@@ -4831,17 +4870,25 @@ def witnessed_cluster(files: list, val: Path, tmp: Path, model_a, device: str) -
             f"witness cluster ({arm})", c, "ftrl_push", 1)
         reps = {tag: n.get("witness") for tag, n in c["nodes"].items() if tag != "scheduler-0"}
         reps["scheduler-0"] = c.get("witness")
+        races = {tag: n.get("race_witness") for tag, n in c["nodes"].items()
+                 if tag != "scheduler-0"}
+        races["scheduler-0"] = c.get("race_witness")
         if arm == "armed":
-            if not all(reps.values()):
-                raise AssertionError(f"witness cluster: a node ran unarmed: {reps}")
+            if not all(reps.values()) or not all(races.values()):
+                raise AssertionError(f"witness cluster: a node ran unarmed: {reps} {races}")
             bad = {t: r["violations"] for t, r in reps.items() if r["violations"]}
             if bad:
                 raise AssertionError(f"witness cluster: lock-order inversions {bad}")
-        elif any(reps.values()):
-            raise AssertionError(f"witness cluster: an unarmed node armed: {reps}")
-        hits = [f.name for f in logs.iterdir() if "LockOrderViolation" in f.read_text()]
+            bad = {t: r for t, r in races.items()
+                   if r["races"] or (t != "scheduler-0" and not r["tracked"])}
+            if bad:
+                raise AssertionError(f"witness cluster: races, or nothing tracked: {bad}")
+        elif any(reps.values()) or any(races.values()):
+            raise AssertionError(f"witness cluster: an unarmed node armed: {reps} {races}")
+        hits = [f.name for f in logs.iterdir()
+                if any(w in f.read_text() for w in ("LockOrderViolation", "[racewitness]"))]
         if hits:
-            raise AssertionError(f"witness cluster ({arm}): LockOrderViolation in {hits}")
+            raise AssertionError(f"witness cluster ({arm}): an inversion or a race in {hits}")
         servers = {tag: n for tag, n in c["nodes"].items() if tag.startswith("server")}
         out[arm] = {
             "seconds": seconds, "max_abs_err_over_scale": err,
@@ -4853,7 +4900,8 @@ def witnessed_cluster(files: list, val: Path, tmp: Path, model_a, device: str) -
             "witness": {t: r and {k: r[k] for k in ("edges", "not_static", "violations",
                                                     "static_edges", "seed_s",
                                                     "not_static_edges")}
-                        for t, r in reps.items()}}
+                        for t, r in reps.items()},
+            "race_witness": races}
         o = out[arm]
         log(f"witness cluster {arm} ok in {seconds:.1f} s: model equals phase 13 (a)'s "
             f"(max abs err {err:.3g} of scale); K1 = apply batches {o['apply_batches']}; "
@@ -4866,6 +4914,9 @@ def witnessed_cluster(files: list, val: Path, tmp: Path, model_a, device: str) -
                     f"the static graph {r['not_static_edges']}, {r['violations']} "
                     f"inversions; seeded {r['static_edges']} static edges in "
                     f"{r['seed_s']:.2f} s")
+            for t, r in sorted(races.items()):
+                log(f"race witness {t}: {r['tracked']} fields tracked on {r['classes']}, "
+                    f"{r['races']} races")
     return out
 
 
@@ -4925,43 +4976,222 @@ def witness_arming_cost(rounds: list, smi: str, device: str) -> dict:
 
 
 def phase_analysis(rounds: list, model_a, smi: str, device: str = "cuda") -> dict:
-    """Phase 18: (a) `cli lint` over the checkout, (b) phase 13 (a)'s
-    launch under the lock-order witness beside it unarmed, (c) what arming
-    the witness costs phase 12 (a)'s pushes."""
+    """Phase 18: (b) phase 13 (a)'s launch under the lock-order witness and
+    the race witness beside it unarmed, (c) what arming the witness costs
+    phase 12 (a)'s pushes; phase 19 (a)'s `cli verify` (lint, then check),
+    started by the caller, runs beside them."""
     t_phase = time.perf_counter()
-    root = Path(__file__).resolve().parent
     ids, y = zipf_rows()
-    # (a) runs in its own process beside (b): it is host work on one core
-    env = {**os.environ, "PYTHONPATH": str(root)}
-    t_lint = time.perf_counter()
-    lint = subprocess.Popen(
-        [sys.executable, "-m", "parameter_server_tpu_torch.cli", "lint", "--json"],
-        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    try:
-        with tempfile.TemporaryDirectory() as tmp_s:
-            tmp = Path(tmp_s)
-            files = zipf_row_files(tmp, ids, y, with_val=True)
-            files, val = files[:-1], files[-1]
-            out = {"cluster": witnessed_cluster(files, val, tmp, model_a, device)}
-        stdout, stderr = lint.communicate(timeout=LINT_TIMEOUT_S)
-    finally:
-        if lint.poll() is None:
-            lint.kill()
-            lint.wait()
-    lint_s = time.perf_counter() - t_lint
-    lines = stdout.strip().splitlines()
-    if lint.returncode != 0 or not lines or json.loads(lines[-1]) != []:
-        raise AssertionError(f"cli lint --json: exit {lint.returncode}\n{stdout[-3000:]}\n"
-                             f"{stderr[-2000:]}")
-    out["lint"] = {"seconds": lint_s, "findings": 0}
-    log(f"cli lint --json ok: exit 0, no finding over parameter_server_tpu_torch "
-        f"({lint_s:.1f} s wall, beside (b))")
+    with tempfile.TemporaryDirectory() as tmp_s:
+        tmp = Path(tmp_s)
+        files = zipf_row_files(tmp, ids, y, with_val=True)
+        files, val = files[:-1], files[-1]
+        out = {"cluster": witnessed_cluster(files, val, tmp, model_a, device)}
     if device == "cuda":
         torch.cuda.empty_cache()
     out["arming"] = witness_arming_cost(rounds, smi, device)
     out["launches"] = {**out["cluster"].pop("launches"), **out["arming"].pop("launches")}
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 18 ok in {out['seconds']:.1f} s; launches {out['launches']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: psmc (cli verify, cli check), the explorer and the race witness
+# ---------------------------------------------------------------------------
+
+
+def start_verify(root: Path) -> dict:
+    """Phase 19 (a): `cli verify --json` (lint, then check) and `cli check
+    --json` over the checkout, each in its own process (host work on one
+    core each); a thread a process reads its output and notes when it
+    ended."""
+    import threading
+
+    env = {**os.environ, "PYTHONPATH": str(root)}
+    t0 = time.perf_counter()
+    runs: dict = {}
+    for cmd in ("verify", "check"):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "parameter_server_tpu_torch.cli", cmd, "--json"],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        run = runs[cmd] = {"proc": proc}
+
+        def wait(run=run, proc=proc) -> None:
+            run["stdout"], run["stderr"] = proc.communicate()
+            run["seconds"] = time.perf_counter() - t0
+
+        run["thread"] = threading.Thread(target=wait, daemon=True, name=f"cli-{cmd}")
+        run["thread"].start()
+    return runs
+
+
+def finish_verify(runs: dict) -> dict:
+    """Phase 19 (a)'s gates: `cli verify` exits 0 with lint 0 and check 0;
+    `cli check`: every spec complete and ok, conformance []."""
+    try:
+        for run in runs.values():
+            run["thread"].join(VERIFY_TIMEOUT_S)
+    finally:
+        for run in runs.values():
+            if run["proc"].poll() is None:
+                run["proc"].kill()
+                run["proc"].wait()
+    docs = {}
+    for cmd, run in runs.items():
+        lines = run.get("stdout", "").strip().splitlines()
+        docs[cmd] = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+        if run["proc"].returncode != 0:
+            raise AssertionError(f"cli {cmd} --json: exit {run['proc'].returncode}\n"
+                                 f"{run.get('stdout', '')[-3000:]}\n"
+                                 f"{run.get('stderr', '')[-2000:]}")
+    v, c = docs["verify"], docs["check"]
+    if v != {"stages": [{"stage": "lint", "exit": 0}, {"stage": "check", "exit": 0}],
+             "hard": [], "soft": [], "exit": 0}:
+        raise AssertionError(f"cli verify --json: {v}")
+    specs = {r["spec"]: r for r in c.get("specs", [])}
+    if not (c.get("ok") and c.get("conformance") == [] and set(specs) == {
+            "exactly-once", "rcu", "ssp", "failover"} and all(
+            r["complete"] and r["ok"] for r in specs.values())):
+        raise AssertionError(f"cli check --json: {c}")
+    out = {"verify_s": runs["verify"]["seconds"], "check_s": runs["check"]["seconds"],
+           "specs": {n: {k: r[k] for k in ("states", "transitions", "depth")}
+                     for n, r in specs.items()}}
+    log(f"cli verify --json ok: lint 0, check 0, exit 0 in {out['verify_s']:.1f} s wall; "
+        f"cli check --json ok in {out['check_s']:.1f} s: every spec complete and ok "
+        f"{json.dumps(out['specs'])}, conformance [] (both beside phase 18 (b), (c) and 19 (b))")
+    return out
+
+
+def psmc_serving(arm: str, seed: int, keys: np.ndarray, grads: list, want_rows: list,
+                 want_table: np.ndarray) -> dict:
+    """One phase 19 (b) run: with the explorer (``arm`` "explorer", seeded
+    ``seed``) or the race witness ("race") armed before they are built, a
+    card FTRL ShardServer of WORKER_KEYS rows and a serving handle under
+    PSMC_PLAN; PSMC_ROUNDS rounds of a push and a pull of ``keys``. Gates:
+    each pull is its round's CPU replay (read-your-writes), 12 pushes, K1
+    once an apply batch, the table equal to the CPU replay's (PSMC_TOL);
+    the explorer's decisions > 50 with rcu-publish: and queue. sites among
+    them; the race witness's tracked fields > 0 and no report."""
+    from parameter_server_tpu_torch.analysis import explorer, racewitness
+    from parameter_server_tpu_torch.kv.updaters import Ftrl
+    from parameter_server_tpu_torch.ops import ftrl_kernels as fk
+    from parameter_server_tpu_torch.parallel.chaos import FaultPlan
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle, ShardServer
+    from parameter_server_tpu_torch.utils.config import PSConfig, ServeConfig
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange
+
+    name = f"psmc {arm}" + (f" seed {seed}" if arm == "explorer" else "")
+    svc = ServeConfig(cache=True, ttl_ms=10_000, max_stale_ms=60_000, hot_min_pulls=1,
+                      encode_cache_entries=64)
+    cfg = PSConfig()
+    cfg.serve = svc
+    if arm == "explorer":
+        explorer.install(seed)
+    else:
+        racewitness.install()
+    t0 = time.perf_counter()
+    try:
+        srv = ShardServer(
+            Ftrl(alpha=HYPER["alpha"], beta=HYPER["beta"], lambda_l1=HYPER["l1"],
+                 lambda_l2=HYPER["l2"]), KeyRange(0, WORKER_KEYS), serve_cfg=svc,
+            fault_plan=FaultPlan.parse(PSMC_PLAN, seed=PSMC_PLAN_SEED), device="cuda").start()
+        h = ServerHandle(srv.address, 0, 0, cfg, range_size=WORKER_KEYS, serving=True,
+                         reconnect_timeout_s=30.0, device="cuda")
+        fk.reset_launches()
+        err = 0.0
+        try:
+            for i, g in enumerate(grads):
+                h.push(keys, g)
+                got = h.pull(keys)
+                d = np.abs(got - want_rows[i])
+                if not (d <= PSMC_TOL * (np.abs(want_rows[i]) + 1.0)).all():
+                    raise AssertionError(f"{name}: the pull after push {i + 1} is {d.max()} "
+                                         "off the CPU replay (read-your-writes)")
+                err = max(err, float(d.max()))
+            launches = fk.LAUNCHES["ftrl_push"]
+            counters = dict(srv.counters)
+            faults = srv.server.fault_stats()
+            table = srv.weights().reshape(-1)
+        finally:
+            h.shutdown()
+            h.close()
+            srv.server.stop()
+        seconds = time.perf_counter() - t0
+        res = {"seconds": seconds, "launches": launches, "pushes": counters["pushes"],
+               "apply_batches": counters["apply_batches"], "fault_frames": faults["frames"]}
+        if arm == "explorer":
+            dec = explorer.decisions()
+            res["decisions"] = sum(len(v) for v in dec.values())
+            res["sites"] = len(dec)
+            res["publish_boundaries"] = len(dec.get("rcu-publish:ShardServer._publish", []))
+            if not (res["decisions"] > 50 and res["publish_boundaries"] > 0
+                    and any(k.startswith("queue.") for k in dec)):
+                raise AssertionError(f"{name}: decisions {res['decisions']} at {sorted(dec)}")
+        else:
+            res.update(racewitness.report())
+            if racewitness.reports() or not res["tracked"]:
+                raise AssertionError(f"{name}: {res['tracked']} fields tracked, reports "
+                                     f"{[r.render() for r in racewitness.reports()]}")
+    finally:
+        if arm == "explorer":
+            explorer.uninstall()
+        else:
+            racewitness.clear()
+            racewitness.uninstall()
+    if res["pushes"] != PSMC_ROUNDS or not launches == res["apply_batches"] > 0:
+        raise AssertionError(f"{name}: {res['pushes']} pushes, K1 {launches}, "
+                             f"{res['apply_batches']} apply batches")
+    d = np.abs(table - want_table)
+    if not (d <= PSMC_TOL * (np.abs(want_table) + 1.0)).all():
+        raise AssertionError(f"{name}: the table is {d.max()} off the CPU replay")
+    res["max_abs_err"] = max(err, float(d.max()))
+    return res
+
+
+def phase_psmc(verify: dict, smi: str) -> dict:
+    """Phase 19: (a) `cli verify` and `cli check` (started beside phase
+    18), (b) the explorer-armed and race-armed card server; (c), phase 13
+    (a)'s launch with the race witness on every node, is phase 18 (b)'s
+    armed launch."""
+    from parameter_server_tpu_torch.analysis import explorer
+    from parameter_server_tpu_torch.kv.store import KVStore
+    from parameter_server_tpu_torch.kv.updaters import Ftrl
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    rng = np.random.default_rng(SEED)
+    keys = np.sort(rng.choice(WORKER_KEYS, PSMC_KEYS, replace=False)).astype(np.int64)
+    grads = [rng.normal(0.0, 3.0, PSMC_KEYS).astype(np.float32) for _ in range(PSMC_ROUNDS)]
+    twin = KVStore(Ftrl(alpha=HYPER["alpha"], beta=HYPER["beta"], lambda_l1=HYPER["l1"],
+                        lambda_l2=HYPER["l2"]), WORKER_KEYS, device="cpu")
+    want_rows = []
+    for g in grads:
+        twin.push(keys, g)
+        want_rows.append(twin.pull(keys).numpy().reshape(-1))
+    want_table = twin.weights().numpy().reshape(-1)
+    del twin
+    corpus = explorer.corpus_seeds(str(root / "tests" / "torch_sched_corpus.json"), PSMC_NODE)
+    seeds = [PSMC_SEED] + [s for s in corpus if s != PSMC_SEED]
+    runs = {f"explorer_{s}": psmc_serving("explorer", s, keys, grads, want_rows, want_table)
+            for s in seeds}
+    runs["race"] = psmc_serving("race", 0, keys, grads, want_rows, want_table)
+    for k, r in runs.items():
+        log(f"psmc serving {k} ok in {r['seconds']:.2f} s ({smi}): read-your-writes over "
+            f"{PSMC_ROUNDS} rounds of {PSMC_KEYS} keys on a 2^24-row card server under "
+            f"{PSMC_PLAN!r}, {r['pushes']} pushes, K1 = apply batches {r['launches']}, "
+            f"{r['fault_frames']} frames through the plan, table = CPU replay (max abs err "
+            f"{r['max_abs_err']:.3g}); "
+            + (f"{r['decisions']} decisions at {r['sites']} sites, {r['publish_boundaries']} "
+               "publish boundaries" if k != "race" else
+               f"{r['tracked']} fields tracked on {r['classes']}, {r['races']} races"))
+    out = {"verify": finish_verify(verify), "serving": runs, "corpus_seeds": corpus,
+           "launches": {"psmc_explored_server": sum(r["launches"] for k, r in runs.items()
+                                                    if k != "race"),
+                        "psmc_race_server": runs["race"]["launches"]}}
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 19 ok in {out['seconds']:.1f} s; launches {out['launches']}")
     return out
 
 
@@ -5448,10 +5678,17 @@ def main() -> int:
     p17 = phase_live(rounds, smi)
     p17l = p17["launches"]
     torch.cuda.empty_cache()
-    # 18. the analysis plane: cli lint, the lock-order witness on a cluster
+    # 18. the analysis plane: the lock-order and race witnesses on a
+    # cluster, with 19 (a)'s cli verify and cli check beside it
+    verify = start_verify(root)
     p18 = phase_analysis(rounds, model_a, smi)
     p18l = p18["launches"]
     del model_a
+    torch.cuda.empty_cache()
+    # 19. psmc: cli verify and cli check, the explorer and the race witness
+    # on a card server
+    p19 = phase_psmc(verify, smi)
+    p19l = p19["launches"]
 
     kernels["ftrl_push"]["max_abs_err"] = max(kernels["ftrl_push"]["max_abs_err"], err_wd_k1,
                                               pod["err"]["ftrl_push"])
@@ -5487,7 +5724,9 @@ def main() -> int:
         "witness_cluster": p18l["witness_armed_ftrl_push"],
         "witness_unarmed": p18l["witness_unarmed_ftrl_push"],
         "witness_arming_unarmed": p18l["witness_arming_unarmed_ftrl_push"],
-        "witness_arming_armed": p18l["witness_arming_armed_ftrl_push"]}
+        "witness_arming_armed": p18l["witness_arming_armed_ftrl_push"],
+        "psmc_explored_server": p19l["psmc_explored_server"],
+        "psmc_race_server": p19l["psmc_race_server"]}
     kernels["ftrl_push"]["wire"] = {"server": wire["ftrl"], "concurrent_sgd": wire["concurrent"],
                                     "train_linear": wire["train_linear"],
                                     "train_linear_checks": wire["train_linear_checks"]}
@@ -5532,7 +5771,8 @@ def main() -> int:
     kernels["ftrl_push"]["serving"] = {k: chs[k] for k in ("serving", "shed")}
     kernels["ftrl_push"]["live"] = {k: p17[k] for k in ("cluster", "live", "offline",
                                                        "arming")}
-    kernels["ftrl_push"]["analysis"] = {k: p18[k] for k in ("lint", "cluster", "arming")}
+    kernels["ftrl_push"]["analysis"] = {k: p18[k] for k in ("cluster", "arming")}
+    kernels["ftrl_push"]["psmc"] = {k: p19[k] for k in ("verify", "serving", "seconds")}
     kernels["quantize_stochastic"]["launches_by_path"] = {
         "codec_round_trip": codec_launches["quantize_stochastic"],
         "wire_fixed_point_handles": wl["wire_fixed_point_handles"]}

@@ -35,6 +35,12 @@ violations of the concurrency and contract invariants:
                          decorated() (dataflow-backed)
     stale-pragma         a justified pragma that suppresses nothing is
                          itself a finding
+    spec-conformance     the psmc protocol models' declared ASSUMPTIONS
+                         (analysis/specs/) match the tables derived from
+                         the code — for the port's RCU spec, those of
+                         its in-place publisher (analysis/conformance.py)
+    model-invariants     the tier-1-bounded model suite itself verifies
+                         clean (exactly-once / rcu / ssp / failover)
     flightrec-contract   every flightrec.record() event is known to the
                          postmortem plane, and every stitched/flagged
                          event name is actually emitted
@@ -48,15 +54,20 @@ violations of the concurrency and contract invariants:
                          are their own types (ver equality-only outside
                          the publisher's setter)
 
-The JAX registry's two psmc ids, ``spec-conformance`` and
-``model-invariants``, need the protocol model checker, which the port does
-not have yet; every other JAX id is here.
+Every id of the JAX registry is here, in its order.
 
 Suppressions: ``# psl: ignore[<checker>]: <why>`` at the flagged line;
 tree policy in pyproject.toml ``[tool.pslint]`` (read, as the JAX
-analyzer reads it). The runtime complement is analysis/witness.py
-(``PS_LOCK_WITNESS=1``), which enforces lock order on the orders a live
-process actually takes, seeded from this analyzer's lock graph.
+analyzer reads it). The runtime complements: analysis/witness.py
+(``PS_LOCK_WITNESS=1``) enforces lock order on the orders a live process
+actually takes, seeded from this analyzer's lock graph;
+analysis/explorer.py (``PS_SCHED=<seed>``) forces seeded adversarial
+interleavings at lock/queue/publish boundaries and replays them from the
+seed; analysis/racewitness.py (``PS_RACE_WITNESS=1``) checks registered
+shared fields for accesses under no common lock. ``cli check`` runs the
+protocol models (analysis/model.py over analysis/specs/) with the
+conformance diff; ``cli verify`` chains lint, check and, optionally, the
+audit and whylate gates into one tiered exit code.
 """
 
 from __future__ import annotations
@@ -64,6 +75,10 @@ from __future__ import annotations
 from pathlib import Path
 
 from parameter_server_tpu_torch.analysis.blocking import check_blocking_under_lock
+from parameter_server_tpu_torch.analysis.conformance import (
+    check_model_invariants,
+    check_spec_conformance,
+)
 from parameter_server_tpu_torch.analysis.contracts import (
     check_config_contract,
     check_counter_contract,
@@ -130,6 +145,9 @@ CHECKERS: dict[str, Checker] = {
     # special-cased by run_checkers: audits suppression USAGE, so it
     # runs off the other enabled checkers' raw findings
     "stale-pragma": check_stale_pragma,
+    # psmc: spec<->code conformance and the bounded model suite
+    "spec-conformance": check_spec_conformance,
+    "model-invariants": check_model_invariants,
     "flightrec-contract": check_flightrec_contract,
     # the quantity-flow triple over the shared dataflow fixpoint
     # (analysis/flowrun.py)

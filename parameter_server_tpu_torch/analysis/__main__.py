@@ -2,8 +2,9 @@
 port's source, exit 1 on findings. The same entry backs ``python -m
 parameter_server_tpu_torch.cli lint`` and the clean-tree test, so the CLI
 and the tests can never disagree about what clean means. A copy of the
-JAX package's ``analysis/__main__.py`` ``main``, options and exit codes
-unchanged.
+JAX package's ``analysis/__main__.py``: ``main`` and ``check_main`` (``cli
+check``: the protocol models and the spec<->code conformance diff), their
+options and exit codes unchanged.
 
 CI integration: ``--json`` emits machine-readable findings
 (checker, file, line, message, plus ``id`` — the checker name a
@@ -225,6 +226,134 @@ def main(argv: list[str] | None = None) -> int:
     # tiered exit codes: errors are a hard 1, a warn-only run exits 2
     # (CI can gate on 1 while new analyses phase in), clean is 0
     return 1 if errors else (2 if gated else 0)
+
+
+def check_main(argv: list[str] | None = None) -> int:
+    """``cli check`` — psmc, the explicit-state protocol model checker
+    (analysis/model.py over analysis/specs/), plus the spec<->code
+    conformance diff. Exit 0 only when every selected spec model
+    EXHAUSTS its bounded state space with zero invariant/liveness
+    violations AND no model assumption has drifted from the
+    AST-derived code tables; a violation prints its shortest
+    counterexample as a replayable step list."""
+    from parameter_server_tpu_torch.analysis import load_package
+    from parameter_server_tpu_torch.analysis.conformance import conformance_diff
+    from parameter_server_tpu_torch.analysis.model import check
+    from parameter_server_tpu_torch.analysis.specs import SPECS
+
+    p = argparse.ArgumentParser(prog="psmc")
+    p.add_argument(
+        "--spec", action="append", default=None,
+        help="check only this protocol model (repeatable); default: "
+        f"all ({', '.join(SPECS)})",
+    )
+    p.add_argument(
+        "--max-states", type=int, default=200_000,
+        help="BFS state cap; a capped run is reported incomplete and "
+        "fails (verification demands exhaustion of the bounded space)",
+    )
+    p.add_argument(
+        "--probe-seeds", type=int, default=0,
+        help="when the cap is hit, continue with this many seeded "
+        "random walks past the frontier (deterministic bug probing, "
+        "not verification)",
+    )
+    p.add_argument(
+        "--bug", default=None, metavar="KNOB",
+        help="check the named seeded-bug VARIANT instead (requires "
+        "exactly one --spec); exit 0 iff the checker produces a "
+        "counterexample — how the suite's mutation coverage is "
+        "demonstrated by hand",
+    )
+    p.add_argument(
+        "--root", default=str(PACKAGE_ROOT),
+        help="package directory the conformance diff derives code "
+        "tables from",
+    )
+    p.add_argument(
+        "--no-conformance", action="store_true",
+        help="skip the spec<->code conformance diff (models only)",
+    )
+    p.add_argument("--json", action="store_true")
+    args = p.parse_args(argv)
+
+    names = list(SPECS)
+    if args.spec:
+        unknown = sorted(set(args.spec) - set(SPECS))
+        if unknown:
+            p.error(f"unknown spec(s) {unknown}; known: {sorted(SPECS)}")
+        names = list(args.spec)
+    if args.bug is not None and len(names) != 1:
+        p.error("--bug requires exactly one --spec")
+
+    results = []
+    for name in names:
+        mod = SPECS[name]
+        if args.bug is not None:
+            if args.bug not in mod.BUGS:
+                p.error(
+                    f"spec {name!r} has no bug knob {args.bug!r}; "
+                    f"known: {list(mod.BUGS)}"
+                )
+            spec = mod.make(bug=args.bug)
+        else:
+            spec = mod.tier1()
+        results.append(check(
+            spec, max_states=args.max_states,
+            probe_seeds=args.probe_seeds,
+        ))
+
+    drift = []
+    config = _default_config(Path(args.root))
+    if args.bug is None and not args.no_conformance:
+        drift = conformance_diff(load_package(Path(args.root)))
+
+    if args.bug is not None:
+        # mutation-coverage mode: the bug MUST be caught
+        r = results[0]
+        ok = r.violation is not None
+        if args.json:
+            print(json.dumps({"bug": args.bug, "caught": ok,
+                              "result": r.summary()}))
+        elif ok:
+            print(f"psmc: seeded bug {args.bug!r} caught:\n"
+                  + r.violation.render())
+        else:
+            print(f"psmc: seeded bug {args.bug!r} NOT caught "
+                  f"({r.states} states) — the model lost its teeth")
+        return 0 if ok else 1
+
+    ok = all(r.ok and r.complete for r in results) and not drift
+    if args.json:
+        print(json.dumps({
+            "ok": ok,
+            "specs": [r.summary() for r in results],
+            "conformance": [finding_json(f, config) for f in drift],
+        }))
+    else:
+        for r in results:
+            status = (
+                "verified" if r.ok and r.complete
+                else "INCOMPLETE (state cap hit)" if r.ok
+                else "VIOLATION"
+            )
+            print(
+                f"psmc: {r.spec:<14} {r.states:>7} states "
+                f"{r.transitions:>8} transitions depth {r.depth:>3}  "
+                f"{status}"
+            )
+            if r.violation is not None:
+                print(r.violation.render())
+        for f in drift:
+            print(f.render())
+        verdict = "all protocols verified at these bounds" if ok else (
+            "NOT verified — fix the model or the code, together"
+        )
+        print(
+            f"psmc: {len(results)} spec(s), {len(drift)} conformance "
+            f"drift finding(s): {verdict}"
+        )
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

@@ -27,8 +27,9 @@ JAX package's, which its test harness arms for a whole session): install
 wraps whatever constructor is current, a second install only counts, and
 uninstall restores only from the top of the stack (in LIFO order; out of
 order it raises and changes nothing). The port's site lookup steps over
-another witness's constructor frames, so port locks are instrumented
-whichever witness was armed last; the JAX witness looks exactly two
+the constructor frames of another witness, of the explorer and of the race
+witness (``skip_tool_frames``, which those two use too), so port locks are
+instrumented whichever tool was armed last; the JAX witness looks exactly two
 frames up, so a JAX lock constructed while this one sits above it stays
 raw.
 """
@@ -43,9 +44,24 @@ import time
 ENV_VAR = "PS_LOCK_WITNESS"
 
 _PKG_MARKER = os.sep + "parameter_server_tpu_torch" + os.sep
-#: the constructor wrappers of this module (and of any witness module
-#: built the same way), stepped over when looking for the caller
+#: the constructor wrappers of this module (and of any witness, explorer
+#: or race witness module built the same way, of either package), stepped
+#: over when looking for the caller: armed together, each tool's factory
+#: calls the one armed before it
 _FACTORY_NAMES = frozenset({"_lock_factory", "_rlock_factory", "_cond_factory"})
+_FACTORY_FILES = tuple(
+    os.sep + n for n in ("witness.py", "explorer.py", "racewitness.py")
+)
+
+
+def skip_tool_frames(f):
+    """``f``, or the first frame above it that is no constructor wrapper
+    of the runtime tools (see ``_FACTORY_NAMES``); None past the top."""
+    while f is not None and f.f_code.co_name in _FACTORY_NAMES and (
+        f.f_code.co_filename.endswith(_FACTORY_FILES)
+    ):
+        f = f.f_back
+    return f
 
 
 class LockOrderViolation(RuntimeError):
@@ -210,11 +226,8 @@ def wrap(inner, name: str) -> WitnessLock:
 
 
 def _caller_site() -> str | None:
-    f = sys._getframe(2)  # factory -> patched ctor -> caller
-    while f is not None and f.f_code.co_name in _FACTORY_NAMES and (
-        f.f_code.co_filename.endswith(os.sep + "witness.py")
-    ):
-        f = f.f_back  # another witness's constructor stacked above this one
+    # factory -> patched ctor -> caller, past other tools' constructors
+    f = skip_tool_frames(sys._getframe(2))
     if f is None:
         return None
     fn = f.f_code.co_filename

@@ -6,9 +6,11 @@ batch solver), ``matrix_fac``, ``wide_deep``, ``word2vec``,
 solver, flags pick the run mode, ``--device`` the device (``cuda`` unless
 ``cpu`` is asked for; ``sketch`` is host code and ignores it). Config files
 and flags are those of the JAX package's CLI. ``lint`` runs pslint over
-the port's own source (``analysis/``); the JAX CLI's other analysis
-subcommands (``check``, ``verify``, ``explore``) exit with "not ported
-yet".
+the port's own source (``analysis/``), ``check`` the protocol models and
+their conformance to it, ``verify`` both (and, optionally, ``audit
+--once`` and ``whylate --baseline``) with one tiered exit code, and
+``explore`` a budgeted search of ``PS_SCHED`` schedule seeds against one
+test, recording failing seeds in ``tests/torch_sched_corpus.json``.
 
 A mesh larger than 1x1 (``parallel.data_shards`` x ``parallel.kv_shards``)
 runs ``linear_method`` through ``PodTrainer`` (or, with ``solver.algo =
@@ -81,11 +83,6 @@ import json
 import sys
 
 from parameter_server_tpu_torch.utils.config import PSConfig, load_config
-
-#: subcommands of the JAX package's CLI that the port does not carry yet:
-#: the protocol model checker (``check``), the gate that runs it with the
-#: linter (``verify``) and the schedule explorer (``explore``)
-NOT_PORTED_CMDS = ("check", "verify", "explore")
 
 _KNOWN_APPS = (
     "linear_method", "graph_partition", "sketch", "matrix_fac", "word2vec",
@@ -423,6 +420,120 @@ def _build_parser() -> argparse.ArgumentParser:
         "iteration, not the gate of record)",
     )
 
+    ck = sub.add_parser(
+        "check",
+        help="run psmc — the explicit-state protocol model checker "
+        "(analysis/model.py over analysis/specs/: exactly-once pushes, "
+        "RCU publish/read, SSP clock, chain-replication failover) plus "
+        "the spec<->code conformance diff; exits nonzero unless every "
+        "model exhausts its bounded state space violation-free AND no "
+        "spec assumption has drifted from the code",
+    )
+    ck.add_argument(
+        "--spec", action="append", default=None,
+        help="check only this protocol model (repeatable)",
+    )
+    ck.add_argument(
+        "--max-states", type=int, default=200_000,
+        help="BFS state cap (capped runs fail: verification demands "
+        "exhausting the bounded space)",
+    )
+    ck.add_argument(
+        "--probe-seeds", type=int, default=0,
+        help="seeded random walks past a hit cap (bug probing, not "
+        "verification)",
+    )
+    ck.add_argument(
+        "--bug", default=None, metavar="KNOB",
+        help="check the named seeded-bug variant of one --spec; exit 0 "
+        "iff the checker catches it with a counterexample",
+    )
+    ck.add_argument(
+        "--no-conformance", action="store_true",
+        help="skip the spec<->code conformance diff (models only)",
+    )
+    ck.add_argument("--json", action="store_true")
+
+    vf = sub.add_parser(
+        "verify",
+        help="the one-shot verification meta-command: chain pslint "
+        "(--baseline gating), psmc protocol checking, optionally a "
+        "live `audit --once` and an offline `whylate --baseline` "
+        "budget gate, and fold their verdicts into ONE tiered exit "
+        "code (0 clean, 2 soft/over-budget only, 1 any hard failure) "
+        "— the single command CI and the bench workflow call",
+    )
+    vf.add_argument(
+        "--lint-baseline", default="", metavar="FILE",
+        help="pass through to `lint --baseline` (omit for a plain "
+        "zero-findings lint)",
+    )
+    vf.add_argument(
+        "--lint-changed-only", default="", metavar="REF",
+        help="pass through to `lint --changed-only REF` (report only "
+        "findings in files changed vs the ref; the analysis still "
+        "covers the whole package)",
+    )
+    vf.add_argument(
+        "--max-states", type=int, default=200_000,
+        help="psmc BFS state cap (see `check --max-states`)",
+    )
+    vf.add_argument(
+        "--scheduler", default="",
+        help="also run `audit --once` against this live coordinator "
+        "(omitted: the audit stage is skipped)",
+    )
+    vf.add_argument(
+        "--whylate", dest="whylate_dir", default="", metavar="DIR",
+        help="also run `whylate` over this trace/blackbox capture dir "
+        "(omitted: the whylate stage is skipped)",
+    )
+    vf.add_argument(
+        "--whylate-baseline", default="", metavar="FILE",
+        help="per-segment latency budgets for the whylate stage (see "
+        "`whylate --baseline`)",
+    )
+    vf.add_argument("--json", action="store_true")
+
+    ex = sub.add_parser(
+        "explore",
+        help="budgeted schedule-seed search (analysis/explorer.py): run "
+        "a test under PS_SCHED=<seed> for N seeds, persist failing "
+        "seeds to the committed corpus, and print the exact replay "
+        "line — how an interleaving bug becomes a regression test",
+    )
+    ex.add_argument(
+        "test",
+        help="pytest node id to explore (e.g. tests/test_torch_serving.py::"
+        "TestServingChaosCoherence::"
+        "test_read_your_writes_and_exactly_once_under_chaos[torch-torch])",
+    )
+    ex.add_argument(
+        "--budget", type=int, default=20,
+        help="seeds to try (one fresh pytest process per seed)",
+    )
+    ex.add_argument(
+        "--start-seed", type=int, default=1,
+        help="first seed of the contiguous budget window",
+    )
+    ex.add_argument(
+        "--corpus", default=None, metavar="FILE",
+        help="corpus file failing seeds are merged into (the "
+        "explorer-armed tier-1 run replays every seed recorded here); "
+        "default: the repo's committed tests/torch_sched_corpus.json, "
+        "resolved next to the package so any CWD records to the file "
+        "tier-1 actually replays",
+    )
+    ex.add_argument(
+        "--timeout", type=float, default=120.0, metavar="S",
+        help="per-seed budget: a seed that wedges the test past this "
+        "counts as FAILING (a deadlock interleaving is the find, not "
+        "a reason to hang the search)",
+    )
+    ex.add_argument(
+        "--no-record", action="store_true",
+        help="print failing seeds without touching the corpus file",
+    )
     return p
 
 
@@ -1177,10 +1288,77 @@ def run_launch(cfg: PSConfig, args: argparse.Namespace) -> dict:
     )
 
 
+def run_verify(args: argparse.Namespace) -> int:
+    """The verification meta-command (``cli verify``): run every armed
+    analysis stage and fold their exit codes into one tiered verdict —
+    1 when ANY stage failed hard (lint findings, model-checker
+    violation, audit violations, whylate hard regression), else 2 when
+    any stage was merely over budget (the whylate/pslint soft tier),
+    else 0. One command, one exit code: what CI and the bench README
+    workflow gate on."""
+    from parameter_server_tpu_torch.analysis.__main__ import (
+        check_main,
+        main as lint_main,
+    )
+
+    stages: list[dict] = []
+
+    def _stage(name: str, fn) -> None:
+        print(f"[verify] {name} ...", flush=True)
+        try:
+            rc = int(fn() or 0)
+        except SystemExit as e:  # argparse/guard exits inside a stage
+            rc = e.code if isinstance(e.code, int) else 1
+        except Exception as e:  # a crashed stage is a hard failure,
+            # not a crashed verify: the remaining stages still run
+            print(f"[verify] {name} crashed: {e}", flush=True)
+            rc = 1
+        stages.append({"stage": name, "exit": rc})
+        print(
+            f"[verify] {name}: " + ("ok" if rc == 0 else f"exit {rc}"),
+            flush=True,
+        )
+
+    lint_argv: list[str] = []
+    if args.lint_baseline:
+        lint_argv += ["--baseline", args.lint_baseline]
+    if args.lint_changed_only:
+        lint_argv += ["--changed-only", args.lint_changed_only]
+    _stage("lint", lambda: lint_main(lint_argv))
+    _stage(
+        "check",
+        lambda: check_main(["--max-states", str(args.max_states)]),
+    )
+    if args.scheduler:
+        au = argparse.Namespace(
+            scheduler=args.scheduler, interval=2.0, once=True,
+            json=False, recent=20,
+        )
+        _stage("audit", lambda: run_audit(au))
+    if args.whylate_dir:
+        wl = argparse.Namespace(
+            dir=args.whylate_dir, scheduler="", top=5, json=False,
+            baseline=args.whylate_baseline, update_baseline=False,
+        )
+        _stage("whylate", lambda: run_whylate(wl))
+    hard = [s["stage"] for s in stages if s["exit"] not in (0, 2)]
+    soft = [s["stage"] for s in stages if s["exit"] == 2]
+    rc = 1 if hard else (2 if soft else 0)
+    verdict = (
+        f"FAILED ({', '.join(hard)})" if hard
+        else f"over budget ({', '.join(soft)})" if soft
+        else "all stages clean"
+    )
+    if args.json:
+        print(json.dumps({
+            "stages": stages, "hard": hard, "soft": soft, "exit": rc,
+        }))
+    else:
+        print(f"[verify] verdict: {verdict} — exit {rc}")
+    return rc
+
+
 def main(argv: list[str] | None = None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    if argv and argv[0] in NOT_PORTED_CMDS:
-        raise _not_ported(f"the {argv[0]!r} subcommand")
     args = _build_parser().parse_args(argv)
     if args.cmd == "lint":
         # no config file: lint analyzes the installed package source
@@ -1198,6 +1376,87 @@ def main(argv: list[str] | None = None) -> int:
         if args.changed_only:
             lint_argv += ["--changed-only", args.changed_only]
         return lint_main(lint_argv)
+    if args.cmd == "check":
+        # no config file: the model checker verifies protocol SPECS and
+        # their conformance to the installed package source
+        from parameter_server_tpu_torch.analysis.__main__ import check_main
+
+        check_argv: list[str] = []
+        for s in args.spec or ():
+            check_argv += ["--spec", s]
+        check_argv += ["--max-states", str(args.max_states)]
+        if args.probe_seeds:
+            check_argv += ["--probe-seeds", str(args.probe_seeds)]
+        if args.bug:
+            check_argv += ["--bug", args.bug]
+        if args.no_conformance:
+            check_argv.append("--no-conformance")
+        if args.json:
+            check_argv.append("--json")
+        return check_main(check_argv)
+    if args.cmd == "explore":
+        from pathlib import Path
+
+        from parameter_server_tpu_torch.analysis import explorer
+
+        repo_root = Path(__file__).resolve().parent.parent
+        corpus = args.corpus or str(
+            repo_root / "tests" / "torch_sched_corpus.json"
+        )
+        # the corpus keys on the node id STRING and the explorer-armed
+        # tier-1 run looks seeds up by the canonical repo-relative
+        # spelling — normalize absolute/cwd-relative paths to it, or a
+        # recorded seed would never be replayed
+        file_part, sep, rest = args.test.partition("::")
+        fp = Path(file_part)
+        if fp.exists():
+            try:
+                canon = fp.resolve().relative_to(repo_root).as_posix()
+            except ValueError:
+                canon = file_part  # outside the repo: keep as typed
+            if canon != file_part:
+                args.test = canon + sep + rest
+                print(f"explore: node id normalized to {args.test}")
+
+        def _note(seed: int, passed: bool) -> None:
+            print(
+                f"explore: seed {seed} "
+                + ("passed" if passed else "FAILED — replayable")
+            )
+
+        search_err: Exception | None = None
+        try:
+            failing = explorer.search_seeds(
+                args.test, budget=args.budget,
+                start_seed=args.start_seed,
+                on_result=_note, timeout_s=args.timeout,
+            )
+        except explorer.SearchError as e:
+            # record/report what the budget found BEFORE surfacing the
+            # infra break — a long search must not lose its finds
+            failing, search_err = e.failing, e
+        if failing and not args.no_record:
+            explorer.record_failing_seeds(corpus, args.test, failing)
+            print(f"explore: {len(failing)} failing seed(s) recorded "
+                  f"in {corpus}")
+        for seed in failing:
+            print(f"  replay: PS_SCHED={seed} python -m pytest "
+                  f"{args.test}")
+        print(
+            f"explore: {len(failing)}/{args.budget} seed(s) broke "
+            f"{args.test}"
+        )
+        if search_err is not None:
+            print(f"explore: search aborted — {search_err}")
+            return 1
+        # always 0: finding a failing seed is the SUCCESSFUL outcome of
+        # an exploration budget, and the recorded corpus (replayed by
+        # the explorer-armed tier-1 run) is the durable gate — CI gates
+        # on that replay, not on this search's exit code
+        return 0
+    if args.cmd == "verify":
+        # no config file: every chained stage is itself config-free
+        return run_verify(args)
     if args.cmd == "stats":
         # no config file: stats only needs a live coordinator address
         print(json.dumps(run_stats(args), default=float))

@@ -1,6 +1,6 @@
 """libsvm / criteo / adfea text parsers (the Python implementations).
 
-The JAX package's C++ parser produces the same rows and is not ported yet.
+The C++ parser (``data/native.py``) produces the same rows.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 """Client-side versioned key-VALUE cache for the serving plane.
 
 A copy of the JAX package's ``filters/keycache.py`` (it imports no JAX),
-without the lockset race witness (``race_track``, an observability hook
-not ported). The cache holds host numpy rows, never device tensors.
+its generation registered with the port's lockset race witness
+(``race_track``). The cache holds host numpy rows, never device tensors.
 
 Reference analog: src/filter/key_caching.h cached the key LISTS of a
 message so repeats send a signature instead of the keys. This module
@@ -50,7 +50,7 @@ from collections import OrderedDict
 
 import numpy as np
 
-from parameter_server_tpu_torch.utils.metrics import wire_counters
+from parameter_server_tpu_torch.utils.metrics import race_track, wire_counters
 
 
 class CacheEntry:
@@ -121,6 +121,11 @@ class ClientKeyCache:
         # concurrent push would re-install pre-push rows and this
         # frontend would read its own write stale.
         self._gen = 0
+        # lockset race witness (PS_RACE_WITNESS=1): the generation is
+        # read by every pull path and bumped by every push invalidation
+        # across a frontend's threads — all under _lock, or the
+        # read-your-writes reasoning above is fiction
+        race_track(self, ("_gen",), "ClientKeyCache")
 
     def __len__(self) -> int:
         with self._lock:

@@ -70,6 +70,27 @@ if _os.environ.get("PS_LOCK_WITNESS", "") not in ("", "0"):
 
     _witness.maybe_install_from_env()
 
+# the seeded interleaving explorer (analysis/explorer.py): PS_SCHED=<seed>
+# perturbs every package lock/queue/publish boundary from per-site seeded
+# streams — adversarial interleavings on demand, replayable from the
+# seed. Armed after the witness so forced orders are still checked.
+if _os.environ.get("PS_SCHED", "") not in ("", "0"):
+    from parameter_server_tpu_torch.analysis import explorer as _explorer
+
+    _explorer.maybe_install_from_env()
+
+# the Eraser-style lockset race witness (analysis/racewitness.py):
+# PS_RACE_WITNESS=1 tracks each thread's held locks and checks every
+# access to REGISTERED shared objects (residual buffers, encode-cache
+# budget, push ledger, heat sketch, key-cache generation, the client's
+# in-flight window — see the metrics.race_track call sites) for an empty
+# common lockset on conflicting pairs. Reports collect in
+# racewitness.reports(); armed runs finish and then assert none.
+if _os.environ.get("PS_RACE_WITNESS", "") not in ("", "0"):
+    from parameter_server_tpu_torch.analysis import racewitness as _racewitness
+
+    _racewitness.maybe_install_from_env()
+
 from parameter_server_tpu_torch.parallel import runtime  # noqa: E402, F401
 from parameter_server_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: E402, F401
 from parameter_server_tpu_torch.parallel.runtime import Runtime  # noqa: E402, F401

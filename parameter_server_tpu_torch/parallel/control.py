@@ -87,6 +87,7 @@ from parameter_server_tpu_torch.utils.metrics import (
     merge_progress,
     latency_histograms,
     merge_telemetry,
+    race_track,
     slow_ops,
     telemetry_snapshot,
     wire_counters,
@@ -1357,6 +1358,13 @@ class RpcClient:
         self._sock: socket.socket | None = None
         self.bytes_out = 0
         self.bytes_in = 0
+        # lockset race witness (PS_RACE_WITNESS=1): the pipelined window
+        # map and the adaptive effective window are shared by every
+        # caller, the reader/writer threads and the healer — all under
+        # _cv, or the whole-window resend-on-heal accounting breaks
+        race_track(
+            self, ("_pending", "_eff_window"), f"RpcClient:{self._cid}"
+        )
         last: Exception | None = None
         for _ in range(retries):
             try:

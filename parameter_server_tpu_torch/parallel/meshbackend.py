@@ -41,7 +41,7 @@ import torch
 
 from parameter_server_tpu_torch.parallel.backend import PSBackend
 from parameter_server_tpu_torch.utils import flightrec
-from parameter_server_tpu_torch.utils.metrics import wire_counters
+from parameter_server_tpu_torch.utils.metrics import race_track, wire_counters
 
 #: rows of one kv shard: the push's local row indices are int32
 _MAX_ROWS = 1 << 31
@@ -113,6 +113,10 @@ class MeshBackend(PSBackend):
         self._quant_seed = itertools.count()
         self._pool = None  # lazy 1-thread executor for pull_async syncs
         self.state = updater.init(self._shard, self.vdim, device=self.device)
+        # lockset race witness (PS_RACE_WITNESS=1): the residual is the
+        # one piece of shared mutable host state on this backend — every
+        # access must hold _res_lock or the exactly-once folding breaks
+        race_track(self, ("_residual",), f"MeshBackend:{id(self):x}")
 
     # -- host-side layout --------------------------------------------------
 

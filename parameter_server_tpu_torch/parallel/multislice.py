@@ -129,6 +129,7 @@ from parameter_server_tpu_torch.utils.metrics import (
     key_heat,
     latency_histograms,
     observe_scalar,
+    race_track,
     wire_counters,
 )
 
@@ -372,6 +373,16 @@ class ShardServer:
         )
         _, bound_port = self.server.address.rsplit(":", 1)
         self.address = f"{advertise_host or host}:{bound_port}"
+        # lockset race witness (PS_RACE_WITNESS=1): the encode-cache
+        # byte budget moves under _enc_lock, and the durable ledger is
+        # read and recorded under _lock (the apply engine's batch, the
+        # serial push path) and replaced under _lock and _pub_lock by a
+        # restore — the two pieces of serving/apply state a refactor is
+        # most likely to touch lock-free by accident
+        race_track(
+            self, ("_enc_bytes", "_applied_push"),
+            f"ShardServer:{self.address}",
+        )
 
     # push-ledger bounds: wider than the reply cache's — entries are tiny
     # (short strings) and must cover more than the last in-flight call per
@@ -1358,6 +1369,15 @@ class ServerHandle:
             from parameter_server_tpu_torch.filters.fixed_point import FixedPointCodec
 
             self._codec = FixedPointCodec(num_bytes=self._codec_bytes)
+        # lockset race witness (PS_RACE_WITNESS=1): the error-feedback
+        # residual state is shared between the worker loop and the
+        # recovery/reader threads — every access must hold _res_lock or
+        # the exactly-once folding guarantee is a race away from double
+        # counting
+        race_track(
+            self, ("_residual", "_res_map", "_res_vdim"),
+            f"ServerHandle:{rank}:w{worker}",
+        )
 
     def _keyed_call(
         self, cmd: str, keys: np.ndarray, arrays: Arrays,
@@ -2474,11 +2494,15 @@ def _export_witness_env(child_env: dict) -> None:
     by an explicit ``witness.install()``, which an env copy alone would
     silently fail to propagate. Children arm at package import
     (parallel/__init__), so every lock a spawned node constructs is
-    order-checked too."""
-    from parameter_server_tpu_torch.analysis import witness
+    order-checked too. The lockset race witness rides the same rule: an
+    armed parent spawns armed children, so the registered shared objects
+    of every node in a launch_local cluster are lockset-checked."""
+    from parameter_server_tpu_torch.analysis import racewitness, witness
 
     if witness.installed():
         child_env[witness.ENV_VAR] = "1"
+    if racewitness.installed():
+        child_env[racewitness.ENV_VAR] = "1"
 
 
 def launch_local(
@@ -2827,7 +2851,7 @@ def run_node(
             cfg.audit.spool_capacity, cfg.audit.batch_events
         )
         armed_spool = True
-    from parameter_server_tpu_torch.analysis import witness
+    from parameter_server_tpu_torch.analysis import racewitness, witness
 
     try:
         if role == "scheduler":
@@ -2846,6 +2870,8 @@ def run_node(
             )
             if witness.installed():
                 res["witness"] = witness.report()
+            if racewitness.installed():
+                res["race_witness"] = racewitness.report()
             return res
         if role == "server":
             report = run_server(
@@ -2857,6 +2883,9 @@ def run_node(
         if witness.installed():
             # the lock-order witness (PS_LOCK_WITNESS): what this node took
             report["witness"] = witness.report()
+        if racewitness.installed():
+            # the lockset race witness (PS_RACE_WITNESS): what it tracked
+            report["race_witness"] = racewitness.report()
         return {"node": f"{role}-{rank}", "device": str(dev),
                 "launches": _launch_counts(), **report}
     finally:

@@ -11,9 +11,8 @@ A copy of the JAX package's ``utils/metrics.py``: the wire counters, the
 latency histograms with their exemplars, the slowest-op records, the
 per-range series, the named timers, the per-key heat sketch and the
 telemetry snapshot and cluster merge that heartbeats carry. The race
-witness hook ``race_track`` is a no-op (that analysis tool stays with the
-JAX package), the profiler looked up for the snapshot is the port's, and
-the heat sketch merges a large batch of hot candidates in numpy, to the
+witness hook ``race_track`` and the profiler looked up for the snapshot
+resolve the port's own modules, and the heat sketch merges a large batch of hot candidates in numpy, to the
 JAX loop's result.
 """
 
@@ -104,9 +103,18 @@ wire_counters = CounterSet()
 
 
 def race_track(obj, fields: tuple[str, ...], name: str = "") -> None:
-    """The JAX package's hook for its lockset race witness, an analysis
-    tool that stays with that package: a no-op here, kept so the
-    registration sites read as they do there."""
+    """Register one shared object's fields with the Eraser-style lockset
+    race witness (analysis/racewitness.py) IF it is armed
+    (``PS_RACE_WITNESS=1`` or an explicit ``install()``). Resolved
+    through ``sys.modules`` so production code never imports the
+    analysis package: disarmed cost is one dict lookup at CONSTRUCTION
+    time and zero per attribute access. The owning constructors are the
+    registration sites — an instance built before arming keeps raw
+    attributes (its locks are raw too; observing it would report
+    phantom races)."""
+    rw = sys.modules.get("parameter_server_tpu_torch.analysis.racewitness")
+    if rw is not None and rw.installed():
+        rw.track(obj, fields, name)
 
 
 #: log2 latency buckets: bucket i covers [2^(i-1), 2^i) microseconds

@@ -1135,3 +1135,61 @@ def test_darlin_segment_sum_repeats_on_card(dev):
     want = torch.zeros(4096, dtype=torch.float64).index_add_(0, ids.long().cpu(),
                                                              x.double().cpu())
     np.testing.assert_allclose(sums[0].cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_explorer_armed_card_server_applies_through_k1(dev):
+    """A card FTRL ``ShardServer`` built under the schedule explorer
+    (seed 8) and the serving chaos plan, caching on: every push applies
+    through K1 with the publish boundary firing around each apply, each
+    pull reads its own writes, and the table equals the plain store's
+    replay on the CPU (TOL)."""
+    from parameter_server_tpu_torch.analysis import explorer
+    from parameter_server_tpu_torch.kv.store import KVStore
+    from parameter_server_tpu_torch.kv.updaters import Ftrl
+    from parameter_server_tpu_torch.parallel.chaos import FaultPlan
+    from parameter_server_tpu_torch.parallel.multislice import ServerHandle, ShardServer
+    from parameter_server_tpu_torch.utils.config import PSConfig, ServeConfig
+    from parameter_server_tpu_torch.utils.keyrange import KeyRange
+
+    size = 1 << 12
+    rng = np.random.default_rng(8)
+    keys = np.sort(rng.choice(size, 64, replace=False)).astype(np.int64)
+    grads = [rng.normal(0.0, 3.0, 64).astype(np.float32) for _ in range(12)]
+
+    def make():
+        return Ftrl(alpha=0.1, beta=1.0, lambda_l1=1.0, lambda_l2=0.0)
+
+    plan = FaultPlan.parse(
+        "drop,cmd=pull,every=7;disconnect,cmd=push,every=5;duplicate,every=6", seed=3)
+    svc = ServeConfig(cache=True, ttl_ms=10_000, max_stale_ms=60_000, hot_min_pulls=1,
+                      encode_cache_entries=64)
+    store = KVStore(make(), size, device="cpu")
+    explorer.install(seed=8)
+    try:
+        srv = ShardServer(make(), KeyRange(0, size), serve_cfg=svc, fault_plan=plan,
+                          device="cuda").start()
+        cfg = PSConfig()
+        cfg.serve = svc
+        h = ServerHandle(srv.address, 0, 0, cfg, range_size=size, serving=True,
+                         reconnect_timeout_s=30.0, device="cuda")
+        before = fk.LAUNCHES["ftrl_push"]
+        try:
+            for g in grads:
+                h.push(keys, g)
+                store.push(keys, g)
+                np.testing.assert_allclose(h.pull(keys), store.pull(keys).numpy().ravel(),
+                                           **TOL)
+            assert srv.counters["pushes"] == 12
+            launched = fk.LAUNCHES["ftrl_push"] - before
+            assert launched == srv.counters["apply_batches"] >= 1
+            got = srv.weights().reshape(-1)
+        finally:
+            h.shutdown()
+            h.close()
+        d = explorer.decisions()
+    finally:
+        explorer.uninstall()
+    assert len(d.get("rcu-publish:ShardServer._publish", [])) >= launched
+    assert any(s.startswith("queue.") for s in d)
+    np.testing.assert_allclose(got, store.weights().numpy().reshape(-1), **TOL)

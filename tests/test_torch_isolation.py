@@ -13,12 +13,23 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = "parameter_server_tpu_torch"
-#: pslint's modules and the lock-order witness, beside the monitors
+#: pslint's modules, the lock-order witness, psmc (the model checker, its
+#: specs and their conformance to the code), the schedule explorer and the
+#: race witness, beside the monitors
 ANALYSIS_MODULES = (
     "core.py", "callgraph.py", "dataflow.py", "flowrun.py", "lockgraph.py",
     "blocking.py", "settle.py", "contracts.py", "replycache.py", "tracehygiene.py",
     "rcu.py", "wireproto.py", "quantity.py", "flightreccontract.py", "witness.py",
+    "model.py", "conformance.py", "explorer.py", "racewitness.py",
+    "specs/__init__.py", "specs/exactly_once.py", "specs/rcu.py", "specs/sspclock.py",
+    "specs/failover.py",
 )
+
+
+def _analysis_module(path: str) -> str:
+    """``specs/rcu.py`` -> ``parameter_server_tpu_torch.analysis.specs.rcu``."""
+    mod = path.removesuffix(".py").removesuffix("/__init__").replace("/", ".")
+    return f"{PKG}.analysis.{mod}"
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
@@ -64,8 +75,9 @@ def test_port_imports_without_jax_or_the_jax_package():
         "clock", "timeseries", "profiler", "slo", "auditor", "postmortem")} <= set(
         res["imported"])
     assert {f"{PKG}.analysis.monitors", f"{PKG}.analysis.critpath"} <= set(res["imported"])
-    # pslint, its module entry and the lock-order witness
-    assert {f"{PKG}.analysis.{m.removesuffix('.py')}" for m in ANALYSIS_MODULES} | {
+    # pslint, its module entry, the lock-order witness, psmc, the explorer
+    # and the race witness
+    assert {_analysis_module(m) for m in ANALYSIS_MODULES} | {
         f"{PKG}.analysis.__main__"} <= set(res["imported"])
     # chaos and the serving plane's client cache
     assert {f"{PKG}.parallel.chaos", f"{PKG}.filters.keycache"} <= set(res["imported"])
@@ -94,7 +106,9 @@ def test_cluster_entry_points_stand_alone():
         "from parameter_server_tpu_torch.parallel.ssp import PushWindow\n"
         "from parameter_server_tpu_torch.utils.heartbeat import HeartbeatMonitor\n"
         "from parameter_server_tpu_torch import cli\n"
-        "assert 'node' not in cli.NOT_PORTED_CMDS and 'launch' not in cli.NOT_PORTED_CMDS\n"
+        "cmds = next(a.choices for a in cli._build_parser()._actions\n"
+        "            if isinstance(a.choices, dict) and 'node' in a.choices)\n"
+        "assert {'node', 'launch', 'check', 'verify', 'explore'} <= set(cmds)\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "    ('parameter_server_tpu', 'jax') and sys.modules[m] is not None)))\n"
     )
@@ -207,12 +221,18 @@ def test_port_sources_name_no_jax_package_module():
             assert not pat.search(line), (path, n, line)
     import parameter_server_tpu_torch.utils.metrics as metrics
 
-    assert "parameter_server_tpu_torch.utils.profiler" in Path(metrics.__file__).read_text()
-    # the analysis subpackage: the two monitors the runtime reads, pslint
-    # and the lock-order witness (the JAX subpackage without psmc, the
-    # explorer and the race witness)
-    assert sorted(p.name for p in (ROOT / PKG / "analysis").glob("*.py")) == sorted([
+    msrc = Path(metrics.__file__).read_text()
+    assert "parameter_server_tpu_torch.utils.profiler" in msrc
+    assert "parameter_server_tpu_torch.analysis.racewitness" in msrc
+    # the analysis subpackage: the two monitors the runtime reads, pslint,
+    # the lock-order witness, psmc, the explorer and the race witness —
+    # the JAX package's analysis subpackage, module for module
+    tree = sorted(p.relative_to(ROOT / PKG / "analysis").as_posix()
+                  for p in (ROOT / PKG / "analysis").rglob("*.py"))
+    assert tree == sorted([
         "__init__.py", "__main__.py", "critpath.py", "monitors.py", *ANALYSIS_MODULES])
+    jax_tree = ROOT / "parameter_server_tpu" / "analysis"
+    assert tree == sorted(p.relative_to(jax_tree).as_posix() for p in jax_tree.rglob("*.py"))
 
 
 def test_entry_points_default_to_cuda():

@@ -170,16 +170,21 @@ def test_cli_train_and_evaluate_match_jax(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["verify"], "not ported yet"),
-    (["check"], "not ported yet"),
+    # the paths the port still refuses (every CLI command is ported):
+    # evaluate and the cluster path for an app they do not run
+    (["evaluate", "--app_file", "CFG_SKETCH", "--model", "m", "--device", "cpu"],
+     "not ported yet"),
+    (["launch", "--app_file", "CFG_SKETCH", "--device", "cpu"], "not ported yet"),
     # the JAX CLI's own refusal: the pool needs the pod path
     (["train", "--app_file", "CFG", "--pool_coordinator", "h:1", "--device", "cpu"],
      "requires the pod training path"),
 ])
 def test_cli_refuses_unported_paths(tmp_path, argv, match):
-    app_file = tmp_path / "cfg.json"
-    app_file.write_text(json.dumps({"data": {"files": ["x"]}}))
-    argv = [str(app_file) if a == "CFG" else a for a in argv]
+    cfgs = {"CFG": {"data": {"files": ["x"]}},
+            "CFG_SKETCH": {"app": "sketch", "data": {"files": ["x"]}}}
+    for name, conf in cfgs.items():
+        (tmp_path / f"{name}.json").write_text(json.dumps(conf))
+    argv = [str(tmp_path / f"{a}.json") if a in cfgs else a for a in argv]
     with pytest.raises(SystemExit, match=match):
         TC.main(argv)
 

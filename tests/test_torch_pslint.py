@@ -38,9 +38,9 @@ JAX_TREE = "parameter_server_tpu"
 
 def _key(findings) -> list[tuple[str, str, int, str]]:
     """The comparable form of a finding list. A stale pragma naming an
-    unknown checker lists the registry's ids after "; known: ", and the
-    port's registry is the JAX one without psmc's two ids: that tail is
-    cut here and checked on its own (``test_unknown_checker_lists_the_ports_registry``)."""
+    unknown checker lists the registry's ids after "; known: ": that tail
+    is cut here and checked on its own
+    (``test_unknown_checker_lists_the_ports_registry``)."""
     return [(f.checker, f.path, f.line, f.message.split("; known: ")[0])
             for f in findings]
 
@@ -738,11 +738,12 @@ def test_derived_inventories_equal_on_snippets():
 
 
 def test_registry_is_the_jax_one_without_psmc():
-    """All of the JAX registry's ids but the protocol model checker's two,
-    in the JAX order."""
-    assert list(P.CHECKERS) == [
-        c for c in J.CHECKERS if c not in ("spec-conformance", "model-invariants")]
-    assert len(P.CHECKERS) == 15
+    """All of the JAX registry's ids, the protocol model checker's two
+    (``spec-conformance``, ``model-invariants``) included, in the JAX
+    order."""
+    assert list(P.CHECKERS) == list(J.CHECKERS)
+    assert {"spec-conformance", "model-invariants"} <= set(P.CHECKERS)
+    assert len(P.CHECKERS) == 17
 
 
 def test_unknown_checker_lists_the_ports_registry():
@@ -907,10 +908,10 @@ class Srv:
     def layout(self):
         return set(self.state), "w" in self.state, self.state["w"].shape
 
-    def restore(self, new):
+    def load_state(self, new):
         with self._lock, self._pub_lock:
             self.state = new
-            self._version = 7
+            self._version = fresh_nonce()
             self._publish()
 """
 

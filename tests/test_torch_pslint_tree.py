@@ -150,4 +150,4 @@ def test_module_entry_exits_zero_on_the_port():
         cwd=ROOT, capture_output=True, text=True, timeout=300,
     )
     assert r.returncode == 0, r.stdout + r.stderr
-    assert "0 finding(s)" in r.stdout and "15 checker(s)" in r.stdout
+    assert "0 finding(s)" in r.stdout and "17 checker(s)" in r.stdout
