@@ -19,7 +19,7 @@ violations of the concurrency and contract invariants:
     replycache-contract  reply-cache exemption sets (idempotent/blocking/
                          prio cmds) name only served commands, and every
                          served command has a binary cmd id
-    trace-hygiene        spans only via `with trace.span(...)` / @traced
+    trace-hygiene        spans only via `with trace.span(...)`
     pragma-hygiene       every suppression carries a justification
     rcu                  published (state, version) snapshots are never
                          mutated; raw publish-attr access stays under

@@ -1,12 +1,12 @@
-"""Checker ``trace-hygiene``: spans only via context manager/decorator.
+"""Checker ``trace-hygiene``: spans only via their context manager.
 
 The tracer's invariant is that every span that begins also ends — the
 ring buffer and the Perfetto export assume balanced B/E events, and an
 unclosed span corrupts every enclosing span's nesting for its thread. In
 this codebase that invariant is carried entirely by ``with
-trace.span(...)`` and ``@trace.traced(...)``: there is deliberately NO
-public begin/end API. The checker enforces the idiom: any ``*.span(...)``
-call that is not a ``with`` context item (and any direct ``Span(...)``
+trace.span(...)``: there is deliberately NO public begin/end API. The
+checker enforces the idiom: any ``*.span(...)`` call that is not a
+``with`` context item (and any direct ``Span(...)``
 construction outside utils/trace.py itself) is a bare begin whose end
 depends on control flow the tracer can't see.
 """
@@ -53,8 +53,7 @@ def check_trace_hygiene(index: PackageIndex) -> list[Finding]:
                     "trace-hygiene", f.relpath, node.lineno,
                     "bare span(...) call outside a with statement: a span "
                     "opened without its context manager has no guaranteed "
-                    "end event (use `with trace.span(...)` or "
-                    "`@trace.traced`)",
+                    "end event (use `with trace.span(...)`)",
                 ))
             elif (
                 isinstance(fn, ast.Name)
@@ -63,7 +62,7 @@ def check_trace_hygiene(index: PackageIndex) -> list[Finding]:
                 out.append(Finding(
                     "trace-hygiene", f.relpath, node.lineno,
                     "direct Span construction outside utils/trace.py: "
-                    "spans must come from trace.span()/traced() so "
+                    "spans must come from trace.span() so "
                     "begin/end stay paired",
                 ))
     return out

@@ -9,6 +9,16 @@ hand-written ``ftrl_delta`` kernel) and scatter-adds it into the tables in
 place. The fused push kernel is not used here: the step's rows are already
 gathered for the pull, so its scatter-add costs the same one round trip per
 row that the fused push would.
+
+``LinearMethod.train`` names its loop with ``utils/trace.py`` spans (cat
+``step``): ``linear.step`` around ``linear.h2d`` (the batch's copies to the
+device), ``linear.launch`` (the queued step and its bookkeeping) and
+``linear.fetch`` (the wait for the next batch); ``linear.report`` around
+``linear.report.readback`` (the reads that wait for the queued steps) and
+``linear.report.auc``. Counters ``linear.slots`` and ``linear.pad_slots``
+give each step's scattered slots and the pad slots among them, from the
+batch's host fields. All of it records only while a trace dir is armed or
+a ``torch.profiler`` collects.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from parameter_server_tpu_torch.kv.store import (
 from parameter_server_tpu_torch.kv.updaters import Updater, make_updater
 from parameter_server_tpu_torch.models import metrics as M
 from parameter_server_tpu_torch.ops.sparse import csr_grad, csr_logits, logistic_loss
+from parameter_server_tpu_torch.utils import trace
 from parameter_server_tpu_torch.utils.config import PSConfig
 from parameter_server_tpu_torch.utils.metrics import ProgressReporter
 
@@ -145,29 +156,48 @@ class LinearMethod:
 
         def _flush() -> dict[str, Any]:
             nonlocal window_loss, window_probs, window_labels, n_since, t0
-            loss_sum = float(sum(torch.stack(window_loss).tolist()))
-            p = torch.cat([pr[:n] for pr, n in window_probs]).cpu().numpy()
-            y = np.concatenate(window_labels)
-            rec = self.reporter.report(
-                examples=self.examples_seen,
-                objv=loss_sum / max(n_since, 1),
-                auc=M.auc(y, p),
-                ex_per_sec=n_since / max(time.perf_counter() - t0, 1e-9),
-            )
-            window_loss, window_probs, window_labels = [], [], []
-            n_since = 0
-            t0 = time.perf_counter()
+            with trace.span("linear.report", cat="step"):
+                with trace.span("linear.report.readback", cat="step"):
+                    loss_sum = float(sum(torch.stack(window_loss).tolist()))
+                    p = torch.cat([pr[:n] for pr, n in window_probs]).cpu().numpy()
+                y = np.concatenate(window_labels)
+                with trace.span("linear.report.auc", cat="step"):
+                    auc = M.auc(y, p)
+                rec = self.reporter.report(
+                    examples=self.examples_seen,
+                    objv=loss_sum / max(n_since, 1),
+                    auc=auc,
+                    ex_per_sec=n_since / max(time.perf_counter() - t0, 1e-9),
+                )
+                window_loss, window_probs, window_labels = [], [], []
+                n_since = 0
+                t0 = time.perf_counter()
             return rec
 
-        for step_i, b in enumerate(batches):
-            dev = batch_to_device(b, self.device)
-            _, out = train_step(self.updater, self.store.state, dev)
-            self.examples_seen += b.num_examples
-            n_since += b.num_examples
-            window_loss.append(out["loss_sum"])
-            window_probs.append((out["probs"], b.num_examples))
-            window_labels.append(b.labels[: b.num_examples])
-            if (step_i + 1) % report_every == 0:
+        # a step ends once the next batch is in hand, so the fetch that
+        # ends the stream falls inside the last step and opens none
+        it = iter(batches)
+        with trace.span("linear.fetch", cat="step"):
+            b = next(it, None)
+        step_i = 0
+        while b is not None:
+            with trace.span("linear.step", cat="step"):
+                with trace.span("linear.h2d", cat="step"):
+                    dev = batch_to_device(b, self.device)
+                with trace.span("linear.launch", cat="step"):
+                    _, out = train_step(self.updater, self.store.state, dev)
+                    slots = len(b.unique_keys)
+                    trace.counter("linear.slots", slots, cat="step")
+                    trace.counter("linear.pad_slots", slots - b.num_unique, cat="step")
+                    self.examples_seen += b.num_examples
+                    n_since += b.num_examples
+                    window_loss.append(out["loss_sum"])
+                    window_probs.append((out["probs"], b.num_examples))
+                    window_labels.append(b.labels[: b.num_examples])
+                with trace.span("linear.fetch", cat="step"):
+                    b = next(it, None)
+            step_i += 1
+            if step_i % report_every == 0:
                 last = _flush()
         if n_since:
             last = _flush()

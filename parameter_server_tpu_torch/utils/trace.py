@@ -12,9 +12,10 @@ updater span across processes.
 
 Design constraints, in order:
 
-1. **Disabled is free.** The default tracer is disabled; ``span()`` then
-   returns one process-global no-op singleton — no Span object, no dict,
-   no buffer append (tests assert the identity).
+1. **Disabled is free.** The default tracer is disabled; with no
+   profiler collecting, ``span()`` then returns one process-global
+   no-op singleton — no Span object, no dict, no buffer append (tests
+   assert the identity).
 2. **Bounded.** Armed tracing records into a ring buffer
    (``deque(maxlen=capacity)``).
 3. **Cross-process by construction.** ``ts`` is wall-clock microseconds
@@ -27,6 +28,18 @@ spawned nodes inherit it; ``configure()`` re-arms explicitly (CLI
 ``--trace_dir`` / config ``[trace] trace_dir``). Each armed process writes
 ``trace-<name>-<pid>.json`` into the directory at exit (atexit backstop)
 or on ``tracer.flush()``.
+
+**Under ``torch.profiler``.** While a profiler collects in this process,
+every span also opens a ``torch.profiler.record_function`` range of its
+own name, so the span lands in the profiler's trace (a
+``user_annotation`` event) on the device trace's clock, nested as it was
+opened; and spans and counters record into the in-memory ring
+(``tracer.events()``) even when no trace directory is armed. That is how
+an operator sees the program's spans beside its kernels: profile the
+process with ``torch.profiler`` and export its trace. With neither a
+profiler nor a directory nothing is recorded. The ring's ``ts`` stays
+wall-clock microseconds; the profiler's export places the same range at
+its ``baseTimeNanoseconds`` plus ``ts``.
 
 **Tail-biased capture** (:class:`TailCapture`): head sampling
 (``sample=1/N``) keeps 1/N of traces by trace-id hash, which drops the
@@ -47,8 +60,7 @@ API sketch::
 
     with trace.span("step.pull", cat="step", bytes=n):   # context manager
         ...
-    @trace.traced("load_shard")                          # decorator
-    def load_shard(...): ...
+    trace.counter("linear.slots", n)                     # counter track
     trace.instant("rpc.retry", addr=addr)                # point event
 
     header["_trace"] = trace.wire_context()              # client side
@@ -59,14 +71,14 @@ API sketch::
 from __future__ import annotations
 
 import atexit
-import functools
 import json
 import os
 import random
+import sys
 import threading
 import time
 from collections import OrderedDict, deque
-from typing import Any, Callable
+from typing import Any
 
 TRACE_DIR_ENV = "PS_TRACE_DIR"
 TRACE_SAMPLE_ENV = "PS_TRACE_SAMPLE"
@@ -106,6 +118,16 @@ def _env_tail_k() -> int:
         return DEFAULT_TAIL_K
 
 _current = threading.local()  # .span: innermost live span (or remote parent)
+
+
+def _profiler():
+    """``torch.autograd.profiler`` while a profiler collects in this
+    process, else None. Read from ``sys.modules``: a process that never
+    imported torch runs no profiler, and this module imports no torch."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is not None and getattr(prof, "_is_profiler_enabled", False):
+        return prof
+    return None
 
 
 def _now_us() -> float:
@@ -205,7 +227,7 @@ class Span:
 
     __slots__ = (
         "_tracer", "name", "cat", "trace_id", "span_id", "parent_id",
-        "args", "_t0_us", "_t0", "_prev", "_tail_seal",
+        "args", "_t0_us", "_t0", "_prev", "_tail_seal", "_range",
     )
 
     def __init__(
@@ -224,12 +246,17 @@ class Span:
         # decision) — flag-driven, so a single-span trace (the RPC hot
         # path's common case) never touches the pending table at all
         self._tail_seal = False
+        # the profiler's record_function range of this span, set by
+        # Tracer.span while a profiler collects
+        self._range = None
 
     def set(self, **args: Any) -> None:
         """Attach/override args after entry (e.g. reply byte counts)."""
         self.args.update(args)
 
     def __enter__(self) -> "Span":
+        if self._range is not None:
+            self._range.__enter__()
         self._t0_us = _now_us()
         self._t0 = time.perf_counter()
         self._prev = getattr(_current, "span", None)
@@ -240,6 +267,8 @@ class Span:
         # duration from the monotonic clock (wall time can step); start
         # from the wall clock (cross-process alignment)
         dur_us = (time.perf_counter() - self._t0) * 1e6
+        if self._range is not None:
+            self._range.__exit__(et, ev, tb)
         _current.span = self._prev
         if et is not None:
             self.args.setdefault("error", repr(ev))
@@ -622,14 +651,18 @@ class Tracer:
     # -- recording --------------------------------------------------------
 
     def span(self, name: str, cat: str = "", **args: Any):
-        """Context manager for one span. Disabled path: returns the
-        process-global no-op singleton (no allocation). A trace the head
-        sampler drops gets a :class:`_DroppedSpan` instead — nesting and
+        """Context manager for one span. Disabled path (no trace dir and
+        no profiler collecting): returns the process-global no-op
+        singleton (no allocation). While a profiler collects, the span
+        also opens a ``record_function`` range of its name and records
+        into the ring even with no trace dir. A trace the head sampler
+        drops gets a :class:`_DroppedSpan` instead — nesting and
         propagation intact, nothing recorded — UNLESS tail capture is
         armed, in which case the span records into the trace's pending
         buffer and the keep/drop verdict waits for trace completion
         (TailCapture: promotion overrides the head drop)."""
-        if self._dir is None:
+        prof = _profiler()
+        if self._dir is None and prof is None:
             return _NOOP
         cur = getattr(_current, "span", None)
         if cur is not None and cur.trace_id is not None:
@@ -645,8 +678,11 @@ class Tracer:
             # remote activation) seals the trace at exit; nested local
             # spans just buffer
             sp._tail_seal = cur is None or isinstance(cur, _RemoteParent)
-            return sp
-        return Span(self, name, cat, trace_id, parent, args)
+        else:
+            sp = Span(self, name, cat, trace_id, parent, args)
+        if prof is not None:
+            sp._range = prof.record_function(name)
+        return sp
 
     def instant(
         self, name: str, cat: str = "",
@@ -684,9 +720,10 @@ class Tracer:
     def counter(self, name: str, value: float, cat: str = "") -> None:
         """Perfetto counter-track sample (Chrome ``"C"`` event): numeric
         series rendered as a stepped counter track next to the spans —
-        the histogram-export-as-counter-track form. Used for queue depth and apply-batch size; free when
-        tracing is disabled (same contract as ``span``)."""
-        if self._dir is None:
+        the histogram-export-as-counter-track form. Used for queue depth, apply-batch size and a training
+        step's slots; recorded while a trace dir is armed or a profiler
+        collects, free otherwise (same contract as ``span``)."""
+        if self._dir is None and _profiler() is None:
             return
         self._record({
             "name": name,
@@ -945,25 +982,6 @@ def activate(ctx: dict[str, str] | None):
 
 def enabled() -> bool:
     return tracer.enabled
-
-
-def traced(name: str | None = None, cat: str = "") -> Callable:
-    """Decorator form of ``span`` (checks the live global per call, so a
-    decorated function is free when tracing is off)."""
-
-    def deco(fn: Callable) -> Callable:
-        label = name or fn.__qualname__
-
-        @functools.wraps(fn)
-        def wrapper(*a: Any, **kw: Any):
-            if not tracer.enabled:
-                return fn(*a, **kw)
-            with tracer.span(label, cat=cat):
-                return fn(*a, **kw)
-
-        return wrapper
-
-    return deco
 
 
 def write_chrome_trace(

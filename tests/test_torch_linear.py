@@ -103,6 +103,67 @@ def test_linear_method_train_matches_jax():
     del jrec
 
 
+def _inside(child: dict, parent: dict) -> bool:
+    return (parent["ts"] <= child["ts"]
+            and child["ts"] + child["dur"] <= parent["ts"] + parent["dur"])
+
+
+@pytest.mark.parametrize("report_every", [3, 4, 8])
+def test_train_names_its_loop_under_the_profiler(report_every, tmp_path):
+    """Under ``torch.profiler``, ``train`` opens one ``linear.step`` a batch
+    (its copies, its launch and the next fetch inside), one
+    ``linear.report`` a report (the readback and the AUC inside, no step
+    around it), and counts each batch's slots and pad slots; untraced, it
+    records nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from parameter_server_tpu_torch.utils import trace
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter as TR
+
+    _, tcfg = _cfgs()
+    batches = _batches(8, seed=13)
+    app = TL.LinearMethod(tcfg, TR(print_fn=lambda s: None), device="cpu")
+    trace.configure(None)
+    try:
+        app.train(batches[:2], report_every=report_every)
+        assert trace.tracer.events() == []
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            app.train(iter(batches), report_every=report_every)
+        ring = trace.tracer.events()
+    finally:
+        trace.configure(None)
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    ann = [e for e in json.loads(path.read_text())["traceEvents"]
+           if e.get("cat") == "user_annotation" and e["name"].startswith("linear.")]
+    reports = -(-len(batches) // report_every)
+    for events in (ann, [e for e in ring if e["ph"] == "X"]):
+        names = [e["name"] for e in events]
+        assert names.count("linear.step") == len(batches)
+        assert names.count("linear.h2d") == names.count("linear.launch") == len(batches)
+        assert names.count("linear.fetch") == len(batches) + 1
+        for n in ("linear.report", "linear.report.readback", "linear.report.auc"):
+            assert names.count(n) == reports, n
+    spans = {n: [e for e in ann if e["name"] == n] for n in {e["name"] for e in ann}}
+    for child, parent in (("linear.h2d", "linear.step"), ("linear.launch", "linear.step"),
+                          ("linear.report.readback", "linear.report"),
+                          ("linear.report.auc", "linear.report")):
+        for c in spans[child]:
+            assert any(_inside(c, p) for p in spans[parent]), (child, c)
+    for r in spans["linear.report"]:
+        assert not any(_inside(r, s) for s in spans["linear.step"])
+    ids = {e["args"]["span_id"]: e["name"] for e in ring if e["ph"] == "X"}
+    for e in ring:
+        if e["ph"] == "X" and e["name"] in ("linear.h2d", "linear.launch"):
+            assert ids[e["args"]["parent_id"]] == "linear.step"
+        if e["name"] in ("linear.step", "linear.report"):
+            assert "parent_id" not in e["args"]
+    counters = {n: [e["args"]["value"] for e in ring if e["ph"] == "C" and e["name"] == n]
+                for n in ("linear.slots", "linear.pad_slots")}
+    assert counters["linear.slots"] == [len(b.unique_keys) for b in batches]
+    assert counters["linear.pad_slots"] == [len(b.unique_keys) - b.num_unique for b in batches]
+
+
 @pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])
 def test_checkpoint_carries_across(tmp_path, direction):
     jcfg, tcfg = _cfgs()
@@ -196,9 +257,9 @@ def test_cli_refuses_unported_paths(tmp_path, argv, match):
 def test_cli_refuses_unported_config(tmp_path, section, capsys):
     """[profile] and [timeseries] arm the profiler and the metrics
     endpoint for the run and tear them down after it, as the JAX CLI
-    does; a [trace] section arms tracing for the run (the one-process
-    apps record no spans of their own, in either package, so a span
-    recorded after the run is what lands in the dir)."""
+    does; a [trace] section arms tracing for the run: the linear app's
+    ``linear.*`` spans land in the dir, the sketch app records none, and
+    a span recorded after the run lands there too."""
     from parameter_server_tpu_torch.utils import profiler, timeseries, trace
 
     data = tmp_path / "a.svm"
@@ -245,6 +306,8 @@ def test_cli_refuses_unported_config(tmp_path, section, capsys):
         trace.configure(None)
     doc = json.loads(open(path).read())
     assert os.path.dirname(path) == str(tmp_path / "t")
-    assert [e["name"] for e in doc["traceEvents"] if e["ph"] == "X"] == ["after.run"]
+    names = [e["name"] for e in doc["traceEvents"] if e["ph"] == "X"]
+    assert [n for n in names if not n.startswith("linear.")] == ["after.run"]
+    assert ("linear.step" in names) == ("app" not in section)
     capsys.readouterr()
 

@@ -5,7 +5,8 @@ Every crafted source of ``tests/test_pslint.py`` is copied here and run
 through both analyzers: JAX's ``analyze_sources`` and the port's, told
 that the snippet stands for the JAX tree (``root="parameter_server_tpu"``,
 the name its absolute imports resolve against). The two must give the
-same ``(checker, path, line, message)`` list, both with the checker the
+same ``(checker, path, line, message)`` list (trace-hygiene's messages in
+the port's wording: it has no ``@trace.traced``), both with the checker the
 JAX test runs and with the whole registry (the JAX registry's two psmc
 ids, which the port does not have, give nothing on a snippet). Then the
 port's own additions, positive and negative: the torch primitives the
@@ -36,6 +37,14 @@ from parameter_server_tpu_torch.analysis.core import run_checkers as p_run
 JAX_TREE = "parameter_server_tpu"
 
 
+#: the port has no ``trace.traced`` decorator, so its trace-hygiene
+#: messages name the context manager alone where the JAX ones offer both
+_PORT_WORDING = (
+    (" or `@trace.traced`)", ")"),
+    ("trace.span()/traced()", "trace.span()"),
+)
+
+
 def _key(findings) -> list[tuple[str, str, int, str]]:
     """The comparable form of a finding list. A stale pragma naming an
     unknown checker lists the registry's ids after "; known: ": that tail
@@ -43,6 +52,13 @@ def _key(findings) -> list[tuple[str, str, int, str]]:
     (``test_unknown_checker_lists_the_ports_registry``)."""
     return [(f.checker, f.path, f.line, f.message.split("; known: ")[0])
             for f in findings]
+
+
+def _in_port_wording(key: tuple[str, str, int, str]) -> tuple[str, str, int, str]:
+    msg = key[3]
+    for jax, port in _PORT_WORDING:
+        msg = msg.replace(jax, port)
+    return (*key[:3], msg)
 
 
 def _both(sources: dict[str, str], checker: str | None = None, config: dict | None = None):
@@ -55,7 +71,7 @@ def _both(sources: dict[str, str], checker: str | None = None, config: dict | No
     jf = j_run(JIndex.from_sources(sources, config=jcfg), jchk, jcfg)
     pf = p_run(PIndex.from_sources(sources, root=Path(JAX_TREE), config=pcfg), pchk, pcfg)
     jf = [f for f in jf if f.checker in P.CHECKERS]
-    return _key(jf), _key(pf)
+    return [_in_port_wording(k) for k in _key(jf)], _key(pf)
 
 
 # ---------------------------------------------------------------------------

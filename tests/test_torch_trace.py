@@ -233,16 +233,106 @@ class TestDisabledTracingIsFree:
         # the module-level delegates of the disarmed global, too
         assert trace.span("x") is trace._NOOP and not trace.enabled()
 
-    def test_traced_decorator_free_when_disabled(self):
-        calls = []
 
-        @trace.traced("decorated.fn")
-        def fn(x):
-            calls.append(x)
-            return x + 1
 
-        assert fn(1) == 2 and calls == [1]
+def _profiled(tmp_path: Path, body) -> list[dict]:
+    """Run ``body`` under ``torch.profiler`` (CPU activity) and return the
+    exported trace's ``user_annotation`` events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        body()
+    path = tmp_path / "prof.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    return [e for e in events if e.get("cat") == "user_annotation"]
+
+
+def _inside(inner: dict, outer: dict) -> bool:
+    return (outer["ts"] <= inner["ts"]
+            and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"])
+
+
+class TestUnderTheProfiler:
+    """While ``torch.profiler`` collects, spans reach its trace and spans
+    and counters the ring, with no trace dir armed; outside it, the
+    disabled path is the no-op singleton again."""
+
+    def test_span_lands_in_the_profile_nested_as_opened(self, tmp_path):
+        trace.configure(None)
+
+        def body():
+            with trace.span("linear.step", cat="step") as o:
+                with trace.span("linear.h2d", cat="step") as i:
+                    assert i is not trace._NOOP and i.parent_id == o.span_id
+                with trace.span("linear.launch", cat="step"):
+                    pass
+
+        ann = _profiled(tmp_path, body)
+        by = {e["name"]: e for e in ann}
+        assert [e["name"] for e in ann].count("linear.step") == 1
+        assert _inside(by["linear.h2d"], by["linear.step"])
+        assert _inside(by["linear.launch"], by["linear.step"])
+        assert by["linear.h2d"]["ts"] + by["linear.h2d"]["dur"] <= by["linear.launch"]["ts"]
+        ring = trace.tracer.events()
+        assert [e["name"] for e in ring] == ["linear.h2d", "linear.launch", "linear.step"]
+        assert all(e["cat"] == "step" and e["ph"] == "X" for e in ring)
+        assert trace.tracer.flush() is None  # no dir: nothing written
+
+    def test_counter_lands_in_the_ring_with_no_trace_dir(self, tmp_path):
+        trace.configure(None)
+
+        def body():
+            trace.counter("linear.slots", 524289, cat="step")
+            trace.counter("linear.pad_slots", 475000)
+
+        _profiled(tmp_path, body)
+        cs = [(e["ph"], e["name"], e["args"]["value"]) for e in trace.tracer.events()]
+        assert cs == [("C", "linear.slots", 524289.0), ("C", "linear.pad_slots", 475000.0)]
+        assert not trace.enabled()
+
+    def test_after_the_profiler_exits_the_noop_is_back(self, tmp_path):
+        trace.configure(None)
+        _profiled(tmp_path, lambda: None)
+        assert trace.span("linear.step") is trace._NOOP
+        with trace.span("linear.step"):
+            trace.counter("linear.slots", 1)
         assert trace.tracer.events() == []
+
+    def test_armed_dir_without_a_profiler_writes_what_the_jax_tracer_writes(
+        self, tmp_path
+    ):
+        """The same drive into each package's armed tracer, no profiler:
+        the port's export has the JAX copy's events, field for field
+        (times, ids and pids aside), and opens no profiler range."""
+        def drive(mod):
+            with mod.span("outer", cat="a", n=3):
+                with mod.span("inner") as sp:
+                    sp.set(bytes=8)
+                    mod.instant("rpc.retry", attempt=1)
+                mod.counter("depth", 2)
+            doc = json.loads(Path(mod.tracer.flush()).read_text())
+            return [(e["name"], e["ph"], e.get("cat"), sorted(e.get("args", {})))
+                    for e in doc["traceEvents"] if e["ph"] != "M"]
+
+        jtrace.configure(str(tmp_path / "jax"), process_name="p")
+        trace.configure(str(tmp_path / "port"), process_name="p")
+        assert trace.span("x")._range is None
+        got = drive(trace)
+        assert got == drive(jtrace)
+        assert [n for n, *_ in got] == ["outer", "inner", "rpc.retry", "depth"]
+
+    def test_armed_dir_under_the_profiler_records_both(self, tmp_path):
+        t = trace.configure(str(tmp_path / "d"), process_name="p")
+
+        def body():
+            with trace.span("ps.push", cat="rpc"):
+                pass
+
+        ann = _profiled(tmp_path, body)
+        assert [e["name"] for e in ann] == ["ps.push"]
+        assert [e["name"] for e in t.events()] == ["ps.push"]
+        assert Path(t.flush()).is_file()
 
 
 class TestTracerEnabled:
