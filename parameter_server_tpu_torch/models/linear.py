@@ -14,11 +14,13 @@ row that the fused push would.
 ``step``): ``linear.step`` around ``linear.h2d`` (the batch's copies to the
 device), ``linear.launch`` (the queued step and its bookkeeping) and
 ``linear.fetch`` (the wait for the next batch); ``linear.report`` around
-``linear.report.readback`` (the reads that wait for the queued steps) and
-``linear.report.auc``. Counters ``linear.slots`` and ``linear.pad_slots``
-give each step's scattered slots and the pad slots among them, from the
-batch's host fields. All of it records only while a trace dir is armed or
-a ``torch.profiler`` collects.
+``linear.report.auc`` (the window's exact AUC, queued on the device
+behind the steps it reports on) and ``linear.report.readback`` (the
+report's one read, which waits for them). Counters ``linear.slots`` and
+``linear.pad_slots`` give each step's scattered slots and the pad slots
+among them, from the batch's host fields; ``linear.report.ranked`` the
+examples a report ranked. All of it records only while a trace dir is
+armed or a ``torch.profiler`` collects.
 """
 
 from __future__ import annotations
@@ -147,22 +149,24 @@ class LinearMethod:
         """Run the streaming solver over ``batches``; returns final metrics."""
         t0 = time.perf_counter()
         # device results accumulate un-synced so host work overlaps device
-        # compute; they are read back only at report time
+        # compute; the report's AUC is queued behind them on the device, and
+        # all of it is read back at once
         window_loss: list[torch.Tensor] = []
-        window_probs: list[tuple[torch.Tensor, int]] = []
-        window_labels: list[np.ndarray] = []
+        window_probs: list[torch.Tensor] = []
+        window_labels: list[torch.Tensor] = []
         n_since = 0
         last: dict[str, Any] = {}
 
         def _flush() -> dict[str, Any]:
             nonlocal window_loss, window_probs, window_labels, n_since, t0
             with trace.span("linear.report", cat="step"):
-                with trace.span("linear.report.readback", cat="step"):
-                    loss_sum = float(sum(torch.stack(window_loss).tolist()))
-                    p = torch.cat([pr[:n] for pr, n in window_probs]).cpu().numpy()
-                y = np.concatenate(window_labels)
                 with trace.span("linear.report.auc", cat="step"):
-                    auc = M.auc(y, p)
+                    auc_t = M.auc_tensor(torch.cat(window_labels), torch.cat(window_probs))
+                    trace.counter("linear.report.ranked", n_since, cat="step")
+                with trace.span("linear.report.readback", cat="step"):
+                    *losses, auc = torch.cat(
+                        [torch.stack(window_loss).double(), auc_t.reshape(1)]).tolist()
+                loss_sum = float(sum(losses))
                 rec = self.reporter.report(
                     examples=self.examples_seen,
                     objv=loss_sum / max(n_since, 1),
@@ -192,8 +196,8 @@ class LinearMethod:
                     self.examples_seen += b.num_examples
                     n_since += b.num_examples
                     window_loss.append(out["loss_sum"])
-                    window_probs.append((out["probs"], b.num_examples))
-                    window_labels.append(b.labels[: b.num_examples])
+                    window_probs.append(out["probs"][: b.num_examples])
+                    window_labels.append(dev["labels"][: b.num_examples])
                 with trace.span("linear.fetch", cat="step"):
                     b = next(it, None)
             step_i += 1

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def auc(labels: np.ndarray, scores: np.ndarray) -> float:
@@ -21,6 +22,32 @@ def auc(labels: np.ndarray, scores: np.ndarray) -> float:
     avg_rank = (cum - (counts - 1) / 2.0).astype(np.float64)
     ranks[order] = avg_rank[inv]
     return float((ranks[y].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+
+
+def auc_tensor(labels: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
+    """``auc`` on tensors, on their own device and without a host sync: a
+    0-dim float64 tensor that equals ``auc(labels, scores)`` bit for bit.
+
+    Sorted, the scores fall into groups of equal value. A positive beats
+    the negatives of lower groups and ties half of its own group's, so
+    2U = sum over groups of pos_g * (2 * neg_before_g + neg_g), counted
+    exactly in int64; AUC = 2U / (2 * n_pos * n_neg), one float64
+    division of exact integers, as ``auc``'s own division is. The group
+    buffers are N long whatever the number of groups, so no size is read
+    back; with a class empty the division is 0/0, NaN as ``auc`` gives.
+    """
+    s, order = torch.sort(scores.reshape(-1))
+    pos = (labels.reshape(-1) != 0).to(torch.int64)[order]
+    n = s.numel()
+    starts = torch.ones(n, dtype=torch.int64, device=s.device)
+    starts[1:] = s[1:] != s[:-1]
+    group = torch.cumsum(starts, 0) - 1
+    pos_g = torch.zeros_like(pos).index_add_(0, group, pos)
+    neg_g = torch.zeros_like(pos).index_add_(0, group, 1 - pos)
+    neg_before = torch.cumsum(neg_g, 0) - neg_g
+    twice_u = (pos_g * (2 * neg_before + neg_g)).sum()
+    n_pos = pos.sum()
+    return twice_u.double() / (2 * n_pos * (n - n_pos)).double()
 
 
 def logloss(labels: np.ndarray, probs: np.ndarray, eps: float = 1e-12) -> float:

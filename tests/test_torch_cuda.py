@@ -286,6 +286,73 @@ def test_linear_method_on_card_matches_cpu(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["random", "ties"])
+def test_auc_tensor_on_card_equals_auc_without_a_sync(dev, kind):
+    """A report's window on the Criteo cell (50 steps of 8,192 examples):
+    the card's AUC equals the host's bit for bit, and computing it makes
+    no host sync."""
+    from parameter_server_tpu_torch.models import metrics as M
+
+    rng = np.random.default_rng(20)
+    n = 50 * 8192
+    scores = rng.random(n, dtype=np.float32)
+    if kind == "ties":
+        scores = np.round(scores * 64).astype(np.float32) / 64
+    labels = (rng.random(n) < 0.27).astype(np.float32)
+    y, s = torch.from_numpy(labels).to(dev), torch.from_numpy(scores).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = M.auc_tensor(y, s)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert got.device.type == "cuda" and got.dtype == torch.float64
+    assert got.item() == M.auc(labels, scores)
+
+
+@pytest.mark.cuda
+def test_linear_report_syncs_only_at_its_readback(dev, monkeypatch):
+    """``LinearMethod.train``'s report queues its AUC (``linear.report.auc``)
+    with no host sync; its one read is ``linear.report.readback``."""
+    import contextlib
+    import types
+
+    from parameter_server_tpu_torch.data.batch import BatchBuilder
+    from parameter_server_tpu_torch.data.synthetic import make_sparse_logistic
+    from parameter_server_tpu_torch.models import linear as L
+    from parameter_server_tpu_torch.utils import trace
+    from parameter_server_tpu_torch.utils.config import PSConfig
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    strict = []
+
+    @contextlib.contextmanager
+    def span(name, cat="", **args):
+        with trace.span(name, cat, **args):
+            if name != "linear.report.auc":
+                yield
+                return
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            strict.append(name)
+
+    monkeypatch.setattr(L, "trace", types.SimpleNamespace(span=span, counter=trace.counter))
+    labels, keys, vals, _ = make_sparse_logistic(1024, 2000, nnz_per_example=12, seed=4)
+    builder = BatchBuilder(num_keys=1 << 14, batch_size=256, max_nnz_per_example=48)
+    batches = [builder.build(labels[i:i + 256], keys[i:i + 256], vals[i:i + 256])
+               for i in range(0, 1024, 256)]
+    cfg = PSConfig()
+    cfg.data.num_keys = 1 << 14
+    rep = ProgressReporter(print_fn=lambda s: None)
+    L.LinearMethod(cfg, reporter=rep, device="cuda").train(batches, report_every=2)
+    assert len(strict) == len(rep.history) == 2
+    assert all(0.0 <= r["auc"] <= 1.0 for r in rep.history)
+
+
+@pytest.mark.cuda
 def test_matrix_fac_on_card_matches_cpu(dev):
     from parameter_server_tpu_torch.models.matrix_fac import MatrixFactorization
     from parameter_server_tpu_torch.utils.metrics import ProgressReporter
