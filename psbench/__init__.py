@@ -6,5 +6,6 @@ once (``python psbench/run.py --workload <name> --seed <n> --seconds <s>
 configurations in ``configs/<config>.json``, traffic mixes in
 ``traffic/<mix>.json``, per-layer metric readers in ``metrics/<metric>.py``,
 and the code that drives a configuration's kind of system in
-``apps/<app>.py``, with its plain reference in ``reference/``.
+``apps/<app>.py`` (its ``run``, its ``control``, its CPU size ``TINY`` and
+its ``FAULTS``), with its plain reference in ``reference/``.
 """

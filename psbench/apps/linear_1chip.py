@@ -16,7 +16,11 @@ sums give the first gradient's norm (from n after one step: n = g^2) and
 the norms of z and n after each step. The same object then runs the
 window. After the window the plain reference trains three steps from the
 same raw rows (``reference/ftrl.py``) and the gaps are held to the
-configuration's limits."""
+configuration's limits.
+
+``TINY`` shrinks the cell for the CPU tests; ``FAULTS`` breaks the timed
+path underneath, in the port, for the tests that see ``correct`` come out
+false."""
 
 from __future__ import annotations
 
@@ -26,7 +30,9 @@ import time
 from typing import Any
 
 import numpy as np
+import torch
 
+from parameter_server_tpu_torch.models import linear as L
 from psbench.checks import checks_from, norm_gap, rel_gap
 from psbench.devtrace import Profiled
 from psbench.reference import ftrl as ref
@@ -35,6 +41,7 @@ from psbench.rows import CriteoRows
 CHECK_STEPS = 3
 REPORT_EVERY = 50  # the window's report cadence, which the checked steps share
 SLICE = 1 << 24
+TINY = {"num_keys": 1 << 16, "batch_size": 256, "batches": 8}
 
 
 def _port_config(cfg: dict, batch: int):
@@ -191,3 +198,33 @@ def control(cell, seed: int) -> dict[str, float]:
     return _gaps({"loss": statistics.fmean(low["loss"]), "grad_norm": low["grad_norm"],
                   "norms": [{"z": z, "n": n} for z, n in zip(low["z_norm"], low["n_norm"])]},
                  want)
+
+
+def _unchanged_step(updater, state, batch):
+    """A step that computes everything and returns the state unchanged."""
+    rows, logits = L._forward(updater, state, batch)
+    loss, _ = L.logistic_loss(logits, batch["labels"], batch["example_mask"])
+    return state, {"loss_sum": loss, "probs": torch.sigmoid(logits), "logits": logits}
+
+
+def _half_batch_loss(orig):
+    def loss(logits, labels, mask):
+        total, err = orig(logits, labels, mask)
+        half = logits.shape[0] // 2
+        err = torch.cat([2.0 * err[:half], torch.zeros_like(err[half:])])
+        return total, err
+    return loss
+
+
+def _altered_loss(orig):
+    def loss(logits, labels, mask):
+        total, err = orig(logits, labels, mask)
+        return total * 1.001, err
+    return loss
+
+
+FAULTS = {
+    "unchanged": lambda mp: mp.setattr(L, "train_step", _unchanged_step),
+    "half_batch": lambda mp: mp.setattr(L, "logistic_loss", _half_batch_loss(L.logistic_loss)),
+    "altered": lambda mp: mp.setattr(L, "logistic_loss", _altered_loss(L.logistic_loss)),
+}

@@ -1,16 +1,15 @@
-"""Each cell against its plain reference on the CPU at a tiny size, and each
-fault a cell can have: the run is driven as the benchmark drives it (the
-look for a card skipped), with the timed path broken underneath, and
-``correct`` has to come out false."""
+"""Each cell against its plain reference on the CPU at its app's tiny size,
+and each fault that its app declares: the run is driven as the benchmark
+drives it (the look for a card skipped), with the timed path broken
+underneath, and ``correct`` has to come out false. The bodies are the
+helpers of ``cellcheck``, which take the benchmark's root."""
 
 from __future__ import annotations
 
-import json
 import sys
 from pathlib import Path
 
 import pytest
-import torch
 
 ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
@@ -18,64 +17,34 @@ if str(ROOT) not in sys.path:
 
 from parameter_server_tpu_torch.models import linear as L  # noqa: E402
 
-from psbench.checks import checks_from  # noqa: E402
-from psbench.run import run_cell  # noqa: E402
-from psbench.spec import app_module, load_cell  # noqa: E402
+from psbench.spec import load_cell  # noqa: E402
+from psbench.tests.cellcheck import (  # noqa: E402
+    cell_faults,
+    cells,
+    check_agrees,
+    check_control,
+    check_fault,
+    fault_ids,
+    run_tiny,
+)
 
-TINY = {"num_keys": 1 << 16, "batch_size": 256, "batches": 8}
-CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
-SEED = (1 << 31) + 12345
-
-
-def _run(cell: str, seed: int = SEED) -> dict:
-    return run_cell(cell, seed, 1.0, False, device="cpu", overrides=dict(TINY))
+CELLS = cells()
+FAULT_CASES = cell_faults()
+LINEAR = [c for c in CELLS if load_cell(c).app == "linear_1chip"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_agrees_with_its_reference(cell):
-    out = _run(cell)
-    assert out["correct"], out["checks"]
-    assert out["attempted"] > 0 and out["failed"] == 0
-    assert list(out)[-1] == "checks"
+    check_agrees(cell)
 
 
-def _unchanged_step(updater, state, batch):
-    """A step that computes everything and returns the state unchanged."""
-    rows, logits = L._forward(updater, state, batch)
-    loss, _ = L.logistic_loss(logits, batch["labels"], batch["example_mask"])
-    return state, {"loss_sum": loss, "probs": torch.sigmoid(logits), "logits": logits}
+@pytest.mark.parametrize(("cell", "fault"), FAULT_CASES, ids=fault_ids(FAULT_CASES))
+def test_fault_is_not_correct(cell, fault, monkeypatch):
+    check_fault(cell, fault, monkeypatch)
 
 
-def _half_batch_loss(orig):
-    def loss(logits, labels, mask):
-        total, err = orig(logits, labels, mask)
-        half = logits.shape[0] // 2
-        err = torch.cat([2.0 * err[:half], torch.zeros_like(err[half:])])
-        return total, err
-    return loss
-
-
-def _altered_loss(orig):
-    def loss(logits, labels, mask):
-        total, err = orig(logits, labels, mask)
-        return total * 1.001, err
-    return loss
-
-
-@pytest.mark.parametrize("cell", CELLS)
-@pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered"])
-def test_lr_fault_is_not_correct(cell, fault, monkeypatch):
-    if fault == "unchanged":
-        monkeypatch.setattr(L, "train_step", _unchanged_step)
-    elif fault == "half_batch":
-        monkeypatch.setattr(L, "logistic_loss", _half_batch_loss(L.logistic_loss))
-    else:
-        monkeypatch.setattr(L, "logistic_loss", _altered_loss(L.logistic_loss))
-    out = _run(cell)
-    assert not out["correct"], out["checks"]
-
-
-def test_checked_steps_run_as_the_window_runs(monkeypatch):
+@pytest.mark.parametrize("cell", LINEAR)
+def test_checked_steps_run_as_the_window_runs(cell, monkeypatch):
     """The checked steps and the window go through ``LinearMethod.train``
     alike: one call over a stream of batches at one report cadence."""
     calls = []
@@ -94,7 +63,7 @@ def test_checked_steps_run_as_the_window_runs(monkeypatch):
         return out
 
     monkeypatch.setattr(L.LinearMethod, "train", spy)
-    out = _run(CELLS[0])
+    out = run_tiny(cell)
     assert out["correct"], out["checks"]
     assert len(calls) == 2, calls
     (checked, every0, kind0), (window, every1, kind1) = calls
@@ -107,8 +76,4 @@ def test_checked_steps_run_as_the_window_runs(monkeypatch):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct(cell):
-    c = load_cell(cell)
-    c.config.update(num_keys=TINY["num_keys"])
-    c.traffic.update(batch_size=TINY["batch_size"])
-    low = app_module(c).control(c, SEED)
-    assert not all(ch.ok for ch in checks_from(low, c.config["limits"])), low
+    check_control(cell)

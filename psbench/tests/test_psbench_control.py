@@ -1,8 +1,9 @@
 """The control of each cell on the card, at the cell's own size: the plain
 reference computed in bfloat16 in the program's place (the configurations
 state float32) has to fail at least one of the cell's limits, on three
-seeds; and so has each fault of the training step that needs a run (half
-of the batch left out, the mean taken over the rest; the loss altered
+seeds; and so has each fault that the cell's app declares in ``FAULTS``
+(for ``LinearMethod``: the step that returns its state unchanged, half of
+the batch left out with the mean taken over the rest, the loss altered
 where it is produced), planted in the program at the cell's size.
 
     python -m pytest psbench/tests/test_psbench_control.py -m cuda -s
@@ -15,7 +16,6 @@ these. The control's readings go through the same checks as a run's, and
 
 from __future__ import annotations
 
-import json
 import sys
 from pathlib import Path
 
@@ -28,9 +28,11 @@ if str(ROOT) not in sys.path:
 from psbench.checks import checks_from  # noqa: E402
 from psbench.run import run_cell  # noqa: E402
 from psbench.spec import app_module, load_cell  # noqa: E402
+from psbench.tests.cellcheck import app_of, cell_faults, cells, fault_ids  # noqa: E402
 
 SEEDS = [2147483911, 2147483923, 2147483947]
-CELLS = [w["name"] for w in json.loads((ROOT / "BENCHMARK.json").read_text())["workloads"]]
+CELLS = cells()
+FAULT_CASES = cell_faults()
 
 
 @pytest.fixture
@@ -55,15 +57,9 @@ def test_control_is_not_correct_at_the_cell_size(card, cell, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed", SEEDS)
-@pytest.mark.parametrize("fault", ["half_batch", "altered"])
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize(("cell", "fault"), FAULT_CASES, ids=fault_ids(FAULT_CASES))
 def test_fault_fails_a_limit_at_the_cell_size(card, cell, fault, seed, monkeypatch):
-    from parameter_server_tpu_torch.models import linear as L
-
-    from psbench.tests.test_psbench_cells import _altered_loss, _half_batch_loss
-
-    wrap = _half_batch_loss if fault == "half_batch" else _altered_loss
-    monkeypatch.setattr(L, "logistic_loss", wrap(L.logistic_loss))
+    app_of(cell).FAULTS[fault](monkeypatch)
     out = run_cell(cell, seed, 2.0, False)
     for k, c in out["checks"].items():
         print(f"FAULT {cell} {fault} {seed} {k} {c['value']!r} {c['limit']!r}", flush=True)

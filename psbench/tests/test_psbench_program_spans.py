@@ -20,11 +20,11 @@ from parameter_server_tpu_torch.models import linear as L  # noqa: E402
 from parameter_server_tpu_torch.utils import trace  # noqa: E402
 
 from psbench import spec  # noqa: E402
+from psbench.apps.linear_1chip import TINY  # noqa: E402
 from psbench.devtrace import DeviceTrace  # noqa: E402
 from psbench.run import run_cell  # noqa: E402
 
 CELL = "lr.cached_b8192"
-TINY = {"num_keys": 1 << 16, "batch_size": 256, "batches": 8}
 SEED = (1 << 31) + 4242
 NEW = ("report_host_ms", "h2d_ms", "launch_ms", "pad_slot_share", "idle_unattributed")
 

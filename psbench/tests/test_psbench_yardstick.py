@@ -1,10 +1,11 @@
 """The yardstick on the CPU: byte and FLOP counts against hand counts,
 spreads, idle shares, the trace reader, the contract's shape
-of ``BENCHMARK.json``, and discovery of a new configuration, mix and metric
-by file name alone."""
+of ``BENCHMARK.json``, and discovery of a new configuration, mix and metric,
+and of a second model's cell, by file name alone."""
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import re
@@ -22,7 +23,15 @@ if str(ROOT) not in sys.path:
 from psbench import roofline, stats  # noqa: E402
 from psbench.device import H100  # noqa: E402
 from psbench.devtrace import WINDOW, DeviceTrace  # noqa: E402
-from psbench.spec import load_cell, read_per_layer  # noqa: E402
+from psbench.run import run_cell  # noqa: E402
+from psbench.spec import app_module, load_cell, read_per_layer  # noqa: E402
+from psbench.tests.cellcheck import (  # noqa: E402
+    app_of,
+    cell_faults,
+    check_agrees,
+    check_control,
+    check_fault,
+)
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -98,22 +107,26 @@ def test_per_layer_readers_on_a_synthetic_run(tmp_path):
     assert got["step_mfu"]["value"] == pytest.approx(100 * least / 0.01)
 
 
-def test_benchmark_json_keeps_the_contract():
-    spec = json.loads((ROOT / "BENCHMARK.json").read_text())
+def keeps_the_contract(root: Path) -> None:
+    """``<root>/BENCHMARK.json`` keeps the contract's shape, and every app
+    that a configuration names brings ``run``, ``control``, its CPU size
+    ``TINY`` and at least one fault in ``FAULTS``."""
+    spec = json.loads((root / "BENCHMARK.json").read_text())
     assert set(spec) == {"command", "paths", "run_seconds", "configs", "workloads",
                          "end_to_end", "per_layer"}
     assert 1 <= spec["run_seconds"] <= 51 and isinstance(spec["run_seconds"], int)
     cells = 2 + 14 * 24
     assert cells * (spec["run_seconds"] + 60) + 24 * 180 + 1200 <= 43200
     for p in spec["paths"]:
-        assert (ROOT / p).is_dir() and not p.startswith("/") and ".." not in p
+        assert (root / p).is_dir() and not p.startswith("/") and ".." not in p
     names = set()
     for c in spec["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
-        assert (ROOT / c["file"]).is_file() and c["file"].startswith("psbench/")
-        cfg = json.loads((ROOT / c["file"]).read_text())
+        assert (root / c["file"]).is_file() and c["file"].startswith("psbench/")
+        cfg = json.loads((root / c["file"]).read_text())
         assert all(k in cfg for k in c["reduced"])
         assert not any(k.endswith(("_dim", "_rank")) for k in c["reduced"])
+        assert any(w["config"] == c["name"] for w in spec["workloads"]), c["name"]
     e2e = {m["name"] for m in spec["end_to_end"]}
     assert "setup_s" in e2e
     for m in spec["end_to_end"]:
@@ -122,9 +135,15 @@ def test_benchmark_json_keeps_the_contract():
     for w in spec["workloads"]:
         assert w["chips"] == 1
         assert len(w["why"]) <= 200
-        assert (ROOT / "psbench" / "traffic" / f"{w['traffic']}.json").is_file()
+        assert (root / "psbench" / "traffic" / f"{w['traffic']}.json").is_file()
         reports = [m for m in spec["per_layer"] if w["name"] in m["workloads"]]
         assert reports, w["name"]
+        app = app_module(load_cell(w["name"], root))
+        for name in ("run", "control", "TINY", "FAULTS"):
+            assert hasattr(app, name), f"{app.__name__} defines no {name}"
+        assert callable(app.run) and callable(app.control) and isinstance(app.TINY, dict)
+        assert isinstance(app.FAULTS, dict) and app.FAULTS, f"{app.__name__}: FAULTS is empty"
+        assert all(callable(plant) for plant in app.FAULTS.values()), app.__name__
     for m in spec["end_to_end"] + spec["per_layer"] + spec["workloads"] + spec["configs"]:
         assert NAME.match(m["name"]) and m["name"] not in names
         names.add(m["name"])
@@ -133,18 +152,36 @@ def test_benchmark_json_keeps_the_contract():
     for m in spec["per_layer"]:
         assert m["moves"] in e2e and m["source"] in (
             "device_trace", "program_span", "program_counter", "host_clock")
-        assert (ROOT / "psbench" / "metrics" / f"{m['name']}.py").is_file()
+        assert (root / "psbench" / "metrics" / f"{m['name']}.py").is_file()
         for w in m["workloads"]:
             moved = next(x for x in spec["end_to_end"] if x["name"] == m["moves"])
             assert "workloads" not in moved or w in moved["workloads"]
-    assert len((ROOT / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+    assert len((root / "BENCHMARK.json").read_bytes()) <= 64 * 1024
+
+
+def test_benchmark_json_keeps_the_contract():
+    keeps_the_contract(ROOT)
+
+
+def _copy(root: Path) -> None:
+    shutil.copytree(ROOT / "psbench", root / "psbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
+
+
+@pytest.mark.parametrize("tail", ["del FAULTS", "FAULTS = {}"], ids=["missing", "empty"])
+def test_an_app_without_faults_breaks_the_contract(tmp_path, tail):
+    _copy(tmp_path)
+    app = tmp_path / "psbench/apps/linear_1chip.py"
+    app.write_text(app.read_text() + f"\n{tail}\n")
+    with pytest.raises(AssertionError, match="FAULTS"):
+        keeps_the_contract(tmp_path)
 
 
 def test_a_new_config_mix_and_metric_need_only_files_and_entries(tmp_path):
     """Copy the benchmark, add a configuration, a mix, a per-layer metric
     and a cell by new files and entries alone, and run the cell."""
-    shutil.copytree(ROOT / "psbench", tmp_path / "psbench",
-                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    _copy(tmp_path)
     spec = json.loads((ROOT / "BENCHMARK.json").read_text())
     cfg = json.loads((ROOT / "psbench/configs/criteo1tb_lr_1chip.json").read_text())
     cfg.update(name="tiny_lr", num_keys=1 << 14, categorical_vocab=[1000] * 26)
@@ -162,11 +199,63 @@ def test_a_new_config_mix_and_metric_need_only_files_and_entries(tmp_path):
                               "moves": "examples_per_s", "workloads": ["lr.tiny"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
 
-    from psbench.run import run_cell
-
     out = run_cell("lr.tiny", 3, 0.5, True, device="cpu", root=tmp_path)
     assert out["correct"], out["checks"]
     assert out["metrics"]["steps_in_window"]["value"] >= 1
     assert math.isfinite(out["metrics"]["steps_in_window"]["value"])
     out = run_cell("lr.tiny", 3, 0.5, False, device="cpu", root=tmp_path)
     assert set(out["metrics"]) == {"examples_per_s", "setup_s"}
+
+
+SECOND = Path(__file__).resolve().parent / "second_app"
+DENSE = "dense.b4096"
+
+
+@pytest.fixture
+def second_model_root(tmp_path, monkeypatch):
+    """A copy of the benchmark with a cell of a second model, dense logistic
+    regression (``second_app/``), added by new files and entries alone: an
+    app, its reference, a configuration, a mix, a reader and a cell."""
+    _copy(tmp_path)
+    for part in ("apps", "reference", "configs", "traffic", "metrics"):
+        shutil.copytree(SECOND / part, tmp_path / "psbench" / part, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    spec = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    for key, entries in json.loads((SECOND / "entries.json").read_text()).items():
+        spec[key] += entries
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    # this process imported psbench from the repo: its reference package
+    # takes the copy's new module, as a checkout's psbench would hold it
+    name = "psbench.reference.dense_lr"
+    s = importlib.util.spec_from_file_location(name, tmp_path / "psbench/reference/dense_lr.py")
+    mod = importlib.util.module_from_spec(s)
+    s.loader.exec_module(mod)
+    monkeypatch.setitem(sys.modules, name, mod)
+    return tmp_path
+
+
+def test_a_second_model_is_held_to_its_own_checks(second_model_root, monkeypatch):
+    """The shared cell checks on the copy: the second model's cell agrees
+    with its own reference, its own fault and its control each make it not
+    correct, and none of ``LinearMethod``'s faults is planted in it."""
+    from parameter_server_tpu_torch.models import linear as L
+
+    root = second_model_root
+    keeps_the_contract(root)
+    cases = cell_faults(root)
+    assert [f for c, f in cases if c == DENSE] == list(app_of(DENSE, root).FAULTS)
+    assert [f for c, f in cases if c == "lr.cached_b8192"] == list(
+        app_of("lr.cached_b8192", root).FAULTS)
+    assert not {f for c, f in cases if c == DENSE} & set(app_of("lr.cached_b8192", root).FAULTS)
+    check_agrees(DENSE, root)
+    check_control(DENSE, root)
+    port = (L.train_step, L.logistic_loss)
+    for c, fault in cases:
+        if c == DENSE:
+            with monkeypatch.context() as mp:
+                check_fault(DENSE, fault, mp, root)
+                assert (L.train_step, L.logistic_loss) == port
+    out = run_cell(DENSE, 5, 0.3, True, device="cpu", root=root,
+                   overrides=dict(app_of(DENSE, root).TINY))
+    assert out["correct"] and set(out["metrics"]) == {"dense_steps"}
+    assert out["metrics"]["dense_steps"]["value"] == out["attempted"] > 0
