@@ -5263,9 +5263,12 @@ def main() -> int:
     emb_rounds = [simulated_pushes(rng, EMB_KEYS, EMB_WORKERS, EMB_WORKER_DRAWS,
                                    EMB_HOT, EMB_VDIM) for _ in range(EMB_ROUNDS)]
     mf_users, mf_items, mf_ratings = synthetic_ratings(np.random.default_rng(SEED + 1))
-    u_worker = batches[0].unique_keys.shape[0]
+    # K2's shape on the worker step: LinearMethod.train steps on each
+    # batch's real prefix (trim_batch), num_unique slots, not the padded U
+    u_worker = batches[0].num_unique
     log(f"set-up data in {time.perf_counter() - t0:.2f} s: batch (B, NNZ, U) "
-        f"= {batches[0].shape}; {MF_RATINGS} ratings, mean {mf_ratings.mean():.4f}")
+        f"= {batches[0].shape}, real prefix (NNZ, U) = ({batches[0].num_entries}, "
+        f"{u_worker}); {MF_RATINGS} ratings, mean {mf_ratings.mean():.4f}")
     # the servers' host-side coalescing of one round, timed alone
     t0 = time.perf_counter()
     push_idx, _ = coalesce_pushes(*rounds[0])

@@ -9,6 +9,10 @@ kv.store):
   - ``unique_keys[0] == PAD_KEY (0)`` always; unused unique slots repeat 0.
   - padded CSR entries have ``value == 0`` and point at unique slot 0, row 0.
   - padded example rows have ``label == 0`` and ``example_mask == False``.
+  - real entries and unique slots come first, pads after: entries
+    ``[:num_entries]`` and slots ``[:num_unique]`` (slot 0 among them) are
+    the real ones. ``build_flat``, ``pad_batch`` and ``zero_extend`` keep
+    this order, so ``trim_batch`` can cut a batch back to that prefix.
 
 The localizer is the native C++ kernel (``data/native.py``
 ``hash_localize``, hash + sort-unique with the GIL released) when its
@@ -17,7 +21,7 @@ library loads, else numpy; both give the same arrays bit for bit.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 
@@ -26,7 +30,8 @@ from parameter_server_tpu_torch.utils.hashing import PAD_KEY, hash_keys
 
 @dataclass
 class CSRBatch:
-    """One device-ready minibatch. All arrays have static shapes.
+    """One device-ready minibatch. All arrays have static shapes, except
+    after ``trim_batch``, which yields the real prefix for single-device steps.
 
     ``unique_keys`` is int32 whenever num_keys fits, and ``row_splits``
     carries the same row structure as ``row_ids`` in B+1 ints."""
@@ -130,6 +135,15 @@ def pad_batch(b: CSRBatch, nnz_cap: int, u_cap: int) -> CSRBatch:
         num_unique=b.num_unique,
         num_entries=b.num_entries,
     )
+
+
+def trim_batch(b: CSRBatch) -> CSRBatch:
+    """The batch's real prefix, as numpy views (``pad_batch``'s inverse):
+    slots ``[:num_unique]``, pad slot 0 included, and entries
+    ``[:num_entries]``; the example rows and counts are left as they are."""
+    n = b.num_entries
+    return replace(b, unique_keys=b.unique_keys[: b.num_unique], local_ids=b.local_ids[:n],
+                   row_ids=b.row_ids[:n], values=b.values[:n])
 
 
 class BatchBuilder:

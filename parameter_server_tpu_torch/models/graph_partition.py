@@ -23,7 +23,6 @@ give the same assignments and state bit for bit.
 
 from __future__ import annotations
 
-import dataclasses
 from collections.abc import Iterable
 from typing import Any
 
@@ -31,7 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from parameter_server_tpu_torch.data.batch import CSRBatch
+from parameter_server_tpu_torch.data.batch import CSRBatch, trim_batch
 from parameter_server_tpu_torch.device import resolve_device
 from parameter_server_tpu_torch.kv.store import state_from_numpy, state_to_numpy
 from parameter_server_tpu_torch.models.linear import batch_to_device
@@ -117,10 +116,7 @@ def device_batch(b: CSRBatch, device: Any) -> dict[str, torch.Tensor]:
     """The batch's real prefixes on ``device``: pad entries (value 0) vote
     nothing, and the pad slots' zero deltas, all at key 0, would serialize
     the presence update's atomic adds on one row."""
-    e = b.num_entries
-    return batch_to_device(dataclasses.replace(
-        b, unique_keys=b.unique_keys[: b.num_unique], local_ids=b.local_ids[:e],
-        row_ids=b.row_ids[:e], values=b.values[:e]), device)
+    return batch_to_device(trim_batch(b), device)
 
 
 def partition_metrics(state: State | dict[str, np.ndarray]) -> dict[str, float]:

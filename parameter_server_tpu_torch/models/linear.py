@@ -10,6 +10,14 @@ place. The fused push kernel is not used here: the step's rows are already
 gathered for the pull, so its scatter-add costs the same one round trip per
 row that the fused push would.
 
+``LinearMethod.train`` and ``predict`` step on each batch's real prefix
+(``trim_batch``): its entries and unique slots without the bucket's
+padding, which stays on the host. A pad only adds an exact zero onto slot
+0, row 0 or example row 0, so the results are the padded step's without
+those adds, which the card serialises on their one address. The padded shapes stay for the paths
+whose ranks must agree on them (``parallel/``); one device has none to
+agree with.
+
 ``LinearMethod.train`` names its loop with ``utils/trace.py`` spans (cat
 ``step``): ``linear.step`` around ``linear.h2d`` (the batch's copies to the
 device), ``linear.launch`` (the queued step and its bookkeeping) and
@@ -17,10 +25,11 @@ device), ``linear.launch`` (the queued step and its bookkeeping) and
 ``linear.report.auc`` (the window's exact AUC, queued on the device
 behind the steps it reports on) and ``linear.report.readback`` (the
 report's one read, which waits for them). Counters ``linear.slots`` and
-``linear.pad_slots`` give each step's scattered slots and the pad slots
-among them, from the batch's host fields; ``linear.report.ranked`` the
-examples a report ranked. All of it records only while a trace dir is
-armed or a ``torch.profiler`` collects.
+``linear.pad_slots`` give the slots each step scatters and the pad slots
+among them, from the host fields of the batch the step carries (after the
+trim: ``num_unique`` and 0); ``linear.report.ranked`` the examples a
+report ranked. All of it records only while a trace dir is armed or a
+``torch.profiler`` collects.
 """
 
 from __future__ import annotations
@@ -32,7 +41,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from parameter_server_tpu_torch.data.batch import BatchBuilder, CSRBatch
+from parameter_server_tpu_torch.data.batch import BatchBuilder, CSRBatch, trim_batch
 from parameter_server_tpu_torch.data.reader import MinibatchReader
 from parameter_server_tpu_torch.kv.store import (
     KVStore,
@@ -187,6 +196,7 @@ class LinearMethod:
         while b is not None:
             with trace.span("linear.step", cat="step"):
                 with trace.span("linear.h2d", cat="step"):
+                    b = trim_batch(b)
                     dev = batch_to_device(b, self.device)
                 with trace.span("linear.launch", cat="step"):
                     _, out = train_step(self.updater, self.store.state, dev)
@@ -222,9 +232,8 @@ class LinearMethod:
         """Returns (labels, probs) over the stream."""
         ys, ps = [], []
         for b in batches:
-            probs = predict_step(
-                self.updater, self.store.state, batch_to_device(b, self.device)
-            )
+            dev = batch_to_device(trim_batch(b), self.device)
+            probs = predict_step(self.updater, self.store.state, dev)
             ps.append(probs[: b.num_examples].cpu().numpy())
             ys.append(b.labels[: b.num_examples])
         return np.concatenate(ys), np.concatenate(ps)

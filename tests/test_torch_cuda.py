@@ -286,6 +286,44 @@ def test_linear_method_on_card_matches_cpu(dev):
 
 
 @pytest.mark.cuda
+def test_linear_method_on_card_steps_on_the_real_prefix(dev):
+    """``LinearMethod.train`` on bucketed Criteo-shaped batches (39 ids an
+    example, salted by field, power-law ids) against ``train_step`` on the
+    padded batches from the same start: z and n agree within TOL (the two
+    sum the same adds in another atomic order), and K2 runs once a step."""
+    from parameter_server_tpu_torch.data.batch import BatchBuilder
+    from parameter_server_tpu_torch.models import linear as L
+    from parameter_server_tpu_torch.utils.config import PSConfig
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    size, fields, num_keys = 4096, 39, 1 << 22
+    cfg = PSConfig()
+    cfg.data.num_keys, cfg.solver.minibatch = num_keys, size
+    builder = BatchBuilder(num_keys=num_keys, batch_size=size, max_nnz_per_example=64,
+                           bucket_nnz=True)
+    rng = np.random.default_rng(25)
+    splits = np.arange(0, size * fields + 1, fields, dtype=np.int64)
+    slots = np.tile(np.arange(fields, dtype=np.int64), size)
+    batches = [
+        builder.build_flat((rng.random(size) < 0.27).astype(np.float32), splits,
+                           (rng.zipf(1.1, size * fields) % (1 << 24)).astype(np.uint64),
+                           np.ones(size * fields, np.float32), slots)
+        for _ in range(4)
+    ]
+    assert all(b.num_unique < len(b.unique_keys) for b in batches)
+    app = L.LinearMethod(cfg, reporter=ProgressReporter(print_fn=lambda s: None),
+                         device="cuda")
+    padded = {k: v.clone() for k, v in app.store.state.items()}
+    fk.reset_launches()
+    app.train(batches, report_every=len(batches))
+    assert fk.LAUNCHES["ftrl_delta"] == len(batches)
+    for b in batches:
+        L.train_step(app.updater, padded, L.batch_to_device(b, "cuda"))
+    for k in padded:
+        torch.testing.assert_close(app.store.state[k], padded[k], **TOL)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["random", "ties"])
 def test_auc_tensor_on_card_equals_auc_without_a_sync(dev, kind):
     """A report's window on the Criteo cell (50 steps of 8,192 examples):

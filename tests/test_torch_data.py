@@ -96,6 +96,53 @@ def test_batch_builder_matches_jax(kw):
         )
 
 
+def _criteo_shaped_batch(builder, size=256, fields=39, seed=5):
+    """``size`` rows of ``fields`` power-law ids each, salted by field."""
+    rng = np.random.default_rng(seed)
+    keys = (rng.zipf(1.3, (size, fields)) % (1 << 20)).astype(np.uint64).ravel()
+    slots = np.tile(np.arange(fields, dtype=np.int64), size)
+    splits = np.arange(0, size * fields + 1, fields, dtype=np.int64)
+    labels = (rng.random(size) < 0.27).astype(np.float32)
+    return builder.build_flat(labels, splits, keys, np.ones(size * fields, np.float32), slots)
+
+
+def _trim_cases():
+    bucketed = TB.BatchBuilder(num_keys=1 << 22, batch_size=256, max_nnz_per_example=64,
+                               bucket_nnz=True)
+    labels, keys, vals, _ = TS.make_sparse_logistic(100, 600, nnz_per_example=9, seed=3)
+    filtered = TB.BatchBuilder(num_keys=4096, batch_size=100, max_nnz_per_example=40,
+                               freq_min_count=2)
+    empty = TB.BatchBuilder(num_keys=4096, batch_size=16, max_nnz_per_example=8,
+                            bucket_nnz=True)
+    kept = filtered.build(labels, keys, vals)
+    # the keys seen once in the batch were dropped before localization
+    assert 0 < kept.num_entries < sum(map(len, keys))
+    return {
+        "bucketed_criteo": _criteo_shaped_batch(bucketed),
+        "filtered": kept,
+        "no_entries": empty.build(np.ones(10, np.float32), [np.zeros(0, np.uint64)] * 10,
+                                  [np.zeros(0, np.float32)] * 10),
+    }
+
+
+@pytest.mark.parametrize("case", ["bucketed_criteo", "filtered", "no_entries"])
+def test_trim_batch_is_pad_batch_inverse(case):
+    b = _trim_cases()[case]
+    t = TB.trim_batch(b)
+    assert len(t.unique_keys) == b.num_unique < len(b.unique_keys)
+    for f in ("local_ids", "row_ids", "values"):
+        assert len(getattr(t, f)) == b.num_entries < len(getattr(b, f)), f
+    for f in ("unique_keys", "local_ids", "row_ids", "values"):
+        x, y = getattr(t, f), getattr(b, f)
+        # a zero-length view shares no bytes; it still starts where its array does
+        assert np.shares_memory(x, y) or (x.size == 0 and x.ctypes.data == y.ctypes.data), f
+    for f in ("labels", "example_mask", "row_splits"):
+        assert getattr(t, f) is getattr(b, f), f
+    assert (t.num_examples, t.num_unique, t.num_entries) == (
+        b.num_examples, b.num_unique, b.num_entries)
+    _same_batch(TB.pad_batch(t, len(b.values), len(b.unique_keys)), b)
+
+
 def test_synthetic_data_matches_jax():
     a = TS.make_sparse_logistic(50, 300, nnz_per_example=6, seed=4)
     b = JS.make_sparse_logistic(50, 300, nnz_per_example=6, seed=4)

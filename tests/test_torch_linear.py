@@ -78,6 +78,42 @@ def test_train_steps_match_jax(algo):
     assert fk.LAUNCHES == {"ftrl_delta": 0, "ftrl_push": 0}  # CPU: plain path
 
 
+@pytest.mark.parametrize("algo", ["ftrl", "adagrad", "sgd"])
+def test_train_step_on_the_real_prefix_equals_the_padded_step(algo):
+    """A pad adds an exact zero after the real adds, so the step on a batch's
+    real prefix (``trim_batch``) gives the padded step's bits."""
+    from parameter_server_tpu_torch.data.batch import trim_batch
+
+    _, tcfg = _cfgs(algo)
+    tu = TL.updater_from_config(tcfg)
+    padded, real = tu.init(K, 1, device="cpu"), tu.init(K, 1, device="cpu")
+    for b in _batches(seed=21):
+        assert b.num_entries < len(b.values) and b.num_unique < len(b.unique_keys)
+        _, want = TL.train_step(tu, padded, TL.batch_to_device(b, "cpu"))
+        _, got = TL.train_step(tu, real, TL.batch_to_device(trim_batch(b), "cpu"))
+        for k in ("loss_sum", "logits", "probs"):
+            assert torch.equal(got[k], want[k]), k
+        for k in padded:
+            assert torch.equal(real[k], padded[k]), k
+
+
+@pytest.mark.parametrize("algo", ["ftrl", "adagrad", "sgd"])
+def test_predict_on_the_real_prefix_equals_the_padded_predict(algo):
+    """``LinearMethod.predict`` steps on each batch's real prefix and gives
+    ``predict_step``'s bits on the padded batch, after training."""
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter as TR
+
+    _, tcfg = _cfgs(algo)
+    app = TL.LinearMethod(tcfg, TR(print_fn=lambda s: None), device="cpu")
+    batches = _batches(seed=22)
+    app.train(batches[:3], report_every=3)
+    ys, ps = app.predict(batches)
+    want = [TL.predict_step(app.updater, app.store.state, TL.batch_to_device(b, "cpu"))
+            [: b.num_examples].numpy() for b in batches]
+    assert np.array_equal(ps, np.concatenate(want))
+    assert np.array_equal(ys, np.concatenate([b.labels[: b.num_examples] for b in batches]))
+
+
 def test_linear_method_train_matches_jax():
     jcfg, tcfg = _cfgs()
     batches = _batches(8, seed=12)
@@ -113,8 +149,8 @@ def test_train_names_its_loop_under_the_profiler(report_every, tmp_path):
     """Under ``torch.profiler``, ``train`` opens one ``linear.step`` a batch
     (its copies, its launch and the next fetch inside), one
     ``linear.report`` a report (the readback and the AUC inside, no step
-    around it), and counts each batch's slots and pad slots; untraced, it
-    records nothing."""
+    around it), and counts the slots and pad slots each step carries;
+    untraced, it records nothing."""
     from torch.profiler import ProfilerActivity, profile
 
     from parameter_server_tpu_torch.utils import trace
@@ -160,8 +196,9 @@ def test_train_names_its_loop_under_the_profiler(report_every, tmp_path):
             assert "parent_id" not in e["args"]
     counters = {n: [e["args"]["value"] for e in ring if e["ph"] == "C" and e["name"] == n]
                 for n in ("linear.slots", "linear.pad_slots")}
-    assert counters["linear.slots"] == [len(b.unique_keys) for b in batches]
-    assert counters["linear.pad_slots"] == [len(b.unique_keys) - b.num_unique for b in batches]
+    # the step carries each batch's real prefix: its slots, no pads
+    assert counters["linear.slots"] == [b.num_unique for b in batches]
+    assert counters["linear.pad_slots"] == [0] * len(batches)
 
 
 @pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])
