@@ -15,17 +15,23 @@ the script exits nonzero without printing a result:
              that start past a 16-byte boundary) and time both with CUDA
              events beside the kernel's bound, cycling input sets that
              together exceed the L2 cache so each call finds its rows cold.
-             K2 (FTRL delta) is also timed warm, one input set repeated as
-             the worker step finds its rows in L2. K1 (FTRL push) is timed
-             at the server's push (~131k rows) and at 4x it (~523k rows),
-             each beside its access pattern's floor: PyTorch's gather of z
-             and n at the same keys (index_select), which moves the read
-             half of K1's sectors with none of its arithmetic. K3 (AdaGrad
-             push) is also timed against torch.optim.Adagrad's step on a
-             sparse gradient of the same rows, the yardstick.
+             K2 (FTRL delta), which only the aggregate push runs, one
+             launch over a whole kv shard, is timed at the 1x1 mesh's shard
+             (2^24 rows; one input set is six times the L2). K1 (FTRL push)
+             is timed at the server's push (~131k rows) and at 4x it
+             (~523k rows), each beside its access pattern's floor:
+             PyTorch's gather of z and n at the same keys (index_select),
+             which moves the read half of K1's sectors with none of its
+             arithmetic; and, checked there too, at the worker step's push
+             (a batch's real prefix, ~14.9k slots into 2^24 rows), cold
+             and warm, the batch's own keys repeated, as rows the step's
+             pull has just gathered sit in L2. K3 (AdaGrad push) is also
+             timed against torch.optim.Adagrad's step on a sparse gradient
+             of the same rows, the yardstick.
 4. worker  — LinearMethod trains 12 minibatches (8192 examples, 32 nnz per
              example, 2^18 features) against a 2^24-key FTRL table; the
-             first 3 steps' loss matches a CPU run of the port (rtol 1e-4).
+             first 3 steps' loss matches a CPU run of the port (rtol 1e-4);
+             each step pushes through K1 (ftrl_push) once, K2 never.
 5. server  — a 2^27-key FTRL KVStore answers coalesced pushes from 8
              simulated workers and pulls of their keys; the pulled weights
              match a CPU plain update of the touched rows.
@@ -249,7 +255,7 @@ the script exits nonzero without printing a result:
              into 2^24 equal to the numpy localizer, both timed; then
              LinearMethod at phase 4's width fed by MinibatchReader(backend=
              "native") and "python" over the 8 files: the first 3 losses
-             within E2E_RTOL, K2 once a step, each run's time parse
+             within E2E_RTOL, K1 once a step, each run's time parse
              included. (b) PodTrainer.train_files_dynamic on a world of one
              on NCCL against a Coordinator in a thread, per_worker, 2 epochs
              over the 8 files: every item done once, the weights and epoch
@@ -399,9 +405,9 @@ SEED = 7
 # that (2^19 draws, ~523k rows), more slots than the ~270k threads an
 # H100 holds resident at once
 PUSH_SETS, PUSH_DRAWS, LARGE_PUSH_DRAWS = 16, 1 << 17, 1 << 19
-# K2 timing: cold cycles this many input sets (~160 MB at the worker's
-# shape); warm repeats one set, ~20 MB that stay in L2 as in the step
-DELTA_SETS = 8
+# K1 at the worker step's push: cold cycles this many sets of a batch's
+# width, uniform keys as the hashed ones are, ~150 MB of 32-byte sectors
+WORKER_PUSH_SETS = 160
 # the embedding table: bench.py's fused_push_adagrad_v64 cell (vdim 64,
 # unique keys of 2^15 draws a push) moved from 2^20 to 2^22 rows, so w + n
 # are 2 GiB; K3 timing cycles 16 such key sets, ~25 MB of rows and
@@ -853,6 +859,43 @@ def time_ftrl_push(fk, z, n, sets, u: float) -> dict:
             "gather_floor_ms": g_ms, "call_ms": k_call, "plain_call_ms": p_call}
 
 
+def time_shard_delta(fk, dev, gen, rows: int) -> dict:
+    """Device and host-inclusive times (cuda_ms) of K2 and its plain
+    version over one (``rows``, 1) shard, the aggregate push's one launch
+    a step, beside the bound: each row's z, n and g read and its dz, dn
+    written once. One input set is 20 bytes a row, far past the L2 at a
+    shard's size, so every call finds its rows cold."""
+    z, n, g = (draw((rows, 1), generator=gen, device=dev) * scale
+               for draw, scale in ((torch.randn, 2), (torch.rand, 4), (torch.randn, 1)))
+    k_ms, k_call = cuda_ms(lambda i: fk.ftrl_delta(z, n, g, **HYPER), 200)
+    p_ms, p_call = cuda_ms(lambda i: fk.ftrl_delta_plain(z, n, g, **HYPER), PLAIN_ITERS)
+    b_ms, b_by = bound(20 * rows, FTRL_FLOPS * rows)
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "call_ms": k_call, "plain_call_ms": p_call}
+
+
+def check_worker_push(fk, dev, gen, rng, keys_np) -> dict:
+    """K1 at the worker step's push: ``keys_np``, a batch's real prefix of
+    unique keys (pad slot 0 first), into a (WORKER_KEYS, 1) table pair.
+    Held to its plain version there (``check_push``, with and without
+    l2), then timed: cold, cycling WORKER_PUSH_SETS sets of as many
+    uniform keys (``time_ftrl_push``, whose bound is this push's: each
+    slot's index and gradient read once, each row's z, n read and written
+    once); warm, the batch's own keys repeated, as the step's push finds
+    the rows its pull has just gathered."""
+    err = max(check_push("ftrl_push", fk.ftrl_push, fk.ftrl_push_plain, dev, gen, keys_np,
+                         WORKER_KEYS, 1, hyper) for hyper in (HYPER, HYPER_L2))
+    torch.cuda.empty_cache()
+    z = torch.zeros((WORKER_KEYS, 1), device=dev)
+    n = torch.zeros((WORKER_KEYS, 1), device=dev)
+    t = time_ftrl_push(fk, z, n, *key_sets(rng, gen, dev, WORKER_PUSH_SETS, WORKER_KEYS,
+                                           len(keys_np), 1))
+    idx = torch.from_numpy(keys_np.astype(np.int32)).to(dev)
+    g = torch.randn((len(keys_np), 1), generator=gen, device=dev)
+    t["warm_ms"], _ = cuda_ms(lambda i: fk.ftrl_push(z, n, idx, g, **HYPER), 200)
+    return {"shape": [WORKER_KEYS, 1, len(keys_np)], "max_abs_err": err, **t}
+
+
 def adagrad_bound(slots: float, rows: float, vdim: int) -> tuple[float, str]:
     """K3's bound for a push of ``slots`` slots over ``rows`` distinct rows:
     each slot's index and gradient read once, each distinct row's w and n
@@ -1166,8 +1209,8 @@ def phase_wide_deep(dev, gen) -> tuple[dict, dict, float, float, list, torch.Ten
     profile of one window entry. Returns (launches, the kernels' times at
     this shape, K1's and K3's max abs errors, the batches, and a copy of
     the initial embedding table on the card for phase 11)."""
+    from parameter_server_tpu_torch.data.batch import batch_to_device
     from parameter_server_tpu_torch.models import wide_deep as wdm
-    from parameter_server_tpu_torch.models.linear import batch_to_device
     from parameter_server_tpu_torch.ops import adagrad_kernels as ak
     from parameter_server_tpu_torch.ops import ftrl_kernels as fk
     from parameter_server_tpu_torch.utils.metrics import ProgressReporter
@@ -1936,7 +1979,8 @@ def phase_pod(dev, gen, batches, raw, ratings, wd_batches, wd_init) -> dict:
     the launches a kernel made on each path, the shard checks' errors and
     times."""
     from parameter_server_tpu_torch.models import matrix_fac as mfm
-    from parameter_server_tpu_torch.models.linear import LinearMethod, batch_to_device, train_step
+    from parameter_server_tpu_torch.data.batch import batch_to_device
+    from parameter_server_tpu_torch.models.linear import LinearMethod, train_step
     from parameter_server_tpu_torch.ops import adagrad_kernels as ak
     from parameter_server_tpu_torch.ops import ftrl_kernels as fk
     from parameter_server_tpu_torch.ops.sparse import csr_grad, logistic_loss
@@ -4111,16 +4155,16 @@ def phase_native(files: list, criteo: Path, device: str) -> dict:
         app.train(reader, report_every=1)
         sync(device)
         secs[backend] = time.perf_counter() - t0
-        launches[backend] = fk.LAUNCHES["ftrl_delta"]
+        launches[backend] = dict(fk.LAUNCHES)
         hist[backend] = rep.history
         del app
     steps = len(hist["native"])
     if steps != len(files) or len(hist["python"]) != steps:
         raise AssertionError(f"native-fed worker: {steps} steps, Python-fed "
                              f"{len(hist['python'])}, want {len(files)}")
-    if launches["native"] != steps:
-        raise AssertionError(f"native-fed worker launched ftrl_delta {launches['native']} "
-                             f"times in {steps} steps")
+    if (launches["native"]["ftrl_push"], launches["native"]["ftrl_delta"]) != (steps, 0):
+        raise AssertionError(f"native-fed worker launched {launches['native']} in {steps} "
+                             "steps, want ftrl_push once a step and ftrl_delta never")
     for step, (a, b) in enumerate(zip(hist["native"][:E2E_STEPS], hist["python"])):
         if not np.isclose(a["objv"], b["objv"], rtol=E2E_RTOL, atol=0.0):
             raise AssertionError(f"native-fed worker step {step}: loss {a['objv']} vs the "
@@ -4128,10 +4172,11 @@ def phase_native(files: list, criteo: Path, device: str) -> dict:
     out["worker"] = {b: {"seconds": secs[b], "step_s": secs[b] / steps,
                          "ex_per_s": steps * BATCH / secs[b], "launches": launches[b]}
                      for b in secs}
-    out["launches"] = {"native_worker_ftrl_delta": launches["native"]}
+    out["launches"] = {"native_worker_ftrl_push": launches["native"]["ftrl_push"]}
     log(f"native-fed worker ok: {steps} steps of {BATCH} (parse included) in "
         f"{secs['native']:.3f} s native vs {secs['python']:.3f} s Python-fed; the first "
-        f"{E2E_STEPS} losses agree within E2E_RTOL; ftrl_delta launched once a step")
+        f"{E2E_STEPS} losses agree within E2E_RTOL; ftrl_push launched once a step, "
+        "ftrl_delta never")
     return out
 
 
@@ -5206,7 +5251,7 @@ def main() -> int:
               "script; run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(root))
-    from parameter_server_tpu_torch.data.batch import BatchBuilder
+    from parameter_server_tpu_torch.data.batch import BatchBuilder, trim_batch
     from parameter_server_tpu_torch.data.synthetic import make_sparse_logistic
     from parameter_server_tpu_torch.filters.fixed_point import FixedPointCodec
     from parameter_server_tpu_torch.kv.store import KVStore, coalesce_pushes
@@ -5263,12 +5308,12 @@ def main() -> int:
     emb_rounds = [simulated_pushes(rng, EMB_KEYS, EMB_WORKERS, EMB_WORKER_DRAWS,
                                    EMB_HOT, EMB_VDIM) for _ in range(EMB_ROUNDS)]
     mf_users, mf_items, mf_ratings = synthetic_ratings(np.random.default_rng(SEED + 1))
-    # K2's shape on the worker step: LinearMethod.train steps on each
-    # batch's real prefix (trim_batch), num_unique slots, not the padded U
-    u_worker = batches[0].num_unique
+    # K1 is checked and timed at the worker step's push: LinearMethod.train
+    # steps on each batch's real prefix (trim_batch), num_unique slots
+    worker_keys = trim_batch(batches[0]).unique_keys
     log(f"set-up data in {time.perf_counter() - t0:.2f} s: batch (B, NNZ, U) "
         f"= {batches[0].shape}, real prefix (NNZ, U) = ({batches[0].num_entries}, "
-        f"{u_worker}); {MF_RATINGS} ratings, mean {mf_ratings.mean():.4f}")
+        f"{len(worker_keys)}); {MF_RATINGS} ratings, mean {mf_ratings.mean():.4f}")
     # the servers' host-side coalescing of one round, timed alone
     t0 = time.perf_counter()
     push_idx, _ = coalesce_pushes(*rounds[0])
@@ -5282,42 +5327,29 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     kernels = {}
+    # K2 runs only in the aggregate push, one launch over a whole kv shard:
+    # checked and timed at the 1x1 mesh's shard, (WORKER_KEYS, 1)
     err_delta = max(
         check_delta(fk, dev, gen, 1 << 20, 1),
         check_delta(fk, dev, gen, 1 << 17, 8),
-        check_delta(fk, dev, gen, u_worker, 1),
+        check_delta(fk, dev, gen, WORKER_KEYS, 1),
         check_delta(fk, dev, gen, 1 << 17, 8, HYPER_L2),
-        check_delta(fk, dev, gen, u_worker, 1, offset=True),
+        check_delta(fk, dev, gen, WORKER_KEYS, 1, offset=True),
         check_delta(fk, dev, gen, 4097, 1, HYPER_L2, offset=True),
     )
-    # time at the worker step's shape (U, 1): cold, cycling input sets so
-    # the 50 MB L2 cache cannot hold them between calls; warm, repeating
-    # one set, as the step finds the rows index_select has just gathered
-    sets = [
-        (torch.randn((u_worker, 1), generator=gen, device=dev),
-         torch.rand((u_worker, 1), generator=gen, device=dev),
-         torch.randn((u_worker, 1), generator=gen, device=dev))
-        for _ in range(DELTA_SETS)
-    ]
-    k_ms, k_call = cuda_ms(lambda i: fk.ftrl_delta(*sets[i % DELTA_SETS], **HYPER), 200)
-    w_ms, _ = cuda_ms(lambda i: fk.ftrl_delta(*sets[0], **HYPER), 200)
-    p_ms, p_call = cuda_ms(
-        lambda i: fk.ftrl_delta_plain(*sets[i % DELTA_SETS], **HYPER), PLAIN_ITERS)
-    b_ms, b_by = bound(20 * u_worker, FTRL_FLOPS * u_worker)
+    torch.cuda.empty_cache()
+    t = time_shard_delta(fk, dev, gen, WORKER_KEYS)
     kernels["ftrl_delta"] = {
         "name": "ftrl_delta", "route": "cuda",
         "source": "parameter_server_tpu_torch/csrc/ftrl.cu",
         "replaces": "parameter_server_tpu/ops/pallas_kernels.py:84",
-        "shape": [u_worker, 1], "max_abs_err": err_delta,
-        "ms": k_ms, "warm_ms": w_ms, "plain_ms": p_ms,
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "call_ms": k_call, "plain_call_ms": p_call,
+        "shape": [WORKER_KEYS, 1], "max_abs_err": err_delta, "library_ms": None, **t,
     }
-    del sets
+    torch.cuda.empty_cache()
     log(f"ftrl_delta ok: max abs err {err_delta:.3g} (offset views included); device "
-        f"{k_ms:.5f} ms kernel cold ({DELTA_SETS} sets cycled), {w_ms:.5f} ms warm (one "
-        f"set), {p_ms:.5f} ms plain, bound {b_ms:.5f} ms ({b_by}) at ({u_worker}, 1); "
-        f"host-inclusive per call {k_call:.5f} ms kernel, {p_call:.5f} ms plain")
+        f"{t['ms']:.5f} ms kernel, {t['plain_ms']:.5f} ms plain, bound {t['bound_ms']:.5f} "
+        f"ms ({t['bound_by']}) over the ({WORKER_KEYS}, 1) shard; host-inclusive per call "
+        f"{t['call_ms']:.5f} ms kernel, {t['plain_call_ms']:.5f} ms plain")
 
     err_push = []
     for vdim, hyper in ((1, HYPER), (8, HYPER), (1, HYPER_L2)):
@@ -5355,6 +5387,18 @@ def main() -> int:
             f"{t['plain_call_ms']:.5f} ms plain")
     del z, n, push_times, t, large
     torch.cuda.empty_cache()
+    w = check_worker_push(fk, dev, gen, rng, worker_keys)
+    kernels["ftrl_push"]["worker"] = w
+    kernels["ftrl_push"]["max_abs_err"] = max(kernels["ftrl_push"]["max_abs_err"],
+                                              w["max_abs_err"])
+    torch.cuda.empty_cache()
+    log(f"ftrl_push ok at the worker step's push ({w['shape'][2]} slots of batch 0's real "
+        f"prefix into {WORKER_KEYS} rows): max abs err {w['max_abs_err']:.3g}, untouched "
+        f"rows bit-identical; device {w['ms']:.5f} ms kernel cold ({WORKER_PUSH_SETS} sets of "
+        f"{w['rows']:.1f} uniform keys cycled), {w['warm_ms']:.5f} ms warm (the batch's keys "
+        f"repeated), {w['plain_ms']:.5f} ms plain, bound {w['bound_ms']:.5f} ms "
+        f"({w['bound_by']}); access-pattern floor (gather of z, n) "
+        f"{w['gather_floor_ms']:.5f} ms; host-inclusive per call {w['call_ms']:.5f} ms kernel")
 
     err_ada = []
     for vdim, l2 in ((16, 0.0), (16, 0.01), (EMB_VDIM, 0.0), (EMB_VDIM, 0.01)):
@@ -5398,9 +5442,9 @@ def main() -> int:
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     worker_launches = dict(fk.LAUNCHES)
-    if worker_launches["ftrl_delta"] < STEPS:
-        raise AssertionError(f"worker phase launched ftrl_delta "
-                             f"{worker_launches['ftrl_delta']} times, want {STEPS}")
+    if (worker_launches["ftrl_push"], worker_launches["ftrl_delta"]) != (STEPS, 0):
+        raise AssertionError(f"worker phase launched {worker_launches}, want ftrl_push "
+                             f"{STEPS} times (once a step) and ftrl_delta never")
     hist = rep.history
     if not all(np.isfinite(r["objv"]) for r in hist) or not hist[-1]["auc"] > 0.5:
         raise AssertionError(f"worker: bad progress {hist[-1]}")
@@ -5416,7 +5460,8 @@ def main() -> int:
     ex_s = sorted(r["ex_per_sec"] for r in hist[1:])
     log(f"worker ok: {STEPS} steps in {t_train:.3f} s; median {ex_s[len(ex_s) // 2]:.1f}"
         f" ex/s over steps 2-{STEPS}; progressive AUC {hist[-1]['auc']:.4f}; "
-        f"loss_sum of steps 1-3 matches the CPU run; launches {worker_launches}")
+        f"loss_sum of steps 1-3 matches the CPU run; ftrl_push once a step, ftrl_delta "
+        f"never: launches {worker_launches}")
     log_profile("worker profile, 4 steps",
                 lambda: app.train(batches[:4], report_every=4))
     del app
@@ -5698,6 +5743,7 @@ def main() -> int:
     kernels["adagrad_push"]["max_abs_err"] = max(kernels["adagrad_push"]["max_abs_err"],
                                                  err_wd_k3, pod["err"]["adagrad_push"])
     kernels["ftrl_push"]["launches_by_path"] = {
+        "worker": worker_launches["ftrl_push"], "native_worker": p16l["native_worker_ftrl_push"],
         "server": server_launches, "wide_deep": wd_launches["ftrl_push"],
         "pod_1x1_per_worker": pl["pod_1x1_per_worker"]["ftrl_push"],
         "pod_2x2_per_worker": pl["pod_2x2_linear_method-per_worker"]["ftrl_push"],
@@ -5741,12 +5787,10 @@ def main() -> int:
     kernels["adagrad_push"]["wide_deep"] = wd_kernels["adagrad_push"]
     kernels["adagrad_push"]["mf"] = k3_mf
     kernels["ftrl_delta"]["launches_by_path"] = {
-        "worker": worker_launches["ftrl_delta"],
         "pod_1x1_aggregate": pl["pod_1x1_aggregate"]["ftrl_delta"],
         "pod_2x2_aggregate": pl["pod_2x2_linear_method-aggregate"]["ftrl_delta"],
         "pod_1x1_wd_aggregate": pl["pod_1x1_wd_aggregate"]["ftrl_delta"],
-        "pod_2x2_wd_aggregate": pl["pod_2x2_wide_deep-aggregate"]["ftrl_delta"],
-        "native_worker": p16l["native_worker_ftrl_delta"]}
+        "pod_2x2_wd_aggregate": pl["pod_2x2_wide_deep-aggregate"]["ftrl_delta"]}
     kernels["ftrl_delta"]["launches"] = sum(kernels["ftrl_delta"]["launches_by_path"].values())
     kernels["ftrl_delta"]["shard"] = pod["times"]["k2_shard"]
     wd_agg = pod["times"]["pod_1x1_wd_aggregate"]

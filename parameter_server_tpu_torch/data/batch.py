@@ -22,8 +22,10 @@ library loads, else numpy; both give the same arrays bit for bit.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Any
 
 import numpy as np
+import torch
 
 from parameter_server_tpu_torch.utils.hashing import PAD_KEY, hash_keys
 
@@ -144,6 +146,16 @@ def trim_batch(b: CSRBatch) -> CSRBatch:
     n = b.num_entries
     return replace(b, unique_keys=b.unique_keys[: b.num_unique], local_ids=b.local_ids[:n],
                    row_ids=b.row_ids[:n], values=b.values[:n])
+
+
+_BATCH_FIELDS = (
+    "unique_keys", "local_ids", "row_ids", "values", "labels", "example_mask",
+)
+
+
+def batch_to_device(b: CSRBatch, device: Any) -> dict[str, torch.Tensor]:
+    """The CSRBatch arrays as tensors on ``device``."""
+    return {f: torch.from_numpy(getattr(b, f)).to(device) for f in _BATCH_FIELDS}
 
 
 class BatchBuilder:

@@ -8,12 +8,17 @@ fused push wrappers (``ops.ftrl_kernels.ftrl_push``,
 ``ops.adagrad_kernels.adagrad_push``), which launch the hand-written
 kernel on CUDA and run gather -> delta -> ``index_add_`` on the CPU;
 ``Sgd`` runs gather -> ``delta`` -> ``index_add_`` on both.
+Every in-place update of a table by an updater goes through ``push`` or,
+for ids that repeat, ``push_repeated``. Both skip the slots of an index
+tensor whose row lies outside [0, K), as the kernels do (a kv shard's
+push hands them the keys of other shards so); host indices raise.
 
 Invariants (kept by the data layer's localizer):
   - ``idx`` passed to ``push`` contains each real key at most once; padding
     slots carry ``idx == PAD_KEY (0)`` and ``grad == 0``. Duplicate real
-    keys must be pre-aggregated (segment-summed) by the caller: the updater
-    computes one *delta* per (key, grad) pair.
+    keys must be pre-aggregated (segment-summed) by the caller, or pushed
+    with ``push_repeated``: the updater computes one *delta* per
+    (key, grad) pair.
   - Row 0 is the pad row: it absorbs zero-gradient updates and is excluded
     from dumps and nnz counts. With AdaGrad and ``lambda_l2 > 0`` its state
     must stay zero, or each pad slot would move it (the fused kernel and
@@ -100,34 +105,60 @@ def _as_grad(grad: Any, num_slots: int, device: torch.device,
     return grad.to(device=device, dtype=dtype).reshape(num_slots, -1).contiguous()
 
 
-def pull(updater: Updater, state: State, idx: Any) -> torch.Tensor:
-    """Gather weights for (unique, padded) key indices: (U,) -> (U, vdim)."""
+def pull_rows(state: State, idx: Any) -> State:
+    """Every table's rows at ``idx``, one gather a table: what ``pull``
+    derives the weights from, and what ``push_repeated`` may reuse."""
     table = next(iter(state.values()))
     i = _as_index(idx, table.shape[0], table.device)
-    rows = {k: v.index_select(0, i) for k, v in state.items()}
-    return updater.weights(rows)
+    return {k: v.index_select(0, i) for k, v in state.items()}
+
+
+def pull(updater: Updater, state: State, idx: Any) -> torch.Tensor:
+    """Gather weights for (unique, padded) key indices: (U,) -> (U, vdim)."""
+    return updater.weights(pull_rows(state, idx))
 
 
 def push(updater: Updater, state: State, idx: Any, grad: Any) -> State:
     """Apply the server updater to the touched rows, IN PLACE; returns
     ``state`` itself.
 
-    grad: (U, vdim) pre-aggregated gradient aligned with ``idx``.
+    grad: (U, vdim) pre-aggregated gradient aligned with ``idx``, each real
+    key at most once. SGD takes ``push_repeated``'s route.
     """
     table = next(iter(state.values()))
     i = _as_index(idx, table.shape[0], table.device)
     g = _as_grad(grad, i.shape[0], table.device, table.dtype)
     if isinstance(updater, Ftrl):
         ftrl_push(state["z"], state["n"], i, g, **updater.hyper)
-        return state
-    if isinstance(updater, Adagrad):
+    elif isinstance(updater, Adagrad):
         adagrad_push(state["w"], state["n"], i, g, eta=updater.eta,
                      eps=updater.eps, l2=updater.lambda_l2)
-        return state
-    rows = {k: v.index_select(0, i) for k, v in state.items()}
+    else:
+        push_repeated(updater, state, i, g)
+    return state
+
+
+def push_repeated(updater: Updater, state: State, idx: Any, grad: Any,
+                  rows: State | None = None) -> State:
+    """``push`` for ids that may repeat, IN PLACE; returns ``state``: every
+    occurrence's delta from the same pulled row, ``index_add_``ed (the JAX
+    ``.at[].add``), no push kernel (K1 and K3 take each key at most once).
+    A slot on a row outside [0, K) adds a masked zero onto row 0, with no
+    host sync. ``rows``: the caller's ``pull_rows(state, idx)``, taken
+    before any write to these tables, reused with no second gather and no
+    mask (the gather took every id, so each is in range)."""
+    table = next(iter(state.values()))
+    i = _as_index(idx, table.shape[0], table.device)
+    g = _as_grad(grad, i.shape[0], table.device, table.dtype)
+    mask = None
+    if rows is None:
+        in_range = (i >= 0) & (i < table.shape[0])
+        i = torch.where(in_range, i, 0)
+        rows = pull_rows(state, i)
+        mask = in_range[:, None].to(g.dtype)
     deltas = updater.delta(rows, g)
     for k, v in state.items():
-        v.index_add_(0, i, deltas[k])
+        v.index_add_(0, i, deltas[k] if mask is None else mask * deltas[k])
     return state
 
 

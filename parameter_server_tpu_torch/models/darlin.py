@@ -784,19 +784,10 @@ class Darlin:
 
     @torch.no_grad()
     def predict(self, batches: Iterable[CSRBatch]) -> np.ndarray:
-        from parameter_server_tpu_torch.models.linear import batch_to_device
-        from parameter_server_tpu_torch.ops.sparse import csr_logits
+        from parameter_server_tpu_torch.models.evaluation import linear_predict
 
-        out = []
         w = _to_device(self.w, self.device)
-        for b in batches:
-            dev = batch_to_device(b, self.device)
-            logits = csr_logits(
-                w.index_select(0, dev["unique_keys"]), dev["values"], dev["local_ids"],
-                dev["row_ids"], num_rows=dev["labels"].shape[0],
-            )
-            out.append(torch.sigmoid(logits).cpu().numpy()[: b.num_examples])
-        return np.concatenate(out)
+        return linear_predict(batches, self.device, lambda u: w.index_select(0, u))[1]
 
 
 def _gather(mesh, t: torch.Tensor, axis: str) -> torch.Tensor:

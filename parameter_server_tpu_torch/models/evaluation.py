@@ -1,20 +1,48 @@
 """Batch model evaluation: load a text model dump (key\\tweight) plus
-validation files, compute AUC and logloss."""
+validation files, compute AUC and logloss; and the linear predict that
+every linear model's evaluation runs (``linear_predict``)."""
 
 from __future__ import annotations
 
+from collections.abc import Callable, Iterable
 from pathlib import Path
 from typing import Any
 
 import numpy as np
 import torch
 
-from parameter_server_tpu_torch.data.batch import BatchBuilder
+from parameter_server_tpu_torch.data.batch import (
+    BatchBuilder,
+    CSRBatch,
+    batch_to_device,
+    trim_batch,
+)
 from parameter_server_tpu_torch.data.reader import MinibatchReader
 from parameter_server_tpu_torch.device import resolve_device
 from parameter_server_tpu_torch.models import metrics as M
 from parameter_server_tpu_torch.ops.sparse import csr_logits
 from parameter_server_tpu_torch.utils.checkpoint import load_weights_text
+
+
+def linear_predict(
+    batches: Iterable[CSRBatch], device: Any,
+    weights_of: Callable[[torch.Tensor], torch.Tensor],
+) -> tuple[np.ndarray, np.ndarray]:
+    """Host (labels, probs) of a linear model over ``batches``: each batch's
+    real prefix (``trim_batch``) on ``device``, sigmoid of its CSR logits
+    from ``weights_of(unique_keys)``, the (U,) or (U, 1) weights of its
+    unique keys. A pad entry adds an exact zero onto example row 0, so the
+    probabilities are the padded batch's, and the pads stay on the host."""
+    ys, ps = [], []
+    for b in batches:
+        dev = batch_to_device(trim_batch(b), device)
+        logits = csr_logits(
+            weights_of(dev["unique_keys"]), dev["values"], dev["local_ids"],
+            dev["row_ids"], num_rows=len(b.labels),
+        )
+        ps.append(torch.sigmoid(logits)[: b.num_examples].cpu().numpy())
+        ys.append(b.labels[: b.num_examples])
+    return np.concatenate(ys), np.concatenate(ps)
 
 
 def evaluate_model(
@@ -40,26 +68,11 @@ def evaluate_model(
         max_nnz_per_example=max_nnz_per_example,
         key_mode=key_mode,
     )
-    ys, ps = [], []
-    n = 0
-    for b in MinibatchReader(files, fmt, builder):
-        t = {
-            f: torch.from_numpy(getattr(b, f)).to(dev)
-            for f in ("unique_keys", "values", "local_ids", "row_ids")
-        }
-        logits = csr_logits(
-            w.index_select(0, t["unique_keys"]),
-            t["values"], t["local_ids"], t["row_ids"],
-            num_rows=len(b.labels),
-        )
-        ps.append(torch.sigmoid(logits)[: b.num_examples].cpu().numpy())
-        ys.append(b.labels[: b.num_examples])
-        n += b.num_examples
-    y = np.concatenate(ys)
-    p = np.concatenate(ps)
+    y, p = linear_predict(MinibatchReader(files, fmt, builder), dev,
+                          lambda u: w.index_select(0, u))
     return {
         "auc": M.auc(y, p),
         "logloss": M.logloss(y, p),
-        "examples": n,
+        "examples": len(y),
         "nnz_w": int((np.asarray(weights) != 0).sum()),
     }

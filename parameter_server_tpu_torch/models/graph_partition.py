@@ -30,10 +30,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from parameter_server_tpu_torch.data.batch import CSRBatch, trim_batch
+from parameter_server_tpu_torch.data.batch import CSRBatch, batch_to_device, trim_batch
 from parameter_server_tpu_torch.device import resolve_device
 from parameter_server_tpu_torch.kv.store import state_from_numpy, state_to_numpy
-from parameter_server_tpu_torch.models.linear import batch_to_device
 from parameter_server_tpu_torch.utils.config import PSConfig
 
 State = dict[str, torch.Tensor]  # {"presence": (K, k), "sizes": (k,)}

@@ -2,13 +2,11 @@
 
 The flagship app: stream minibatch -> localize -> pull weights -> CSR
 gradient -> push, with the server updater (FTRL/AdaGrad/SGD) applied to the
-touched rows. One ``train_step`` per minibatch: it gathers the touched rows
-once, derives the weights from them (the pull), computes logits, loss and
-gradient, asks the updater for the delta (on CUDA, FTRL's delta is the
-hand-written ``ftrl_delta`` kernel) and scatter-adds it into the tables in
-place. The fused push kernel is not used here: the step's rows are already
-gathered for the pull, so its scatter-add costs the same one round trip per
-row that the fused push would.
+touched rows. One ``train_step`` per minibatch: it pulls the batch's
+weights through ``kv.store.pull``, computes logits, loss and gradient, and
+pushes the gradient through ``kv.store.push``, in place: on CUDA, FTRL's
+push is the hand-written fused kernel K1 (``ftrl_push``), AdaGrad's K3,
+as on every other path that updates a table.
 
 ``LinearMethod.train`` and ``predict`` step on each batch's real prefix
 (``trim_batch``): its entries and unique slots without the bucket's
@@ -41,24 +39,28 @@ from typing import Any
 import numpy as np
 import torch
 
-from parameter_server_tpu_torch.data.batch import BatchBuilder, CSRBatch, trim_batch
+from parameter_server_tpu_torch.data.batch import (
+    BatchBuilder,
+    CSRBatch,
+    batch_to_device,
+    trim_batch,
+)
 from parameter_server_tpu_torch.data.reader import MinibatchReader
 from parameter_server_tpu_torch.kv.store import (
     KVStore,
     State,
+    pull,
+    push,
     state_from_numpy,
     state_to_numpy,
 )
 from parameter_server_tpu_torch.kv.updaters import Updater, make_updater
 from parameter_server_tpu_torch.models import metrics as M
+from parameter_server_tpu_torch.models.evaluation import linear_predict
 from parameter_server_tpu_torch.ops.sparse import csr_grad, csr_logits, logistic_loss
 from parameter_server_tpu_torch.utils import trace
 from parameter_server_tpu_torch.utils.config import PSConfig
 from parameter_server_tpu_torch.utils.metrics import ProgressReporter
-
-_BATCH_FIELDS = (
-    "unique_keys", "local_ids", "row_ids", "values", "labels", "example_mask",
-)
 
 
 def updater_from_config(cfg: PSConfig) -> Updater:
@@ -80,16 +82,14 @@ def updater_from_config(cfg: PSConfig) -> Updater:
 
 def _forward(
     updater: Updater, state: State, batch: dict[str, torch.Tensor]
-) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
-    """Gather the batch's rows once and compute its logits from them."""
-    idx = batch["unique_keys"]
-    rows = {k: v.index_select(0, idx) for k, v in state.items()}
-    w_u = updater.weights(rows)  # pull
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pull the batch's weights and compute its logits from them."""
+    w_u = pull(updater, state, batch["unique_keys"])
     logits = csr_logits(
         w_u, batch["values"], batch["local_ids"], batch["row_ids"],
         num_rows=batch["labels"].shape[0],
     )
-    return rows, logits
+    return w_u, logits
 
 
 def train_step(
@@ -99,15 +99,13 @@ def train_step(
     package donates the state instead). ``batch`` holds the device tensors
     of a CSRBatch (see ``batch_to_device``)."""
     idx = batch["unique_keys"]
-    rows, logits = _forward(updater, state, batch)
+    _, logits = _forward(updater, state, batch)
     loss, err = logistic_loss(logits, batch["labels"], batch["example_mask"])
     g = csr_grad(
         err, batch["values"], batch["local_ids"], batch["row_ids"],
         num_unique=idx.shape[0],
     )
-    deltas = updater.delta(rows, g)  # push: server-side updater ...
-    for k, v in state.items():
-        v.index_add_(0, idx, deltas[k])  # ... scatter-add
+    push(updater, state, idx, g)
     out = {
         "loss_sum": loss,
         "probs": torch.sigmoid(logits),
@@ -121,11 +119,6 @@ def predict_step(
 ) -> torch.Tensor:
     _, logits = _forward(updater, state, batch)
     return torch.sigmoid(logits)
-
-
-def batch_to_device(b: CSRBatch, device: Any) -> dict[str, torch.Tensor]:
-    """The CSRBatch arrays as tensors on ``device``."""
-    return {f: torch.from_numpy(getattr(b, f)).to(device) for f in _BATCH_FIELDS}
 
 
 class LinearMethod:
@@ -230,13 +223,7 @@ class LinearMethod:
 
     def predict(self, batches: Iterable[CSRBatch]) -> tuple[np.ndarray, np.ndarray]:
         """Returns (labels, probs) over the stream."""
-        ys, ps = [], []
-        for b in batches:
-            dev = batch_to_device(trim_batch(b), self.device)
-            probs = predict_step(self.updater, self.store.state, dev)
-            ps.append(probs[: b.num_examples].cpu().numpy())
-            ys.append(b.labels[: b.num_examples])
-        return np.concatenate(ys), np.concatenate(ps)
+        return linear_predict(batches, self.device, self.store.pull)
 
     def evaluate(self, batches: Iterable[CSRBatch]) -> dict[str, float]:
         """Batch evaluation: AUC and logloss over the stream."""

@@ -7,34 +7,24 @@ import torch
 
 
 def auc(labels: np.ndarray, scores: np.ndarray) -> float:
-    """Exact ROC AUC via the rank statistic (ties averaged)."""
-    y = np.asarray(labels).astype(bool)
-    s = np.asarray(scores, dtype=np.float64)
-    n_pos = int(y.sum())
-    n_neg = len(y) - n_pos
-    if n_pos == 0 or n_neg == 0:
-        return float("nan")
-    order = np.argsort(s, kind="mergesort")
-    ranks = np.empty(len(s), dtype=np.float64)
-    s_sorted = s[order]
-    uniq, inv, counts = np.unique(s_sorted, return_inverse=True, return_counts=True)
-    cum = np.cumsum(counts)
-    avg_rank = (cum - (counts - 1) / 2.0).astype(np.float64)
-    ranks[order] = avg_rank[inv]
-    return float((ranks[y].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
+    """Exact ROC AUC via the rank statistic (ties averaged): ``auc_tensor``
+    on the CPU over the scores widened to float64; NaN when a class is
+    empty."""
+    return float(auc_tensor(torch.from_numpy(np.asarray(labels).astype(bool)),
+                            torch.from_numpy(np.ascontiguousarray(scores, dtype=np.float64))))
 
 
 def auc_tensor(labels: torch.Tensor, scores: torch.Tensor) -> torch.Tensor:
-    """``auc`` on tensors, on their own device and without a host sync: a
-    0-dim float64 tensor that equals ``auc(labels, scores)`` bit for bit.
+    """Exact ROC AUC on tensors, on their own device and without a host
+    sync: a 0-dim float64 tensor (``auc`` reads it on the CPU).
 
     Sorted, the scores fall into groups of equal value. A positive beats
     the negatives of lower groups and ties half of its own group's, so
     2U = sum over groups of pos_g * (2 * neg_before_g + neg_g), counted
     exactly in int64; AUC = 2U / (2 * n_pos * n_neg), one float64
-    division of exact integers, as ``auc``'s own division is. The group
+    division of exact integers, the rank statistic's bits. The group
     buffers are N long whatever the number of groups, so no size is read
-    back; with a class empty the division is 0/0, NaN as ``auc`` gives.
+    back; with a class empty the division is 0/0, NaN.
     """
     s, order = torch.sort(scores.reshape(-1))
     pos = (labels.reshape(-1) != 0).to(torch.int64)[order]

@@ -42,7 +42,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from parameter_server_tpu_torch.data.batch import CSRBatch, zero_extend
+from parameter_server_tpu_torch.data.batch import CSRBatch, batch_to_device, zero_extend
 from parameter_server_tpu_torch.data.reader import MinibatchReader
 from parameter_server_tpu_torch.device import resolve_device
 from parameter_server_tpu_torch.kv.store import (
@@ -54,7 +54,6 @@ from parameter_server_tpu_torch.kv.store import (
 )
 from parameter_server_tpu_torch.kv.updaters import Adagrad, Ftrl, Updater
 from parameter_server_tpu_torch.models import metrics as M
-from parameter_server_tpu_torch.models.linear import batch_to_device
 from parameter_server_tpu_torch.ops.sparse import csr_logits
 from parameter_server_tpu_torch.parallel.spmd import (
     _check_push_mode,
@@ -281,7 +280,7 @@ def make_wd_spmd_train_step(
     step(wide_l, emb_l, mlp, opt, batch, num_unique, active, push_seed=None)
     -> (the data group's loss sum, (B,) this shard's probabilities), the
     tables, the MLP and Adam updated in place. ``batch``: this rank's data
-    shard's batch on the device (``models.linear.batch_to_device``);
+    shard's batch on the device (``data.batch.batch_to_device``);
     ``num_unique``: the largest ``num_unique`` of the microstep's D
     batches, the real prefix of unique keys pulled and pushed (the slots
     past a shard's own count are pads, key 0 with zero gradient, so this

@@ -5,15 +5,16 @@ input and output embedding tables are AdaGrad KV tables with
 ``vdim = dim``; a step batch is (center, context, K negatives) id arrays,
 the negatives pre-sampled on the host from the unigram^0.75 distribution.
 
-A step gathers copies of the touched rows, computes every occurrence's
-AdaGrad delta from its pulled row, and ``index_add_``s the deltas into the
-tables IN PLACE. A batch repeats hot ids, and the JAX step scatter-adds
-one delta per occurrence; the fused AdaGrad push kernel takes each key at
-most once, and coalescing first would change the function (AdaGrad is not
-linear in g), so the step is plain PyTorch and launches no hand-written
-kernel. The data side (sampler, window pairs, token blocks, the streaming
-``PairStream``) is host numpy copied from the JAX package, so both draw
-the same batches.
+A step gathers the touched rows of both tables once (``pull_rows``),
+derives the weights from them, and pushes each table's gradients through
+the store's ``push_repeated``, handing it those rows, IN PLACE: every
+occurrence's AdaGrad delta from its pulled row, ``index_add_``ed. A batch
+repeats hot ids, and the JAX step scatter-adds one delta per occurrence;
+the fused AdaGrad push kernel takes each key at most once, and coalescing
+first would change the function (AdaGrad is not linear in g), so the step
+launches no hand-written kernel. The data side (sampler, window pairs,
+token blocks, the streaming ``PairStream``) is host numpy copied from the
+JAX package, so both draw the same batches.
 
 On a mesh (``parallel/mesh.py``) each rank holds its kv slice of both
 tables and feeds its data shard's pairs: pulls are masked gathers summed
@@ -39,6 +40,7 @@ import torch
 
 from parameter_server_tpu_torch.data.pipeline import PrefetchPipeline
 from parameter_server_tpu_torch.device import resolve_device
+from parameter_server_tpu_torch.kv import store as kv_store
 from parameter_server_tpu_torch.kv.store import (
     State,
     check_state_like,
@@ -99,19 +101,15 @@ def sgns_train_step(
     step's within-step semantics for duplicate ids."""
     center, context, negatives = batch["center"], batch["context"], batch["negatives"]
     B, K = negatives.shape
-    in_rows = {k: v.index_select(0, center) for k, v in in_state.items()}
     out_ids = torch.cat([context[:, None], negatives], dim=1).reshape(-1)
-    out_rows = {k: v.index_select(0, out_ids) for k, v in out_state.items()}
+    in_rows = kv_store.pull_rows(in_state, center)
+    out_rows = kv_store.pull_rows(out_state, out_ids)
     loss, g_u, g_v = _sgns_weights_math(
-        in_up.weights(in_rows), out_up.weights(out_rows), B, K,
-        mask=batch.get("mask"),
+        in_up.weights(in_rows), out_up.weights(out_rows), B, K, mask=batch.get("mask"),
     )
-    d_in = in_up.delta(in_rows, g_u)
-    for k, v in in_state.items():
-        v.index_add_(0, center, d_in[k])
-    d_out = out_up.delta(out_rows, g_v)
-    for k, v in out_state.items():
-        v.index_add_(0, out_ids, d_out[k])
+    # the tables share no tensor: the first push leaves out_rows as pulled
+    kv_store.push_repeated(in_up, in_state, center, g_u, rows=in_rows)
+    kv_store.push_repeated(out_up, out_state, out_ids, g_v, rows=out_rows)
     return loss
 
 

@@ -627,22 +627,15 @@ class ShardServer:
         beside the key's own slot would be a write race in K1 and K3,
         which take each key at most once and store without atomics
         (``csrc/adagrad.cu:60-63``). A single push whose keys repeat (the
-        JAX ``.at[].add`` of its rows) goes the repeated-ids way:
+        JAX ``.at[].add`` of its rows) goes through ``push_repeated``:
         gather, a delta an occurrence, ``index_add_``, no kernel."""
         t0 = time.perf_counter() if self.first_apply_s is None else 0.0
-        idx_t = torch.from_numpy(_host_array(idx, np.int64)).to(self.device)
-        g_t = torch.from_numpy(_host_array(grad, np.float32)).to(self.device)
-        g_t = g_t.reshape(len(idx), -1)
-        unique = _strictly_unique(idx)
+        i = torch.from_numpy(_host_array(idx, np.int64)).to(self.device)
+        g = torch.from_numpy(_host_array(grad, np.float32)).to(self.device).reshape(len(idx), -1)
+        push = kv_store.push if _strictly_unique(idx) else kv_store.push_repeated
         with self._pub_lock:
-            if unique:
-                # psl: ignore[blocking-under-lock]: the K1/K3 launch under the publish lock is the counterpart of the JAX server's jitted apply under its apply lock (rows and version move in one hold); on the card it only enqueues on the current stream: idx_t and g_t are on the device already (the store's host asarray and .to() do nothing to them), and a card server loaded the kernel library at start, so no build or load runs in this hold
-                kv_store.push(self.updater, self.state, idx_t, g_t)
-            else:
-                rows = {k: v.index_select(0, idx_t) for k, v in self.state.items()}
-                deltas = self.updater.delta(rows, g_t)
-                for k, v in self.state.items():
-                    v.index_add_(0, idx_t, deltas[k])
+            # psl: ignore[blocking-under-lock]: the K1/K3 launch under the publish lock is the counterpart of the JAX server's jitted apply under its apply lock (rows and version move in one hold); on the card it only enqueues on the current stream: i and g are on the device already (the store's host asarray and .to() do nothing to them), and a card server loaded the kernel library at start, so no build or load runs in this hold
+            push(self.updater, self.state, i, g)
             self._publish()
             ver = self._version
         if t0:

@@ -10,12 +10,10 @@ the world runs this module's step on its own cell (``parallel/mesh.py``):
   push  — ``per_worker``: the D data shards' (keys, grads) are gathered
           over the data group and each kv shard applies them one after
           another, in data-index order, each as its own updater step (the
-          JAX ``lax.scan``). FTRL pushes through the fused kernel K1
-          (``ftrl_push``) and AdaGrad through K3 (``adagrad_push``), given
-          ``keys - begin``: both skip the rows of other shards. SGD has no
-          kernel and goes the JAX way (mask, ``index_add_``), and so does
-          every updater when the caller's ids may repeat (``unique=False``,
-          word2vec), since K1 and K3 take each key at most once;
+          JAX ``lax.scan``), given ``keys - begin``, through the store's
+          ``push`` (FTRL through K1, AdaGrad through K3) or, when the
+          caller's ids may repeat (``unique=False``, word2vec), its
+          ``push_repeated``; the store skips the rows of other shards;
           ``aggregate``: one dense (S, vdim) buffer of this shard's range
           and a touched count, summed over the data group, then ONE updater
           step over the whole shard (FTRL on the card: K2 over S rows),
@@ -41,9 +39,8 @@ from typing import Any
 import numpy as np
 import torch
 
-from parameter_server_tpu_torch.kv.updaters import Adagrad, Ftrl, Updater
-from parameter_server_tpu_torch.ops.adagrad_kernels import adagrad_push
-from parameter_server_tpu_torch.ops.ftrl_kernels import ftrl_push
+from parameter_server_tpu_torch.kv import store as kv_store
+from parameter_server_tpu_torch.kv.updaters import Updater
 from parameter_server_tpu_torch.ops.sparse import csr_grad, csr_logits, logistic_loss
 from parameter_server_tpu_torch.parallel.mesh import Mesh
 from parameter_server_tpu_torch.utils.hashing import splitmix64
@@ -198,21 +195,8 @@ def _push_one(
 ) -> None:
     """One worker's push into this shard, in place (``unique``: see
     ``_local_push``)."""
-    local = _local_index(idx, begin, shard_size)
-    g = g.contiguous()
-    if unique and isinstance(updater, Ftrl):
-        ftrl_push(state_l["z"], state_l["n"], local, g, **updater.hyper)
-    elif unique and isinstance(updater, Adagrad):
-        adagrad_push(state_l["w"], state_l["n"], local, g, eta=updater.eta,
-                     eps=updater.eps, l2=updater.lambda_l2)
-    else:
-        in_range = (local >= 0) & (local < shard_size)
-        safe = torch.where(in_range, local, 0)
-        rows = {k: v.index_select(0, safe) for k, v in state_l.items()}
-        deltas = updater.delta(rows, g)
-        mask = in_range[:, None].to(g.dtype)
-        for k, v in state_l.items():
-            v.index_add_(0, safe, mask * deltas[k])
+    push = kv_store.push if unique else kv_store.push_repeated
+    push(updater, state_l, _local_index(idx, begin, shard_size), g)
 
 
 def _local_push(
@@ -231,7 +215,8 @@ def _local_push(
     repeat (word2vec's centers, contexts and negatives); every updater
     then gathers the rows, takes one delta per occurrence from the same
     pulled row and ``index_add_``s the deltas, the JAX push's function,
-    and no kernel runs. The caller states which holds: nothing checks."""
+    and no kernel runs (``kv.store.push_repeated``). The caller states
+    which holds: nothing checks."""
     for j in range(all_idx.shape[0]):
         _push_one(updater, state_l, all_idx[j], all_grad[j], begin, shard_size, unique)
     return state_l

@@ -159,10 +159,10 @@ _SLOTS: dict = {}
 
 
 def _count_pushes() -> dict:
-    """Record the slot count of every fused push the SPMD tier makes (on
-    the CPU, the kernels' plain versions under the same names), from now
-    on; the lists start empty."""
-    from parameter_server_tpu_torch.parallel import spmd
+    """Record the slot count of every fused push the SPMD tier makes
+    through the store (on the CPU, the kernels' plain versions under the
+    same names), from now on; the lists start empty."""
+    from parameter_server_tpu_torch.kv import store
 
     if _SLOTS:
         for v in _SLOTS.values():
@@ -178,7 +178,7 @@ def _count_pushes() -> dict:
         return run
 
     for name in slots:
-        setattr(spmd, name, counting(name, getattr(spmd, name)))
+        setattr(store, name, counting(name, getattr(store, name)))
     return slots
 
 

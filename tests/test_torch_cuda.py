@@ -280,7 +280,7 @@ def test_linear_method_on_card_matches_cpu(dev):
         fk.reset_launches()
         LinearMethod(cfg, reporter=rep, device=device).train(batches, report_every=1)
         hist[device] = rep.history
-        assert fk.LAUNCHES["ftrl_delta"] == (4 if device == "cuda" else 0)
+        assert fk.LAUNCHES == {"ftrl_push": 4 if device == "cuda" else 0, "ftrl_delta": 0}
     for a, b in zip(hist["cuda"], hist["cpu"]):
         np.testing.assert_allclose(a["objv"], b["objv"], rtol=1e-4)
 
@@ -290,7 +290,8 @@ def test_linear_method_on_card_steps_on_the_real_prefix(dev):
     """``LinearMethod.train`` on bucketed Criteo-shaped batches (39 ids an
     example, salted by field, power-law ids) against ``train_step`` on the
     padded batches from the same start: z and n agree within TOL (the two
-    sum the same adds in another atomic order), and K2 runs once a step."""
+    sum the same adds in another atomic order), and the step pushes
+    through K1 once a step, K2 never."""
     from parameter_server_tpu_torch.data.batch import BatchBuilder
     from parameter_server_tpu_torch.models import linear as L
     from parameter_server_tpu_torch.utils.config import PSConfig
@@ -316,7 +317,7 @@ def test_linear_method_on_card_steps_on_the_real_prefix(dev):
     padded = {k: v.clone() for k, v in app.store.state.items()}
     fk.reset_launches()
     app.train(batches, report_every=len(batches))
-    assert fk.LAUNCHES["ftrl_delta"] == len(batches)
+    assert (fk.LAUNCHES["ftrl_push"], fk.LAUNCHES["ftrl_delta"]) == (len(batches), 0)
     for b in batches:
         L.train_step(app.updater, padded, L.batch_to_device(b, "cuda"))
     for k in padded:
@@ -1089,7 +1090,8 @@ def test_cli_train_new_paths_on_card(dev, app, tmp_path, capsys):
 def test_native_fed_worker_steps_on_card_like_the_python_fed(dev, tmp_path):
     """``LinearMethod`` on the card fed by ``MinibatchReader(backend=
     "native")`` (the C++ parser and localizer) takes the steps the
-    Python-fed run takes: the same losses at 1e-5, K2 once a step."""
+    Python-fed run takes: the same losses at 1e-5, K1 once a step and K2
+    never."""
     from parameter_server_tpu_torch.data import native
     from parameter_server_tpu_torch.data.reader import MinibatchReader
     from parameter_server_tpu_torch.data.synthetic import make_sparse_logistic, write_libsvm
@@ -1108,10 +1110,11 @@ def test_native_fed_worker_steps_on_card_like_the_python_fed(dev, tmp_path):
     for backend in ("native", "python"):
         rep = ProgressReporter(print_fn=lambda *_: None)
         app = LinearMethod(cfg, reporter=rep, device="cuda")
-        before = fk.LAUNCHES["ftrl_delta"]
+        before = dict(fk.LAUNCHES)
         app.train(MinibatchReader([path], "libsvm", app.make_builder(), backend=backend),
                   report_every=1)
-        assert fk.LAUNCHES["ftrl_delta"] - before == len(rep.history) == 8
+        assert fk.LAUNCHES["ftrl_push"] - before["ftrl_push"] == len(rep.history) == 8
+        assert fk.LAUNCHES["ftrl_delta"] == before["ftrl_delta"]
         losses[backend] = [r["objv"] for r in rep.history]
     np.testing.assert_allclose(losses["native"], losses["python"], **TOL)
 

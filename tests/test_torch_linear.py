@@ -114,6 +114,42 @@ def test_predict_on_the_real_prefix_equals_the_padded_predict(algo):
     assert np.array_equal(ys, np.concatenate([b.labels[: b.num_examples] for b in batches]))
 
 
+def test_evaluate_model_on_the_unbucketed_builder_equals_the_padded_computation(tmp_path):
+    """``evaluate_model`` builds without ``bucket_nnz`` (every batch padded
+    to batch_size x max_nnz entries) and predicts on each batch's real
+    prefix: its AUC and logloss, and ``linear_predict``'s probabilities,
+    are the padded computation's, done by hand, bit for bit."""
+    from parameter_server_tpu_torch.data.batch import BatchBuilder, batch_to_device
+    from parameter_server_tpu_torch.data.reader import MinibatchReader
+    from parameter_server_tpu_torch.models import evaluation as E
+    from parameter_server_tpu_torch.models import metrics as M
+    from parameter_server_tpu_torch.ops.sparse import csr_logits
+
+    labels, keys, vals, _ = make_sparse_logistic(3 * B + 40, 1500, nnz_per_example=12,
+                                                 noise=0.3, seed=31)
+    path = str(tmp_path / "val.svm")
+    write_libsvm(path, labels, keys, vals)
+    w = np.random.default_rng(32).normal(size=K).astype(np.float32)
+    wt = torch.from_numpy(w.reshape(-1, 1))
+    builder = BatchBuilder(num_keys=K, batch_size=B, max_nnz_per_example=48)
+    ys, ps = [], []
+    for b in MinibatchReader([path], "libsvm", builder):
+        assert b.num_entries < len(b.values)
+        d = batch_to_device(b, "cpu")
+        logits = csr_logits(wt.index_select(0, d["unique_keys"]), d["values"],
+                            d["local_ids"], d["row_ids"], num_rows=len(b.labels))
+        ps.append(torch.sigmoid(logits)[: b.num_examples].numpy())
+        ys.append(b.labels[: b.num_examples])
+    y, p = np.concatenate(ys), np.concatenate(ps)
+    got = E.evaluate_model(w, [path], "libsvm", K, batch_size=B, max_nnz_per_example=48,
+                           device="cpu")
+    assert (got["auc"], got["logloss"], got["examples"]) == (M.auc(y, p), M.logloss(y, p),
+                                                             len(y))
+    got_y, got_p = E.linear_predict(MinibatchReader([path], "libsvm", builder), "cpu",
+                                    lambda u: wt.index_select(0, u))
+    assert np.array_equal(got_y, y) and np.array_equal(got_p, p)
+
+
 def test_linear_method_train_matches_jax():
     jcfg, tcfg = _cfgs()
     batches = _batches(8, seed=12)

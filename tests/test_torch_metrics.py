@@ -1,9 +1,11 @@
-"""``metrics.auc_tensor`` against ``metrics.auc``, and the report of
-``LinearMethod.train`` that computes its AUC with it, on the CPU.
+"""``metrics.auc_tensor`` and ``metrics.auc`` (which reads ``auc_tensor`` on
+the CPU) against the JAX package's numpy rank-statistic ``auc``, and the
+report of ``LinearMethod.train`` that computes its AUC with it, on the CPU.
 
-``auc_tensor`` counts the same pairs as ``auc`` in exact integers and
-makes the same final float64 division, so the two must agree bit for bit
-(``==`` on the float, NaN on both sides where a class is empty)."""
+``auc_tensor`` counts the same pairs as the rank statistic in exact
+integers and makes the same final float64 division, so they must agree
+bit for bit (``==`` on the float, NaN on both sides where a class is
+empty)."""
 
 import math
 
@@ -11,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from parameter_server_tpu.models import metrics as JM
 from parameter_server_tpu_torch.data.batch import BatchBuilder
 from parameter_server_tpu_torch.data.synthetic import make_sparse_logistic
 from parameter_server_tpu_torch.models import linear as L
@@ -48,8 +51,9 @@ def test_auc_tensor_equals_auc(kind, n):
             labels = np.array([seed % 2, 1 - seed % 2], dtype=np.float32)
         got = M.auc_tensor(torch.from_numpy(labels), torch.from_numpy(scores))
         assert got.dtype == torch.float64 and got.dim() == 0
-        want = M.auc(labels, scores)
+        want = JM.auc(labels, scores)
         assert _same(got.item(), want), (seed, got.item(), want)
+        assert _same(M.auc(labels, scores), want), seed
     if kind == "one_class":
         assert math.isnan(want)
 

@@ -152,6 +152,77 @@ def test_push_rejects_out_of_range_keys():
         ts.pull(np.array([-1]))
 
 
+ALGOS = {"sgd": UPDATERS[0][1], "adagrad": UPDATERS[1][1], "ftrl": UPDATERS[3][1]}
+
+
+@pytest.mark.parametrize("algo", list(ALGOS))
+def test_push_skips_index_tensor_slots_outside_the_table(algo):
+    """A device-tensor index (no host bounds check): slots on rows -1 and
+    K among the real rows leave every table bit for bit as a push of the
+    real rows alone, for every updater (FTRL and AdaGrad through their
+    fused pushes' plain versions, SGD through the store's masked route)."""
+    K, vdim = 512, 4
+    up = TU.make_updater(algo, **ALGOS[algo])
+    host = _state(algo, K, vdim, 5)
+    idx, g = _push_args(K, vdim, 60, 6, pads=0)
+    rng = np.random.default_rng(7)
+    order = rng.permutation(len(idx) + 4)
+    all_idx = np.concatenate([idx, np.array([-1, K, -1, K], np.int32)])[order]
+    all_g = np.concatenate([g, rng.normal(size=(4, vdim)).astype(np.float32)])[order]
+    want = TS.push(up, TS.state_from_numpy(host, "cpu"), torch.from_numpy(idx),
+                   torch.from_numpy(g))
+    got = TS.push(up, TS.state_from_numpy(host, "cpu"), torch.from_numpy(all_idx),
+                  torch.from_numpy(all_g))
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("algo", list(ALGOS))
+def test_push_repeated_adds_a_delta_an_occurrence(algo):
+    """``push_repeated``: every occurrence's delta from the same pre-push
+    row, ``index_add_``ed, bit for bit (the JAX ``.at[].add``); slots on
+    rows -1 and K are skipped as ``push`` skips them."""
+    K, vdim = 256, 4
+    up = TU.make_updater(algo, **ALGOS[algo])
+    host = _state(algo, K, vdim, 8)
+    rng = np.random.default_rng(9)
+    real = rng.integers(1, 40, 300).astype(np.int32)  # hot ids repeat
+    assert len(np.unique(real)) < len(real)
+    idx = np.concatenate([real[:150], np.array([-1, K], np.int32), real[150:]])
+    g = rng.normal(size=(len(idx), vdim)).astype(np.float32)
+    g_real = np.concatenate([g[:150], g[152:]])
+    got = TS.push_repeated(up, TS.state_from_numpy(host, "cpu"), torch.from_numpy(idx),
+                           torch.from_numpy(g))
+    want = TS.state_from_numpy(host, "cpu")
+    rows = torch.from_numpy(real).long()
+    deltas = up.delta({k: v.index_select(0, rows) for k, v in want.items()},
+                      torch.from_numpy(g_real))
+    for k, v in want.items():
+        v.index_add_(0, rows, deltas[k])
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("algo", list(ALGOS))
+def test_push_repeated_reuses_the_rows_it_is_handed(algo):
+    """``push_repeated`` handed the caller's ``pull_rows`` gives the bits
+    of its own gather, and ``pull`` is the updater's weights of those
+    rows (word2vec's step pulls once and pushes with its rows)."""
+    K, vdim = 256, 4
+    up = TU.make_updater(algo, **ALGOS[algo])
+    host = _state(algo, K, vdim, 10)
+    rng = np.random.default_rng(11)
+    idx = torch.from_numpy(rng.integers(0, 40, 300).astype(np.int32))  # hot ids repeat
+    g = torch.from_numpy(rng.normal(size=(300, vdim)).astype(np.float32))
+    handed = TS.state_from_numpy(host, "cpu")
+    rows = TS.pull_rows(handed, idx)
+    assert torch.equal(TS.pull(up, handed, idx), up.weights(rows))
+    TS.push_repeated(up, handed, idx, g, rows=rows)
+    want = TS.push_repeated(up, TS.state_from_numpy(host, "cpu"), idx, g)
+    for k in want:
+        assert torch.equal(handed[k], want[k]), k
+
+
 def test_kvstore_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device works")
