@@ -17,6 +17,12 @@ kv.store):
 The localizer is the native C++ kernel (``data/native.py``
 ``hash_localize``, hash + sort-unique with the GIL released) when its
 library loads, else numpy; both give the same arrays bit for bit.
+
+A builder given a CUDA device writes each batch into one page-locked
+host block (``CSRBatch.pinned``), its arrays numpy views of it, and
+``batch_to_device`` copies such a batch ``non_blocking``: the host only
+enqueues the copies. Every other builder allocates plain numpy arrays,
+whose copies block the host until they are done.
 """
 
 from __future__ import annotations
@@ -48,15 +54,19 @@ class CSRBatch:
     num_examples: int
     num_unique: int  # real unique keys (including pad slot 0)
     num_entries: int
+    # the page-locked uint8 block every array above is a view of (a builder
+    # on a CUDA device), else None; a copy that replaces an array drops it
+    pinned: torch.Tensor | None = None
 
     @property
     def shape(self) -> tuple[int, int, int]:
         return (len(self.labels), len(self.values), len(self.unique_keys))
 
 
-def training_builder(cfg, key_mode: str = "hash") -> "BatchBuilder":
+def training_builder(cfg, key_mode: str = "hash", device: Any = None) -> "BatchBuilder":
     """The training-ingest builder for a PSConfig: wires the frequency
-    filter (cfg.data.freq_min_count + [sketch] geometry) into admission."""
+    filter (cfg.data.freq_min_count + [sketch] geometry) into admission.
+    ``device`` is where its batches will be copied (see ``BatchBuilder``)."""
     freq_filter = None
     if cfg.data.freq_min_count > 0:
         from parameter_server_tpu_torch.filters.frequency import CountMinSketch
@@ -70,6 +80,7 @@ def training_builder(cfg, key_mode: str = "hash") -> "BatchBuilder":
         freq_filter=freq_filter,
         freq_min_count=cfg.data.freq_min_count,
         bucket_nnz=cfg.data.bucket_nnz,
+        device=device,
     )
 
 
@@ -151,11 +162,54 @@ def trim_batch(b: CSRBatch) -> CSRBatch:
 _BATCH_FIELDS = (
     "unique_keys", "local_ids", "row_ids", "values", "labels", "example_mask",
 )
+_TORCH_DTYPES = {
+    np.dtype(np.int32): torch.int32, np.dtype(np.int64): torch.int64,
+    np.dtype(np.float32): torch.float32, np.dtype(np.bool_): torch.bool,
+}
+
+
+def _block_view(block: torch.Tensor, a: np.ndarray) -> torch.Tensor:
+    """``a``, a numpy view into ``block``, as a torch view of ``block``."""
+    off = a.__array_interface__["data"][0] - block.data_ptr()
+    if not 0 <= off <= block.numel() - a.nbytes:
+        raise ValueError("a batch array lies outside the batch's page-locked block")
+    return block[off: off + a.nbytes].view(_TORCH_DTYPES[a.dtype])
 
 
 def batch_to_device(b: CSRBatch, device: Any) -> dict[str, torch.Tensor]:
-    """The CSRBatch arrays as tensors on ``device``."""
-    return {f: torch.from_numpy(getattr(b, f)).to(device) for f in _BATCH_FIELDS}
+    """The CSRBatch arrays as tensors on ``device``. A batch that carries a
+    page-locked block is copied from torch views of the block,
+    ``non_blocking``: the host only enqueues the copies, and the host
+    allocator records the stream's use of the block, so a block whose
+    batch is dropped is not handed out again before its copies are done.
+    Any other batch is copied from its numpy arrays."""
+    block = getattr(b, "pinned", None)
+    if block is None:
+        return {f: torch.from_numpy(getattr(b, f)).to(device) for f in _BATCH_FIELDS}
+    return {f: _block_view(block, getattr(b, f)).to(device, non_blocking=True)
+            for f in _BATCH_FIELDS}
+
+
+# every array a batch carries, in the order a page-locked block holds them
+_ARRAY_FIELDS = _BATCH_FIELDS + ("row_splits",)
+_BLOCK_ALIGN = 16  # bytes
+
+
+def _pinned_block(nbytes: int) -> torch.Tensor:
+    return torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+
+def _carve(shapes: list[tuple[int, Any]]) -> tuple[torch.Tensor, list[np.ndarray]]:
+    """One page-locked block for arrays of the given (length, dtype), each
+    starting on a 16-byte boundary, and the arrays as numpy views of it."""
+    offsets, nbytes = [], 0
+    for n, dt in shapes:
+        offsets.append(nbytes)
+        nbytes += -(-n * np.dtype(dt).itemsize // _BLOCK_ALIGN) * _BLOCK_ALIGN
+    block = _pinned_block(nbytes)
+    raw = block.numpy()
+    return block, [raw[o: o + n * np.dtype(dt).itemsize].view(dt)
+                   for o, (n, dt) in zip(offsets, shapes)]
 
 
 class BatchBuilder:
@@ -164,6 +218,11 @@ class BatchBuilder:
     key_mode:
       "hash"     — splitmix64 into [1, num_keys) (production path; slots salt)
       "identity" — key+1 used directly (requires raw keys < num_keys - 1)
+
+    ``device`` is where the batches will be copied: on a CUDA device each
+    batch is built in one page-locked block (``CSRBatch.pinned``), which
+    ``batch_to_device`` copies without blocking the host; else (None, the
+    CPU) in plain numpy arrays.
     """
 
     def __init__(
@@ -176,6 +235,7 @@ class BatchBuilder:
         freq_filter=None,
         freq_min_count: int = 0,
         bucket_nnz: bool = False,
+        device: Any = None,
     ):
         if key_mode not in ("hash", "identity"):
             raise ValueError(f"bad key_mode {key_mode!r}")
@@ -190,6 +250,7 @@ class BatchBuilder:
         # pad entry/unique arrays to the next power of two above the real
         # count instead of the worst case
         self.bucket_nnz = bucket_nnz
+        self.page_locked = device is not None and torch.device(device).type == "cuda"
         # streaming admission: the sketch counts RAW pre-hash keys; entries
         # below the threshold are dropped before localization
         self.freq_filter = freq_filter
@@ -302,17 +363,23 @@ class BatchBuilder:
         else:
             nnz_cap = self.nnz_capacity
             u_cap = self.unique_capacity
+        shapes = [(u_cap, key_dtype), (nnz_cap, np.int32), (nnz_cap, np.int32),
+                  (nnz_cap, np.float32), (self.batch_size, np.float32),
+                  (self.batch_size, np.bool_), (self.batch_size + 1, np.int32)]
+        if self.page_locked:
+            block, arrays = _carve(shapes)
+            for a in arrays[4:]:  # labels, example_mask, row_splits start at 0
+                a.fill(0)
+        else:
+            block = None
+            arrays = ([np.empty(n, dtype=dt) for n, dt in shapes[:4]]
+                      + [np.zeros(n, dtype=dt) for n, dt in shapes[4:]])
         out = CSRBatch(
-            unique_keys=np.empty(u_cap, dtype=key_dtype),
-            local_ids=np.empty(nnz_cap, dtype=np.int32),
-            row_ids=np.empty(nnz_cap, dtype=np.int32),
-            values=np.empty(nnz_cap, dtype=np.float32),
-            labels=np.zeros(self.batch_size, dtype=np.float32),
-            example_mask=np.zeros(self.batch_size, dtype=bool),
-            row_splits=np.zeros(self.batch_size + 1, dtype=np.int32),
+            **dict(zip(_ARRAY_FIELDS, arrays)),
             num_examples=b,
             num_unique=n_uniq,
             num_entries=nnz,
+            pinned=block,
         )
         out.unique_keys[0] = PAD_KEY
         out.unique_keys[1:n_uniq] = uniq

@@ -139,9 +139,12 @@ class LinearMethod:
         self.examples_seen = 0
 
     def make_builder(self, key_mode: str = "hash") -> BatchBuilder:
+        """The training builder for batches built ahead of their steps (in
+        memory, cached): on a CUDA device they are page-locked and reach
+        the device without blocking the host."""
         from parameter_server_tpu_torch.data.batch import training_builder
 
-        return training_builder(self.cfg, key_mode)
+        return training_builder(self.cfg, key_mode, device=self.device)
 
     def train(
         self,
@@ -213,10 +216,16 @@ class LinearMethod:
     def train_files(
         self, files: list[str], key_mode: str = "hash", report_every: int = 50
     ) -> dict[str, Any]:
+        from parameter_server_tpu_torch.data.batch import training_builder
+
+        # plain numpy batches: the reader's prefetch thread, not the step,
+        # sets the pace here (a batch's parse and build take tens of ms),
+        # and building in page-locked memory costs that thread more than
+        # the non-blocking copy saves the step
         reader = MinibatchReader(
             files,
             self.cfg.data.format,
-            self.make_builder(key_mode),
+            training_builder(self.cfg, key_mode),
             epochs=self.cfg.solver.epochs,
         )
         return self.train(reader, report_every=report_every)

@@ -391,6 +391,120 @@ def test_linear_report_syncs_only_at_its_readback(dev, monkeypatch):
     assert all(0.0 <= r["auc"] <= 1.0 for r in rep.history)
 
 
+def _criteo_batches(builder, count, size, seed):
+    """``count`` batches of ``size`` Criteo-shaped rows (39 power-law ids
+    each, salted by field) from ``builder``."""
+    fields = 39
+    rng = np.random.default_rng(seed)
+    splits = np.arange(0, size * fields + 1, fields, dtype=np.int64)
+    slots = np.tile(np.arange(fields, dtype=np.int64), size)
+    return [
+        builder.build_flat((rng.random(size) < 0.27).astype(np.float32), splits,
+                           (rng.zipf(1.1, size * fields) % (1 << 24)).astype(np.uint64),
+                           np.ones(size * fields, np.float32), slots)
+        for _ in range(count)
+    ]
+
+
+def _page_locked_app(size):
+    from parameter_server_tpu_torch.models.linear import LinearMethod
+    from parameter_server_tpu_torch.utils.config import PSConfig
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter
+
+    cfg = PSConfig()
+    cfg.data.num_keys, cfg.solver.minibatch = 1 << 22, size
+    cfg.data.max_nnz_per_example = 64
+    return LinearMethod(cfg, reporter=ProgressReporter(print_fn=lambda s: None), device="cuda")
+
+
+@pytest.mark.cuda
+def test_linear_method_on_card_copies_page_locked_batches_without_a_sync(dev, monkeypatch):
+    """``make_builder`` on the card builds each batch in one page-locked
+    block, and ``train``'s copies of it (``linear.h2d``) make no host sync
+    on any step."""
+    import contextlib
+    import types
+
+    from parameter_server_tpu_torch.models import linear as L
+    from parameter_server_tpu_torch.utils import trace
+
+    strict = []
+
+    @contextlib.contextmanager
+    def span(name, cat="", **args):
+        with trace.span(name, cat, **args):
+            if name != "linear.h2d":
+                yield
+                return
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            strict.append(name)
+
+    monkeypatch.setattr(L, "trace", types.SimpleNamespace(span=span, counter=trace.counter))
+    app = _page_locked_app(2048)
+    batches = _criteo_batches(app.make_builder(), 6, 2048, seed=27)
+    assert all(b.pinned is not None and b.pinned.is_pinned() for b in batches)
+    app.train(batches, report_every=3)
+    assert len(strict) == len(batches)
+
+
+@pytest.mark.cuda
+def test_a_dropped_page_locked_batch_keeps_its_block_until_its_copies_are_done(dev):
+    """The stream path drops a batch once the next is fetched, while its
+    copies may still wait on the stream. With the card busy, a page-locked
+    batch is copied and dropped, then new batches of its size are built
+    while the copies wait: none is handed the dropped batch's block, and
+    the copies deliver the dropped batch's arrays."""
+    from parameter_server_tpu_torch.data.batch import (
+        _BATCH_FIELDS,
+        batch_to_device,
+        trim_batch,
+    )
+
+    # a size no other test here builds page-locked: the host allocator's
+    # one free block of its size class is then the dropped batch's
+    size = 4096
+    builder = _page_locked_app(size).make_builder()
+    a = trim_batch(_criteo_batches(builder, 1, size, seed=28)[0])
+    assert a.pinned.is_pinned()
+    where = a.pinned.data_ptr()
+    want = {f: torch.from_numpy(getattr(a, f).copy()) for f in _BATCH_FIELDS}
+    torch.cuda.synchronize()
+    torch.cuda._sleep(1 << 30)  # ~0.5 s of device work ahead of the copies
+    got = batch_to_device(a, dev)
+    del a
+    others = _criteo_batches(builder, 4, size, seed=29)
+    assert not torch.cuda.current_stream().query()  # the copies still wait
+    assert where not in {b.pinned.data_ptr() for b in others}
+    torch.cuda.synchronize()
+    for f, w in want.items():
+        assert torch.equal(got[f].cpu(), w), f
+
+
+@pytest.mark.cuda
+def test_profiled_card_train_copies_its_batches_from_page_locked_memory(dev, tmp_path):
+    """Under ``torch.profiler``, every host-to-device copy of a ``train``
+    on page-locked batches is a pinned one: six a step, none pageable."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    app = _page_locked_app(2048)
+    batches = _criteo_batches(app.make_builder(), 4, 2048, seed=30)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        app.train(batches, report_every=len(batches))
+        torch.cuda.synchronize()
+    path = tmp_path / "train.trace.json"
+    prof.export_chrome_trace(str(path))
+    copies = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e["name"].startswith("Memcpy HtoD")]
+    assert copies == ["Memcpy HtoD (Pinned -> Device)"] * (6 * len(batches)), copies
+
+
 @pytest.mark.cuda
 def test_matrix_fac_on_card_matches_cpu(dev):
     from parameter_server_tpu_torch.models.matrix_fac import MatrixFactorization

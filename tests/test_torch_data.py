@@ -10,6 +10,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from parameter_server_tpu.data import batch as JB
 from parameter_server_tpu.data import blockcache as JBC
@@ -79,12 +80,15 @@ def test_hashing_and_sketch_match_jax():
     np.testing.assert_array_equal(t.admit(raw, 2), j.admit(raw, 2))
 
 
-@pytest.mark.parametrize("kw", [
+BUILDER_KWS = [
     {"key_mode": "hash"},
     {"key_mode": "identity"},
     {"key_mode": "hash", "bucket_nnz": True},
     {"key_mode": "hash", "freq_min_count": 2},
-])
+]
+
+
+@pytest.mark.parametrize("kw", BUILDER_KWS)
 def test_batch_builder_matches_jax(kw):
     labels, keys, vals, _ = JS.make_sparse_logistic(300, 900, nnz_per_example=9, seed=2)
     jb = JB.BatchBuilder(num_keys=4096, batch_size=100, max_nnz_per_example=40, **kw)
@@ -106,14 +110,14 @@ def _criteo_shaped_batch(builder, size=256, fields=39, seed=5):
     return builder.build_flat(labels, splits, keys, np.ones(size * fields, np.float32), slots)
 
 
-def _trim_cases():
+def _trim_cases(device=None):
     bucketed = TB.BatchBuilder(num_keys=1 << 22, batch_size=256, max_nnz_per_example=64,
-                               bucket_nnz=True)
+                               bucket_nnz=True, device=device)
     labels, keys, vals, _ = TS.make_sparse_logistic(100, 600, nnz_per_example=9, seed=3)
     filtered = TB.BatchBuilder(num_keys=4096, batch_size=100, max_nnz_per_example=40,
-                               freq_min_count=2)
+                               freq_min_count=2, device=device)
     empty = TB.BatchBuilder(num_keys=4096, batch_size=16, max_nnz_per_example=8,
-                            bucket_nnz=True)
+                            bucket_nnz=True, device=device)
     kept = filtered.build(labels, keys, vals)
     # the keys seen once in the batch were dropped before localization
     assert 0 < kept.num_entries < sum(map(len, keys))
@@ -141,6 +145,81 @@ def test_trim_batch_is_pad_batch_inverse(case):
     assert (t.num_examples, t.num_unique, t.num_entries) == (
         b.num_examples, b.num_unique, b.num_entries)
     _same_batch(TB.pad_batch(t, len(b.values), len(b.unique_keys)), b)
+
+
+@pytest.fixture
+def stand_in_block(monkeypatch):
+    """A plain uint8 tensor in place of the page-locked block, which a
+    CPU-only torch cannot allocate; returns the sizes asked for."""
+    asked = []
+
+    def block(nbytes):
+        asked.append(nbytes)
+        return torch.empty(nbytes, dtype=torch.uint8)
+
+    monkeypatch.setattr(TB, "_pinned_block", block)
+    return asked
+
+
+@pytest.mark.parametrize("device", [None, "cpu", torch.device("cpu"), "cuda"])
+@pytest.mark.parametrize("kw", BUILDER_KWS)
+def test_batch_builder_on_any_device_builds_the_jax_arrays(kw, device, stand_in_block):
+    """A builder builds the JAX builder's arrays bit for bit on any device.
+    With no device or the CPU it asks for no page-locked block and its
+    batches carry none; on a CUDA device each batch is one block, and its
+    arrays are views of it, in block order, each on a 16-byte boundary."""
+    labels, keys, vals, _ = JS.make_sparse_logistic(300, 900, nnz_per_example=9, seed=2)
+    jb = JB.BatchBuilder(num_keys=4096, batch_size=100, max_nnz_per_example=40, **kw)
+    tb = TB.BatchBuilder(num_keys=4096, batch_size=100, max_nnz_per_example=40,
+                         device=device, **kw)
+    assert tb.page_locked == (device == "cuda")
+    for i in range(0, 300, 100):
+        t = tb.build(labels[i:i + 100], keys[i:i + 100], vals[i:i + 100])
+        _same_batch(t, jb.build(labels[i:i + 100], keys[i:i + 100], vals[i:i + 100]))
+        if device != "cuda":
+            assert t.pinned is None
+            continue
+        base, size = t.pinned.data_ptr(), t.pinned.numel()
+        offsets = [getattr(t, f).ctypes.data - base for f in TB._ARRAY_FIELDS]
+        assert offsets == sorted(offsets) and all(o % 16 == 0 for o in offsets)
+        for f, o in zip(TB._ARRAY_FIELDS, offsets):
+            assert 0 <= o and o + getattr(t, f).nbytes <= size, f
+    assert len(stand_in_block) == (3 if device == "cuda" else 0)
+
+
+@pytest.mark.parametrize("case", ["bucketed_criteo", "filtered", "no_entries"])
+def test_trim_keeps_the_page_locked_block_and_a_padding_copy_drops_it(case, stand_in_block):
+    b = _trim_cases(device="cuda")[case]
+    t = TB.trim_batch(b)
+    assert b.pinned is not None and t.pinned is b.pinned
+    assert TB.pad_batch(b, len(b.values), len(b.unique_keys)) is b
+    padded = TB.pad_batch(t, len(b.values), len(b.unique_keys))
+    assert padded.pinned is None
+    _same_batch(padded, b)
+    assert [g.pinned is None for g in TB.pad_group([t, b])] == [True, False]
+
+
+@pytest.mark.parametrize("device", [None, "cuda"])
+@pytest.mark.parametrize("case", ["bucketed_criteo", "filtered", "no_entries"])
+def test_batch_to_device_on_cpu_gives_the_host_arrays(case, device, stand_in_block):
+    """On the CPU, ``batch_to_device`` of a trimmed batch gives tensors
+    over the batch's own host arrays, with or without a page-locked block."""
+    b = TB.trim_batch(_trim_cases(device=device)[case])
+    got = TB.batch_to_device(b, "cpu")
+    assert list(got) == list(TB._BATCH_FIELDS)
+    for f, t in got.items():
+        a = getattr(b, f)
+        want = torch.from_numpy(a)
+        assert t.device.type == "cpu" and t.dtype == want.dtype, f
+        assert torch.equal(t, want), f
+        assert t.numel() == 0 or t.data_ptr() == a.ctypes.data, f
+
+
+def test_batch_to_device_refuses_an_array_outside_the_block(stand_in_block):
+    b = _trim_cases(device="cuda")["bucketed_criteo"]
+    moved = dataclasses.replace(b, values=b.values.copy())
+    with pytest.raises(ValueError, match="outside the batch's page-locked block"):
+        TB.batch_to_device(moved, "cpu")
 
 
 def test_synthetic_data_matches_jax():

@@ -237,6 +237,65 @@ def test_train_names_its_loop_under_the_profiler(report_every, tmp_path):
     assert counters["linear.pad_slots"] == [0] * len(batches)
 
 
+@pytest.mark.parametrize("builder", ["make_builder", "cuda_builder"])
+def test_train_on_a_builders_batches_trains_the_plain_state(builder, monkeypatch):
+    """``LinearMethod(device="cpu").make_builder()`` asks for no page-locked
+    memory. A builder on a CUDA device (its block a plain tensor here: a
+    CPU-only torch cannot page-lock) asks for one block a batch, and its
+    batches reach the store through the block. Either trains the state
+    that plain numpy batches train, bit for bit."""
+    from parameter_server_tpu_torch.data import batch as TB
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter as TR
+
+    asked = []
+
+    def block(nbytes):
+        asked.append(nbytes)
+        return torch.empty(nbytes, dtype=torch.uint8)
+
+    monkeypatch.setattr(TB, "_pinned_block", block)
+    _, tcfg = _cfgs()
+    labels, keys, vals, _ = make_sparse_logistic(4 * B, 1500, nnz_per_example=12, noise=0.3,
+                                                 seed=14)
+    states = {}
+    for kind in ("plain", builder):
+        app = TL.LinearMethod(tcfg, TR(print_fn=lambda s: None), device="cpu")
+        build = {"plain": TB.training_builder(tcfg), "make_builder": app.make_builder(),
+                 "cuda_builder": TB.training_builder(tcfg, device="cuda")}[kind]
+        batches = [build.build(labels[i:i + B], keys[i:i + B], vals[i:i + B])
+                   for i in range(0, 4 * B, B)]
+        assert all((b.pinned is not None) == (kind == "cuda_builder") for b in batches)
+        app.train(batches, report_every=2)
+        states[kind] = app.store.state
+    assert len(asked) == (len(batches) if builder == "cuda_builder" else 0)
+    for k, v in states["plain"].items():
+        assert torch.equal(states[builder][k], v), k
+
+
+def test_train_files_builds_plain_batches_where_make_builder_builds_page_locked(monkeypatch):
+    """For a store on a CUDA device, ``make_builder`` builds page-locked
+    batches, while ``train_files`` hands its reader a builder of plain
+    numpy batches: there the reader's prefetch thread sets the pace."""
+    from parameter_server_tpu_torch.utils.metrics import ProgressReporter as TR
+
+    handed = []
+
+    class Reader:
+        def __init__(self, files, fmt, builder, epochs=1):
+            handed.append(builder)
+
+        def __iter__(self):
+            return iter(())
+
+    monkeypatch.setattr(TL, "MinibatchReader", Reader)
+    _, tcfg = _cfgs()
+    app = TL.LinearMethod(tcfg, TR(print_fn=lambda s: None), device="cpu")
+    app.device = torch.device("cuda")  # what the builders see of a card store
+    assert app.make_builder().page_locked
+    assert app.train_files(["rows.libsvm"]) == {}
+    assert [b.page_locked for b in handed] == [False]
+
+
 @pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])
 def test_checkpoint_carries_across(tmp_path, direction):
     jcfg, tcfg = _cfgs()
